@@ -7,18 +7,28 @@ it happened; any failed check ends the run with a non-zero exit:
 
 1. device: needs a CUDA card; prints the card's name and power limit;
    turns TF32 off (true float32, the JAX package's default precision).
-2. build: compiles csrc/*.cu with nvcc and prints the build seconds.
-3. kernels: K1-K4 on the card against their plain torch versions run in
-   float64 on the same input, at the main path's shapes and at edge shapes.
-4. main path: modwt -> imodwt (MODWT db4 L5, 64 x 65536 f32) and the FWT
-   facade forward/reverse on 64 x 65536 rows and a 2048 x 2048 image, all
-   through the public entry points with device="cuda"; the launch count of
-   every kernel must rise; a small input is checked against the numpy
-   oracle in tests/oracle.py.
+2. build: compiles csrc/*.cu with nvcc, one compiler per source, all at
+   once, and prints the build seconds.
+3. kernels: K1-K6 on the card against their plain torch versions run in
+   float64 on the same input, at the main paths' shapes and at edge shapes
+   (K6 at the main shape on the contributions and bin indices of a real
+   ssq_cwt of the main signal).
+4. main paths, each with the launch counts set to 0 just before it and read
+   just after, all through the public entry points with device="cuda":
+   a. MODWT + FWT: modwt -> imodwt (db4 L5, 64 x 65536 f32) and the FWT
+      facade forward/reverse on 64 x 65536 rows and a 2048 x 2048 image
+      (fwt2d as K4 x2, ifwt2d as K5 x2); small inputs against the numpy
+      oracle in tests/oracle.py.
+   b. continuous: ssq_cwt -> issq_cwt at 8 x 65536 f32, Morlet(1,1), 64 log
+      scales 1e-5..1e-2 s, fs = 1e6 (K6), held against the same call with
+      the plain scatter and by the column-sum identity; extract_ridge and
+      ridge_tube_mask, a tone's ridge and a two-tone round trip at small
+      size; the CWT facade's transform_fft and transform, against the
+      port's CPU float64 run on a small input.
 5. times: CUDA events, median of 25 runs after warm-up with the L2 cache
    flushed before each, kernel beside its plain version; for context also
-   the torch FFT path of the MODWT (cuFFT), which is not a kernel of this
-   package.
+   the torch FFT path of the MODWT (cuFFT) and the separable ifwt2d path,
+   which are not kernels of this package.
 
 The second line from the end is a JSON object listing each kernel with its
 launches on the main path, its error and its time; the last line is
@@ -27,9 +37,11 @@ launches on the main path, its error and its time; the last line is
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -55,8 +67,11 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "tests"))
     import jwave_tpu_torch as jt
     import oracle
-    from jwave_tpu_torch.ops import cuda_build, cuda_modwt, cuda_pyramid
+    from jwave_tpu_torch.ops import cuda_build, cuda_modwt, cuda_pyramid, cuda_reassign
+    from jwave_tpu_torch.transforms import ndim
     from jwave_tpu_torch.transforms.modwt import _modwt_base_filters
+    from jwave_tpu_torch.transforms.ssq import _cwt_and_derivative, _default_bins, \
+        _log_measure, _reassign_inputs
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
@@ -69,11 +84,14 @@ def main() -> int:
     rng = np.random.default_rng(0)
 
     # ---- 2. build ------------------------------------------------------
-    for name in ("modwt", "pyramid"):
-        t0 = time.perf_counter()
-        cuda_build.library(name)
+    names = ("modwt", "pyramid", "reassign")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(cuda_build.library, names))
+    print(f"build, {len(names)} sources at once: {time.perf_counter() - t0:.3f} s", flush=True)
+    for name in names:
         secs, log = cuda_build.BUILD_LOG.get(name, (0.0, "(already built)"))
-        print(f"build {name}: {time.perf_counter() - t0:.3f} s (nvcc {secs:.3f} s)", flush=True)
+        print(f"build {name}: nvcc {secs:.3f} s", flush=True)
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print("  " + line.strip(), flush=True)
@@ -82,6 +100,7 @@ def main() -> int:
     errors = {}
 
     def compare(label, got, ref, bound):
+        require(not (got.is_complex() or ref.is_complex()), f"{label}: compare real views")
         ref = ref.double()
         err = float((got.double() - ref).abs().max())
         scale = float(ref.abs().max())
@@ -147,11 +166,92 @@ def main() -> int:
     errors["K4"] = fwt2d_case("2048x2048 db4 L6", (2048, 2048), "db4", 6)
     fwt2d_case("512x1024 Haar L3", (512, 1024), "Haar", 3)
 
-    # ---- 4. the main path through the entry points ---------------------
+    def ifwt2d_case(label, shape, wavelet, level):
+        fb = jt.get_filter(wavelet)
+        y = signal(shape)
+        lr = min(level, shape[0].bit_length() - 1)
+        d_cols = cuda_pyramid.levels_done(shape[1], fb.transform_wavelength, level)
+        d_rows = cuda_pyramid.levels_done(shape[0], fb.transform_wavelength, lr)
+        args = (fb.rec_lo, fb.rec_hi, fb.recon_gain)
+        x1 = cuda_pyramid.ipyramid_rows_transposed(y, *args, d_cols)
+        torch.cuda.synchronize()
+        ref1 = cuda_pyramid.ipyramid_rows_transposed_torch(y.double(), *args, d_cols)
+        err = compare(f"K5 pass {label}", x1, ref1, F32_BOUND)
+        x = jt.ifwt2d(y, wavelet, lr, level)
+        torch.cuda.synchronize()
+        ref = cuda_pyramid.ipyramid_rows_transposed_torch(ref1, *args, d_rows)
+        compare(f"ifwt2d (K5 x2) {label}", x, ref, F32_BOUND)
+        return err
+
+    errors["K5"] = ifwt2d_case("2048x2048 db4 L6", (2048, 2048), "db4", 6)
+    ifwt2d_case("512x1024 Haar L3", (512, 1024), "Haar", 3)
+    ifwt2d_case("64x16384 sym8 L4", (64, 16384), "sym8", 4)
+    ifwt2d_case("256x1024 Battle 23 L8 (partial levels)", (256, 1024), "Battle 23", 8)
+    ifwt2d_case("64x64 Haar orthogonal L6 (gain 0.5)", (64, 64), "Haar orthogonal", 6)
+
+    # K6. f32 sums in another order than the plain version: a column's error
+    # is at most S * 2^-24 * sum|c| (printed as "derived"); the check holds
+    # the 1e-5 of max|ref| bound of K1-K5, which is tighter wherever a bin
+    # collects mass of one phase (no cancellation), as here.
+    def reassign_case(label, c, k, n_bins):
+        got = cuda_reassign.reassign(c, k, n_bins)
+        torch.cuda.synchronize()
+        ref = cuda_reassign.reassign_torch(c.to(torch.complex128), k, n_bins)
+        derived = c.shape[-2] * 2.0**-24 * float(c.abs().sum(dim=-2).max())
+        print(json.dumps({"check": f"K6 {label} derived bound",
+                          "rel": derived / float(ref.abs().max())}), flush=True)
+        return compare(f"K6 {label}", torch.view_as_real(got), torch.view_as_real(ref),
+                       F32_BOUND), got
+
+    ssq_scales = jt.generate_log_scales(1e-5, 1e-2, 64)
+    ssq_fs = 1e6
+    morlet = jt.MorletWavelet(1.0, 1.0)
+    xs_np = np.random.default_rng(5).standard_normal((8, 65536)).astype(np.float32)
+    xs = torch.as_tensor(xs_np, device=dev)
+    W, dW = _cwt_and_derivative(xs, ssq_scales, morlet, ssq_fs, jt.PaddingType.SYMMETRIC)
+    mag2 = W.real ** 2 + W.imag ** 2
+    gamma = 10.0 * math.sqrt(torch.finfo(torch.float32).eps) * mag2.amax(
+        dim=(-2, -1), keepdim=True).sqrt()
+    bins = _default_bins(ssq_scales, morlet.center_frequency, None)
+    wgt = ssq_scales ** -0.5 * _log_measure(ssq_scales)
+    contrib, k_idx = _reassign_inputs(W, dW, wgt, bins, gamma, "clip")
+    del W, dW, mag2
+    require(contrib.dtype == torch.complex64 and k_idx.dtype == torch.int32,
+            f"ssq block {contrib.dtype} {k_idx.dtype}")
+    errors["K6"], tx_main = reassign_case("8x64x65536 K=64 (indices of ssq_cwt)",
+                                          contrib, k_idx, 64)
+    kept = torch.where(k_idx < 64, contrib, 0).sum(dim=-2)
+    compare("K6 column sums = kept weighted scale sums (clip)",
+            torch.view_as_real(tx_main.sum(dim=-2)), torch.view_as_real(kept), F32_BOUND)
+    del tx_main, kept
+
+    def rand_case(label, g, s_, n, n_bins):
+        c = torch.complex(signal((g, s_, n)), signal((g, s_, n)))
+        k = torch.as_tensor(rng.integers(-3, n_bins + 4, (g, s_, n)), dtype=torch.int32,
+                            device=dev)
+        reassign_case(label, c, k, n_bins)
+
+    rand_case("2x12x300 K=20 (unaligned, indices in [-3, K+3])", 2, 12, 300, 20)
+    rand_case("3x16x1000 K=200 (four bin chunks)", 3, 16, 1000, 200)
+    torch.cuda.synchronize()
+
+    # ---- 4a. the MODWT + FWT path through the entry points --------------
+    def reset_counts():
+        cuda_modwt.reset_launch_counts()
+        cuda_pyramid.reset_launch_counts()
+        cuda_reassign.reset_launch_counts()
+
+    def read_counts():
+        return {"K1": cuda_modwt.launch_counts["modwt_cascade"],
+                "K2": cuda_modwt.launch_counts["imodwt_cascade"],
+                "K3": cuda_pyramid.launch_counts["pyramid_rows"],
+                "K4": cuda_pyramid.launch_counts["pyramid_rows_transposed"],
+                "K5": cuda_pyramid.launch_counts["ipyramid_rows_transposed"],
+                "K6": cuda_reassign.launch_counts["reassign"]}
+
     x64 = np.random.default_rng(1).standard_normal((64, 65536)).astype(np.float32)
     img = np.random.default_rng(2).standard_normal((2048, 2048)).astype(np.float32)
-    cuda_modwt.reset_launch_counts()
-    cuda_pyramid.reset_launch_counts()
+    reset_counts()
     x = torch.as_tensor(x64, device=dev)
     coeffs = jt.modwt(x, "Daubechies 4", 5)
     xr = jt.imodwt(coeffs, "Daubechies 4")
@@ -161,12 +261,10 @@ def main() -> int:
     img_c = fwt_t.forward(img)                              # 2D dispatch -> fwt2d
     img_back = fwt_t.reverse(img_c)
     torch.cuda.synchronize()
-    launches = {"K1": cuda_modwt.launch_counts["modwt_cascade"],
-                "K2": cuda_modwt.launch_counts["imodwt_cascade"],
-                "K3": cuda_pyramid.launch_counts["pyramid_rows"],
-                "K4": cuda_pyramid.launch_counts["pyramid_rows_transposed"]}
-    print(json.dumps({"main_path_launches": launches}), flush=True)
-    require(all(v >= 1 for v in launches.values()), f"a kernel was not launched: {launches}")
+    launches = read_counts()
+    print(json.dumps({"main_path": "MODWT + FWT", "launches": launches}), flush=True)
+    require(all(launches[k] >= 1 for k in ("K1", "K2", "K3", "K4", "K5")),
+            f"a kernel of the MODWT + FWT path was not launched: {launches}")
     for label, got, want, shape in (
         ("modwt->imodwt 64x65536 db4 L5", xr, x64, (64, 65536)),
         ("fwt->ifwt rows 64x65536 db4", rows_back, x64, (64, 65536)),
@@ -204,6 +302,84 @@ def main() -> int:
     require(err <= F32_BOUND * np.abs(want1).max(), "fwt against the oracle")
     torch.cuda.synchronize()
 
+    # ---- 4b. the continuous path through the entry points ---------------
+    reset_counts()
+    res = jt.ssq_cwt(xs, ssq_scales, morlet, ssq_fs)
+    xr_ssq = jt.issq_cwt(res, morlet)
+    fs_s = 1000.0
+    t_s = np.arange(4096) / fs_s
+    small_scales = jt.generate_log_scales(0.002, 0.2, 128)
+    two = np.cos(2 * np.pi * 40.0 * t_s) + 0.5 * np.cos(2 * np.pi * 150.0 * t_s + 1.0)
+    two_c = torch.as_tensor(two, dtype=torch.float32, device=dev)
+    # the float64 default threshold, so that f32 keeps the same coefficients
+    # as tests/test_ssq.py's float64 run (the f32 default, 10*sqrt(2^-23) of
+    # max|W|, drops more of the tails; its round trip is printed beside)
+    w_two = jt.cwt(two_c, small_scales, morlet, fs_s).coefficients
+    g64 = 10.0 * math.sqrt(np.finfo(np.float64).eps) * float(w_two.abs().max())
+    res_two = jt.ssq_cwt(two_c, small_scales, morlet, fs_s, gamma=g64)
+    two_back = jt.issq_cwt(res_two, morlet)
+    two_back_default = jt.issq_cwt(jt.ssq_cwt(two_c, small_scales, morlet, fs_s), morlet)
+    ridge_res = jt.ssq_cwt(torch.as_tensor(np.cos(2 * np.pi * 40.0 * t_s)
+                                           + 0.8 * np.cos(2 * np.pi * 160.0 * t_s + 0.9),
+                                           dtype=torch.float32, device=dev),
+                           small_scales, morlet, fs_s)
+    idx, ridge_f = jt.extract_ridge(ridge_res, n_ridges=2, tube_width=3)
+    tube = jt.ridge_tube_mask(ridge_res, idx[0], tube_width=4)
+    mode = jt.issq_cwt(ridge_res, morlet, band=tube)
+    cwt_t = jt.TransformBuilder.create("Continuous Wavelet Transform", "morlet", device="cuda")
+    scal = cwt_t.get_basic_transform().transform_fft(xs_np, ssq_scales, ssq_fs)
+    small = np.random.default_rng(6).standard_normal((2, 1000)).astype(np.float32)
+    direct = cwt_t.get_basic_transform().transform(small, [2.0, 5.0, 13.0, 40.0], 1.0)
+    torch.cuda.synchronize()
+    launches_ssq = read_counts()
+    print(json.dumps({"main_path": "continuous (ssq_cwt, issq_cwt, ridges, CWT facade)",
+                      "launches": launches_ssq}), flush=True)
+    require(launches_ssq["K6"] >= 1, f"K6 was not launched on the continuous path: {launches_ssq}")
+    launches["K6"] = launches_ssq["K6"]
+
+    require(res.Tx.is_cuda and res.Tx.dtype == torch.complex64
+            and tuple(res.Tx.shape) == (8, 64, 65536) and bool(torch.isfinite(res.Tx).all()),
+            f"ssq_cwt Tx {res.Tx.dtype} {tuple(res.Tx.shape)}")
+    require(xr_ssq.is_cuda and tuple(xr_ssq.shape) == (8, 65536)
+            and bool(torch.isfinite(xr_ssq).all()), "issq_cwt output")
+    tx_plain = jt.ssq_cwt(xs, ssq_scales, morlet, ssq_fs, reassign="scatter").Tx
+    compare("ssq_cwt 8x65536: K6 route against the plain scatter route",
+            torch.view_as_real(res.Tx), torch.view_as_real(tx_plain), F32_BOUND)
+    del tx_plain
+    interior = slice(4096 // 8, -4096 // 8)
+    err = float(np.abs(two_back.double().cpu().numpy() - two)[interior].max())
+    err_d = float(np.abs(two_back_default.double().cpu().numpy() - two)[interior].max())
+    print(json.dumps({"roundtrip": "ssq_cwt->issq_cwt two tones 4096 f32, 128 scales",
+                      "max_abs_err": err, "bound": 2e-3,
+                      "max_abs_err_f32_default_gamma": err_d}), flush=True)
+    require(err < 2e-3, f"two-tone issq round trip {err}")
+    tone_res = jt.ssq_cwt(torch.as_tensor(np.cos(2 * np.pi * 50.0 * t_s), dtype=torch.float32,
+                                          device=dev), small_scales, morlet, fs_s)
+    ridge_hz = float(tone_res.ridge()[1024:3072].median())
+    print(json.dumps({"ridge": "50 Hz tone", "median_hz": ridge_hz}), flush=True)
+    require(abs(ridge_hz - 50.0) / 50.0 < 0.05, f"tone ridge at {ridge_hz} Hz")
+    mid = slice(1024, 3072)
+    meds = sorted(float(ridge_f[r, mid].median()) for r in range(2))
+    print(json.dumps({"ridges": "40 + 160 Hz", "median_hz": meds}), flush=True)
+    require(tuple(idx.shape) == (2, 4096) and abs(meds[0] - 40.0) / 40.0 < 0.05
+            and abs(meds[1] - 160.0) / 160.0 < 0.05, f"extract_ridge medians {meds}")
+    require(tube.dtype == torch.bool and tuple(tube.shape) == (128, 4096)
+            and bool(torch.isfinite(mode).all()), "ridge_tube_mask / band reconstruction")
+    require(tuple(scal.coefficients.shape) == (8, 64, 65536)
+            and scal.coefficients.dtype == torch.complex64
+            and bool(torch.isfinite(scal.coefficients).all()), "CWT facade transform_fft")
+    # small inputs against the port's own plain float64 run on the CPU
+    want_d = jt.cwt_direct(small.astype(np.float64), [2.0, 5.0, 13.0, 40.0], "morlet", 1.0)
+    compare("CWT facade transform (cwt_direct) 2x1000 against CPU f64",
+            torch.view_as_real(direct.coefficients),
+            torch.view_as_real(want_d.coefficients).to(dev), F32_BOUND)
+    want_f = jt.cwt(small.astype(np.float64), ssq_scales[::8] * 1e3, "morlet", 1e3)
+    got_f = cwt_t.get_basic_transform().transform_fft(small, ssq_scales[::8] * 1e3, 1e3)
+    compare("CWT facade transform_fft 2x1000 against CPU f64",
+            torch.view_as_real(got_f.coefficients),
+            torch.view_as_real(want_f.coefficients).to(dev), F32_BOUND)
+    torch.cuda.synchronize()
+
     # ---- 5. times --------------------------------------------------------
     # written before every timed run so that each starts with a cold 50 MB L2,
     # as a caller with fresh data would find it
@@ -234,6 +410,8 @@ def main() -> int:
     done8 = cuda_pyramid.levels_done(65536, 2, 8)
     ximg = torch.as_tensor(img, device=dev)
     lo, hi = fb.dec_lo, fb.dec_hi
+    fb_r = jt.get_filter("db4")
+    rlo, rhi = fb_r.rec_lo, fb_r.rec_hi
     timing = {
         "K1": pair(lambda: cuda_modwt.modwt_cascade(x, g0, h0, 5),
                    lambda: cuda_modwt.modwt_cascade_torch(x, g0, h0, 5)),
@@ -249,19 +427,43 @@ def main() -> int:
         "fwt2d": pair(lambda: jt.fwt2d(ximg, "db4", 6, 6),
                       lambda: cuda_pyramid.pyramid_rows_transposed_torch(
                           cuda_pyramid.pyramid_rows_transposed_torch(ximg, lo, hi, 6), lo, hi, 6)),
+        "K5": pair(lambda: cuda_pyramid.ipyramid_rows_transposed(ximg, rlo, rhi, 1.0, 6),
+                   lambda: cuda_pyramid.ipyramid_rows_transposed_torch(ximg, rlo, rhi, 1.0, 6)),
+        "ifwt2d": pair(lambda: jt.ifwt2d(ximg, "db4", 6, 6),
+                       lambda: cuda_pyramid.ipyramid_rows_transposed_torch(
+                           cuda_pyramid.ipyramid_rows_transposed_torch(ximg, rlo, rhi, 1.0, 6),
+                           rlo, rhi, 1.0, 6)),
+        "K6": pair(lambda: cuda_reassign.reassign(contrib, k_idx, 64),
+                   lambda: cuda_reassign.reassign_torch(contrib, k_idx, 64)),
+        "ssq_cwt": pair(lambda: jt.ssq_cwt(xs, ssq_scales, morlet, ssq_fs),
+                        lambda: jt.ssq_cwt(xs, ssq_scales, morlet, ssq_fs, reassign="scatter")),
     }
     shapes = {"K1": ("modwt db4 L5 64x65536", 64 * 65536, "Msamples_per_s"),
               "K2": ("imodwt db4 L5 64x65536", 64 * 65536, "Msamples_per_s"),
               "K1+K2": ("modwt+imodwt db4 L5 64x65536 (entry step)", 64 * 65536, "Msamples_per_s"),
               "K3": ("fwt db4 L8 64x65536", 64 * 65536, "Msamples_per_s"),
               "K4": ("one K4 pass db4 L6 2048x2048", 2048 * 2048, "Mpix_per_s"),
-              "fwt2d": ("fwt2d db4 L6 2048x2048 (K4 x2)", 2048 * 2048, "Mpix_per_s")}
+              "fwt2d": ("fwt2d db4 L6 2048x2048 (K4 x2)", 2048 * 2048, "Mpix_per_s"),
+              "K5": ("one K5 pass db4 L6 2048x2048", 2048 * 2048, "Mpix_per_s"),
+              "ifwt2d": ("ifwt2d db4 L6 2048x2048 (K5 x2)", 2048 * 2048, "Mpix_per_s"),
+              "K6": ("reassign 8x64x65536 K=64 (ssq_cwt's block)", 8 * 64 * 65536,
+                     "Mcoeff_per_s"),
+              "ssq_cwt": ("ssq_cwt 8x65536 f32, 64 scales (K6 route; plain = scatter route)",
+                          8 * 64 * 65536, "Mcoeff_per_s")}
     fft = jt.ConvolutionMethod.FFT
     fft_ms = median_ms(lambda: jt.imodwt(jt.modwt(x, "Daubechies 4", 5, method=fft),
                                          "Daubechies 4", method=fft))
     print(json.dumps({"time": "modwt+imodwt torch FFT path (cuFFT, for context)",
                       "shape": "db4 L5 64x65536", "ms": fft_ms,
                       "Msamples_per_s": 64 * 65536 / fft_ms / 1e3, "card": card}), flush=True)
+    sep_ms = median_ms(lambda: ndim.reverse_2d(lambda v, lvl: jt.ifwt(v, "db4", lvl), ximg, 6, 6))
+    dense_ms = median_ms(lambda: cuda_reassign.reassign_dense_torch(contrib, k_idx, 64))
+    for label, shape, ms in (
+            ("ifwt2d separable torch-butterfly path (before K5, for context)",
+             "db4 L6 2048x2048", sep_ms),
+            ("reassign plain bin loop (reassign='dense', for context)",
+             "8x64x65536 K=64", dense_ms)):
+        print(json.dumps({"time": label, "shape": shape, "ms": ms, "card": card}), flush=True)
     for key, (ms, plain_ms) in timing.items():
         label, count, unit = shapes[key]
         print(json.dumps({"time": key, "shape": label, "ms": ms, "plain_ms": plain_ms,
@@ -275,6 +477,8 @@ def main() -> int:
         ("K2 imodwt_cascade", "modwt.cu", "jwave_tpu/ops/pallas_modwt.py:93"),
         ("K3 pyramid_rows", "pyramid.cu", "jwave_tpu/ops/pallas_pyramid.py:299"),
         ("K4 pyramid_rows_transposed", "pyramid.cu", "jwave_tpu/ops/pallas_pyramid.py:141"),
+        ("K5 ipyramid_rows_transposed", "pyramid.cu", "jwave_tpu/ops/pallas_pyramid.py:538"),
+        ("K6 reassign", "reassign.cu", "jwave_tpu/ops/pallas_reassign.py:29"),
     ]
     kernels = []
     for (name, src, replaces) in table:

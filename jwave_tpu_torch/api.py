@@ -1,7 +1,8 @@
 """User-facing facade: Transform + TransformBuilder (reference jwave/
 Transform.java, TransformBuilder.java), with the JAX package's names and
-contracts for the transforms this package has: the Fast Wavelet Transform
-and the MODWT.
+contracts for the transforms this package has: the Fast Wavelet Transform,
+the MODWT, the Discrete and Fast Fourier Transforms and the Continuous
+Wavelet Transform.
 
 Any leading axes of an input are batch axes. A tensor is computed on the
 device where it lies; any other input (numpy, lists) becomes a tensor on the
@@ -14,7 +15,19 @@ import torch
 from .exceptions import JWaveFailure, JWaveNotKnown
 from .filters import FilterBank, get_filter
 from .ops.butterfly import as_tensor
+from .cwavelets import get_continuous_wavelet
 from .transforms import ndim as _ndim
+from .transforms.cwt import CWTResult, PaddingType, cwt, cwt_direct
+from .transforms.fft import (
+    dft,
+    dft_interleaved,
+    fft,
+    fft_interleaved,
+    idft,
+    idft_interleaved,
+    ifft,
+    ifft_interleaved,
+)
 from .transforms.fwt import fwt, fwt2d, fwt_decompose, fwt_recompose, ifwt, ifwt2d
 from .transforms.modwt import (
     DEFAULT_FFT_THRESHOLD,
@@ -183,6 +196,74 @@ class MODWTTransform(WaveletTransform):
         )
 
 
+class DiscreteFourierTransform(BasicTransform):
+    """Naive O(N^2) DFT on the interleaved real format
+    (DiscreteFourierTransform.java:73-117); complex input is taken as it is,
+    also by the separable 2D/3D drivers."""
+
+    name = "Discrete Fourier Transform"
+
+    def _forward_core(self, x, level=None):
+        return dft(x) if x.is_complex() else dft_interleaved(x)
+
+    def _reverse_core(self, y, level=None):
+        return idft(y) if y.is_complex() else idft_interleaved(y)
+
+    def forward(self, x, level=None):
+        return self._forward_core(self._in(x))
+
+    def reverse(self, y, level=None):
+        return self._reverse_core(self._in(y))
+
+
+class FastFourierTransform(DiscreteFourierTransform):
+    """FFT with NumPy normalization (FastFourierTransform.java:205-211);
+    ``torch.fft`` takes any N (the reference needs Bluestein chirp-z,
+    FastFourierTransform.java:259-324)."""
+
+    name = "Fast Fourier Transform"
+
+    def _forward_core(self, x, level=None):
+        return fft(x) if x.is_complex() else fft_interleaved(x)
+
+    def _reverse_core(self, y, level=None):
+        return ifft(y) if y.is_complex() else ifft_interleaved(y)
+
+
+class ContinuousWaveletTransform(BasicTransform):
+    """CWT facade (ContinuousWaveletTransform.java). Like the reference,
+    plain forward/reverse raise: use :meth:`transform` /
+    :meth:`transform_fft` with explicit scales."""
+
+    name = "Continuous Wavelet Transform"
+
+    def __init__(self, wavelet="morlet", padding: PaddingType = PaddingType.SYMMETRIC,
+                 device=None):
+        super().__init__(device)
+        self.cwavelet = get_continuous_wavelet(wavelet)
+        self.padding = padding
+
+    def forward(self, x, level=None):
+        raise JWaveFailure("CWT requires scale parameters. Use transform() method instead.")
+
+    def reverse(self, y, level=None):
+        raise JWaveFailure("CWT inverse requires scale parameters and is not fully implemented.")
+
+    def transform(self, signal, scales, sampling_rate: float = 1.0) -> CWTResult:
+        """Direct-convolution CWT (ContinuousWaveletTransform.java:146-172)."""
+        return cwt_direct(self._in(signal), scales, self.cwavelet, sampling_rate)
+
+    def transform_fft(self, signal, scales, sampling_rate: float = 1.0) -> CWTResult:
+        """FFT-based CWT (ContinuousWaveletTransform.java:183-229): the scale
+        loop, which the reference spreads over a thread pool (:511-565), is
+        one batched product, so this is also the "parallel" variant."""
+        return cwt(self._in(signal), scales, self.cwavelet, sampling_rate, self.padding)
+
+    # the reference's thread-pool variants are the same batched product
+    transform_parallel = transform_fft
+    transform_fft_parallel = transform_fft
+
+
 class Transform:
     """Type-dispatching facade (reference jwave/Transform.java:43-451):
     1D/2D/3D dispatch keys off the input rank."""
@@ -242,20 +323,28 @@ class TransformBuilder:
         "maximal overlap discrete wavelet transform":
             lambda w, device=None, **kw: MODWTTransform(w, device=device, **kw),
         "modwt": lambda w, device=None, **kw: MODWTTransform(w, device=device, **kw),
+        "discrete fourier transform":
+            lambda w, device=None, **kw: DiscreteFourierTransform(device),
+        "fast fourier transform": lambda w, device=None, **kw: FastFourierTransform(device),
+        "continuous wavelet transform":
+            lambda w, device=None, **kw: ContinuousWaveletTransform(w, device=device, **kw),
     }
 
     @classmethod
     def create(cls, transform_name: str, wavelet=None, device=None, **kwargs) -> Transform:
-        """``device`` receives non-tensor inputs (the CPU by default)."""
+        """``device`` receives non-tensor inputs (the CPU by default). The
+        wavelet defaults to Haar, and to Morlet for the CWT."""
         key = str(transform_name).lower().strip()
         if key not in cls._NAMES:
             raise JWaveNotKnown(
                 f"TransformBuilder.create - unknown transform {transform_name!r}; "
-                f"jwave_tpu_torch has {sorted(cls._NAMES)} so far (the other "
-                f"transforms of jwave_tpu are not ported yet)"
+                f"jwave_tpu_torch has {sorted(cls._NAMES)} (the wavelet packet, "
+                f"shifting, lifting and Ancient Egyptian transforms of jwave_tpu "
+                f"are not ported yet)"
             )
-        return Transform(cls._NAMES[key]("Haar" if wavelet is None else wavelet,
-                                         device=device, **kwargs))
+        if wavelet is None:
+            wavelet = "morlet" if key == "continuous wavelet transform" else "Haar"
+        return Transform(cls._NAMES[key](wavelet, device=device, **kwargs))
 
     @staticmethod
     def identify(transform: Transform) -> str:

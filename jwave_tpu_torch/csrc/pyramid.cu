@@ -25,6 +25,22 @@
 // (row stride n+1 against bank conflicts) and writes them transposed, so each
 // output column takes rb contiguous floats instead of one float per line.
 // K3 and K4 share the device routine `pyramid_row` and differ in the store.
+//
+// K5 replaces jwave_tpu/ops/pallas_pyramid.py::_ipyramid_rows_kernel (driven
+// by _inv_axis_pass / ifwt2d_fused): the inverse pyramid of each row over
+// `levels` levels, stored transposed, output (N, R); two K5 passes make the
+// 2D inverse. Per level, with head h = N >> (levels-1), ..., N, a = y[:h/2]
+// and d = y[h/2:h], and A, D a and d zero-upsampled:
+//   x[k] = gain * sum_j (rec_lo[j] A[(k-j) mod h] + rec_hi[j] D[(k-j) mod h])
+// so only taps j of k's parity contribute, each with a[((k-j) mod h) / 2].
+// Bound: bytes, as for K4 (33.5 MB per pass at 2048 x 2048 f32). Design, the
+// mirror of K4: the details of every level are read straight from device
+// memory once (through L1), the approximation of the levels before the last
+// ping-pongs in shared memory (n/2 and n/4 floats), the last level writes the
+// finished row into a block of `rb` rows staged at stride n+1, and the block
+// is written column by column. The TPU kernel's folded dense head, split a/d
+// matmuls, tail roll and chunked contractions were MXU and Mosaic needs and
+// are not carried over.
 #include <cuda_runtime.h>
 
 namespace {
@@ -152,6 +168,64 @@ pyramid_rows_t_kernel(const float* __restrict__ src, float* __restrict__ out,
   }
 }
 
+// K5: one row's inverse pyramid. Reads row `y` (n floats) from device
+// memory and leaves the reconstructed row in `dst`. A and B are shared
+// scratch of n/2 and n/4 floats: the level with head h < n writes A when
+// log2(n/h) is odd and B when it is even, so each fits and the next level
+// reads the buffer the previous one wrote.
+__device__ void ipyramid_row(const float* __restrict__ y, int n, int levels, const float* lo,
+                             const float* hi, int m, float gain, float* A, float* B,
+                             float* dst) {
+  if (levels == 0) {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = y[i];
+    __syncthreads();
+    return;
+  }
+  const float* a = y;  // the first level reads its approximation from device memory
+  int depth = levels - 1;  // log2(n / h)
+  for (int h = n >> (levels - 1); h <= n; h <<= 1, --depth) {
+    const int half = h >> 1;
+    const float* d = y + half;
+    float* out = depth == 0 ? dst : ((depth & 1) ? A : B);
+    for (int k = threadIdx.x; k < h; k += blockDim.x) {
+      float s = 0.f;
+      for (int j = k & 1; j < m; j += 2) {
+        const int i = ((k - j) & (h - 1)) >> 1;
+        s = fmaf(lo[j], a[i], s);
+        s = fmaf(hi[j], __ldg(d + i), s);
+      }
+      out[k] = gain * s;
+    }
+    __syncthreads();
+    a = out;
+  }
+}
+
+// K5: one block per `rb` rows of (rows, n); output (n, rows) transposed.
+__global__ void __launch_bounds__(512)
+ipyramid_rows_t_kernel(const float* __restrict__ src, float* __restrict__ out,
+                       const float* __restrict__ taps, int rows, int n, int levels, int m,
+                       int rb, float gain) {
+  extern __shared__ float smem[];
+  float* lo = smem;
+  float* hi = smem + kMaxTaps;
+  float* res = smem + 2 * kMaxTaps;          // rb rows of n+1 floats
+  float* A = res + (long long)rb * (n + 1);  // n/2
+  float* B = A + n / 2;                      // n/4
+  load_taps(taps, m, lo, hi);
+  const int r0 = blockIdx.x * rb;
+  const int nr = min(rb, rows - r0);
+  for (int rr = 0; rr < nr; ++rr)
+    ipyramid_row(src + (long long)(r0 + rr) * n, n, levels, lo, hi, m, gain, A, B,
+                 res + rr * (n + 1));
+  const long long total = (long long)nr * n;
+  for (long long k = threadIdx.x; k < total; k += blockDim.x) {
+    const int rr = (int)(k % nr);
+    const long long c = k / nr;
+    out[c * rows + r0 + rr] = res[rr * (n + 1) + c];
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -184,6 +258,20 @@ int jw_pyramid_rows_t(const void* src, void* out, const void* taps, int rows, in
   const int blocks = (rows + rb - 1) / rb;
   pyramid_rows_t_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
       (const float*)src, (float*)out, (const float*)taps, rows, n, levels, m, rb);
+  return (int)cudaGetLastError();
+}
+
+int jw_ipyramid_rows_t(const void* src, void* out, const void* taps, int rows, int n,
+                       int levels, int m, int rb, float gain, int threads, void* stream) {
+  cudaGetLastError();
+  const long long floats = 2LL * kMaxTaps + (long long)rb * (n + 1) + n / 2 + n / 4;
+  const int smem = (int)(floats * sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(ipyramid_rows_t_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (rows + rb - 1) / rb;
+  ipyramid_rows_t_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+      (const float*)src, (float*)out, (const float*)taps, rows, n, levels, m, rb, gain);
   return (int)cudaGetLastError();
 }
 

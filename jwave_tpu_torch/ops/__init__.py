@@ -1,5 +1,5 @@
 """Torch primitives (butterfly, circular convolutions) and the hand-written
-CUDA kernels K1-K4 with their plain versions. Importing this package builds
+CUDA kernels K1-K6 with their plain versions. Importing this package builds
 no kernel."""
 from .butterfly import butterfly_forward, butterfly_reverse, ensure_float
 from .circular import (

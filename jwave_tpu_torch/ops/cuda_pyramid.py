@@ -1,15 +1,20 @@
-"""K3/K4: the fused FWT pyramid (``csrc/pyramid.cu``), with plain versions.
+"""K3/K4/K5: the fused FWT pyramid and its inverse (``csrc/pyramid.cu``),
+with plain versions.
 
 Replaces ``jwave_tpu/ops/pallas_pyramid.py`` ``_pyramid_rows_kernel_flat``
-(K3: the pyramid along each row, in place, output (R, N)) and
+(K3: the pyramid along each row, in place, output (R, N)),
 ``_pyramid_rows_kernel`` (K4: the same with each row stored transposed,
-output (N, R)). Per row, for each of ``levels`` levels on the head h:
+output (N, R)) and ``_ipyramid_rows_kernel`` (K5: the inverse pyramid of
+each row, stored transposed, output (N, R)). Per row, for each of
+``levels`` levels on the head h:
 
     a[i] = sum_j x[(2i+j) mod h] dec_lo[j],  d[i] = sum_j x[(2i+j) mod h] dec_hi[j]
 
 ``d`` goes to ``out[h/2:h]``, the head becomes ``a``, and the last ``a``
 goes to ``out[:h]``: the layout ``[A_L | D_L | ... | D_1]``. ``levels`` is
-the number of levels actually done (:func:`levels_done`).
+the number of levels actually done (:func:`levels_done`). K5 undoes them
+from the smallest head up, each level the synthesis butterfly of
+``ops/butterfly.py`` scaled by the bank's ``recon_gain``.
 
 The wrappers launch the kernels for CUDA tensors and take the plain
 versions only for tensors on the CPU.
@@ -24,7 +29,8 @@ from ..exceptions import JWaveFailure
 from . import cuda_build
 
 #: launches of each kernel since the last :func:`reset_launch_counts`
-launch_counts = {"pyramid_rows": 0, "pyramid_rows_transposed": 0}
+launch_counts = {"pyramid_rows": 0, "pyramid_rows_transposed": 0,
+                 "ipyramid_rows_transposed": 0}
 
 MAX_TAPS = 64
 #: longest head one K3 block holds in shared memory (h/2 + h/4 floats)
@@ -34,6 +40,7 @@ _K4_SMEM_FLOATS = 56 * 1024
 K3_THREADS = 1024
 K4_THREADS = 512
 K4_MAX_ROWS_PER_BLOCK = 8
+K5_THREADS = 512
 
 
 def reset_launch_counts():
@@ -80,6 +87,39 @@ def pyramid_rows_torch(x: torch.Tensor, dec_lo, dec_hi, levels: int) -> torch.Te
 def pyramid_rows_transposed_torch(x: torch.Tensor, dec_lo, dec_hi, levels: int) -> torch.Tensor:
     """(R, N) -> (N, R): :func:`pyramid_rows_torch` of each row, transposed."""
     return pyramid_rows_torch(x, dec_lo, dec_hi, levels).transpose(0, 1).contiguous()
+
+
+def ipyramid_rows_torch(y: torch.Tensor, rec_lo, rec_hi, recon_gain: float,
+                        levels: int) -> torch.Tensor:
+    """(R, N) -> (R, N): ``levels`` synthesis butterflies from the smallest
+    head up, by gathers and FMAs: on head h, with a = y[:h/2], d = y[h/2:h],
+    x[k] = gain * sum over taps j of k's parity of
+    rec_lo[j] a[m/2] + rec_hi[j] d[m/2], m = (k - j) mod h."""
+    out = y.clone()
+    n = y.shape[-1]
+    if levels == 0:
+        return out
+    h = n >> (levels - 1)
+    while h <= n:
+        half = h // 2
+        k = torch.arange(h, device=y.device)
+        head = out[..., :h]
+        x = torch.zeros_like(head)
+        for j in range(len(rec_lo)):
+            m = (k - j) % h
+            even = (m % 2 == 0).to(y.dtype)
+            i = m // 2
+            x = x + even * (float(rec_lo[j]) * head[..., i]
+                            + float(rec_hi[j]) * head[..., half + i])
+        out[..., :h] = x * recon_gain if recon_gain != 1.0 else x
+        h *= 2
+    return out
+
+
+def ipyramid_rows_transposed_torch(y: torch.Tensor, rec_lo, rec_hi, recon_gain: float,
+                                   levels: int) -> torch.Tensor:
+    """(R, N) -> (N, R): :func:`ipyramid_rows_torch` of each row, transposed."""
+    return ipyramid_rows_torch(y, rec_lo, rec_hi, recon_gain, levels).transpose(0, 1).contiguous()
 
 
 # ----------------------------------------------------------------------------
@@ -177,4 +217,35 @@ def pyramid_rows_transposed(x: torch.Tensor, dec_lo, dec_hi, levels: int) -> tor
              K4_THREADS, cuda_build.stream_handle(x.device))
     cuda_build.check(lib, err, "pyramid_rows_transposed")
     launch_counts["pyramid_rows_transposed"] += 1
+    return out
+
+
+#: Rows a K5 block stages. K5 keeps K4's shared-memory layout (rb rows of
+#: n+1 floats, its approximations in n/2 + n/4 floats, the taps; the level
+#: details are read from device memory, not staged), so the same rows fit.
+k5_rows_per_block = k4_rows_per_block
+
+
+def ipyramid_rows_transposed(y: torch.Tensor, rec_lo, rec_hi, recon_gain: float,
+                             levels: int) -> torch.Tensor:
+    """K5: the inverse pyramid along each row of (R, N) f32, output (N, R)."""
+    if y.device.type == "cpu":
+        return ipyramid_rows_transposed_torch(y, rec_lo, rec_hi, recon_gain, levels)
+    _check(y, rec_lo, rec_hi, levels, "ipyramid_rows_transposed")
+    r, n = y.shape
+    rb = k5_rows_per_block(n)
+    if rb == 0:
+        raise JWaveFailure(f"ipyramid_rows_transposed - rows of {n} exceed one block's "
+                           "shared memory")
+    out = torch.empty((n, r), dtype=y.dtype, device=y.device)
+    if r == 0:
+        return out
+    lib = cuda_build.library("pyramid")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = _fn(lib, "jw_ipyramid_rows_t", [p, p, p, i, i, i, i, i, ctypes.c_float, i, p])
+    taps = cuda_build.device_taps(rec_lo, rec_hi, y.device)
+    err = fn(y.data_ptr(), out.data_ptr(), taps.data_ptr(), r, n, levels, len(rec_lo), rb,
+             float(recon_gain), K5_THREADS, cuda_build.stream_handle(y.device))
+    cuda_build.check(lib, err, "ipyramid_rows_transposed")
+    launch_counts["ipyramid_rows_transposed"] += 1
     return out

@@ -6,9 +6,10 @@ rewrites the shrinking head ``h = N, N/2, ..`` of one array, producing the
 in-place layout ``[A_L | D_L | D_{L-1} | ... | D_1]``.
 
 Routing: a CUDA float32 tensor goes to the fused pyramid kernels, K3 for
-``fwt`` (``ops.cuda_pyramid.pyramid_rows``) and K4 twice for a 2D ``fwt2d``
-(``pyramid_rows_transposed``). Everything else, and the inverses, run the
-level loop over the torch butterfly.
+``fwt`` (``ops.cuda_pyramid.pyramid_rows``), K4 twice for a 2D ``fwt2d``
+(``pyramid_rows_transposed``) and K5 twice for a 2D ``ifwt2d``
+(``ipyramid_rows_transposed``). Everything else, and the 1D inverse, run
+the level loop over the torch butterfly.
 """
 from __future__ import annotations
 
@@ -177,10 +178,27 @@ def fwt2d(mat, wavelet, level_rows: int | None = None, level_cols: int | None = 
     return forward_2d(lambda v, lvl: fwt(v, fb, lvl), x, level_rows, level_cols)
 
 
+def _inv_axis_pass(y: torch.Tensor, fb, level) -> torch.Tensor:
+    """One transposing inverse pyramid pass (K5) over the last axis of (R, N)."""
+    n = y.shape[-1]
+    done = cuda_pyramid.levels_done(n, fb.transform_wavelength,
+                                    n.bit_length() if level is None else level)
+    return cuda_pyramid.ipyramid_rows_transposed(y, fb.rec_lo, fb.rec_hi, fb.recon_gain, done)
+
+
 def ifwt2d(coeffs, wavelet, level_rows: int | None = None, level_cols: int | None = None):
-    """Inverse of :func:`fwt2d` by the separable synthesis path."""
+    """Inverse of :func:`fwt2d`.
+
+    A 2D CUDA float32 matrix whose extents fit a K5 block runs as two K5
+    passes: the first inverts the last axis (``level_cols``) and writes it
+    transposed, the second inverts the other (``level_rows``); the two axes'
+    operators commute. Any other input takes the separable synthesis path
+    over :func:`ifwt`."""
     y = ensure_float(as_tensor(coeffs))
     fb = get_filter(wavelet)
     if y.dim() == 2:
         _check_2d_levels(y.shape, level_rows, level_cols, "ifwt2d")
+        if _on_kernel(y) and all(cuda_pyramid.k5_rows_per_block(e) for e in y.shape):
+            x = _inv_axis_pass(y.contiguous(), fb, level_cols)
+            return _inv_axis_pass(x, fb, level_rows)
     return reverse_2d(lambda v, lvl: ifwt(v, fb, lvl), y, level_rows, level_cols)

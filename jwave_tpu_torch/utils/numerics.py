@@ -10,6 +10,13 @@ def is_power_of_two(n: int) -> bool:
     return n > 0 and (n & (n - 1)) == 0
 
 
+def next_power_of_two(n: int) -> int:
+    """MathUtils.nextPowerOfTwo (MathUtils.java:53-59)."""
+    if n <= 1:
+        return 1
+    return 1 << (n - 1).bit_length()
+
+
 def exponent_of_two(n: int) -> int:
     """floor(log2 n) — MathToolKit.getExponent."""
     if n <= 0:

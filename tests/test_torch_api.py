@@ -72,7 +72,7 @@ def test_complex_input_bridges(rng):
 
 
 def test_unported_transform_names_raise():
-    for name in ("Wavelet Packet Transform", "Fast Fourier Transform", "nope"):
+    for name in ("Wavelet Packet Transform", "Lifting Wavelet Transform", "nope"):
         with pytest.raises(jt.JWaveNotKnown, match="not ported yet"):
             jt.TransformBuilder.create(name, "db4")
 
@@ -98,6 +98,13 @@ def test_wrappers_raise_instead_of_falling_back():
         cuda_pyramid.pyramid_rows(x, g0, h0, 2)
     with pytest.raises(jt.JWaveFailure):
         cuda_pyramid.pyramid_rows_transposed(x, g0, h0, 2)
+    with pytest.raises(jt.JWaveFailure):
+        cuda_pyramid.ipyramid_rows_transposed(x, g0, h0, 1.0, 2)
+    from jwave_tpu_torch.ops import cuda_reassign
+
+    with pytest.raises(jt.JWaveFailure):
+        cuda_reassign.reassign(torch.empty((3, 64), dtype=torch.complex64, device="meta"),
+                               torch.empty((3, 64), dtype=torch.int32, device="meta"), 4)
 
 
 def test_slice_whole_matches_entry():

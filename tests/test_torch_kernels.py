@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernels K1-K4 of jwave_tpu_torch.
+"""The hand-written CUDA kernels K1-K6 of jwave_tpu_torch.
 
 Tests marked ``cuda`` build and launch the kernels and hold them against
 their plain torch versions (run in float64 on the same input); they need a
@@ -7,8 +7,10 @@ CUDA card and skip without one. Run them on the card with
     python -m pytest tests/test_torch_kernels.py -m cuda -p no:xdist
 
 The other tests check, on any machine, what surrounds the kernels: the
-level grouping of K1/K2, the row blocking of K4, the build's error on a
-missing compiler, and that CPU tensors take the plain versions.
+level grouping of K1/K2, the row blocking of K4/K5, the build's error on a
+missing compiler, that CPU tensors take the plain versions, and (where JAX
+is installed) the plain versions of K5/K6 and K6's gradient against the
+Pallas kernels they replace, run in interpret mode.
 """
 import numpy as np
 import pytest
@@ -17,7 +19,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
 import jwave_tpu_torch as jt  # noqa: E402
-from jwave_tpu_torch.ops import cuda_build, cuda_modwt, cuda_pyramid  # noqa: E402
+from jwave_tpu_torch.ops import cuda_build, cuda_modwt, cuda_pyramid, cuda_reassign  # noqa: E402
 from jwave_tpu_torch.transforms.modwt import _modwt_base_filters  # noqa: E402
 
 F32_BOUND = 1e-5   # f32 storage, f32 accumulation in another order than the plain version
@@ -110,7 +112,8 @@ def test_main_path_routes_through_the_kernels(cuda):
     assert float((back - x).abs().max()) < 1e-4
     assert rows.is_cuda and img.is_cuda
     assert cuda_modwt.launch_counts == {"modwt_cascade": 1, "imodwt_cascade": 1}
-    assert cuda_pyramid.launch_counts == {"pyramid_rows": 1, "pyramid_rows_transposed": 2}
+    assert cuda_pyramid.launch_counts == {"pyramid_rows": 1, "pyramid_rows_transposed": 2,
+                                          "ipyramid_rows_transposed": 0}
 
 
 @pytest.mark.cuda
@@ -126,6 +129,89 @@ def test_kernels_refuse_gradients(cuda):
         jt.fwt(x, "db4")
     with pytest.raises(jt.JWaveFailure, match="gradients"):
         jt.fwt2d(torch.zeros((64, 64), device=cuda, requires_grad=True), "db4")
+    with pytest.raises(jt.JWaveFailure, match="gradients"):
+        jt.ifwt2d(torch.zeros((64, 64), device=cuda, requires_grad=True), "db4")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,wavelet,level", [
+    ((2048, 2048), "db4", 6), ((512, 1024), "Haar", 3), ((64, 16384), "sym8", 4),
+    ((256, 1024), "Battle 23", 8), ((64, 64), "Haar orthogonal", 6), ((16384, 64), "db4", 3),
+    ((128, 256), "db4", 0),
+])
+def test_k5_matches_plain(cuda, shape, wavelet, level):
+    fb = jt.get_filter(wavelet)
+    y = torch.as_tensor(np.random.default_rng(5).standard_normal(shape), dtype=torch.float32,
+                        device=cuda)
+    done = cuda_pyramid.levels_done(shape[1], fb.transform_wavelength, level)
+    before = cuda_pyramid.launch_counts["ipyramid_rows_transposed"]
+    got = cuda_pyramid.ipyramid_rows_transposed(y, fb.rec_lo, fb.rec_hi, fb.recon_gain, done)
+    torch.cuda.synchronize()
+    ref = cuda_pyramid.ipyramid_rows_transposed_torch(y.double(), fb.rec_lo, fb.rec_hi,
+                                                      fb.recon_gain, done)
+    assert tuple(got.shape) == (shape[1], shape[0])
+    assert _rel_err(got, ref) <= F32_BOUND
+    assert cuda_pyramid.launch_counts["ipyramid_rows_transposed"] == before + 1
+    x = torch.as_tensor(np.random.default_rng(6).standard_normal(shape), dtype=torch.float32,
+                        device=cuda)
+    lr = min(level, shape[0].bit_length() - 1)
+    back = jt.ifwt2d(jt.fwt2d(x, wavelet, lr, level), wavelet, lr, level)
+    torch.cuda.synchronize()
+    ref2 = jt.ifwt2d(jt.fwt2d(x.double(), wavelet, lr, level), wavelet, lr, level)
+    assert _rel_err(back, ref2) <= F32_BOUND
+    assert cuda_pyramid.launch_counts["ipyramid_rows_transposed"] == before + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,s,n,k,lo,hi", [
+    (8, 64, 65536, 64, -3, 67), (2, 12, 300, 20, -3, 23), (3, 16, 1000, 200, -3, 203),
+])
+def test_k6_matches_plain(cuda, g, s, n, k, lo, hi):
+    rng = np.random.default_rng(7)
+    c = torch.as_tensor(rng.standard_normal((g, s, n)) + 1j * rng.standard_normal((g, s, n)),
+                        dtype=torch.complex64, device=cuda)
+    kk = torch.as_tensor(rng.integers(lo, hi + 1, (g, s, n)), dtype=torch.int32, device=cuda)
+    before = cuda_reassign.launch_counts["reassign"]
+    got = cuda_reassign.reassign(c, kk, k)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.complex64 and tuple(got.shape) == (g, k, n)
+    ref = cuda_reassign.reassign_torch(c.to(torch.complex128), kk, k)
+    assert _rel_err(torch.view_as_real(got), torch.view_as_real(ref)) <= F32_BOUND
+    assert cuda_reassign.launch_counts["reassign"] == before + 1
+
+
+@pytest.mark.cuda
+def test_k6_gradient_is_the_gather(cuda):
+    rng = np.random.default_rng(8)
+    c = torch.as_tensor(rng.standard_normal((2, 12, 300)) + 1j * rng.standard_normal((2, 12, 300)),
+                        dtype=torch.complex64, device=cuda).requires_grad_()
+    kk = torch.as_tensor(rng.integers(-2, 23, (2, 12, 300)), dtype=torch.int32, device=cuda)
+    w = torch.as_tensor(rng.standard_normal((2, 20, 300)), dtype=torch.float32, device=cuda)
+    (cuda_reassign.reassign(c, kk, 20).abs() ** 2 * w).sum().backward()
+    c2 = c.detach().cpu().requires_grad_()
+    (cuda_reassign.reassign(c2, kk.cpu(), 20).abs() ** 2 * w.cpu()).sum().backward()
+    assert _rel_err(torch.view_as_real(c.grad.cpu()), torch.view_as_real(c2.grad)) <= F32_BOUND
+
+
+@pytest.mark.cuda
+def test_ssq_and_ifwt2d_route_through_k5_k6(cuda):
+    cuda_reassign.reset_launch_counts()
+    cuda_pyramid.reset_launch_counts()
+    fs = 1000.0
+    t = np.arange(2048) / fs
+    x = torch.as_tensor(np.cos(2 * np.pi * 50.0 * t), dtype=torch.float32, device=cuda)
+    sc = jt.generate_log_scales(0.002, 0.2, 64)
+    res = jt.ssq_cwt(x, sc, jt.MorletWavelet(1, 1), fs)
+    ref = jt.ssq_cwt(x, sc, jt.MorletWavelet(1, 1), fs, reassign="scatter")
+    img = jt.ifwt2d(torch.zeros((64, 64), device=cuda), "db4")
+    torch.cuda.synchronize()
+    assert res.Tx.is_cuda and res.Tx.dtype == torch.complex64
+    assert _rel_err(torch.view_as_real(res.Tx), torch.view_as_real(ref.Tx)) <= F32_BOUND
+    ridge = float(res.ridge()[512:1536].median())
+    assert abs(ridge - 50.0) / 50.0 < 0.05
+    assert img.is_cuda
+    assert cuda_reassign.launch_counts == {"reassign": 1}
+    assert cuda_pyramid.launch_counts["ipyramid_rows_transposed"] == 2
 
 
 # --------------------------------------------------------------------------
@@ -154,6 +240,111 @@ def test_k4_rows_per_block():
     assert cuda_pyramid.k4_rows_per_block(32768) == 0
 
 
+def test_k5_rows_per_block():
+    """rb rows of n+1 floats, the n/2 + n/4 buffers and the taps in 227 KB."""
+    assert cuda_pyramid.k5_rows_per_block(2048) == 8
+    assert cuda_pyramid.k5_rows_per_block(16384) == 2
+    assert cuda_pyramid.k5_rows_per_block(32768) == 0
+    for n in (2, 64, 2048, 16384):
+        rb = cuda_pyramid.k5_rows_per_block(n)
+        assert 4 * (2 * cuda_pyramid.MAX_TAPS + rb * (n + 1) + n // 2 + n // 4) <= 227 * 1024
+
+
+def _jax_or_skip():
+    """JAX and its Pallas interpret mode, where installed (not on the card's machine)."""
+    return pytest.importorskip("jax")
+
+
+def _interpreting(monkeypatch, module):
+    from jax.experimental import pallas as pl
+
+    orig = pl.pallas_call
+
+    def patched(*a, **kw):
+        kw.setdefault("interpret", True)
+        return orig(*a, **kw)
+
+    monkeypatch.setattr(module.pl, "pallas_call", patched)
+
+
+@pytest.mark.parametrize("plain", ["scatter", "dense"])
+def test_plain_k6_matches_reassign_pallas(plain, monkeypatch, rng):
+    """tests/test_pallas.py's unaligned case (2, 12, 300), K=20, indices in
+    [0, K] (K is the drop sentinel), complex64: bound 1e-5 (f32 sums in
+    another order)."""
+    _jax_or_skip()
+    import jax.numpy as jnp
+
+    from jwave_tpu.ops import pallas_reassign as pr
+
+    _interpreting(monkeypatch, pr)
+    s, n, k_bins = 12, 300, 20
+    c = (rng.standard_normal((2, s, n)) + 1j * rng.standard_normal((2, s, n))).astype(np.complex64)
+    k = rng.integers(0, k_bins + 1, (2, s, n)).astype(np.int32)
+    want = np.asarray(pr.reassign_pallas(jnp.asarray(c), jnp.asarray(k), k_bins))
+    fn = cuda_reassign.reassign_torch if plain == "scatter" else cuda_reassign.reassign_dense_torch
+    got = fn(torch.tensor(c), torch.tensor(k), k_bins)
+    assert got.dtype == torch.complex64 and tuple(got.shape) == (2, k_bins, n)
+    assert float(np.max(np.abs(got.numpy() - want))) < 1e-5
+    # negative indices are dropped as well
+    k2 = rng.integers(-3, k_bins + 4, (2, s, n)).astype(np.int32)
+    want2 = np.asarray(pr.reassign_pallas(jnp.asarray(c), jnp.asarray(k2), k_bins))
+    assert float(np.max(np.abs(fn(torch.tensor(c), torch.tensor(k2), k_bins).numpy()
+                               - want2))) < 1e-5
+
+
+def test_k6_gradient_matches_jax_grad(monkeypatch, rng):
+    """K6's backward (the gather) against jax.grad through reassign_pallas's
+    custom VJP, on a weighted energy of the squeezed plane. torch's complex
+    gradient is the conjugate of JAX's."""
+    jax = _jax_or_skip()
+    import jax.numpy as jnp
+
+    from jwave_tpu.ops import pallas_reassign as pr
+
+    _interpreting(monkeypatch, pr)
+    s, n, k_bins = 12, 300, 20
+    c = (rng.standard_normal((2, s, n)) + 1j * rng.standard_normal((2, s, n))).astype(np.complex64)
+    k = rng.integers(-2, k_bins + 3, (2, s, n)).astype(np.int32)
+    w = rng.standard_normal((2, k_bins, n)).astype(np.float32)
+    kj, wj = jnp.asarray(k), jnp.asarray(w)
+    g_j = np.asarray(jax.grad(lambda z: jnp.sum(jnp.abs(pr.reassign_pallas(z, kj, k_bins)) ** 2
+                                                * wj))(jnp.asarray(c)))
+    ct = torch.tensor(c, requires_grad=True)
+    (cuda_reassign.reassign(ct, torch.tensor(k), k_bins).abs() ** 2 * torch.tensor(w)).sum() \
+        .backward()
+    got = ct.grad.numpy()
+    assert float(np.max(np.abs(got - np.conj(g_j)))) < 1e-5 * float(np.max(np.abs(g_j)))
+
+
+@pytest.mark.parametrize("wavelet,shape,level", [("sym8", (512, 512), 3),
+                                                 ("Haar orthogonal", (512, 512), 4)])
+def test_plain_k5_two_passes_match_ifwt2d_fused(wavelet, shape, level, rng):
+    """Two plain transposed inverse passes = the fused inverse 2D kernel
+    (interpret mode), f32; bound 2e-6 of max|ref| as in tests/test_pallas.py,
+    at its 512 x 512 (the unrouted Pallas kernel itself departs from the
+    separable inverse when an extent is below 512, e.g. 256 x 512 db4 L3)."""
+    _jax_or_skip()
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from jwave_tpu.ops.pallas_pyramid import ifwt2d_fused
+
+    fb = jt.get_filter(wavelet)
+    y = rng.standard_normal(shape).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(ifwt2d_fused(jnp.asarray(y), wavelet, level, level))
+    d_cols = cuda_pyramid.levels_done(shape[1], fb.transform_wavelength, level)
+    d_rows = cuda_pyramid.levels_done(shape[0], fb.transform_wavelength, level)
+    p1 = cuda_pyramid.ipyramid_rows_transposed_torch(torch.tensor(y), fb.rec_lo, fb.rec_hi,
+                                                     fb.recon_gain, d_cols)
+    assert tuple(p1.shape) == (shape[1], shape[0])
+    got = cuda_pyramid.ipyramid_rows_transposed_torch(p1, fb.rec_lo, fb.rec_hi,
+                                                      fb.recon_gain, d_rows)
+    assert got.dtype == torch.float32
+    assert float(np.max(np.abs(got.numpy() - want))) < 2e-6 * float(np.max(np.abs(want)))
+
+
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
     """The build says what is missing; nothing falls back to a plain path."""
     monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
@@ -165,10 +356,11 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
     assert not list(tmp_path.glob("*.so"))
 
 
-@pytest.mark.parametrize("which", ["K1", "K2", "K3", "K4"])
+@pytest.mark.parametrize("which", ["K1", "K2", "K3", "K4", "K5", "K6"])
 def test_cpu_tensors_take_the_plain_version(which, rng):
     cuda_modwt.reset_launch_counts()
     cuda_pyramid.reset_launch_counts()
+    cuda_reassign.reset_launch_counts()
     g0, h0 = _modwt_base_filters("db4")
     fb = jt.get_filter("db4")
     x = torch.tensor(rng.standard_normal((4, 256)), dtype=torch.float32)
@@ -181,9 +373,17 @@ def test_cpu_tensors_take_the_plain_version(which, rng):
     elif which == "K3":
         got, want = (cuda_pyramid.pyramid_rows(x, fb.dec_lo, fb.dec_hi, 4),
                      cuda_pyramid.pyramid_rows_torch(x, fb.dec_lo, fb.dec_hi, 4))
-    else:
+    elif which == "K4":
         got, want = (cuda_pyramid.pyramid_rows_transposed(x, fb.dec_lo, fb.dec_hi, 4),
                      cuda_pyramid.pyramid_rows_transposed_torch(x, fb.dec_lo, fb.dec_hi, 4))
+    elif which == "K5":
+        got, want = (cuda_pyramid.ipyramid_rows_transposed(x, fb.rec_lo, fb.rec_hi, 1.0, 4),
+                     cuda_pyramid.ipyramid_rows_transposed_torch(x, fb.rec_lo, fb.rec_hi, 1.0, 4))
+    else:
+        c = torch.complex(x, x.flip(-1))
+        k = torch.tensor(rng.integers(-1, 6, (4, 256)), dtype=torch.int32)
+        got, want = cuda_reassign.reassign(c, k, 5), cuda_reassign.reassign_torch(c, k, 5)
     assert torch.equal(got, want)
     assert not any(cuda_modwt.launch_counts.values())
     assert not any(cuda_pyramid.launch_counts.values())
+    assert not any(cuda_reassign.launch_counts.values())
