@@ -25,14 +25,35 @@ it happened; any failed check ends the run with a non-zero exit:
       ridge_tube_mask, a tone's ridge and a two-tone round trip at small
       size; the CWT facade's transform_fft and transform, against the
       port's CPU float64 run on a small input.
+   c. gradients through K1-K5: torch.autograd.grad of (f(x) * w).sum() for
+      modwt and imodwt (db4 L5, 64 x 65536), fwt (db4 L8, 64 x 65536),
+      fwt2d and ifwt2d (db4 L6, 2048 x 2048) and Haar orthogonal ifwt2d
+      (256 x 256), against autograd through the plain versions in float64;
+      the backward's launches are read on their own (modwt's must launch K2,
+      fwt2d's K5, ifwt2d's K4); hurst_exponent's gradient at 8 x 65536
+      against the float64 route. The K6 gather against the plain scatter's.
+   d. MODWT analysis: modwt_mra (64 x 65536, db4 L5), modwt_2d -> imodwt_2d
+      (2048 x 2048, L5), modwt_mra_2d (1024 x 1024, L3), the scale
+      statistics and logscale diagram (64 x 65536, L8), hurst_exponent of
+      white noise; each against its float64 route or identity.
+   e. denoising: denoise db4 L4 8 x 65536 (bench.py's denoise_modwt_8x64K),
+      three methods, soft, against the float64 route; hard mode by its SNR
+      gain; denoise_2d 2048 x 2048 L3 bayes; median_abs's two routes on 4M.
+   f. sliding MODWT at bench.py's shape (8 streams, window 512, db4 L8, chunk
+      64, 4096 updates), against modwt of the final window and of the whole
+      stream.
+   g. the rest of the continuous layer at bench.py's shapes: wigner_ville,
+      superlet, ewt -> iewt, vmd, matching_pursuit, analytic_signal; their
+      identities, and each against the port's float64 CPU run at a small size.
 5. times: CUDA events, median of 25 runs after warm-up with the L2 cache
    flushed before each, kernel beside its plain version; for context also
    the torch FFT path of the MODWT (cuFFT) and the separable ifwt2d path,
-   which are not kernels of this package.
+   which are not kernels of this package; the entry step's gradient, the
+   analysis calls and each call of 4g.
 
 The second line from the end is a JSON object listing each kernel with its
-launches on the main path, its error and its time; the last line is
-{"ok": true, "device": {...}}.
+launches on the main path, its error, its time and its backward route with
+that route's error; the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -99,11 +120,11 @@ def main() -> int:
     # ---- 3. each kernel against its plain version ----------------------
     errors = {}
 
-    def compare(label, got, ref, bound):
+    def compare(label, got, ref, bound, scale=None):
         require(not (got.is_complex() or ref.is_complex()), f"{label}: compare real views")
         ref = ref.double()
         err = float((got.double() - ref).abs().max())
-        scale = float(ref.abs().max())
+        scale = float(ref.abs().max()) if scale is None else scale
         rel = err / scale
         print(json.dumps({"check": label, "max_abs_err": err, "max_abs_ref": scale,
                           "rel": rel, "bound": bound}), flush=True)
@@ -380,17 +401,326 @@ def main() -> int:
             torch.view_as_real(want_f.coefficients).to(dev), F32_BOUND)
     torch.cuda.synchronize()
 
+    def path(name, fn, need=()):
+        """Drive one path with the launch counts set to 0 just before it and
+        read just after; the kernels in ``need`` must have launched."""
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        print(json.dumps({"main_path": name, "launches": counts}), flush=True)
+        require(all(counts[k] >= 1 for k in need), f"{name}: {need} not all launched: {counts}")
+        return out
+
+    def finite(t, shape, label):
+        require(t.is_cuda and tuple(t.shape) == tuple(shape) and bool(torch.isfinite(t).all()),
+                f"{label}: not a finite CUDA tensor of shape {shape}: {tuple(t.shape)}")
+
+    # ---- 4c. gradients through K1-K5 --------------------------------------
+    backward = {}
+
+    def grad_case(label, entry, plain, x_np, need):
+        """grad of (entry(x) * w).sum() on the card (backward launches read on
+        their own) against autograd through ``plain`` in float64."""
+        xg = torch.as_tensor(x_np, dtype=torch.float32, device=dev).requires_grad_()
+        y = entry(xg)
+        w = torch.as_tensor(np.random.default_rng(7).standard_normal(tuple(y.shape)),
+                            dtype=torch.float32, device=dev)
+        loss = (y * w).sum()
+        torch.cuda.synchronize()
+        (g,) = path(f"backward of {label}", lambda: torch.autograd.grad(loss, xg), need)
+        finite(g, x_np.shape, f"grad {label}")
+        x_ref = xg.detach().double().requires_grad_()
+        (ref,) = torch.autograd.grad((plain(x_ref) * w.double()).sum(), x_ref)
+        return compare(f"grad {label} against autograd of the plain versions in f64", g, ref,
+                       F32_BOUND)
+
+    gm, hm = _modwt_base_filters("db4")
+    fb4 = jt.get_filter("db4")
+    c_np = np.random.default_rng(8).standard_normal((64, 6, 65536)).astype(np.float32)
+    backward["K1"] = ("K2 imodwt_cascade", grad_case(
+        "modwt db4 L5 64x65536", lambda a: jt.modwt(a, "db4", 5),
+        lambda a: cuda_modwt.modwt_cascade_torch(a, gm, hm, 5), x64, ("K2",)))
+    backward["K2"] = ("K1 modwt_cascade", grad_case(
+        "imodwt db4 L5 64x6x65536", lambda a: jt.imodwt(a, "db4"),
+        lambda a: cuda_modwt.imodwt_cascade_torch(a, gm, hm), c_np, ("K1",)))
+    del c_np
+    backward["K3"] = ("plain synthesis butterflies (ops/butterfly.py, conv1d)", grad_case(
+        "fwt db4 L8 64x65536", lambda a: jt.fwt(a, "db4", 8),
+        lambda a: cuda_pyramid.pyramid_rows_torch(a, fb4.dec_lo, fb4.dec_hi, 8), x64, ()))
+
+    def k4x2_plain(a, fb, levels):
+        return cuda_pyramid.pyramid_rows_transposed_torch(
+            cuda_pyramid.pyramid_rows_transposed_torch(a, fb.dec_lo, fb.dec_hi, levels),
+            fb.dec_lo, fb.dec_hi, levels)
+
+    def k5x2_plain(a, fb, levels):
+        args = (fb.rec_lo, fb.rec_hi, fb.recon_gain)
+        return cuda_pyramid.ipyramid_rows_transposed_torch(
+            cuda_pyramid.ipyramid_rows_transposed_torch(a, *args, levels), *args, levels)
+
+    backward["K4"] = ("K5 x2 with the analysis filters, gain 1", grad_case(
+        "fwt2d db4 L6 2048x2048", lambda a: jt.fwt2d(a, "db4", 6, 6),
+        lambda a: k4x2_plain(a, fb4, 6), img, ("K5",)))
+    backward["K5"] = ("K4 x2 with the synthesis filters, gain recon_gain", grad_case(
+        "ifwt2d db4 L6 2048x2048", lambda a: jt.ifwt2d(a, "db4", 6, 6),
+        lambda a: k5x2_plain(a, fb4, 6), img, ("K4",)))
+    fbh = jt.get_filter("Haar orthogonal")
+    grad_case("ifwt2d Haar orthogonal 256x256 (gain 0.5)",
+              lambda a: jt.ifwt2d(a, "Haar orthogonal"), lambda a: k5x2_plain(a, fbh, 8),
+              img[:256, :256], ("K4",))
+    xh = torch.as_tensor(np.random.default_rng(9).standard_normal((8, 65536)), dtype=torch.float32,
+                         device=dev).requires_grad_()
+    hurst = path("hurst_exponent 8x65536 (auto level 13): forward",
+                 lambda: jt.hurst_exponent(xh), ("K1",))
+    (gh,) = path("hurst_exponent: backward", lambda: torch.autograd.grad(hurst.sum(), xh), ("K2",))
+    finite(gh, (8, 65536), "hurst_exponent grad")
+    xh64 = xh.detach().double().requires_grad_()
+    (gh64,) = torch.autograd.grad(jt.hurst_exponent(xh64).sum(), xh64)
+    compare("hurst_exponent grad against the float64 direct/FFT route", gh, gh64, F32_BOUND)
+    ct = contrib[:, :, :4096].contiguous().requires_grad_()
+    wt = torch.as_tensor(np.random.default_rng(10).standard_normal((8, 64, 4096)),
+                         dtype=torch.float32, device=dev)
+    kt = k_idx[:, :, :4096].contiguous()
+    (g6,) = torch.autograd.grad((cuda_reassign.reassign(ct, kt, 64).abs() ** 2 * wt).sum(), ct)
+    c128 = ct.detach().to(torch.complex128).requires_grad_()
+    (g6_ref,) = torch.autograd.grad(
+        (cuda_reassign.reassign_torch(c128, kt, 64).abs() ** 2 * wt.double()).sum(), c128)
+    backward["K6"] = ("gather ct[k_idx]", compare(
+        "grad K6 8x64x4096 against autograd of the plain scatter in c128",
+        torch.view_as_real(g6), torch.view_as_real(g6_ref), F32_BOUND))
+    del ct, c128, g6, g6_ref
+    torch.cuda.synchronize()
+
+    # ---- 4d. the MODWT analysis layer -------------------------------------
+    mra = path("modwt_mra db4 L5 64x65536", lambda: jt.modwt_mra(x, "db4", 5), ("K1", "K2"))
+    finite(mra, (64, 6, 65536), "modwt_mra")
+    compare("modwt_mra components sum to x", mra.sum(dim=-2), x, F32_BOUND)
+    compare("modwt_mra against the float64 route", mra, jt.modwt_mra(x.double(), "db4", 5),
+            F32_BOUND)
+    del mra
+    ximg = torch.as_tensor(img, device=dev)
+
+    def mw2():
+        c = jt.modwt_2d(ximg, "db4", 5)
+        return c, jt.imodwt_2d(c, "db4")
+
+    c2, back2 = path("modwt_2d -> imodwt_2d db4 L5 2048x2048", mw2, ("K1", "K2"))
+    finite(c2, (6, 6, 2048, 2048), "modwt_2d")
+    compare("imodwt_2d(modwt_2d(x)) = x", back2, ximg, F32_BOUND)
+    compare("modwt_2d against the float64 route", c2, jt.modwt_2d(ximg.double(), "db4", 5),
+            F32_BOUND)
+    del c2, back2
+    sub = ximg[:1024, :1024]
+    mra2 = path("modwt_mra_2d db4 L3 1024x1024", lambda: jt.modwt_mra_2d(sub, "db4", 3),
+                ("K1", "K2"))
+    finite(mra2, (4, 4, 1024, 1024), "modwt_mra_2d")
+    compare("modwt_mra_2d components sum to x", mra2.sum(dim=(0, 1)), sub, F32_BOUND)
+    del mra2
+    y2 = 0.6 * x + torch.as_tensor(np.random.default_rng(10).standard_normal((64, 65536)),
+                                   dtype=torch.float32, device=dev)
+
+    def stats(a, b):
+        return (*jt.modwt_variance_ci(a, "db4", 8), jt.modwt_covariance(a, b, "db4", 8),
+                jt.modwt_correlation(a, b, "db4", 8), *jt.wavelet_log_spectrum(a, "db4", 8))
+
+    got_s = path("variance/CI, covariance, correlation, logscale db4 L8 64x65536",
+                 lambda: stats(x, y2), ("K1",))
+    names = ("variance", "CI low", "CI high", "covariance", "correlation", "log2 variance",
+             "logscale slope", "logscale intercept")
+    ref_s = stats(x.double(), y2.double())
+    for name, g_, r_ in zip(names, got_s, ref_s):
+        finite(g_, r_.shape, name)
+        if name == "logscale intercept":
+            # a weighted mean of the log2 variances less slope * jbar: its
+            # error scales with theirs, not with its own (small) value
+            compare(f"{name} against the float64 route (scale: max|log2 variance|)", g_, r_,
+                    F32_BOUND, scale=float(ref_s[5].abs().max()))
+        else:
+            compare(f"{name} against the float64 route", g_, r_, F32_BOUND)
+    white = torch.as_tensor(np.random.default_rng(11).standard_normal((64, 65536)),
+                            dtype=torch.float32, device=dev)
+    h_white = path("hurst_exponent white noise 64x65536", lambda: jt.hurst_exponent(white),
+                   ("K1",))
+    dev_h = float((h_white - 0.5).abs().max())
+    print(json.dumps({"check": "hurst_exponent of white noise, max |H - 0.5| over 64 rows",
+                      "value": dev_h, "bound": 0.05}), flush=True)
+    require(dev_h < 0.05, f"hurst_exponent of white noise: max |H - 0.5| = {dev_h}")
+    del y2, white
+    torch.cuda.synchronize()
+
+    # ---- 4e. denoising ------------------------------------------------------
+    td = np.arange(65536)
+    # tones in the fine bands, so that SURE takes its risk minimum there
+    dense = (np.sin(2 * np.pi * td / 512.0) + 0.5 * np.sin(2 * np.pi * td / 5.3)
+             + 0.4 * np.sin(2 * np.pi * td / 11.7) + 0.3 * np.sin(2 * np.pi * td / 23.0))
+    xdn = torch.as_tensor(dense + 0.3 * np.random.default_rng(12).standard_normal((8, 65536)),
+                          dtype=torch.float32, device=dev)
+    for method in ("universal", "sure", "bayes"):
+        got = path(f"denoise {method} soft db4 L4 8x65536",
+                   lambda: jt.denoise(xdn, "db4", 4, method=method), ("K1", "K2"))
+        finite(got, (8, 65536), f"denoise {method}")
+        compare(f"denoise {method} soft against the float64 route (thresholds through a "
+                "median; bound 1e-4)", got, jt.denoise(xdn.double(), "db4", 4, method=method),
+                1e-4)
+    tone = np.sin(2 * np.pi * td / 256.0) + 0.5 * np.sign(np.sin(2 * np.pi * td / 4096.0))
+    noisy = tone + 0.3 * np.random.default_rng(13).standard_normal((8, 65536))
+    hard = path("denoise universal hard db4 L4 8x65536",
+                lambda: jt.denoise(torch.as_tensor(noisy, dtype=torch.float32, device=dev),
+                                   "db4", 4, mode="hard"), ("K1", "K2"))
+    def snr_gain(label, noisy_np, clean_np, got):
+        """dB of noise removed; hard thresholds are discontinuous, so f32 and
+        f64 may keep different coefficients near the threshold."""
+        db = 10 * math.log10(float(np.mean((noisy_np - clean_np) ** 2))
+                             / float(np.mean((got.double().cpu().numpy() - clean_np) ** 2)))
+        print(json.dumps({"check": f"{label}: SNR gain, dB", "value": db, "bound": 6.0}),
+              flush=True)
+        require(db > 6.0, f"{label}: SNR gain {db} dB")
+
+    snr_gain("denoise hard, a tone plus noise", noisy, tone, hard)
+    yy, xx = np.mgrid[0:2048, 0:2048]
+    smooth = np.sin(2 * np.pi * xx / 256.0) * np.cos(2 * np.pi * yy / 512.0)
+    noisy2 = smooth + 0.3 * np.random.default_rng(14).standard_normal((2048, 2048))
+    den2 = path("denoise_2d bayes db4 L3 2048x2048",
+                lambda: jt.denoise_2d(torch.as_tensor(noisy2, dtype=torch.float32, device=dev),
+                                      "db4", 3), ("K1", "K2"))
+    finite(den2, (2048, 2048), "denoise_2d")
+    snr_gain("denoise_2d bayes", noisy2, smooth, den2)
+    big = torch.as_tensor(np.random.default_rng(15).standard_normal(4 * 2**20),
+                          dtype=torch.float32, device=dev)
+    m_sel, m_rad = jt.median_abs(big), jt.median_abs(big, force=True)
+    print(json.dumps({"check": "median_abs 4M: kthvalue route = radix-select route",
+                      "kthvalue": float(m_sel), "radix": float(m_rad)}), flush=True)
+    require(bool(m_sel == m_rad), "median_abs routes differ")
+    del xdn, den2, big
+    torch.cuda.synchronize()
+
+    # ---- 4f. sliding MODWT --------------------------------------------------
+    wlen, slv, step, n_upd = 512, 8, 64, 4096
+    stream = torch.as_tensor(np.random.default_rng(16).standard_normal((8, wlen + n_upd * step)),
+                             dtype=torch.float32, device=dev)
+    sl = jt.SlidingMODWT("db4", slv, wlen)
+
+    def slide():
+        st = sl.init(stream[:, :wlen])
+        for i in range(n_upd):
+            st = sl.update(st, stream[:, wlen + i * step: wlen + (i + 1) * step])
+        return st
+
+    st = path("sliding MODWT 8 streams, window 512, db4 L8, 4096 updates of 64", slide)
+    finite(st.coeffs, (8, slv + 1, wlen), "sliding state")
+    mlen = jt.get_filter("db4").length
+    ref_w = jt.modwt(stream[:, -wlen:], "db4", slv)
+    full = jt.modwt(stream, "db4", slv)
+    for j in range(1, slv + 2):
+        s0 = (mlen - 1) * ((1 << min(j, slv)) - 1)  # L_j - 1; V_J has level J's support
+        if s0 < wlen:
+            compare(f"sliding row {j}: interior columns = modwt of the final window",
+                    st.coeffs[:, j - 1, s0:], ref_w[:, j - 1, s0:], F32_BOUND)
+        compare(f"sliding row {j}: the causal stream = modwt of the whole stream",
+                st.coeffs[:, j - 1, :], full[:, j - 1, -wlen:], F32_BOUND)
+    del full, ref_w
+    torch.cuda.synchronize()
+
+    # ---- 4g. the rest of the continuous layer -------------------------------
+    def small_check(label, got, want, bound=F32_BOUND,
+                    why="f32 on the card against f64 on the CPU"):
+        got = got.detach().cpu()
+        if got.is_complex():
+            got, want = torch.view_as_real(got), torch.view_as_real(want)
+        err = float((got.double() - want.double()).abs().max())
+        scale = float(want.abs().max())
+        print(json.dumps({"check": label, "max_abs_err": err, "max_abs_ref": scale,
+                          "rel": err / scale, "bound": bound, "why": why}), flush=True)
+        require(err <= bound * scale, f"{label}: {err / scale} > {bound}")
+
+    xw = torch.as_tensor(np.random.default_rng(17).standard_normal((8, 4096)),
+                         dtype=torch.float32, device=dev)
+    tfr, _ = path("wigner_ville 8x4096, 512 bins", lambda: jt.wigner_ville(xw, 1.0, n_bins=512))
+    finite(tfr, (8, 512, 4096), "wigner_ville")
+    xsl = torch.as_tensor(np.random.default_rng(18).standard_normal((8, 16384)),
+                          dtype=torch.float32, device=dev)
+    sl_freqs = np.linspace(5.0, 200.0, 64)
+    spl = path("superlet 8x16384, 64 frequencies 5-200 Hz, fs 1000",
+               lambda: jt.superlet(xsl, sl_freqs, 1000.0))
+    finite(spl, (8, 64, 16384), "superlet")
+    require(bool((spl >= 0).all()), "superlet is nonnegative")
+    ewt_sig = np.random.default_rng(19).standard_normal(16384)
+    ewt_b = jt.ewt_boundaries(ewt_sig, 5)
+    xe = torch.as_tensor(np.tile(ewt_sig, (8, 1)), dtype=torch.float32, device=dev)
+
+    def ewt_round():
+        r = jt.ewt(xe, boundaries=ewt_b)
+        return r, jt.iewt(r)
+
+    er, eback = path("ewt -> iewt 8x16384, 5 modes", ewt_round)
+    finite(er.modes, (8, 5, 16384), "ewt modes")
+    compare("iewt(ewt(x)) = x", eback, xe, F32_BOUND)
+    xv = torch.as_tensor(np.random.default_rng(20).standard_normal(2048), dtype=torch.float32,
+                         device=dev)
+    vr = path("vmd K=3 N=2048, 300 iterations", lambda: jt.vmd(xv, 3))
+    finite(vr.modes, (3, 2048), "vmd modes")
+    finite(vr.omegas, (3,), "vmd omegas")
+    xm = torch.as_tensor(np.random.default_rng(21).standard_normal((4, 2048)),
+                         dtype=torch.float32, device=dev)
+    mp = path("matching_pursuit 16 atoms 4x2048", lambda: jt.matching_pursuit(xm, 16))
+    finite(mp.residual, (4, 2048), "pursuit residual")
+    compare("pursuit: reconstruction + residual = x", mp.reconstruct() + mp.residual, xm,
+            F32_BOUND)
+    require(bool((mp.energies[:, 1:] <= mp.energies[:, :-1] * (1 + 1e-6)).all()),
+            "pursuit energies do not increase")
+    xan = torch.as_tensor(np.random.default_rng(22).standard_normal((8, 65536)),
+                          dtype=torch.float32, device=dev)
+    z = path("analytic_signal 8x65536", lambda: jt.analytic_signal(xan))
+    finite(z, (8, 65536), "analytic_signal")
+    compare("Re analytic_signal(x) = x", z.real, xan, F32_BOUND)
+
+    # small sizes against the port's own float64 run on the CPU
+    fs_b = 1000.0
+    tb = np.arange(1024) / fs_b
+    sm = (np.cos(2 * np.pi * 40 * tb) + 0.5 * np.cos(2 * np.pi * 150 * tb + 1)
+          + 0.1 * np.random.default_rng(23).standard_normal((2, 1024)))
+    smc = torch.as_tensor(sm, dtype=torch.float32, device=dev)
+    smd = torch.as_tensor(sm)
+    small_check("analytic_signal 2x1024", jt.analytic_signal(smc), jt.analytic_signal(smd))
+    small_check("wigner_ville 2x256, 64 bins", jt.wigner_ville(smc[:, :256], fs_b, n_bins=64)[0],
+                jt.wigner_ville(smd[:, :256], fs_b, n_bins=64)[0])
+    fr16 = np.linspace(5.0, 200.0, 16)
+    small_check("superlet 2x1024, 16 frequencies", jt.superlet(smc, fr16, fs_b),
+                jt.superlet(smd, fr16, fs_b))
+    b3 = jt.ewt_boundaries(sm, 3)
+    small_check("ewt 2x1024, 3 modes", jt.ewt(smc, boundaries=b3).modes,
+                jt.ewt(smd, boundaries=b3).modes)
+    small_check("vmd K=3 N=512, 300 iterations", jt.vmd(smc[0, :512], 3).modes,
+                jt.vmd(smd[0, :512], 3).modes, bound=1e-4,
+                why="f32 against f64; 300 ADMM iterations compound the rounding")
+    gd = jt.gabor_dictionary(256)
+    comp = np.zeros((2, 256))
+    for a_i, p_i, amp in ((30, 17, 3.0), (100, 120, 2.0), (200, 200, 1.5)):
+        comp += amp * np.roll(gd.cos_atoms[a_i], p_i)
+    comp += 0.01 * np.random.default_rng(24).standard_normal((2, 256))
+    mp_c = jt.matching_pursuit(torch.as_tensor(comp, dtype=torch.float32, device=dev), 3)
+    mp_d = jt.matching_pursuit(torch.as_tensor(comp), 3)
+    same = (torch.equal(mp_c.atom_idx.cpu(), mp_d.atom_idx)
+            and torch.equal(mp_c.positions.cpu(), mp_d.positions))
+    print(json.dumps({"check": "matching_pursuit 2x256: the same atoms and shifts as f64 CPU",
+                      "atoms": mp_c.atom_idx.tolist(), "positions": mp_c.positions.tolist(),
+                      "equal": same}), flush=True)
+    require(same, "matching_pursuit picks differ from the float64 CPU run")
+    small_check("matching_pursuit 2x256 reconstruction", mp_c.reconstruct(), mp_d.reconstruct())
+    torch.cuda.synchronize()
+
     # ---- 5. times --------------------------------------------------------
     # written before every timed run so that each starts with a cold 50 MB L2,
     # as a caller with fresh data would find it
     flush = torch.empty(128 * 2**20 // 4, dtype=torch.float32, device=dev)
 
-    def median_ms(fn):
+    def median_ms(fn, reps=REPS):
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
         times = []
-        for _ in range(REPS):
+        for _ in range(reps):
             flush.fill_(1.0)
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             a.record()
@@ -464,6 +794,47 @@ def main() -> int:
             ("reassign plain bin loop (reassign='dense', for context)",
              "8x64x65536 K=64", dense_ms)):
         print(json.dumps({"time": label, "shape": shape, "ms": ms, "card": card}), flush=True)
+    # the new paths: the entry step's gradient beside autograd of the plain
+    # versions, and the calls of 4d-4g (no plain version: eager torch)
+    xg = x.detach().requires_grad_()
+    wg = torch.as_tensor(np.random.default_rng(7).standard_normal((64, 65536)),
+                         dtype=torch.float32, device=dev)
+
+    def entry_grad(mw, imw):
+        return torch.autograd.grad((imw(mw(xg)) * wg).sum(), xg)
+
+    timing["entry grad"] = pair(
+        lambda: entry_grad(lambda a: jt.modwt(a, "db4", 5), lambda c: jt.imodwt(c, "db4")),
+        lambda: entry_grad(lambda a: cuda_modwt.modwt_cascade_torch(a, g0, h0, 5),
+                           lambda c: cuda_modwt.imodwt_cascade_torch(c, g0, h0)))
+    shapes["entry grad"] = ("grad of (imodwt(modwt(x)) * w).sum(), db4 L5 64x65536 "
+                            "(plain = autograd of the plain versions)", 64 * 65536,
+                            "Msamples_per_s")
+    st_t = sl.init(stream[:, :wlen])
+    chunk = stream[:, wlen:wlen + step]
+    xbench = torch.as_tensor(np.random.default_rng(25).standard_normal((8, 65536)),
+                             dtype=torch.float32, device=dev)
+    calls = {
+        "denoise_modwt_8x64K (db4 L4, universal soft)": (lambda: jt.denoise(xbench, "db4", 4),
+                                                          8 * 65536),
+        "modwt_mra db4 L5 64x65536": (lambda: jt.modwt_mra(x, "db4", 5), 64 * 65536),
+        "one sliding update, 8 streams, db4 L8, chunk 64": (lambda: sl.update(st_t, chunk),
+                                                            8 * 64),
+        "wigner_ville 8x4096, 512 bins": (lambda: jt.wigner_ville(xw, 1.0, n_bins=512),
+                                          8 * 4096),
+        "superlet 8x16384, 64 freqs, order 16": (lambda: jt.superlet(xsl, sl_freqs, 1000.0),
+                                                 8 * 16384),
+        "ewt -> iewt 8x16384, 5 modes": (lambda: jt.iewt(jt.ewt(xe, boundaries=ewt_b)),
+                                         8 * 16384),
+        "vmd K=3 N=2048, 300 iterations": (lambda: jt.vmd(xv, 3), 2048),
+        "matching_pursuit 16 atoms 4x2048": (lambda: jt.matching_pursuit(xm, 16), 4 * 2048),
+        "analytic_signal 8x65536": (lambda: jt.analytic_signal(xan), 8 * 65536),
+    }
+    for label, (fn, count) in calls.items():
+        reps = 5 if label.startswith("vmd") else REPS
+        ms = median_ms(fn, reps)
+        print(json.dumps({"time": label, "ms": ms, "Msamples_per_s": count / ms / 1e3,
+                          "card": card}), flush=True)
     for key, (ms, plain_ms) in timing.items():
         label, count, unit = shapes[key]
         print(json.dumps({"time": key, "shape": label, "ms": ms, "plain_ms": plain_ms,
@@ -485,7 +856,8 @@ def main() -> int:
         k = name.split()[0]
         kernels.append({"name": name, "route": "cuda", "source": csrc + src, "replaces": replaces,
                         "launches": launches[k], "max_abs_err": errors[k],
-                        "ms": timing[k][0], "plain_ms": timing[k][1]})
+                        "ms": timing[k][0], "plain_ms": timing[k][1],
+                        "backward": {"route": backward[k][0], "max_abs_err": backward[k][1]}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

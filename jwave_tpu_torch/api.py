@@ -34,8 +34,10 @@ from .transforms.modwt import (
     ConvolutionMethod,
     imodwt,
     imodwt_1d,
+    imodwt_2d,
     modwt,
     modwt_1d,
+    modwt_2d,
 )
 from .utils.numerics import exponent_of_two
 
@@ -185,6 +187,14 @@ class MODWTTransform(WaveletTransform):
         if coeffs.shape[-2] == 0 or coeffs.shape[-1] == 0:
             return torch.zeros(coeffs.shape[:-2] + (0,), dtype=coeffs.dtype, device=coeffs.device)
         return imodwt(coeffs, self.wavelet, **self._kw())
+
+    def forward_modwt_2d(self, mat, level: int):
+        """Separable 2D MODWT: (..., R, C) -> (..., J+1, J+1, R, C) subband
+        grid (see transforms.modwt.modwt_2d)."""
+        return modwt_2d(self._in(mat), self.wavelet, level, **self._kw())
+
+    def inverse_modwt_2d(self, coeffs):
+        return imodwt_2d(self._in(coeffs), self.wavelet, **self._kw())
 
     def set_convolution_method(self, method: ConvolutionMethod):
         self.method = method

@@ -7,7 +7,10 @@
 // each level done:
 //   a[i] = sum_j x[(2i+j) mod h] dec_lo[j],  d[i] = sum_j x[(2i+j) mod h] dec_hi[j]
 //   d -> out[h/2 : h], x <- a, h <- h/2;   finally a -> out[: h]
-// giving the in-place layout [A_L | D_L | ... | D_1].
+// giving the in-place layout [A_L | D_L | ... | D_1]. K4 takes a `gain` that
+// scales each level's a and d as they are made (so the level-l details carry
+// gain^l): with the synthesis filters and recon_gain it is K5's adjoint, the
+// backward of ifwt2d. K3 runs with gain 1.
 //
 // Bound on this card: bytes. The pyramid does about 4M FMAs per sample in
 // all (2M at level 1, halving after), against one read and one write of the
@@ -50,10 +53,11 @@ constexpr int kMaxTaps = 64;
 // One row's pyramid: `levels` levels on the head of length h0 of row `x`.
 // `store(idx, v)` receives every output element at its in-place index.
 // A and B are shared scratch of h0/2 and h0/4 floats (unused when levels < 2).
+// Each level's outputs are scaled by `gain`.
 template <typename Store>
 __device__ void pyramid_row(const float* __restrict__ x, int h0, int levels,
-                            const float* lo, const float* hi, int m, float* A, float* B,
-                            Store store) {
+                            const float* lo, const float* hi, int m, float gain, float* A,
+                            float* B, Store store) {
   if (levels == 0) {
     for (int i = threadIdx.x; i < h0; i += blockDim.x) store(i, x[i]);
     __syncthreads();
@@ -68,7 +72,8 @@ __device__ void pyramid_row(const float* __restrict__ x, int h0, int levels,
       sa = fmaf(lo[k], v, sa);
       sd = fmaf(hi[k], v, sd);
     }
-    store(half + i, sd);
+    sa *= gain;
+    store(half + i, gain * sd);
     if (levels == 1) store(i, sa);
     else A[i] = sa;
   }
@@ -85,7 +90,8 @@ __device__ void pyramid_row(const float* __restrict__ x, int h0, int levels,
         sa = fmaf(lo[k], v, sa);
         sd = fmaf(hi[k], v, sd);
       }
-      store(half + i, sd);
+      sa *= gain;
+      store(half + i, gain * sd);
       if (l == levels - 1) store(i, sa);
       else nxt[i] = sa;
     }
@@ -138,14 +144,14 @@ pyramid_rows_kernel(const float* __restrict__ src, long long src_stride,
   load_taps(taps, m, lo, hi);
   const long long r = blockIdx.x;
   RowStore st{out + r * out_stride, a_out + r * a_stride, h0 >> levels};
-  pyramid_row(src + r * src_stride, h0, levels, lo, hi, m, A, B, st);
+  pyramid_row(src + r * src_stride, h0, levels, lo, hi, m, 1.f, A, B, st);
 }
 
 // K4: one block per `rb` rows of (rows, n); output (n, rows) transposed.
 __global__ void __launch_bounds__(512)
 pyramid_rows_t_kernel(const float* __restrict__ src, float* __restrict__ out,
                                       const float* __restrict__ taps, int rows, int n,
-                                      int levels, int m, int rb) {
+                                      int levels, int m, int rb, float gain) {
   extern __shared__ float smem[];
   float* lo = smem;
   float* hi = smem + kMaxTaps;
@@ -157,7 +163,7 @@ pyramid_rows_t_kernel(const float* __restrict__ src, float* __restrict__ out,
   const int nr = min(rb, rows - r0);
   for (int rr = 0; rr < nr; ++rr) {
     SmemStore st{res + rr * (n + 1)};
-    pyramid_row(src + (long long)(r0 + rr) * n, n, levels, lo, hi, m, A, B, st);
+    pyramid_row(src + (long long)(r0 + rr) * n, n, levels, lo, hi, m, gain, A, B, st);
   }
   __syncthreads();
   const long long total = (long long)nr * n;
@@ -248,7 +254,7 @@ int jw_pyramid_rows(const void* src, long long src_stride, void* out, long long 
 }
 
 int jw_pyramid_rows_t(const void* src, void* out, const void* taps, int rows, int n,
-                      int levels, int m, int rb, int threads, void* stream) {
+                      int levels, int m, int rb, float gain, int threads, void* stream) {
   cudaGetLastError();
   const long long floats = 2LL * kMaxTaps + (long long)rb * (n + 1) + n / 2 + n / 4;
   const int smem = (int)(floats * sizeof(float));
@@ -257,7 +263,7 @@ int jw_pyramid_rows_t(const void* src, void* out, const void* taps, int rows, in
   if (err != cudaSuccess) return (int)err;
   const int blocks = (rows + rb - 1) / rb;
   pyramid_rows_t_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
-      (const float*)src, (float*)out, (const float*)taps, rows, n, levels, m, rb);
+      (const float*)src, (float*)out, (const float*)taps, rows, n, levels, m, rb, gain);
   return (int)cudaGetLastError();
 }
 

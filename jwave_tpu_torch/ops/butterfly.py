@@ -94,3 +94,20 @@ def butterfly_reverse(y: torch.Tensor, rec_lo: np.ndarray, rec_hi: np.ndarray,
     if recon_gain != 1.0:
         res = res * recon_gain
     return res
+
+
+def synthesis_levels(y: torch.Tensor, rec_lo: np.ndarray, rec_hi: np.ndarray, levels: int,
+                     recon_gain: float = 1.0) -> torch.Tensor:
+    """``levels`` synthesis butterflies on the shrinking heads of the last
+    axis, from the smallest (N >> (levels-1)) up: the inverse FWT with the
+    synthesis filters, and with the analysis filters and gain 1 the
+    transpose of the analysis pyramid."""
+    n = y.shape[-1]
+    if levels == 0:
+        return y
+    h = n >> (levels - 1)
+    while h <= n:
+        head = butterfly_reverse(y[..., :h], rec_lo, rec_hi, recon_gain)
+        y = torch.cat([head, y[..., h:]], dim=-1) if h < n else head
+        h <<= 1
+    return y

@@ -13,6 +13,13 @@ Storage is float32 or bfloat16; the kernels accumulate in float32.
 CUDA tensor and take the plain versions only for a tensor on the CPU. The
 plain versions are public so that tests and ``chip_smoke.py`` can call them
 by name.
+
+Gradients: K2's recursion is term for term the transpose of K1's (level j
+of K1 maps V_{j-1} to (W_j, V_j) by the taps at t - m*gap; K2 maps them
+back by the same taps at t + m*gap), so K1's adjoint is K2 with the same
+filters and K2's is K1, in bf16 storage too. Each wrapper runs through a
+``torch.autograd.Function`` whose backward calls the other wrapper: on the
+card the backward of K1 launches K2 and counts as a K2 launch.
 """
 from __future__ import annotations
 
@@ -115,9 +122,6 @@ def _check_cuda(t: torch.Tensor, ndim: int, what: str):
         raise JWaveFailure(f"{what} - expected a {ndim}-D tensor, got shape {tuple(t.shape)}")
     if not t.is_contiguous():
         raise JWaveFailure(f"{what} - tensor must be contiguous")
-    if t.requires_grad:
-        raise JWaveFailure(f"{what} - gradients through the CUDA kernel are not available "
-                           "yet; they come with a torch.autograd.Function in a later release")
 
 
 def _check_filters(g0, h0, level: int, what: str):
@@ -139,8 +143,7 @@ def _entry(lib, name, dtype):
     return fn
 
 
-def modwt_cascade(x: torch.Tensor, g0, h0, level: int) -> torch.Tensor:
-    """K1: forward MODWT cascade (B, N) -> (B, level+1, N)."""
+def _k1(x: torch.Tensor, g0, h0, level: int) -> torch.Tensor:
     if x.device.type == "cpu":
         return modwt_cascade_torch(x, g0, h0, level)
     _check_cuda(x, 2, "modwt_cascade")
@@ -169,8 +172,7 @@ def modwt_cascade(x: torch.Tensor, g0, h0, level: int) -> torch.Tensor:
     return out
 
 
-def imodwt_cascade(coeffs: torch.Tensor, g0, h0) -> torch.Tensor:
-    """K2: inverse MODWT cascade (B, J+1, N) -> (B, N)."""
+def _k2(coeffs: torch.Tensor, g0, h0) -> torch.Tensor:
     if coeffs.device.type == "cpu":
         return imodwt_cascade_torch(coeffs, g0, h0)
     _check_cuda(coeffs, 3, "imodwt_cascade")
@@ -200,3 +202,35 @@ def imodwt_cascade(coeffs: torch.Tensor, g0, h0) -> torch.Tensor:
         if vnext is not None:
             vsrc_ptr, vsrc_f32, vstride = vnext.data_ptr(), 1, n
     return out
+
+
+class _ModwtCascade(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g0, h0, level):
+        ctx.filters = (g0, h0)
+        return _k1(x, g0, h0, level)
+
+    @staticmethod
+    def backward(ctx, g):
+        return imodwt_cascade(g.contiguous(), *ctx.filters), None, None, None
+
+
+class _ImodwtCascade(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, coeffs, g0, h0):
+        ctx.filters, ctx.level = (g0, h0), coeffs.shape[-2] - 1
+        return _k2(coeffs, g0, h0)
+
+    @staticmethod
+    def backward(ctx, g):
+        return modwt_cascade(g.contiguous(), *ctx.filters, ctx.level), None, None
+
+
+def modwt_cascade(x: torch.Tensor, g0, h0, level: int) -> torch.Tensor:
+    """K1: forward MODWT cascade (B, N) -> (B, level+1, N); its backward is K2."""
+    return _ModwtCascade.apply(x, g0, h0, level)
+
+
+def imodwt_cascade(coeffs: torch.Tensor, g0, h0) -> torch.Tensor:
+    """K2: inverse MODWT cascade (B, J+1, N) -> (B, N); its backward is K1."""
+    return _ImodwtCascade.apply(coeffs, g0, h0)

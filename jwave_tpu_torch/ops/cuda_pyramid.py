@@ -17,7 +17,22 @@ from the smallest head up, each level the synthesis butterfly of
 ``ops/butterfly.py`` scaled by the bank's ``recon_gain``.
 
 The wrappers launch the kernels for CUDA tensors and take the plain
-versions only for tensors on the CPU.
+versions only for tensors on the CPU. Each wrapper goes through a
+``torch.autograd.Function`` whose backward is the operator's exact
+adjoint (for K4 and K5 the other wrapper, so a backward on the card
+launches a kernel and counts as its launch):
+
+* K3's adjoint is ``ops/butterfly.synthesis_levels`` with the analysis
+  filters and gain 1 (no kernel: K5's staged rows stop at 16384 samples,
+  K3 runs rows of 65536 and longer);
+* one K4 pass is T P (P the pyramid, T the transpose), so its adjoint
+  P^T T is K5 with the same filters and gain on the transposed gradient,
+  transposed back; one K5 pass likewise takes K4 with K5's filters as the
+  analysis pair and ``recon_gain`` as K4's per-level ``gain``.
+
+The backward of a transposing pass returns a transposed view and reads its
+incoming gradient through one, so in ``fwt2d``/``ifwt2d`` (two passes) only
+the first backward pass copies its gradient.
 """
 from __future__ import annotations
 
@@ -27,6 +42,7 @@ import torch
 
 from ..exceptions import JWaveFailure
 from . import cuda_build
+from .butterfly import synthesis_levels
 
 #: launches of each kernel since the last :func:`reset_launch_counts`
 launch_counts = {"pyramid_rows": 0, "pyramid_rows_transposed": 0,
@@ -64,8 +80,10 @@ def levels_done(n: int, tw: int, level: int) -> int:
 # plain versions
 # ----------------------------------------------------------------------------
 
-def pyramid_rows_torch(x: torch.Tensor, dec_lo, dec_hi, levels: int) -> torch.Tensor:
-    """(R, N) -> (R, N): ``levels`` analysis butterflies, by gathers and FMAs."""
+def pyramid_rows_torch(x: torch.Tensor, dec_lo, dec_hi, levels: int,
+                       gain: float = 1.0) -> torch.Tensor:
+    """(R, N) -> (R, N): ``levels`` analysis butterflies, by gathers and FMAs;
+    each level's a and d are scaled by ``gain``."""
     out = x.clone()
     h = x.shape[-1]
     for _ in range(levels):
@@ -78,15 +96,18 @@ def pyramid_rows_torch(x: torch.Tensor, dec_lo, dec_hi, levels: int) -> torch.Te
             v = head[..., (i2 + j) % h]
             a = a + float(dec_lo[j]) * v
             d = d + float(dec_hi[j]) * v
+        if gain != 1.0:
+            a, d = a * gain, d * gain
         out[..., :half] = a
         out[..., half:h] = d
         h = half
     return out
 
 
-def pyramid_rows_transposed_torch(x: torch.Tensor, dec_lo, dec_hi, levels: int) -> torch.Tensor:
+def pyramid_rows_transposed_torch(x: torch.Tensor, dec_lo, dec_hi, levels: int,
+                                  gain: float = 1.0) -> torch.Tensor:
     """(R, N) -> (N, R): :func:`pyramid_rows_torch` of each row, transposed."""
-    return pyramid_rows_torch(x, dec_lo, dec_hi, levels).transpose(0, 1).contiguous()
+    return pyramid_rows_torch(x, dec_lo, dec_hi, levels, gain).transpose(0, 1).contiguous()
 
 
 def ipyramid_rows_torch(y: torch.Tensor, rec_lo, rec_hi, recon_gain: float,
@@ -140,9 +161,6 @@ def _check(x: torch.Tensor, dec_lo, dec_hi, levels: int, what: str):
         raise JWaveFailure(f"{what} - {levels} levels do not fit rows of {n}")
     if len(dec_lo) != len(dec_hi) or not 1 <= len(dec_lo) <= MAX_TAPS:
         raise JWaveFailure(f"{what} - filters must have equal length in [1, {MAX_TAPS}]")
-    if x.requires_grad:
-        raise JWaveFailure(f"{what} - gradients through the CUDA kernel are not available "
-                           "yet; they come with a torch.autograd.Function in a later release")
 
 
 def _fn(lib, name, argtypes):
@@ -153,8 +171,7 @@ def _fn(lib, name, argtypes):
     return fn
 
 
-def pyramid_rows(x: torch.Tensor, dec_lo, dec_hi, levels: int) -> torch.Tensor:
-    """K3: the pyramid along each row of (R, N) f32, output (R, N)."""
+def _k3(x: torch.Tensor, dec_lo, dec_hi, levels: int) -> torch.Tensor:
     if x.device.type == "cpu":
         return pyramid_rows_torch(x, dec_lo, dec_hi, levels)
     _check(x, dec_lo, dec_hi, levels, "pyramid_rows")
@@ -185,6 +202,22 @@ def pyramid_rows(x: torch.Tensor, dec_lo, dec_hi, levels: int) -> torch.Tensor:
     return out
 
 
+class _PyramidRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dec_lo, dec_hi, levels):
+        ctx.args = (dec_lo, dec_hi, levels)
+        return _k3(x, dec_lo, dec_hi, levels)
+
+    @staticmethod
+    def backward(ctx, g):
+        return synthesis_levels(g.contiguous(), *ctx.args), None, None, None
+
+
+def pyramid_rows(x: torch.Tensor, dec_lo, dec_hi, levels: int) -> torch.Tensor:
+    """K3: the pyramid along each row of (R, N) f32, output (R, N)."""
+    return _PyramidRows.apply(x, dec_lo, dec_hi, levels)
+
+
 def k4_rows_per_block(n: int) -> int:
     """Rows a K4 block stages: the most (up to 8) whose n+1-float rows and
     the n/2 + n/4 scratch fit shared memory; 0 when not even one fits."""
@@ -196,10 +229,9 @@ def k4_rows_per_block(n: int) -> int:
     return 0
 
 
-def pyramid_rows_transposed(x: torch.Tensor, dec_lo, dec_hi, levels: int) -> torch.Tensor:
-    """K4: the pyramid along each row of (R, N) f32, output (N, R)."""
+def _k4(x: torch.Tensor, dec_lo, dec_hi, levels: int, gain: float) -> torch.Tensor:
     if x.device.type == "cpu":
-        return pyramid_rows_transposed_torch(x, dec_lo, dec_hi, levels)
+        return pyramid_rows_transposed_torch(x, dec_lo, dec_hi, levels, gain)
     _check(x, dec_lo, dec_hi, levels, "pyramid_rows_transposed")
     r, n = x.shape
     rb = k4_rows_per_block(n)
@@ -211,13 +243,32 @@ def pyramid_rows_transposed(x: torch.Tensor, dec_lo, dec_hi, levels: int) -> tor
         return out
     lib = cuda_build.library("pyramid")
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn = _fn(lib, "jw_pyramid_rows_t", [p, p, p, i, i, i, i, i, i, p])
+    fn = _fn(lib, "jw_pyramid_rows_t", [p, p, p, i, i, i, i, i, ctypes.c_float, i, p])
     taps = cuda_build.device_taps(dec_lo, dec_hi, x.device)
     err = fn(x.data_ptr(), out.data_ptr(), taps.data_ptr(), r, n, levels, len(dec_lo), rb,
-             K4_THREADS, cuda_build.stream_handle(x.device))
+             float(gain), K4_THREADS, cuda_build.stream_handle(x.device))
     cuda_build.check(lib, err, "pyramid_rows_transposed")
     launch_counts["pyramid_rows_transposed"] += 1
     return out
+
+
+class _PyramidRowsT(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dec_lo, dec_hi, levels, gain):
+        ctx.args = (dec_lo, dec_hi, gain, levels)
+        return _k4(x, dec_lo, dec_hi, levels, gain)
+
+    @staticmethod
+    def backward(ctx, g):
+        gt = g.transpose(0, 1).contiguous()  # free when g is a transposed view
+        return ipyramid_rows_transposed(gt, *ctx.args).transpose(0, 1), None, None, None, None
+
+
+def pyramid_rows_transposed(x: torch.Tensor, dec_lo, dec_hi, levels: int,
+                            gain: float = 1.0) -> torch.Tensor:
+    """K4: the pyramid along each row of (R, N) f32, output (N, R); each
+    level's a and d scaled by ``gain``."""
+    return _PyramidRowsT.apply(x, dec_lo, dec_hi, levels, gain)
 
 
 #: Rows a K5 block stages. K5 keeps K4's shared-memory layout (rb rows of
@@ -226,9 +277,7 @@ def pyramid_rows_transposed(x: torch.Tensor, dec_lo, dec_hi, levels: int) -> tor
 k5_rows_per_block = k4_rows_per_block
 
 
-def ipyramid_rows_transposed(y: torch.Tensor, rec_lo, rec_hi, recon_gain: float,
-                             levels: int) -> torch.Tensor:
-    """K5: the inverse pyramid along each row of (R, N) f32, output (N, R)."""
+def _k5(y: torch.Tensor, rec_lo, rec_hi, recon_gain: float, levels: int) -> torch.Tensor:
     if y.device.type == "cpu":
         return ipyramid_rows_transposed_torch(y, rec_lo, rec_hi, recon_gain, levels)
     _check(y, rec_lo, rec_hi, levels, "ipyramid_rows_transposed")
@@ -249,3 +298,21 @@ def ipyramid_rows_transposed(y: torch.Tensor, rec_lo, rec_hi, recon_gain: float,
     cuda_build.check(lib, err, "ipyramid_rows_transposed")
     launch_counts["ipyramid_rows_transposed"] += 1
     return out
+
+
+class _IPyramidRowsT(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, rec_lo, rec_hi, recon_gain, levels):
+        ctx.args = (rec_lo, rec_hi, levels, recon_gain)
+        return _k5(y, rec_lo, rec_hi, recon_gain, levels)
+
+    @staticmethod
+    def backward(ctx, g):
+        gt = g.transpose(0, 1).contiguous()  # free when g is a transposed view
+        return pyramid_rows_transposed(gt, *ctx.args).transpose(0, 1), None, None, None, None
+
+
+def ipyramid_rows_transposed(y: torch.Tensor, rec_lo, rec_hi, recon_gain: float,
+                             levels: int) -> torch.Tensor:
+    """K5: the inverse pyramid along each row of (R, N) f32, output (N, R)."""
+    return _IPyramidRowsT.apply(y, rec_lo, rec_hi, recon_gain, levels)

@@ -1,3 +1,4 @@
+from .analytic import analytic_signal, envelope, instantaneous_frequency
 from .cwt import (
     CWTResult,
     PaddingType,
@@ -10,6 +11,7 @@ from .cwt import (
     wavelet_coherence,
     xwt,
 )
+from .ewt import EWTResult, ewt, ewt_boundaries, ewt_filter_bank, iewt
 from .fft import (
     bluestein_fft,
     dft,
@@ -36,12 +38,24 @@ from .modwt import (
     DEFAULT_FFT_THRESHOLD,
     MAX_DECOMPOSITION_LEVEL,
     ConvolutionMethod,
+    hurst_exponent,
     imodwt,
     imodwt_1d,
+    imodwt_2d,
     modwt,
     modwt_1d,
+    modwt_2d,
+    modwt_correlation,
+    modwt_covariance,
+    modwt_mra,
+    modwt_mra_2d,
+    modwt_variance,
+    modwt_variance_ci,
+    wavelet_log_spectrum,
 )
 from .ndim import forward_2d, forward_3d, reverse_2d, reverse_3d
+from .pursuit import GaborDictionary, MPResult, gabor_dictionary, matching_pursuit
+from .sliding import SlidingMODWT, SlidingState, sliding_modwt_init, sliding_modwt_update
 from .ssq import (
     SSQResult,
     extract_ridge,
@@ -50,12 +64,18 @@ from .ssq import (
     ridge_tube_mask,
     ssq_cwt,
 )
+from .superlet import superlet
+from .vmd import VMDResult, vmd
+from .wvd import wigner_ville
 
 __all__ = [
     "fwt", "ifwt", "fwt2d", "ifwt2d", "fwt_decompose", "fwt_recompose",
     "fwt_split", "fwt_merge", "fwt_max_level",
     "ConvolutionMethod", "DEFAULT_FFT_THRESHOLD", "MAX_DECOMPOSITION_LEVEL",
-    "modwt", "imodwt", "modwt_1d", "imodwt_1d",
+    "modwt", "imodwt", "modwt_1d", "imodwt_1d", "modwt_2d", "imodwt_2d",
+    "modwt_mra", "modwt_mra_2d", "modwt_variance", "modwt_variance_ci",
+    "modwt_covariance", "modwt_correlation", "wavelet_log_spectrum", "hurst_exponent",
+    "SlidingState", "SlidingMODWT", "sliding_modwt_init", "sliding_modwt_update",
     "forward_2d", "reverse_2d", "forward_3d", "reverse_3d",
     "fft", "ifft", "fft_interleaved", "ifft_interleaved", "bluestein_fft",
     "dft", "idft", "dft_interleaved", "idft_interleaved",
@@ -63,4 +83,7 @@ __all__ = [
     "CWTResult", "PaddingType", "generate_log_scales", "generate_linear_scales",
     "ssq_cwt", "issq_cwt", "SSQResult", "extract_ridge", "ridge_tube_mask",
     "one_integral_constant",
+    "analytic_signal", "envelope", "instantaneous_frequency", "superlet",
+    "EWTResult", "ewt", "iewt", "ewt_boundaries", "ewt_filter_bank", "wigner_ville",
+    "VMDResult", "vmd", "GaborDictionary", "MPResult", "gabor_dictionary", "matching_pursuit",
 ]

@@ -18,7 +18,7 @@ import torch
 from ..exceptions import JWaveFailure
 from ..filters import get_filter
 from ..ops import cuda_pyramid
-from ..ops.butterfly import as_tensor, butterfly_forward, butterfly_reverse, ensure_float
+from ..ops.butterfly import as_tensor, butterfly_forward, ensure_float, synthesis_levels
 from ..utils.numerics import exponent_of_two, is_power_of_two
 from .ndim import forward_2d, reverse_2d
 
@@ -84,14 +84,7 @@ def ifwt(y, wavelet, level: int | None = None):
     # reference's h = tw << (steps - level) is right only for tw == 2; for
     # Battle 23, tw = 8, its partial-level inverse would do nothing)
     done = cuda_pyramid.levels_done(n, fb.transform_wavelength, level)
-    if done == 0:
-        return y
-    h = n >> (done - 1)
-    while h <= n:
-        head = butterfly_reverse(y[..., :h], fb.rec_lo, fb.rec_hi, fb.recon_gain)
-        y = torch.cat([head, y[..., h:]], dim=-1) if h < n else head
-        h <<= 1
-    return y
+    return synthesis_levels(y, fb.rec_lo, fb.rec_hi, done, fb.recon_gain)
 
 
 def fwt_decompose(x, wavelet):

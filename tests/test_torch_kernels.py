@@ -116,21 +116,93 @@ def test_main_path_routes_through_the_kernels(cuda):
                                           "ipyramid_rows_transposed": 0}
 
 
+def _grad_of(fn, x, w):
+    """d/dx sum(fn(x) * w) by autograd."""
+    x = x.detach().requires_grad_()
+    return torch.autograd.grad((fn(x) * w).sum(), x)[0]
+
+
+def _routes(op, wavelet, shape, levels):
+    """(the public entry, the same operator on the wrappers, which run the
+    kernels' plain versions on CPU tensors) and the module and key of the
+    kernel the backward launches."""
+    fb = jt.get_filter(wavelet)
+    g0, h0 = _modwt_base_filters(wavelet)
+
+    def done(n, lvl):
+        return cuda_pyramid.levels_done(n, fb.transform_wavelength, lvl)
+
+    if op == "modwt":
+        return (lambda a: jt.modwt(a, wavelet, levels),
+                lambda a: cuda_modwt.modwt_cascade(a, g0, h0, levels),
+                (cuda_modwt, "imodwt_cascade"))
+    if op == "imodwt":
+        return (lambda a: jt.imodwt(a, wavelet), lambda a: cuda_modwt.imodwt_cascade(a, g0, h0),
+                (cuda_modwt, "modwt_cascade"))
+    if op == "fwt":
+        return (lambda a: jt.fwt(a, wavelet, levels),
+                lambda a: cuda_pyramid.pyramid_rows(a, fb.dec_lo, fb.dec_hi,
+                                                    done(shape[1], levels)), None)
+    lr, lc = levels
+    if op == "fwt2d":
+        def plain(a):
+            y = cuda_pyramid.pyramid_rows_transposed(a, fb.dec_lo, fb.dec_hi, done(shape[1], lc))
+            return cuda_pyramid.pyramid_rows_transposed(y, fb.dec_lo, fb.dec_hi,
+                                                        done(shape[0], lr))
+        return (lambda a: jt.fwt2d(a, wavelet, lr, lc), plain,
+                (cuda_pyramid, "ipyramid_rows_transposed"))
+    args = (fb.rec_lo, fb.rec_hi, fb.recon_gain)
+
+    def plain(a):
+        y = cuda_pyramid.ipyramid_rows_transposed(a, *args, done(shape[1], lc))
+        return cuda_pyramid.ipyramid_rows_transposed(y, *args, done(shape[0], lr))
+    return (lambda a: jt.ifwt2d(a, wavelet, lr, lc), plain,
+            (cuda_pyramid, "pyramid_rows_transposed"))
+
+
 @pytest.mark.cuda
-def test_kernels_refuse_gradients(cuda):
-    g0, h0 = _modwt_base_filters("db4")
-    x = torch.zeros((2, 256), device=cuda, requires_grad=True)
-    with pytest.raises(jt.JWaveFailure, match="gradients"):
-        jt.modwt(x, "db4", 3)
-    with pytest.raises(jt.JWaveFailure, match="gradients"):
-        cuda_modwt.imodwt_cascade(torch.zeros((2, 4, 256), device=cuda, requires_grad=True),
-                                  g0, h0)
-    with pytest.raises(jt.JWaveFailure, match="gradients"):
-        jt.fwt(x, "db4")
-    with pytest.raises(jt.JWaveFailure, match="gradients"):
-        jt.fwt2d(torch.zeros((64, 64), device=cuda, requires_grad=True), "db4")
-    with pytest.raises(jt.JWaveFailure, match="gradients"):
-        jt.ifwt2d(torch.zeros((64, 64), device=cuda, requires_grad=True), "db4")
+@pytest.mark.parametrize("op,wavelet,shape,levels", [
+    ("modwt", "db4", (8, 4096), 5), ("modwt", "Haar", (4, 8192), 13),
+    ("imodwt", "db4", (8, 6, 4096), 5), ("fwt", "db4", (8, 65536), 8),
+    ("fwt", "Battle 23", (8, 1024), 10), ("fwt2d", "db4", (256, 1024), (3, 5)),
+    ("fwt2d", "Haar orthogonal", (128, 64), (5, 2)), ("ifwt2d", "db4", (256, 1024), (3, 5)),
+    ("ifwt2d", "Haar orthogonal", (256, 256), (6, 6)),
+])
+def test_kernel_gradients_match_plain(cuda, op, wavelet, shape, levels):
+    """Gradients of the entry points through K1-K5 on CUDA f32 against the
+    same operators on the plain versions in float64; bound 1e-5 of max|ref|.
+    The backward launches the adjoint kernel: modwt's K2, imodwt's K1,
+    fwt2d's K5, ifwt2d's K4 (fwt's adjoint is the plain butterflies)."""
+    rng = np.random.default_rng(4)
+    entry, plain, launched = _routes(op, wavelet, shape, levels)
+    x = torch.tensor(rng.standard_normal(shape))
+    with torch.no_grad():
+        w = torch.tensor(rng.standard_normal(tuple(plain(x).shape)))
+    before = launched[0].launch_counts[launched[1]] if launched else 0
+    g = _grad_of(entry, x.to(cuda, torch.float32), w.to(cuda, torch.float32))
+    torch.cuda.synchronize()
+    assert g.is_cuda and g.dtype == torch.float32 and tuple(g.shape) == shape
+    assert _rel_err(g.cpu(), _grad_of(plain, x, w)) <= F32_BOUND
+    if launched:
+        assert launched[0].launch_counts[launched[1]] >= before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wavelet,shape,levels,gain", [
+    ("Haar orthogonal", (256, 256), 1, 0.5), ("Haar orthogonal", (256, 256), 4, 0.5),
+    ("Haar orthogonal", (64, 1024), 8, 0.5), ("db4", (2048, 2048), 6, 1.0),
+    ("sym8", (64, 16384), 4, 2.0),
+])
+def test_k4_gain_matches_plain(cuda, wavelet, shape, levels, gain):
+    fb = jt.get_filter(wavelet)
+    x = torch.as_tensor(np.random.default_rng(9).standard_normal(shape), dtype=torch.float32,
+                        device=cuda)
+    got = cuda_pyramid.pyramid_rows_transposed(x, fb.rec_lo, fb.rec_hi, levels, gain)
+    torch.cuda.synchronize()
+    ref = cuda_pyramid.pyramid_rows_transposed_torch(x.double(), fb.rec_lo, fb.rec_hi, levels,
+                                                     gain)
+    assert tuple(got.shape) == (shape[1], shape[0])
+    assert _rel_err(got, ref) <= F32_BOUND
 
 
 @pytest.mark.cuda
