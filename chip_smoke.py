@@ -46,14 +46,21 @@ it happened; any failed check ends the run with a non-zero exit:
       superlet, ewt -> iewt, vmd, matching_pursuit, analytic_signal; their
       identities, and each against the port's float64 CPU run at a small size.
 5. times: CUDA events, median of 25 runs after warm-up with the L2 cache
-   flushed before each, kernel beside its plain version; for context also
-   the torch FFT path of the MODWT (cuFFT) and the separable ifwt2d path,
-   which are not kernels of this package; the entry step's gradient, the
-   analysis calls and each call of 4g.
+   flushed before each and a GPU spin that hides the host's launch time
+   (device time; each also once without the spin, as wall time), kernel
+   beside its plain version and, for K1, K2,
+   K4, K5 and K6, beside one PyTorch call that computes the same function
+   (conv1d, matmul with the dense pass operator, scatter_add_; checked
+   against the plain version first, never called by the port); for context
+   also the torch FFT path of the MODWT (cuFFT) and the separable ifwt2d
+   path, which are not kernels of this package; the entry step's gradient,
+   fwt2d's gradient (backward K5 x2), the analysis calls and each call of 4g.
 
 The second line from the end is a JSON object listing each kernel with its
-launches on the main path, its error, its time and its backward route with
-that route's error; the last line is {"ok": true, "device": {...}}.
+launches on its path and on the main path (4a), its error, its time beside
+its plain version's, the library call's and its bound (bytes over 3.35 TB/s
+or FLOPs over 67 TFLOP/s, the larger), and its backward route with that
+route's error; the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -152,6 +159,10 @@ def main() -> int:
     modwt_case("4x8192 Haar L13 (two level groups)", (4, 8192), "Haar", 13)
     modwt_case("2x20000 dmey L10 (unstaged deep levels)", (2, 20000), "Discrete Meyer", 10)
     modwt_case("64x65536 db4 L5 bf16", (64, 65536), "db4", 5, torch.bfloat16)
+    modwt_case("3x5000 db4 L6 (a ragged last tile that wraps)", (3, 5000), "db4", 6)
+    modwt_case("2x100 dmey L6 bf16 (halo 3843 > N: 40 pieces)", (2, 100), "Discrete Meyer", 6,
+               torch.bfloat16)
+    modwt_case("8x777 db4 L9 bf16 (unaligned N)", (8, 777), "db4", 9, torch.bfloat16)
 
     def pyramid_case(label, shape, wavelet, level):
         fb = jt.get_filter(wavelet)
@@ -209,6 +220,17 @@ def main() -> int:
     ifwt2d_case("64x16384 sym8 L4", (64, 16384), "sym8", 4)
     ifwt2d_case("256x1024 Battle 23 L8 (partial levels)", (256, 1024), "Battle 23", 8)
     ifwt2d_case("64x64 Haar orthogonal L6 (gain 0.5)", (64, 64), "Haar orthogonal", 6)
+    for label, shape, wavelet, level in (
+            ("100x2048 db4 L6 (a ragged last block)", (100, 2048), "db4", 6),
+            ("37x512 sym8 L5 (scalar stores)", (37, 512), "sym8", 5),
+            ("40000x16 Haar L4 (5000 row blocks)", (40000, 16), "Haar", 4)):
+        fb = jt.get_filter(wavelet)
+        y = signal(shape)
+        args = (fb.rec_lo, fb.rec_hi, fb.recon_gain, level)
+        got = cuda_pyramid.ipyramid_rows_transposed(y, *args)
+        torch.cuda.synchronize()
+        compare(f"K5 pass {label}", got,
+                cuda_pyramid.ipyramid_rows_transposed_torch(y.double(), *args), F32_BOUND)
 
     # K6. f32 sums in another order than the plain version: a column's error
     # is at most S * 2^-24 * sum|c| (printed as "derived"); the check holds
@@ -356,6 +378,7 @@ def main() -> int:
     print(json.dumps({"main_path": "continuous (ssq_cwt, issq_cwt, ridges, CWT facade)",
                       "launches": launches_ssq}), flush=True)
     require(launches_ssq["K6"] >= 1, f"K6 was not launched on the continuous path: {launches_ssq}")
+    main_launches = dict(launches)  # phase 4a's counts: K6 is 0 there
     launches["K6"] = launches_ssq["K6"]
 
     require(res.Tx.is_cuda and res.Tx.dtype == torch.complex64
@@ -715,13 +738,20 @@ def main() -> int:
     # as a caller with fresh data would find it
     flush = torch.empty(128 * 2**20 // 4, dtype=torch.float32, device=dev)
 
-    def median_ms(fn, reps=REPS):
+    def median_ms(fn, reps=REPS, device=False):
+        """Median ms of fn between two events. With ``device``, a ~5 ms GPU
+        spin after the flush lets the host enqueue fn's launches (an autograd
+        backward's too) before the first event, so the interval is device
+        time alone; without, a host slower than the flush shows up in the
+        interval (wall time)."""
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
         times = []
         for _ in range(reps):
             flush.fill_(1.0)
+            if device:
+                torch.cuda._sleep(10_000_000)
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             a.record()
             fn()
@@ -731,9 +761,20 @@ def main() -> int:
         return float(np.median(times))
 
     def pair(kernel, plain):
-        """plain, kernel, kernel, plain; the mean of each side's two medians."""
-        p1, k1, k2, p2 = median_ms(plain), median_ms(kernel), median_ms(kernel), median_ms(plain)
-        return (k1 + k2) / 2, (p1 + p2) / 2
+        """plain, kernel, kernel, plain, device time; the mean of each side's
+        two medians, and the kernel side's wall time."""
+        p1, k1 = median_ms(plain, device=True), median_ms(kernel, device=True)
+        k2, p2 = median_ms(kernel, device=True), median_ms(plain, device=True)
+        return (k1 + k2) / 2, (p1 + p2) / 2, None, median_ms(kernel)
+
+    def turns(kernel, plain, library):
+        """plain, library, kernel, kernel, library, plain, device time:
+        (kernel, plain, library) ms, each the mean of two medians, and the
+        kernel's wall time."""
+        p1, l1 = median_ms(plain, device=True), median_ms(library, device=True)
+        k1, k2 = median_ms(kernel, device=True), median_ms(kernel, device=True)
+        l2, p2 = median_ms(library, device=True), median_ms(plain, device=True)
+        return (k1 + k2) / 2, (p1 + p2) / 2, (l1 + l2) / 2, median_ms(kernel)
 
     g0, h0 = _modwt_base_filters("db4")
     c32 = cuda_modwt.modwt_cascade(x, g0, h0, 5)
@@ -742,32 +783,83 @@ def main() -> int:
     lo, hi = fb.dec_lo, fb.dec_hi
     fb_r = jt.get_filter("db4")
     rlo, rhi = fb_r.rec_lo, fb_r.rec_hi
+
+    # One PyTorch call per kernel that computes the same function (library_ms;
+    # the port never calls these), each checked against the plain version
+    # once at the kernel's bound before it is timed. K1: conv1d of the input
+    # padded circularly by (M-1)(2^J-1) = 217 on the left with the J+1
+    # equivalent level filters (the cascade's response to an impulse, 218
+    # taps, flipped: conv1d correlates) as output channels. K2, the adjoint:
+    # conv1d of the coefficients padded by 217 on the right, J+1 input
+    # channels, one output. K4/K5: one matmul with the dense 2048x2048 pass
+    # operator (the plain version run on the identity in float64, then cast).
+    # K6: its plain one-scatter_add_ route. K3: none (null): a 65536-sample
+    # row's dense operator would take 17 GB, and no single call computes a
+    # multi-level pyramid.
+    pad = 7 * (2**5 - 1)
+    delta = torch.zeros((1, 1024), dtype=torch.float64, device=dev)
+    delta[0, 0] = 1.0
+    eq = cuda_modwt.modwt_cascade_torch(delta, g0, h0, 5)[0, :, :pad + 1]  # (6, 218)
+    w_k1 = eq.flip(-1).unsqueeze(1).float().contiguous()                   # (6, 1, 218)
+    w_k2 = eq.unsqueeze(0).float().contiguous()                            # (1, 6, 218)
+    x_pad = torch.cat([x[:, -pad:], x], dim=-1).unsqueeze(1).contiguous()
+    c_pad = torch.cat([c32, c32[..., :pad]], dim=-1).contiguous()
+    eye = torch.eye(2048, dtype=torch.float64, device=dev)
+    op_k4 = cuda_pyramid.pyramid_rows_torch(eye, lo, hi, 6).t().float().contiguous()
+    op_k5 = cuda_pyramid.ipyramid_rows_torch(eye, rlo, rhi, 1.0, 6).t().float().contiguous()
+    del eye, delta
+    conv1d = torch.nn.functional.conv1d
+    library = {
+        "K1": lambda: conv1d(x_pad, w_k1),
+        "K2": lambda: conv1d(c_pad, w_k2).squeeze(1),
+        "K4": lambda: torch.matmul(op_k4, ximg.t()),
+        "K5": lambda: torch.matmul(op_k5, ximg.t()),
+        "K6": lambda: cuda_reassign.reassign_torch(contrib, k_idx, 64),
+    }
+    lib_refs = {
+        "K1": lambda: cuda_modwt.modwt_cascade_torch(x.double(), g0, h0, 5),
+        "K2": lambda: cuda_modwt.imodwt_cascade_torch(c32.double(), g0, h0),
+        "K4": lambda: cuda_pyramid.pyramid_rows_transposed_torch(ximg.double(), lo, hi, 6),
+        "K5": lambda: cuda_pyramid.ipyramid_rows_transposed_torch(ximg.double(), rlo, rhi, 1.0, 6),
+        "K6": lambda: cuda_reassign.reassign_torch(contrib.to(torch.complex128), k_idx, 64),
+    }
+    for k, fn in library.items():
+        got, ref = fn(), lib_refs[k]()
+        if got.is_complex():
+            got, ref = torch.view_as_real(got), torch.view_as_real(ref)
+        compare(f"library call for {k} against its plain version", got, ref, F32_BOUND)
+        del got, ref
+    torch.cuda.synchronize()
+
     timing = {
-        "K1": pair(lambda: cuda_modwt.modwt_cascade(x, g0, h0, 5),
-                   lambda: cuda_modwt.modwt_cascade_torch(x, g0, h0, 5)),
-        "K2": pair(lambda: cuda_modwt.imodwt_cascade(c32, g0, h0),
-                   lambda: cuda_modwt.imodwt_cascade_torch(c32, g0, h0)),
+        "K1": turns(lambda: cuda_modwt.modwt_cascade(x, g0, h0, 5),
+                    lambda: cuda_modwt.modwt_cascade_torch(x, g0, h0, 5), library["K1"]),
+        "K2": turns(lambda: cuda_modwt.imodwt_cascade(c32, g0, h0),
+                    lambda: cuda_modwt.imodwt_cascade_torch(c32, g0, h0), library["K2"]),
         "K1+K2": pair(lambda: jt.imodwt(jt.modwt(x, "Daubechies 4", 5), "Daubechies 4"),
                       lambda: cuda_modwt.imodwt_cascade_torch(
                           cuda_modwt.modwt_cascade_torch(x, g0, h0, 5), g0, h0)),
         "K3": pair(lambda: cuda_pyramid.pyramid_rows(x, lo, hi, done8),
                    lambda: cuda_pyramid.pyramid_rows_torch(x, lo, hi, done8)),
-        "K4": pair(lambda: cuda_pyramid.pyramid_rows_transposed(ximg, lo, hi, 6),
-                   lambda: cuda_pyramid.pyramid_rows_transposed_torch(ximg, lo, hi, 6)),
+        "K4": turns(lambda: cuda_pyramid.pyramid_rows_transposed(ximg, lo, hi, 6),
+                    lambda: cuda_pyramid.pyramid_rows_transposed_torch(ximg, lo, hi, 6),
+                    library["K4"]),
         "fwt2d": pair(lambda: jt.fwt2d(ximg, "db4", 6, 6),
                       lambda: cuda_pyramid.pyramid_rows_transposed_torch(
                           cuda_pyramid.pyramid_rows_transposed_torch(ximg, lo, hi, 6), lo, hi, 6)),
-        "K5": pair(lambda: cuda_pyramid.ipyramid_rows_transposed(ximg, rlo, rhi, 1.0, 6),
-                   lambda: cuda_pyramid.ipyramid_rows_transposed_torch(ximg, rlo, rhi, 1.0, 6)),
+        "K5": turns(lambda: cuda_pyramid.ipyramid_rows_transposed(ximg, rlo, rhi, 1.0, 6),
+                    lambda: cuda_pyramid.ipyramid_rows_transposed_torch(ximg, rlo, rhi, 1.0, 6),
+                    library["K5"]),
         "ifwt2d": pair(lambda: jt.ifwt2d(ximg, "db4", 6, 6),
                        lambda: cuda_pyramid.ipyramid_rows_transposed_torch(
                            cuda_pyramid.ipyramid_rows_transposed_torch(ximg, rlo, rhi, 1.0, 6),
                            rlo, rhi, 1.0, 6)),
-        "K6": pair(lambda: cuda_reassign.reassign(contrib, k_idx, 64),
-                   lambda: cuda_reassign.reassign_torch(contrib, k_idx, 64)),
+        "K6": turns(lambda: cuda_reassign.reassign(contrib, k_idx, 64),
+                    lambda: cuda_reassign.reassign_torch(contrib, k_idx, 64), library["K6"]),
         "ssq_cwt": pair(lambda: jt.ssq_cwt(xs, ssq_scales, morlet, ssq_fs),
                         lambda: jt.ssq_cwt(xs, ssq_scales, morlet, ssq_fs, reassign="scatter")),
     }
+    del x_pad, c_pad, op_k4, op_k5
     shapes = {"K1": ("modwt db4 L5 64x65536", 64 * 65536, "Msamples_per_s"),
               "K2": ("imodwt db4 L5 64x65536", 64 * 65536, "Msamples_per_s"),
               "K1+K2": ("modwt+imodwt db4 L5 64x65536 (entry step)", 64 * 65536, "Msamples_per_s"),
@@ -786,6 +878,19 @@ def main() -> int:
     print(json.dumps({"time": "modwt+imodwt torch FFT path (cuFFT, for context)",
                       "shape": "db4 L5 64x65536", "ms": fft_ms,
                       "Msamples_per_s": 64 * 65536 / fft_ms / 1e3, "card": card}), flush=True)
+    # floors for K2 and K5 (device time): the same bytes moved without their
+    # arithmetic, by K5 itself with no level and by one-call torch copies
+    for label, shape, fn in (
+            ("K5 pass with 0 levels (staging and transposed store only)", "2048x2048",
+             lambda: cuda_pyramid.ipyramid_rows_transposed(ximg, rlo, rhi, 1.0, 0)),
+            ("copy of the image (clone), the bytes of one K5 pass", "2048x2048",
+             lambda: ximg.clone()),
+            ("transposed copy of the image (t().contiguous())", "2048x2048",
+             lambda: ximg.t().contiguous()),
+            ("sum over the 6 rows of the coefficients, the bytes of K2", "64x6x65536",
+             lambda: c32.sum(1))):
+        print(json.dumps({"time": label, "shape": shape, "ms": median_ms(fn, device=True),
+                          "card": card}), flush=True)
     sep_ms = median_ms(lambda: ndim.reverse_2d(lambda v, lvl: jt.ifwt(v, "db4", lvl), ximg, 6, 6))
     dense_ms = median_ms(lambda: cuda_reassign.reassign_dense_torch(contrib, k_idx, 64))
     for label, shape, ms in (
@@ -810,6 +915,16 @@ def main() -> int:
     shapes["entry grad"] = ("grad of (imodwt(modwt(x)) * w).sum(), db4 L5 64x65536 "
                             "(plain = autograd of the plain versions)", 64 * 65536,
                             "Msamples_per_s")
+    # fwt2d's gradient: forward K4 x2, backward K5 x2
+    ximg_g = ximg.detach().requires_grad_()
+    w_img = torch.as_tensor(np.random.default_rng(7).standard_normal((2048, 2048)),
+                            dtype=torch.float32, device=dev)
+    timing["fwt2d grad"] = pair(
+        lambda: torch.autograd.grad((jt.fwt2d(ximg_g, "db4", 6, 6) * w_img).sum(), ximg_g),
+        lambda: torch.autograd.grad((k4x2_plain(ximg_g, fb4, 6) * w_img).sum(), ximg_g))
+    shapes["fwt2d grad"] = ("grad of (fwt2d(x) * w).sum(), db4 L6 2048x2048, backward K5 x2 "
+                            "(plain = autograd of the plain versions)", 2048 * 2048,
+                            "Mpix_per_s")
     st_t = sl.init(stream[:, :wlen])
     chunk = stream[:, wlen:wlen + step]
     xbench = torch.as_tensor(np.random.default_rng(25).standard_normal((8, 65536)),
@@ -835,12 +950,35 @@ def main() -> int:
         ms = median_ms(fn, reps)
         print(json.dumps({"time": label, "ms": ms, "Msamples_per_s": count / ms / 1e3,
                           "card": card}), flush=True)
-    for key, (ms, plain_ms) in timing.items():
+    for key, (ms, plain_ms, lib_ms, wall_ms) in timing.items():
         label, count, unit = shapes[key]
-        print(json.dumps({"time": key, "shape": label, "ms": ms, "plain_ms": plain_ms,
-                          unit: count / ms / 1e3, f"plain_{unit}": count / plain_ms / 1e3,
-                          "card": card}), flush=True)
+        extra = {"library_ms": lib_ms} if lib_ms is not None else {}
+        print(json.dumps({"time": key, "shape": label, "ms": ms, "plain_ms": plain_ms, **extra,
+                          "wall_ms": wall_ms, unit: count / ms / 1e3,
+                          f"plain_{unit}": count / plain_ms / 1e3, "card": card}), flush=True)
     torch.cuda.synchronize()
+
+    # The least time the card could take for each kernel's work at the timed
+    # shape: the larger of the bytes it must move (each input read once, each
+    # output written once) over 3.35 TB/s and its FLOPs over the 67 TFLOP/s
+    # float32 rate (H100 SXM data sheet, at 700 W). All six are bound by
+    # bytes. K1/K2: 64x65536 in, 64x6x65536 out (or the reverse), 2M FMAs
+    # per sample and level; K3: 64x65536 in and out, ~2N*M FMAs a row; K4/K5
+    # one pass: 2048^2 in and out, the same FMAs per row; K6: the complex64
+    # contributions and int32 bins in, the complex64 plane out, 2 adds each.
+    hbm, f32_rate = 3.35e12, 67e12
+    b, n_s, lv, m8 = 64, 65536, 5, 8
+    work = {"K1": (4 * b * n_s * (lv + 2), 2 * 2 * m8 * b * n_s * lv),
+            "K2": (4 * b * n_s * (lv + 2), 2 * 2 * m8 * b * n_s * lv),
+            "K3": (2 * 4 * b * n_s, 2 * 2 * n_s * m8 * b),
+            "K4": (2 * 4 * 2048 * 2048, 2 * 2 * 2048 * m8 * 2048),
+            "K5": (2 * 4 * 2048 * 2048, 2 * 2 * 2048 * m8 * 2048),
+            "K6": (contrib.numel() * (8 + 4) + 8 * 64 * contrib.shape[-1] * 8,
+                   2 * contrib.numel())}
+    bounds = {}
+    for k, (nbytes, flops) in work.items():
+        t_bytes, t_ops = nbytes / hbm * 1e3, flops / f32_rate * 1e3
+        bounds[k] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
     csrc = "jwave_tpu_torch/csrc/"
     table = [
@@ -856,7 +994,11 @@ def main() -> int:
         k = name.split()[0]
         kernels.append({"name": name, "route": "cuda", "source": csrc + src, "replaces": replaces,
                         "launches": launches[k], "max_abs_err": errors[k],
+                        "main_path_launches": main_launches[k],
                         "ms": timing[k][0], "plain_ms": timing[k][1],
+                        "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
+                        "share_of_bound": bounds[k][0] / timing[k][0],
+                        "library_ms": timing[k][2],
                         "backward": {"route": backward[k][0], "max_abs_err": backward[k][1]}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

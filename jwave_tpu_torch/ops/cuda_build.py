@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` holds kernels behind a plain ``extern "C"``
 interface; it is compiled on its own by ``nvcc`` for Hopper (``sm_90a``)
 into ``jwave_tpu_torch/_build/lib<name>_<hash>.so``. The hash covers the
-source and the flags, so an edited source builds anew. Importing this module
+source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
+source or header builds anew. Importing this module
 builds nothing; :func:`library` builds on the first call for a name. A
 missing ``nvcc`` or a failed compile raises with the compiler's output.
 """
@@ -50,7 +51,9 @@ def library(name: str) -> ctypes.CDLL:
     if lib is not None:
         return lib
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    # the shared headers count too, so editing one rebuilds every source
+    text = src.read_bytes() + b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     target = BUILD_DIR / f"lib{name}_{digest}.so"
     if not target.exists():
         nvcc = _nvcc()

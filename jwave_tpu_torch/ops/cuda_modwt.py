@@ -14,6 +14,16 @@ CUDA tensor and take the plain versions only for a tensor on the CPU. The
 plain versions are public so that tests and ``chip_smoke.py`` can call them
 by name.
 
+Plans. Both kernels tile time by ``TILE`` outputs and split the levels
+into groups that pass V through f32 scratch rows. K1 stages a group's tile
+and halo in two buffers of ``BUF_FLOATS`` (:func:`level_groups`). K2
+prefetches the V segment and every W segment of a group at once, each in
+its own buffer (:func:`segment_length`, :func:`k2_smem_bytes`); its groups
+keep a block within ``K2_SMEM_BYTES`` (:func:`inverse_level_groups`). How a
+segment is cut into copies (where it wraps, where it is unaligned) is the
+kernel's own affair. The groups do not change the arithmetic (f32 in
+shared memory or in scratch alike), so K2 stays K1's exact adjoint.
+
 Gradients: K2's recursion is term for term the transpose of K1's (level j
 of K1 maps V_{j-1} to (W_j, V_j) by the taps at t - m*gap; K2 maps them
 back by the same taps at t + m*gap), so K1's adjoint is K2 with the same
@@ -24,6 +34,7 @@ card the backward of K1 launches K2 and counts as a K2 launch.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -34,9 +45,14 @@ from . import cuda_build
 launch_counts = {"modwt_cascade": 0, "imodwt_cascade": 0}
 
 MAX_TAPS = 64
-#: outputs of one row per block, and the f32 samples one shared buffer holds
+#: outputs of one row per block, and the f32 samples one K1 shared buffer holds
 TILE = 2048
 BUF_FLOATS = 8192
+#: shared bytes a staged K2 block may use: a third of an SM's 228 KB less
+#: the 1 KB the card reserves per block, so that three blocks share an SM
+K2_SMEM_BYTES = 233472 // 3 - 1024
+#: K2's shared head (``csrc/modwt.cu`` kInvHeadBytes): the taps and 16 mbarriers
+_K2_HEAD_BYTES = 2 * MAX_TAPS * 4 + 16 * 8
 
 _STORAGE = (torch.float32, torch.bfloat16)
 
@@ -93,24 +109,63 @@ def imodwt_cascade_torch(coeffs: torch.Tensor, g0, h0) -> torch.Tensor:
 # kernel wrappers
 # ----------------------------------------------------------------------------
 
-def level_groups(n: int, m: int, level: int) -> list[tuple[int, int, bool]]:
-    """Split levels 1..level into runs (j0, j1, staged) whose tile plus halo
-    (M-1)(2^j1 - 2^(j0-1)) fits one shared buffer; a level whose halo alone
-    does not fit runs unstaged, straight from device memory."""
-    tl = min(TILE, n)
+def _groups(level: int, fits) -> list[tuple[int, int, bool]]:
+    """Split levels 1..level greedily into runs (j0, j1, staged) for which
+    ``fits(j0, j1)``; a level that does not fit alone runs unstaged."""
     groups = []
     j = 1
     while j <= level:
-        if tl + (m - 1) * (1 << (j - 1)) > BUF_FLOATS:
+        if not fits(j, j):
             groups.append((j, j, False))
             j += 1
             continue
         k = j
-        while k < level and tl + (m - 1) * ((1 << (k + 1)) - (1 << (j - 1))) <= BUF_FLOATS:
+        while k < level and fits(j, k + 1):
             k += 1
         groups.append((j, k, True))
         j = k + 1
     return groups
+
+
+@functools.lru_cache(maxsize=256)
+def level_groups(n: int, m: int, level: int) -> tuple[tuple[int, int, bool], ...]:
+    """K1's plan: runs (j0, j1, staged) whose tile plus halo
+    (M-1)(2^j1 - 2^(j0-1)) fits one shared buffer of ``BUF_FLOATS``; a level
+    whose halo alone does not fit runs unstaged, straight from device memory.
+    Cached: the wrappers ask on every call."""
+    tl = min(TILE, n)
+    return tuple(_groups(level, lambda j0, j1: segment_length(tl, m, j0, j1) <= BUF_FLOATS))
+
+
+def segment_length(tl: int, m: int, j0: int, j: int) -> int:
+    """Samples of W_j (and, at j = j1, of V_j1) that a group j0..j1 stages
+    for a tile of ``tl`` outputs: the tile and the halo of levels j0..j,
+    (M-1)(2^j - 2^(j0-1)) (``csrc/modwt.cu`` inv_wlen)."""
+    return tl + (m - 1) * ((1 << j) - (1 << (j0 - 1)))
+
+
+def k2_smem_bytes(tl: int, m: int, j0: int, j1: int, itemsize_v: int = 4,
+                  itemsize_c: int = 4) -> int:
+    """Shared bytes of a staged K2 block (``csrc/modwt.cu`` inv_layout): the
+    head, the V_j1 segment, the W_j segments for j = j1..j0 and the f32 V
+    buffers (two, one for a single level), each rounded up to 16 bytes (a
+    segment is copied in whole 16 bytes)."""
+    def r16(b):
+        return (b + 15) & ~15
+
+    total = _K2_HEAD_BYTES + r16(segment_length(tl, m, j0, j1) * itemsize_v)
+    total += sum(r16(segment_length(tl, m, j0, j) * itemsize_c) for j in range(j0, j1 + 1))
+    return total + r16(4 * segment_length(tl, m, j0, j1 - 1)) * (2 if j1 > j0 else 1)
+
+
+@functools.lru_cache(maxsize=256)
+def inverse_level_groups(n: int, m: int, level: int) -> tuple[tuple[int, int, bool], ...]:
+    """K2's plan: runs (j0, j1, staged) whose prefetched segments fit
+    ``K2_SMEM_BYTES`` in float32 (bf16 storage takes less); a level that
+    does not fit alone runs unstaged, straight from device memory. K2 runs
+    the groups from the last to the first."""
+    tl = min(TILE, n)
+    return tuple(_groups(level, lambda j0, j1: k2_smem_bytes(tl, m, j0, j1) <= K2_SMEM_BYTES))
 
 
 def _check_cuda(t: torch.Tensor, ndim: int, what: str):
@@ -187,7 +242,7 @@ def _k2(coeffs: torch.Tensor, g0, h0) -> torch.Tensor:
     fn = _entry(lib, "jw_imodwt", coeffs.dtype)
     taps = cuda_build.device_taps(g0, h0, coeffs.device)
     stream = cuda_build.stream_handle(coeffs.device)
-    groups = level_groups(n, m, level)[::-1]
+    groups = inverse_level_groups(n, m, level)[::-1]
     scratch = [torch.empty((b, n), dtype=torch.float32, device=coeffs.device)
                for _ in range(min(len(groups) - 1, 2))]
     # V_J is row `level` of the coefficients; later groups read f32 scratch

@@ -57,6 +57,11 @@ K3_THREADS = 1024
 K4_THREADS = 512
 K4_MAX_ROWS_PER_BLOCK = 8
 K5_THREADS = 512
+#: K5's plan (``csrc/pyramid.cu`` kK5MaxRows, kK5Pairs): at most 8 rows a
+#: block, rb*n <= 16384 staged floats (64 KB), 8 output pairs a thread per level
+K5_MAX_ROWS_PER_BLOCK = 8
+K5_ROW_FLOATS = 16384
+K5_PAIRS = 8
 
 
 def reset_launch_counts():
@@ -271,10 +276,22 @@ def pyramid_rows_transposed(x: torch.Tensor, dec_lo, dec_hi, levels: int,
     return _PyramidRowsT.apply(x, dec_lo, dec_hi, levels, gain)
 
 
-#: Rows a K5 block stages. K5 keeps K4's shared-memory layout (rb rows of
-#: n+1 floats, its approximations in n/2 + n/4 floats, the taps; the level
-#: details are read from device memory, not staged), so the same rows fit.
-k5_rows_per_block = k4_rows_per_block
+def k5_rows_per_block(n: int) -> int:
+    """Rows a K5 block stages: the most (up to 8) whose rb*n floats stay
+    within ``K5_ROW_FLOATS``, so that three blocks share an SM and a level's
+    rb*n/4 output pairs fit ``K5_PAIRS`` pairs of registers of each of
+    ``K5_THREADS`` threads; 0 when one row is longer than that. Positive wherever
+    :func:`k4_rows_per_block` is, as K5 is K4's backward."""
+    if n > K5_ROW_FLOATS:
+        return 0
+    return min(K5_MAX_ROWS_PER_BLOCK, K5_ROW_FLOATS // n)
+
+
+def k5_smem_bytes(n: int, rb: int) -> int:
+    """Shared bytes of a K5 block (``csrc/pyramid.cu``): the taps, the
+    mbarrier padded to 16 bytes, and the rb staged rows at a stride of n + 4
+    floats."""
+    return 4 * (2 * MAX_TAPS + 4 + rb * (n + 4))
 
 
 def _k5(y: torch.Tensor, rec_lo, rec_hi, recon_gain: float, levels: int) -> torch.Tensor:

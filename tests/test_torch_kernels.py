@@ -50,6 +50,14 @@ def _rel_err(got, ref):
     ((4, 8192), "Haar", 13, torch.float32),
     ((2, 20000), "Discrete Meyer", 10, torch.float32),
     ((64, 65536), "db4", 5, torch.bfloat16),
+    ((3, 5000), "db4", 6, torch.float32),            # a ragged last tile whose segment wraps
+    ((2, 100), "Discrete Meyer", 6, torch.float32),  # halo 3843 > N: 40 pieces a segment
+    ((2, 100), "Discrete Meyer", 6, torch.bfloat16),
+    ((3, 4099), "db4", 4, torch.float32),            # unaligned N: plain-loaded piece edges
+    ((8, 777), "db4", 9, torch.bfloat16),
+    ((5, 1001), "sym8", 7, torch.bfloat16),
+    ((4, 8192), "Haar", 13, torch.bfloat16),         # five K2 groups over f32 scratch
+    ((2, 65536), "db4", 13, torch.float32),          # K2 groups staged and unstaged
 ])
 def test_k1_k2_match_plain(cuda, shape, wavelet, level, dtype):
     g0, h0 = _modwt_base_filters(wavelet)
@@ -210,6 +218,12 @@ def test_k4_gain_matches_plain(cuda, wavelet, shape, levels, gain):
     ((2048, 2048), "db4", 6), ((512, 1024), "Haar", 3), ((64, 16384), "sym8", 4),
     ((256, 1024), "Battle 23", 8), ((64, 64), "Haar orthogonal", 6), ((16384, 64), "db4", 3),
     ((128, 256), "db4", 0),
+    ((100, 2048), "db4", 6),            # a ragged last block of 4 rows (16-byte stores)
+    ((37, 512), "sym8", 5),             # rows not a multiple of 4: scalar stores
+    ((64, 2), "Haar", 1),               # rows of 2: staged by plain loads
+    ((64, 4), "Haar", 2),               # rows of 4: one 16-byte row a copy
+    ((8, 16384), "db4", 6),             # one row a block
+    ((40000, 16), "Haar", 4),           # 5000 row blocks, more than fit the card at once
 ])
 def test_k5_matches_plain(cuda, shape, wavelet, level):
     fb = jt.get_filter(wavelet)
@@ -224,6 +238,8 @@ def test_k5_matches_plain(cuda, shape, wavelet, level):
     assert tuple(got.shape) == (shape[1], shape[0])
     assert _rel_err(got, ref) <= F32_BOUND
     assert cuda_pyramid.launch_counts["ipyramid_rows_transposed"] == before + 1
+    if shape[0] & (shape[0] - 1):
+        return  # fwt2d and ifwt2d take power-of-two extents only
     x = torch.as_tensor(np.random.default_rng(6).standard_normal(shape), dtype=torch.float32,
                         device=cuda)
     lr = min(level, shape[0].bit_length() - 1)
@@ -290,20 +306,58 @@ def test_ssq_and_ifwt2d_route_through_k5_k6(cuda):
 # on any machine
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("n,m,level,want", [
-    (65536, 8, 5, [(1, 5, True)]),
-    (8192, 2, 13, [(1, 12, True), (13, 13, True)]),
-    (20000, 62, 10, [(1, 6, True), (7, 7, True), (8, 8, False), (9, 9, False),
-                     (10, 10, False)]),
-    (256, 62, 5, [(1, 5, True)]),
+@pytest.mark.parametrize("n,m,level,k1,k2", [
+    (65536, 8, 5, [(1, 5, True)], [(1, 5, True)]),
+    (8192, 2, 13, [(1, 12, True), (13, 13, True)],
+     [(1, 6, True), (7, 10, True), (11, 11, True), (12, 12, True), (13, 13, True)]),
+    (20000, 62, 10, [(1, 6, True), (7, 7, True), (8, 8, False), (9, 9, False), (10, 10, False)],
+     [(1, 4, True), (5, 6, True), (7, 7, True), (8, 8, False), (9, 9, False), (10, 10, False)]),
+    (256, 62, 5, [(1, 5, True)], [(1, 5, True)]),
+    (777, 8, 9, [(1, 9, True)], [(1, 8, True), (9, 9, True)]),
+    (65536, 8, 13, [(1, 9, True), (10, 10, True), (11, 11, False), (12, 12, False),
+                    (13, 13, False)],
+     [(1, 5, True), (6, 8, True), (9, 9, True), (10, 10, True), (11, 11, False),
+      (12, 12, False), (13, 13, False)]),
 ])
-def test_level_groups(n, m, level, want):
-    groups = cuda_modwt.level_groups(n, m, level)
-    assert groups == want
+def test_level_groups(n, m, level, k1, k2):
+    """K1's plan (two buffers of BUF_FLOATS) and K2's (every segment of a
+    group prefetched, within K2_SMEM_BYTES): both cover levels 1..level in
+    order, every staged group fits 227 KB (K2's three to an SM), a level
+    runs unstaged only when it does not fit alone, and each group's segment
+    is the tile and its halo."""
+    assert list(cuda_modwt.level_groups(n, m, level)) == k1
+    assert list(cuda_modwt.inverse_level_groups(n, m, level)) == k2
     tl = min(cuda_modwt.TILE, n)
-    for j0, j1, staged in groups:
+    for groups in (k1, k2):
+        assert [j for j0, j1, _ in groups for j in range(j0, j1 + 1)] == list(range(1, level + 1))
+    for j0, j1, staged in k1:
         if staged:
             assert tl + (m - 1) * ((1 << j1) - (1 << (j0 - 1))) <= cuda_modwt.BUF_FLOATS
+            assert 4 * (2 * cuda_modwt.MAX_TAPS + 2 * cuda_modwt.BUF_FLOATS) <= 227 * 1024
+    for j0, j1, staged in k2:
+        f32 = cuda_modwt.k2_smem_bytes(tl, m, j0, j1)
+        if not staged:
+            assert f32 > cuda_modwt.K2_SMEM_BYTES
+            continue
+        assert f32 <= cuda_modwt.K2_SMEM_BYTES and 3 * (f32 + 1024) <= 228 * 1024
+        assert cuda_modwt.k2_smem_bytes(tl, m, j0, j1, 2, 2) < f32
+        length = cuda_modwt.segment_length(tl, m, j0, j1)
+        assert length == tl + (m - 1) * ((1 << j1) - (1 << (j0 - 1)))
+
+
+@pytest.mark.parametrize("tl,m,j0,j1,itemsize_v,itemsize_c,want", [
+    (2048, 8, 1, 5, 4, 4, 69568),  # the main path: db4 L5, f32
+    (2048, 8, 1, 5, 2, 2, 43760),  # bf16 storage
+    (2048, 8, 1, 5, 4, 2, 48288),  # bf16 W segments over an f32 scratch V
+    (2048, 2, 1, 1, 4, 4, 25248),  # one level: one f32 V buffer
+    (2048, 8, 6, 8, 4, 4, 71296),  # a later group: its halo starts at 2^(j0-1)
+    (777, 8, 1, 8, 4, 4, 63216),   # a short row: segments rounded up to 16 bytes
+])
+def test_k2_smem_bytes(tl, m, j0, j1, itemsize_v, itemsize_c, want):
+    """K2's shared bytes (``csrc/modwt.cu`` inv_layout), worked out by hand:
+    640 bytes of taps and mbarriers, the V_j1 segment, the W_j1..W_j0
+    segments and the f32 V buffers, each rounded up to 16 bytes."""
+    assert cuda_modwt.k2_smem_bytes(tl, m, j0, j1, itemsize_v, itemsize_c) == want
 
 
 def test_k4_rows_per_block():
@@ -313,13 +367,21 @@ def test_k4_rows_per_block():
 
 
 def test_k5_rows_per_block():
-    """rb rows of n+1 floats, the n/2 + n/4 buffers and the taps in 227 KB."""
+    """rb staged rows of n floats within K5_ROW_FLOATS: three blocks share an
+    SM, a level's rb*n/4 output pairs fit K5_PAIRS register pairs a thread, and
+    K5 (K4's backward) takes every row length K4 takes."""
     assert cuda_pyramid.k5_rows_per_block(2048) == 8
-    assert cuda_pyramid.k5_rows_per_block(16384) == 2
+    assert cuda_pyramid.k5_rows_per_block(16384) == 1
     assert cuda_pyramid.k5_rows_per_block(32768) == 0
-    for n in (2, 64, 2048, 16384):
+    for n in (1 << e for e in range(17)):
         rb = cuda_pyramid.k5_rows_per_block(n)
-        assert 4 * (2 * cuda_pyramid.MAX_TAPS + rb * (n + 1) + n // 2 + n // 4) <= 227 * 1024
+        assert (rb > 0) == (n <= cuda_pyramid.K5_ROW_FLOATS)
+        assert rb > 0 or cuda_pyramid.k4_rows_per_block(n) == 0
+        if rb:
+            smem = cuda_pyramid.k5_smem_bytes(n, rb)
+            assert smem <= 227 * 1024 and 3 * (smem + 1024) <= 228 * 1024
+            assert rb * (n // 4) <= cuda_pyramid.K5_PAIRS * cuda_pyramid.K5_THREADS
+            assert rb <= cuda_pyramid.K5_MAX_ROWS_PER_BLOCK
 
 
 def _jax_or_skip():
