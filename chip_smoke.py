@@ -14,7 +14,8 @@ it happened; any failed check ends the run with a non-zero exit:
    (K6 at the main shape on the contributions and bin indices of a real
    ssq_cwt of the main signal).
 4. main paths, each with the launch counts set to 0 just before it and read
-   just after, all through the public entry points with device="cuda":
+   just after, all through the public entry points (numpy input goes to the
+   card by default, tensors are made there):
    a. MODWT + FWT: modwt -> imodwt (db4 L5, 64 x 65536 f32) and the FWT
       facade forward/reverse on 64 x 65536 rows and a 2048 x 2048 image
       (fwt2d as K4 x2, ifwt2d as K5 x2); small inputs against the numpy
@@ -48,19 +49,22 @@ it happened; any failed check ends the run with a non-zero exit:
 5. times: CUDA events, median of 25 runs after warm-up with the L2 cache
    flushed before each and a GPU spin that hides the host's launch time
    (device time; each also once without the spin, as wall time), kernel
-   beside its plain version and, for K1, K2,
-   K4, K5 and K6, beside one PyTorch call that computes the same function
-   (conv1d, matmul with the dense pass operator, scatter_add_; checked
-   against the plain version first, never called by the port); for context
-   also the torch FFT path of the MODWT (cuFFT) and the separable ifwt2d
-   path, which are not kernels of this package; the entry step's gradient,
-   fwt2d's gradient (backward K5 x2), the analysis calls and each call of 4g.
+   beside its plain version and beside one PyTorch call that computes the
+   same function (conv1d, matmul with the dense operator of a K3 row or a
+   K4/K5 pass, scatter_add_; checked against the plain version first, never
+   called by the port); a byte floor for K1, K2, K4 and K5 (the same bytes
+   moved by one torch call, or by K4/K5 with no level); for context also
+   the torch FFT path of the MODWT (cuFFT) and the separable ifwt2d path,
+   which are not kernels of this package; the entry step's gradient,
+   fwt2d's gradient (backward K5 x2), ifwt2d's gradient (backward K4 x2),
+   the analysis calls and each call of 4g.
 
 The second line from the end is a JSON object listing each kernel with its
 launches on its path and on the main path (4a), its error, its time beside
-its plain version's, the library call's and its bound (bytes over 3.35 TB/s
-or FLOPs over 67 TFLOP/s, the larger), and its backward route with that
-route's error; the last line is {"ok": true, "device": {...}}.
+its plain version's, the library call's, its byte floor and its bound
+(bytes over 3.35 TB/s or FLOPs over 67 TFLOP/s, the larger), and its
+backward route with that route's error; the last line is
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -156,7 +160,7 @@ def main() -> int:
     errors["K1"], errors["K2"] = modwt_case("64x65536 db4 L5", (64, 65536), "db4", 5)
     modwt_case("8x777 db4 L9", (8, 777), "db4", 9)
     modwt_case("4x256 dmey L5 (halo > N)", (4, 256), "Discrete Meyer", 5)
-    modwt_case("4x8192 Haar L13 (two level groups)", (4, 8192), "Haar", 13)
+    modwt_case("4x8192 Haar L13 (K1: three level groups, K2: five)", (4, 8192), "Haar", 13)
     modwt_case("2x20000 dmey L10 (unstaged deep levels)", (2, 20000), "Discrete Meyer", 10)
     modwt_case("64x65536 db4 L5 bf16", (64, 65536), "db4", 5, torch.bfloat16)
     modwt_case("3x5000 db4 L6 (a ragged last tile that wraps)", (3, 5000), "db4", 6)
@@ -197,6 +201,20 @@ def main() -> int:
 
     errors["K4"] = fwt2d_case("2048x2048 db4 L6", (2048, 2048), "db4", 6)
     fwt2d_case("512x1024 Haar L3", (512, 1024), "Haar", 3)
+    for label, shape, wavelet, level, gain, offset in (
+            ("13x1024 sym8 L6 (a ragged last block of 5 rows)", (13, 1024), "sym8", 6, 1.0, 0),
+            ("64x2 Haar L1 (rows of 2: plain-loaded)", (64, 2), "Haar", 1, 1.0, 0),
+            ("32x1024 db4 L5 (a source 4 bytes off 16-byte alignment)", (32, 1024), "db4", 5,
+             1.0, 1),
+            ("16x16384 Haar orthogonal L14, gain 0.5 (one row a block)", (16, 16384),
+             "Haar orthogonal", 14, 0.5, 0)):
+        fb = jt.get_filter(wavelet)
+        xo = torch.empty(shape[0] * shape[1] + offset, device=dev)[offset:].view(shape)
+        xo.copy_(signal(shape))
+        got = cuda_pyramid.pyramid_rows_transposed(xo, fb.dec_lo, fb.dec_hi, level, gain)
+        torch.cuda.synchronize()
+        compare(f"K4 pass {label}", got, cuda_pyramid.pyramid_rows_transposed_torch(
+            xo.double(), fb.dec_lo, fb.dec_hi, level, gain), F32_BOUND)
 
     def ifwt2d_case(label, shape, wavelet, level):
         fb = jt.get_filter(wavelet)
@@ -298,8 +316,8 @@ def main() -> int:
     x = torch.as_tensor(x64, device=dev)
     coeffs = jt.modwt(x, "Daubechies 4", 5)
     xr = jt.imodwt(coeffs, "Daubechies 4")
-    fwt_t = jt.TransformBuilder.create("Fast Wavelet Transform", "db4", device="cuda")
-    rows_c = fwt_t.get_basic_transform().forward(x64)      # numpy rows -> device="cuda"
+    fwt_t = jt.TransformBuilder.create("Fast Wavelet Transform", "db4")
+    rows_c = fwt_t.get_basic_transform().forward(x64)      # numpy rows -> "cuda" by default
     rows_back = fwt_t.get_basic_transform().reverse(rows_c)
     img_c = fwt_t.forward(img)                              # 2D dispatch -> fwt2d
     img_back = fwt_t.reverse(img_c)
@@ -369,7 +387,7 @@ def main() -> int:
     idx, ridge_f = jt.extract_ridge(ridge_res, n_ridges=2, tube_width=3)
     tube = jt.ridge_tube_mask(ridge_res, idx[0], tube_width=4)
     mode = jt.issq_cwt(ridge_res, morlet, band=tube)
-    cwt_t = jt.TransformBuilder.create("Continuous Wavelet Transform", "morlet", device="cuda")
+    cwt_t = jt.TransformBuilder.create("Continuous Wavelet Transform", "morlet")
     scal = cwt_t.get_basic_transform().transform_fft(xs_np, ssq_scales, ssq_fs)
     small = np.random.default_rng(6).standard_normal((2, 1000)).astype(np.float32)
     direct = cwt_t.get_basic_transform().transform(small, [2.0, 5.0, 13.0, 40.0], 1.0)
@@ -791,11 +809,12 @@ def main() -> int:
     # equivalent level filters (the cascade's response to an impulse, 218
     # taps, flipped: conv1d correlates) as output channels. K2, the adjoint:
     # conv1d of the coefficients padded by 217 on the right, J+1 input
-    # channels, one output. K4/K5: one matmul with the dense 2048x2048 pass
-    # operator (the plain version run on the identity in float64, then cast).
-    # K6: its plain one-scatter_add_ route. K3: none (null): a 65536-sample
-    # row's dense operator would take 17 GB, and no single call computes a
-    # multi-level pyramid.
+    # channels, one output. K3: one matmul with the dense operator of a
+    # 65536-sample row's pyramid (65536^2 f32, 17.2 GB), whose row i is the
+    # plain version run on e_i in float64, built 1024 rows at a time. K4/K5:
+    # one matmul with the dense 2048x2048 pass operator (the plain version
+    # run on the identity in float64, then cast). K6: its plain
+    # one-scatter_add_ route.
     pad = 7 * (2**5 - 1)
     delta = torch.zeros((1, 1024), dtype=torch.float64, device=dev)
     delta[0, 0] = 1.0
@@ -808,10 +827,21 @@ def main() -> int:
     op_k4 = cuda_pyramid.pyramid_rows_torch(eye, lo, hi, 6).t().float().contiguous()
     op_k5 = cuda_pyramid.ipyramid_rows_torch(eye, rlo, rhi, 1.0, 6).t().float().contiguous()
     del eye, delta
+    t_op = time.perf_counter()
+    op_k3 = torch.empty((65536, 65536), dtype=torch.float32, device=dev)
+    for i0 in range(0, 65536, 1024):
+        e_blk = torch.zeros((1024, 65536), dtype=torch.float64, device=dev)
+        e_blk.diagonal(i0).fill_(1.0)
+        op_k3[i0:i0 + 1024] = cuda_pyramid.pyramid_rows_torch(e_blk, lo, hi, done8).float()
+    del e_blk
+    torch.cuda.synchronize()
+    print(json.dumps({"built": "K3's dense 65536^2 operator", "gb": op_k3.numel() * 4 / 1e9,
+                      "s": time.perf_counter() - t_op}), flush=True)
     conv1d = torch.nn.functional.conv1d
     library = {
         "K1": lambda: conv1d(x_pad, w_k1),
         "K2": lambda: conv1d(c_pad, w_k2).squeeze(1),
+        "K3": lambda: torch.matmul(x, op_k3),
         "K4": lambda: torch.matmul(op_k4, ximg.t()),
         "K5": lambda: torch.matmul(op_k5, ximg.t()),
         "K6": lambda: cuda_reassign.reassign_torch(contrib, k_idx, 64),
@@ -819,6 +849,7 @@ def main() -> int:
     lib_refs = {
         "K1": lambda: cuda_modwt.modwt_cascade_torch(x.double(), g0, h0, 5),
         "K2": lambda: cuda_modwt.imodwt_cascade_torch(c32.double(), g0, h0),
+        "K3": lambda: cuda_pyramid.pyramid_rows_torch(x.double(), lo, hi, done8),
         "K4": lambda: cuda_pyramid.pyramid_rows_transposed_torch(ximg.double(), lo, hi, 6),
         "K5": lambda: cuda_pyramid.ipyramid_rows_transposed_torch(ximg.double(), rlo, rhi, 1.0, 6),
         "K6": lambda: cuda_reassign.reassign_torch(contrib.to(torch.complex128), k_idx, 64),
@@ -839,8 +870,8 @@ def main() -> int:
         "K1+K2": pair(lambda: jt.imodwt(jt.modwt(x, "Daubechies 4", 5), "Daubechies 4"),
                       lambda: cuda_modwt.imodwt_cascade_torch(
                           cuda_modwt.modwt_cascade_torch(x, g0, h0, 5), g0, h0)),
-        "K3": pair(lambda: cuda_pyramid.pyramid_rows(x, lo, hi, done8),
-                   lambda: cuda_pyramid.pyramid_rows_torch(x, lo, hi, done8)),
+        "K3": turns(lambda: cuda_pyramid.pyramid_rows(x, lo, hi, done8),
+                    lambda: cuda_pyramid.pyramid_rows_torch(x, lo, hi, done8), library["K3"]),
         "K4": turns(lambda: cuda_pyramid.pyramid_rows_transposed(ximg, lo, hi, 6),
                     lambda: cuda_pyramid.pyramid_rows_transposed_torch(ximg, lo, hi, 6),
                     library["K4"]),
@@ -859,7 +890,8 @@ def main() -> int:
         "ssq_cwt": pair(lambda: jt.ssq_cwt(xs, ssq_scales, morlet, ssq_fs),
                         lambda: jt.ssq_cwt(xs, ssq_scales, morlet, ssq_fs, reassign="scatter")),
     }
-    del x_pad, c_pad, op_k4, op_k5
+    del x_pad, c_pad, op_k3, op_k4, op_k5
+    torch.cuda.empty_cache()
     shapes = {"K1": ("modwt db4 L5 64x65536", 64 * 65536, "Msamples_per_s"),
               "K2": ("imodwt db4 L5 64x65536", 64 * 65536, "Msamples_per_s"),
               "K1+K2": ("modwt+imodwt db4 L5 64x65536 (entry step)", 64 * 65536, "Msamples_per_s"),
@@ -878,19 +910,31 @@ def main() -> int:
     print(json.dumps({"time": "modwt+imodwt torch FFT path (cuFFT, for context)",
                       "shape": "db4 L5 64x65536", "ms": fft_ms,
                       "Msamples_per_s": 64 * 65536 / fft_ms / 1e3, "card": card}), flush=True)
-    # floors for K2 and K5 (device time): the same bytes moved without their
-    # arithmetic, by K5 itself with no level and by one-call torch copies
-    for label, shape, fn in (
-            ("K5 pass with 0 levels (staging and transposed store only)", "2048x2048",
+    # byte floors for K1, K2, K4 and K5 (device time): the same bytes moved
+    # without their arithmetic, by K4/K5 themselves with no level and by
+    # one-call torch copies and reductions
+    floors = {}
+    k1_out = torch.empty_like(c32)
+    for k, label, shape, fn in (
+            ("K1", "six copies of each input row (expand(-1, 6, -1).contiguous()), the bytes "
+             "of K1", "64x65536 -> 64x6x65536",
+             lambda: x.unsqueeze(1).expand(-1, 6, -1).contiguous()),
+            ("K2", "sum over the 6 rows of the coefficients, the bytes of K2", "64x6x65536",
+             lambda: c32.sum(1)),
+            ("K4", "K4 pass with 0 levels (staging and transposed store only)", "2048x2048",
+             lambda: cuda_pyramid.pyramid_rows_transposed(ximg, lo, hi, 0)),
+            ("K5", "K5 pass with 0 levels (staging and transposed store only)", "2048x2048",
              lambda: cuda_pyramid.ipyramid_rows_transposed(ximg, rlo, rhi, 1.0, 0)),
-            ("copy of the image (clone), the bytes of one K5 pass", "2048x2048",
+            (None, "fill_ of a 64x6x65536 tensor, K1's output bytes written alone",
+             "64x6x65536", lambda: k1_out.fill_(1.0)),
+            (None, "copy of the image (clone), the bytes of one K4 or K5 pass", "2048x2048",
              lambda: ximg.clone()),
-            ("transposed copy of the image (t().contiguous())", "2048x2048",
-             lambda: ximg.t().contiguous()),
-            ("sum over the 6 rows of the coefficients, the bytes of K2", "64x6x65536",
-             lambda: c32.sum(1))):
-        print(json.dumps({"time": label, "shape": shape, "ms": median_ms(fn, device=True),
-                          "card": card}), flush=True)
+            (None, "transposed copy of the image (t().contiguous())", "2048x2048",
+             lambda: ximg.t().contiguous())):
+        ms = median_ms(fn, device=True)
+        if k:
+            floors[k] = ms
+        print(json.dumps({"time": label, "shape": shape, "ms": ms, "card": card}), flush=True)
     sep_ms = median_ms(lambda: ndim.reverse_2d(lambda v, lvl: jt.ifwt(v, "db4", lvl), ximg, 6, 6))
     dense_ms = median_ms(lambda: cuda_reassign.reassign_dense_torch(contrib, k_idx, 64))
     for label, shape, ms in (
@@ -925,6 +969,13 @@ def main() -> int:
     shapes["fwt2d grad"] = ("grad of (fwt2d(x) * w).sum(), db4 L6 2048x2048, backward K5 x2 "
                             "(plain = autograd of the plain versions)", 2048 * 2048,
                             "Mpix_per_s")
+    # ifwt2d's gradient: forward K5 x2, backward K4 x2
+    timing["ifwt2d grad"] = pair(
+        lambda: torch.autograd.grad((jt.ifwt2d(ximg_g, "db4", 6, 6) * w_img).sum(), ximg_g),
+        lambda: torch.autograd.grad((k5x2_plain(ximg_g, fb4, 6) * w_img).sum(), ximg_g))
+    shapes["ifwt2d grad"] = ("grad of (ifwt2d(x) * w).sum(), db4 L6 2048x2048, backward K4 x2 "
+                             "(plain = autograd of the plain versions)", 2048 * 2048,
+                             "Mpix_per_s")
     st_t = sl.init(stream[:, :wlen])
     chunk = stream[:, wlen:wlen + step]
     xbench = torch.as_tensor(np.random.default_rng(25).standard_normal((8, 65536)),
@@ -998,7 +1049,7 @@ def main() -> int:
                         "ms": timing[k][0], "plain_ms": timing[k][1],
                         "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
                         "share_of_bound": bounds[k][0] / timing[k][0],
-                        "library_ms": timing[k][2],
+                        "library_ms": timing[k][2], "floor_ms": floors.get(k),
                         "backward": {"route": backward[k][0], "max_abs_err": backward[k][1]}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

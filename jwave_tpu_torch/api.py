@@ -6,7 +6,8 @@ Wavelet Transform.
 
 Any leading axes of an input are batch axes. A tensor is computed on the
 device where it lies; any other input (numpy, lists) becomes a tensor on the
-facade's ``device``, the CPU unless one is given. Errors raise.
+facade's ``device``, the card ("cuda") unless one is given: a caller asks for
+the CPU with CPU tensors or ``device="cpu"``. Errors raise.
 """
 from __future__ import annotations
 
@@ -48,7 +49,7 @@ class BasicTransform:
     name = "Basic Transform"
 
     def __init__(self, device=None):
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self.device = torch.device(device if device is not None else "cuda")
 
     def _in(self, x) -> torch.Tensor:
         return as_tensor(x, self.device)
@@ -342,7 +343,7 @@ class TransformBuilder:
 
     @classmethod
     def create(cls, transform_name: str, wavelet=None, device=None, **kwargs) -> Transform:
-        """``device`` receives non-tensor inputs (the CPU by default). The
+        """``device`` receives non-tensor inputs ("cuda" by default). The
         wavelet defaults to Haar, and to Morlet for the CWT."""
         key = str(transform_name).lower().strip()
         if key not in cls._NAMES:

@@ -1,11 +1,12 @@
-// Asynchronous global -> shared copies for Hopper (sm_90a): one-shot bulk
-// copies (cp.async.bulk, the TMA's raw-bytes form) that complete on an
-// mbarrier in shared memory. Used by K2 (modwt.cu) and K5 (pyramid.cu).
+// Asynchronous bulk copies for Hopper (sm_90a), the TMA's raw-bytes form
+// (cp.async.bulk): global -> shared copies that complete on an mbarrier in
+// shared memory (K1, K2 in modwt.cu; K4, K5 in pyramid.cu), and shared ->
+// global stores that complete in bulk groups of the issuing thread (K1).
 //
 // A bulk copy needs its global and shared addresses 16-byte aligned and a
 // size that is a multiple of 16 bytes; the callers copy what falls outside
 // that (a ragged head or tail, a piece whose two addresses disagree mod 16)
-// with plain loads, which a __syncthreads() publishes.
+// with plain loads or stores, which a __syncthreads() publishes.
 #pragma once
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -53,6 +54,33 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t b
           smem_addr(dst)),
       "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
+}
+
+// Make this thread's plain writes to shared memory visible to the bulk
+// copies (the async proxy): every writing thread runs it, then a
+// __syncthreads(), before one thread starts a bulk store of that memory.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Store `bytes` (a multiple of 16, both addresses 16-byte aligned) from
+// shared `src` to global `dst`, in the issuing thread's current bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(smem_addr(src)), "r"(bytes)
+               : "memory");
+}
+
+// Close the issuing thread's current bulk group of stores.
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of the issuing thread's bulk groups still read their
+// shared sources: the shared memory of the others may be written again.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
 }
 
 }  // namespace jw

@@ -17,17 +17,55 @@
 // row. The Pallas kernel's pair-tile matmuls exist for the TPU's MXU; here
 // the butterfly is a direct FMA loop.
 //
-// Design: level 1 reads the row straight from device memory (a 64x65536 f32
-// batch is 16 MB and stays in the 50 MB L2); its approximation, half the row,
-// lives in shared memory, and every later level ping-pongs between two
-// shared buffers of h0/2 and h0/4 floats, so device memory sees one read of
-// the row and one write of each output element. Details are stored as soon
-// as they are computed. h0 <= 65536 fits (192 KB); longer rows are first cut
-// down by single-level launches of K3 whose approximation goes to a scratch
-// row. K4 stages the finished rows of a block of `rb` rows in shared memory
-// (row stride n+1 against bank conflicts) and writes them transposed, so each
-// output column takes rb contiguous floats instead of one float per line.
-// K3 and K4 share the device routine `pyramid_row` and differ in the store.
+// K3's design: one block a row. Level 1 reads the row straight from device
+// memory (a 64x65536 f32 batch is 16 MB and stays in the 50 MB L2); its
+// approximation, half the row, lives in shared memory, and every later level
+// ping-pongs between two shared buffers of h0/2 and h0/4 floats, so device
+// memory sees one read of the row and one write of each output element.
+// Details are stored as soon as they are computed. h0 <= 65536 fits (192 KB);
+// longer rows are first cut down by single-level launches of K3 whose
+// approximation goes to a scratch row.
+//
+// K4 and K5 stage a block of rb rows in shared memory and store it
+// transposed; they share the staging (stage_rows) and the transposed store
+// of staged rows (store_columns):
+//  - a block's rb rows are staged by bulk copies (TMA, cp.async.bulk on one
+//    mbarrier, one a row, at a stride of n + 4 floats) started at the
+//    block's start, before any arithmetic; no level reads device memory.
+//    Rows that are not 16-byte aligned (n < 4, an offset source) are staged
+//    by plain loads in the same kernel;
+//  - levels run outside, rows inside: one level's outputs for all rb rows
+//    are spread over all threads, so one barrier covers rb rows and the
+//    coarse levels still keep the block busy;
+//  - output column k takes the rb rows as rb contiguous floats, written 16
+//    bytes a thread by neighbouring threads, so a warp store fills whole
+//    32-byte pieces of 16 columns (a thread writing all rb floats of its own
+//    column, 32 columns a warp store, was slower on this card); the row pad
+//    keeps the two threads of a column on different banks. A ragged last
+//    block or a row count that is not a multiple of 4 stores scalars;
+//  - one block a row block.
+//
+// K4. The first version read level 1 tap by tap from device memory and ran
+// a block's 8 rows one after another, 48 barriers a block at db4 L6, with
+// most threads idle in the coarse levels. Here a thread takes a pair index
+// i of a 4-row part and makes (a, d) of each of the 4 rows from the samples
+// (2i .. 2i+M-1) mod h, read two at a time as float2 (conflict-free, half
+// the shared loads of stride-2 scalars), so the index arithmetic serves 4
+// rows. Level 1, the largest, stores its details straight from registers to
+// their columns of out (they are final), 16 bytes a thread as the
+// transposed store does, while the block computes; its approximations go to
+// a second buffer of rb rows of n/2 floats. Later levels read that buffer
+// or the free second half of the staged rows in turns, write d to its place
+// in the staged rows and a to the other buffer, so no level reads where it
+// writes: one barrier a level, and no output waits in registers. At the
+// end the transposed store takes the first n/2 columns. A block needs
+// rb*(3n/2 + 8) floats: two blocks an SM at 2048^2 (8 rows, 99 KB).
+// On the H100 (PERF.md, "NVIDIA H100 80GB HBM3, 700.00 W") one K4 pass at
+// 2048^2 db4 L6 takes 0.0295 ms (the first version 0.0479) against a bound
+// of 0.0100 (33.5 MB over 3.35 TB/s); K4 with no level, its staging and
+// store alone, takes 0.0206. Holding each level's outputs in registers
+// across a barrier and writing them back in place, as K5 does, took 0.042:
+// K4's largest level is its first, with twice K5's pairs to hold.
 //
 // K5 replaces jwave_tpu/ops/pallas_pyramid.py::_ipyramid_rows_kernel (driven
 // by _inv_axis_pass / ifwt2d_fused): the inverse pyramid of each row over
@@ -40,29 +78,13 @@
 // 10 us at 3.35 TB/s); the ~M FMAs per output are far below the f32 rate.
 // What held the first version to a tenth of that bound was latency: each
 // level read its details tap by tap from device memory, one row after
-// another, so a block waited out ~48 dependent load latencies, with most
-// threads idle in the coarse levels. The design here:
-//  - a block's rb rows are staged in shared memory by bulk copies (TMA,
-//    cp.async.bulk on one mbarrier, one a row, at a stride of n + 4 floats)
-//    started at the block's start, before any arithmetic; no level reads
-//    device memory;
-//  - levels run outside, rows inside: one level's rb*h outputs are spread
-//    over all threads, so one barrier covers rb rows and the coarse levels
-//    still keep the block busy. A thread takes output pairs (2c, 2c+1),
-//    which read the same samples a[c - t], d[c - t] with the even and the
-//    odd taps, so a sample read serves two outputs;
-//  - each level below the last computes in place: its outputs wait in
-//    registers across a barrier and then overwrite the head of the staged
-//    row (no ping-pong buffers), so a block needs only rb*(n + 4) floats;
-//  - the last level stores straight to (N, R): output column k takes the rb
-//    rows as rb contiguous floats, written 16 bytes a thread by neighbouring
-//    threads, so a warp store fills whole 32-byte pieces of 16 columns (a
-//    thread writing all rb floats of its own column, 32 columns a warp
-//    store, was slower on this card); the row pad keeps the two threads of
-//    a column on different banks;
-//  - one block a row block. Rows that are not 16-byte aligned (n < 4, an
-//    offset source) are staged by plain loads, and a ragged last block or a
-//    row count that is not a multiple of 4 stores scalars, in the same kernel.
+// another. K5 stages as K4 does and runs each level below the last in
+// place: a thread takes output pairs (2c, 2c+1), which read the same
+// samples a[c - t], d[c - t] with the even and the odd taps, so a sample
+// read serves two outputs; the outputs wait in registers across a barrier
+// and then overwrite the head of the staged row (no second buffer: rb*(n +
+// 4) floats a block). Its last level, the largest, stores straight to
+// (N, R), 16 bytes a thread as store_columns does.
 // At 2048^2 all 256 blocks of 8 rows are resident at once (two an SM by
 // registers), so the copies, the levels and the stores run as three phases
 // with little overlap; staging and storing alone (levels = 0) take longer
@@ -141,15 +163,12 @@ struct RowStore {
   }
 };
 
-struct SmemStore {
-  float* row;
-  __device__ void operator()(int idx, float v) const { row[idx] = v; }
-};
-
+// The taps into shared lo[0, kMaxTaps), hi[0, kMaxTaps), zero past m (K4
+// reads taps in pairs).
 __device__ void load_taps(const float* taps, int m, float* lo, float* hi) {
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
-    lo[i] = taps[i];
-    hi[i] = taps[m + i];
+  for (int i = threadIdx.x; i < kMaxTaps; i += blockDim.x) {
+    lo[i] = i < m ? taps[i] : 0.f;
+    hi[i] = i < m ? taps[m + i] : 0.f;
   }
   __syncthreads();
 }
@@ -174,42 +193,15 @@ pyramid_rows_kernel(const float* __restrict__ src, long long src_stride,
   pyramid_row(src + r * src_stride, h0, levels, lo, hi, m, 1.f, A, B, st);
 }
 
-// K4: one block per `rb` rows of (rows, n); output (n, rows) transposed.
-__global__ void __launch_bounds__(512)
-pyramid_rows_t_kernel(const float* __restrict__ src, float* __restrict__ out,
-                                      const float* __restrict__ taps, int rows, int n,
-                                      int levels, int m, int rb, float gain) {
-  extern __shared__ __align__(16) float smem[];
-  float* lo = smem;
-  float* hi = smem + kMaxTaps;
-  float* res = smem + 2 * kMaxTaps;          // rb rows of n+1 floats
-  float* A = res + (long long)rb * (n + 1);  // n/2
-  float* B = A + n / 2;                      // n/4
-  load_taps(taps, m, lo, hi);
-  const int r0 = blockIdx.x * rb;
-  const int nr = min(rb, rows - r0);
-  for (int rr = 0; rr < nr; ++rr) {
-    SmemStore st{res + rr * (n + 1)};
-    pyramid_row(src + (long long)(r0 + rr) * n, n, levels, lo, hi, m, gain, A, B, st);
-  }
-  __syncthreads();
-  const long long total = (long long)nr * n;
-  for (long long k = threadIdx.x; k < total; k += blockDim.x) {
-    const int rr = (int)(k % nr);
-    const long long c = k / nr;
-    out[c * rows + r0 + rr] = res[rr * (n + 1) + c];
-  }
-}
-
-// K5 limits, mirrored by ops/cuda_pyramid.py: at most kK5MaxRows rows per
-// block, and a level's nr*h/2 output pairs (h <= n/2) must fit kK5Pairs
+// K4 and K5 limits, mirrored by ops/cuda_pyramid.py: at most kMaxRows rows
+// per block; a K5 level's nr*h/2 output pairs (h <= n/2) must fit kK5Pairs
 // pairs of registers of each of the block's threads; the host keeps
 // rb*n <= 16384 floats.
-constexpr int kK5MaxRows = 8;
+constexpr int kMaxRows = 8;
 constexpr int kK5Pairs = 8;
 // shared floats before the staged rows: the taps, then the mbarrier padded
 // to 16 bytes so that the rows start 16-byte aligned
-constexpr int kK5Head = 2 * kMaxTaps + 4;
+constexpr int kRowsHead = 2 * kMaxTaps + 4;
 
 // min(cnt, 4) floats of one output column to o: one 16-byte store when the
 // caller vouches for alignment and a full block, else scalars
@@ -223,6 +215,123 @@ __device__ __forceinline__ void store4(float* o, const float* v, int cnt, bool v
   }
 }
 
+// Stage rows [0, nr) of y (rows of n floats) into S at a stride of ns floats:
+// one bulk copy a row on `bar` when `bulk` (n % 4 == 0 and y 16-byte
+// aligned), else plain loads. The caller has initialised `bar` and run a
+// __syncthreads() since; on return the rows are visible to every thread.
+__device__ void stage_rows(float* S, const float* y, int nr, int n, int ns, uint64_t* bar,
+                           bool bulk) {
+  if (bulk) {
+    if (threadIdx.x == 0) {
+      const uint32_t bytes = (uint32_t)n * sizeof(float);
+      jw::mbar_expect(bar, bytes * nr);
+      for (int rr = 0; rr < nr; ++rr) jw::bulk_copy(S + rr * ns, y + rr * n, bytes, bar);
+    }
+    jw::mbar_wait(bar, 0);
+  } else {
+    for (int i = threadIdx.x; i < nr * n; i += blockDim.x) S[i / n * ns + i % n] = y[i];
+    __syncthreads();
+  }
+}
+
+// The nr staged rows of S (stride ns) to columns r0 .. r0+nr-1 of out (n
+// rows of `rows` floats). Output column k takes the nr rows as nr contiguous
+// floats; a thread takes four of them (a quarter-row `part`), and the
+// threads of one column are neighbours, so one warp store writes whole
+// 32-byte pieces of few columns rather than 16 bytes of 32 columns.
+__device__ void store_columns(float* out, const float* S, int ns, int n, int nr, int rows,
+                              int r0, bool vec4) {
+  const int lg_parts = nr > 4 ? 1 : 0;  // 4-row parts of a column: 1 or 2
+  for (int idx = threadIdx.x; idx < n << lg_parts; idx += blockDim.x) {
+    const int k = idx >> lg_parts, r4 = 4 * (idx & lg_parts);
+    float col[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) col[q] = r4 + q < nr ? S[(r4 + q) * ns + k] : 0.f;
+    store4(out + (long long)k * rows + r0 + r4, col, nr - r4, vec4);
+  }
+}
+
+// K4: one block per `rb` rows of (rows, n); output (n, rows) transposed.
+// See the header for the design.
+__global__ void __launch_bounds__(512)
+pyramid_rows_t_kernel(const float* __restrict__ src, float* __restrict__ out,
+                      const float* __restrict__ taps, int rows, int n, int levels, int m,
+                      int rb, float gain) {
+  extern __shared__ __align__(16) float smem[];
+  float* lo = smem;
+  float* hi = smem + kMaxTaps;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + 2 * kMaxTaps);
+  float* S = smem + kRowsHead;  // nr staged rows of n floats at stride ns
+  const int ns = n + 4;         // 16 bytes of pad: row q and row q + 4 fall on other banks
+  float* A = S + rb * ns;       // level 1's approximations, rows of n/2 at stride na
+  const int na = n / 2 + 4;
+  const int r0 = blockIdx.x * rb;
+  const int nr = min(rb, rows - r0);
+  const int lg_parts = nr > 4 ? 1 : 0;  // 4-row parts of a column: 1 or 2
+  const bool vec4 = rb % 4 == 0 && rows % 4 == 0 && nr == rb &&
+                    (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  if (threadIdx.x == 0) jw::mbar_init(bar);
+  load_taps(taps, m, lo, hi);  // its __syncthreads also publishes the barrier
+  stage_rows(S, src + (long long)r0 * n, nr, n, ns, bar,
+             n % 4 == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0);
+  // Level l reads its head of h samples from P and writes d to S[h/2, h) and
+  // a to Q, never where it reads: level 1 reads the staged rows, stores its
+  // details (final) straight to their columns of out and its approximation
+  // to A; later levels read A or S[n/2, n), free since level 1, in turns,
+  // and the last writes a to the head of S. So each level needs one barrier
+  // and no output waits in registers. A thread takes pairs i of a 4-row
+  // part, (a, d) for each row from the same samples (2i .. 2i+M-1) mod h,
+  // read two at a time (2i and h are even, so a pair never straddles the
+  // wrap); the row parts share the index arithmetic.
+  const float* P = S;
+  int ps = ns;
+  for (int l = 0, h = n; l < levels; ++l, h >>= 1) {
+    const int half = h >> 1;
+    const bool last = l == levels - 1;
+    float* Q = last ? S : (l & 1) ? S + n / 2 : A;
+    const int qs = Q == A ? na : ns;
+    for (int idx = threadIdx.x; idx < half << lg_parts; idx += blockDim.x) {
+      const int i = idx >> lg_parts, r4 = 4 * (idx & lg_parts);
+      const float* row = P + r4 * ps;
+      float a[4] = {0.f, 0.f, 0.f, 0.f}, d[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int k = 0; k < m; k += 2) {
+        const int j = (2 * i + k) & (h - 1);
+        const float l0 = lo[k], l1 = lo[k + 1], h0 = hi[k], h1 = hi[k + 1];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          if (r4 + q < nr) {
+            const float2 v = *reinterpret_cast<const float2*>(row + q * ps + j);
+            a[q] = fmaf(l1, v.y, fmaf(l0, v.x, a[q]));
+            d[q] = fmaf(h1, v.y, fmaf(h0, v.x, d[q]));
+          }
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        a[q] *= gain;
+        d[q] *= gain;
+      }
+      if (l == 0) {
+        store4(out + (long long)(half + i) * rows + r0 + r4, d, nr - r4, vec4);
+        if (last) store4(out + (long long)i * rows + r0 + r4, a, nr - r4, vec4);
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (r4 + q < nr) {
+          if (l > 0) S[(r4 + q) * ns + half + i] = d[q];
+          if (l > 0 || !last) Q[(r4 + q) * qs + i] = a[q];
+        }
+      }
+    }
+    __syncthreads();
+    P = Q;
+    ps = qs;
+  }
+  // what is left: the head of S (n/2 columns) after two levels or more, the
+  // staged rows with none; one level stored everything
+  if (levels != 1) store_columns(out, S, ns, levels ? n / 2 : n, nr, rows, r0, vec4);
+}
+
 // K5: one block per `rb` rows of (rows, n); output (n, rows) transposed.
 // See the header for the design.
 __global__ void __launch_bounds__(512)
@@ -233,28 +342,18 @@ ipyramid_rows_t_kernel(const float* __restrict__ src, float* __restrict__ out,
   float* lo = smem;
   float* hi = smem + kMaxTaps;
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem + 2 * kMaxTaps);
-  float* S = smem + kK5Head;  // nr staged rows of n floats at stride ns
-  const int ns = n + 4;       // 16 bytes of pad: row q and row q + 4 fall on other banks
+  float* S = smem + kRowsHead;  // nr staged rows of n floats at stride ns
+  const int ns = n + 4;
   const int nthreads = blockDim.x;
-  const bool bulk = n % 4 == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0;
-  const bool vec = rb % 4 == 0 && rows % 4 == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
   const int half_n = n >> 1;
   const int r0 = blockIdx.x * rb;
   const int nr = min(rb, rows - r0);
-  const float* y = src + (long long)r0 * n;
+  const bool vec4 = rb % 4 == 0 && rows % 4 == 0 && nr == rb &&
+                    (reinterpret_cast<uintptr_t>(out) & 15) == 0;
   if (threadIdx.x == 0) jw::mbar_init(bar);
   load_taps(taps, m, lo, hi);  // its __syncthreads also publishes the barrier
-  if (bulk) {
-    if (threadIdx.x == 0) {
-      const uint32_t bytes = (uint32_t)n * sizeof(float);
-      jw::mbar_expect(bar, bytes * nr);
-      for (int rr = 0; rr < nr; ++rr) jw::bulk_copy(S + rr * ns, y + rr * n, bytes, bar);
-    }
-    jw::mbar_wait(bar, 0);
-  } else {
-    for (int i = threadIdx.x; i < nr * n; i += nthreads) S[i / n * ns + i % n] = y[i];
-    __syncthreads();
-  }
+  stage_rows(S, src + (long long)r0 * n, nr, n, ns, bar,
+             n % 4 == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0);
   // levels with head h < n, in place in S. A thread takes output pairs
   // (2c, 2c+1): the even output uses the even taps and the odd one the odd
   // taps, at the same samples a[c - t], d[c - t], so each sample read
@@ -293,21 +392,11 @@ ipyramid_rows_t_kernel(const float* __restrict__ src, float* __restrict__ out,
     }
     __syncthreads();
   }
-  // the last level (or, with levels == 0, the staged rows as they are).
-  // Output column k takes the nr rows as nr contiguous floats; a thread
-  // takes four of them (a quarter-row `part`), and the threads of one
-  // column are neighbours, so one warp store writes whole 32-byte pieces
-  // of few columns rather than 16 bytes of 32 columns.
+  // the last level straight to the columns of out, as store_columns stores
+  // (with levels == 0, the staged rows as they are)
   const int lg_parts = nr > 4 ? 1 : 0;  // 4-row parts of a column: 1 or 2
-  const bool vec4 = vec && nr == rb;
   if (levels == 0) {
-    for (int idx = threadIdx.x; idx < n << lg_parts; idx += nthreads) {
-      const int k = idx >> lg_parts, r4 = 4 * (idx & lg_parts);
-      float col[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) col[q] = r4 + q < nr ? S[(r4 + q) * ns + k] : 0.f;
-      store4(out + (long long)k * rows + r0 + r4, col, nr - r4, vec4);
-    }
+    store_columns(out, S, ns, n, nr, rows, r0, vec4);
   } else {
     for (int idx = threadIdx.x; idx < half_n << lg_parts; idx += nthreads) {
       const int c = idx >> lg_parts, r4 = 4 * (idx & lg_parts);  // the pair (2c, 2c+1)
@@ -362,8 +451,8 @@ int jw_pyramid_rows(const void* src, long long src_stride, void* out, long long 
 int jw_pyramid_rows_t(const void* src, void* out, const void* taps, int rows, int n,
                       int levels, int m, int rb, float gain, int threads, void* stream) {
   cudaGetLastError();
-  const long long floats = 2LL * kMaxTaps + (long long)rb * (n + 1) + n / 2 + n / 4;
-  const int smem = (int)(floats * sizeof(float));
+  if (rb < 1 || rb > kMaxRows) return (int)cudaErrorInvalidValue;
+  const int smem = (int)((kRowsHead + (long long)rb * (n + 4 + n / 2 + 4)) * sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(pyramid_rows_t_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -376,9 +465,9 @@ int jw_pyramid_rows_t(const void* src, void* out, const void* taps, int rows, in
 int jw_ipyramid_rows_t(const void* src, void* out, const void* taps, int rows, int n,
                        int levels, int m, int rb, float gain, int threads, void* stream) {
   cudaGetLastError();
-  if (rb < 1 || rb > kK5MaxRows || (long long)rb * (n / 4) > (long long)kK5Pairs * threads)
+  if (rb < 1 || rb > kMaxRows || (long long)rb * (n / 4) > (long long)kK5Pairs * threads)
     return (int)cudaErrorInvalidValue;
-  const int smem = (int)((kK5Head + (long long)rb * (n + 4)) * sizeof(float));
+  const int smem = (int)((kRowsHead + (long long)rb * (n + 4)) * sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(ipyramid_rows_t_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;

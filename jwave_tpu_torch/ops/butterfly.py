@@ -25,10 +25,11 @@ import torch.nn.functional as F
 
 def as_tensor(x, device=None) -> torch.Tensor:
     """A tensor stays where it lies; anything else becomes a tensor on
-    ``device`` (the CPU when none is given)."""
+    ``device``, the card ("cuda") unless one is given. A caller asks for the
+    CPU with a CPU tensor or ``device="cpu"``."""
     if isinstance(x, torch.Tensor):
         return x
-    return torch.as_tensor(np.asarray(x), device=device or "cpu")
+    return torch.as_tensor(np.asarray(x), device=device or "cuda")
 
 
 def ensure_float(x: torch.Tensor) -> torch.Tensor:

@@ -15,14 +15,16 @@ plain versions are public so that tests and ``chip_smoke.py`` can call them
 by name.
 
 Plans. Both kernels tile time by ``TILE`` outputs and split the levels
-into groups that pass V through f32 scratch rows. K1 stages a group's tile
-and halo in two buffers of ``BUF_FLOATS`` (:func:`level_groups`). K2
-prefetches the V segment and every W segment of a group at once, each in
-its own buffer (:func:`segment_length`, :func:`k2_smem_bytes`); its groups
-keep a block within ``K2_SMEM_BYTES`` (:func:`inverse_level_groups`). How a
-segment is cut into copies (where it wraps, where it is unaligned) is the
-kernel's own affair. The groups do not change the arithmetic (f32 in
-shared memory or in scratch alike), so K2 stays K1's exact adjoint.
+into groups that pass V through f32 scratch rows, each group's staged
+block within ``SMEM_BYTES``, a third of an SM. K1 stages a group's V
+segment (the tile and its halo, :func:`segment_length`), two f32 V buffers
+and the shared stages its W rows and V leave from (:func:`k1_smem_bytes`,
+:func:`level_groups`). K2 prefetches the V segment and every W segment of
+a group at once, each in its own buffer (:func:`k2_smem_bytes`,
+:func:`inverse_level_groups`). How a segment is cut into copies (where it
+wraps, where it is unaligned) is the kernel's own affair. The groups do
+not change the arithmetic (f32 in shared memory or in scratch alike), so
+K2 stays K1's exact adjoint.
 
 Gradients: K2's recursion is term for term the transpose of K1's (level j
 of K1 maps V_{j-1} to (W_j, V_j) by the taps at t - m*gap; K2 maps them
@@ -45,14 +47,14 @@ from . import cuda_build
 launch_counts = {"modwt_cascade": 0, "imodwt_cascade": 0}
 
 MAX_TAPS = 64
-#: outputs of one row per block, and the f32 samples one K1 shared buffer holds
+#: outputs of one row per block
 TILE = 2048
-BUF_FLOATS = 8192
-#: shared bytes a staged K2 block may use: a third of an SM's 228 KB less
-#: the 1 KB the card reserves per block, so that three blocks share an SM
-K2_SMEM_BYTES = 233472 // 3 - 1024
-#: K2's shared head (``csrc/modwt.cu`` kInvHeadBytes): the taps and 16 mbarriers
-_K2_HEAD_BYTES = 2 * MAX_TAPS * 4 + 16 * 8
+#: shared bytes a staged K1 or K2 block may use: a third of an SM's 228 KB
+#: less the 1 KB the card reserves per block, so that three blocks share an SM
+SMEM_BYTES = 233472 // 3 - 1024
+#: the shared head of a staged block (``csrc/modwt.cu`` kHeadBytes): the
+#: taps and 16 mbarriers
+_HEAD_BYTES = 2 * MAX_TAPS * 4 + 16 * 8
 
 _STORAGE = (torch.float32, torch.bfloat16)
 
@@ -127,21 +129,43 @@ def _groups(level: int, fits) -> list[tuple[int, int, bool]]:
     return groups
 
 
+def segment_length(tl: int, m: int, j0: int, j: int) -> int:
+    """Samples of the level-j signal that a group j0..j1 keeps for a tile
+    of ``tl`` outputs: the tile and the halo of levels j0..j,
+    (M-1)(2^j - 2^(j0-1)) (``csrc/modwt.cu`` seg_len). K1 stages V_{j0-1}'s
+    (j = j1), K2 V_j1's (j = j1) and W_j's."""
+    return tl + (m - 1) * ((1 << j) - (1 << (j0 - 1)))
+
+
+def _r16(b: int) -> int:
+    return (b + 15) & ~15
+
+
+def k1_smem_bytes(tl: int, m: int, j0: int, j1: int, itemsize_x: int = 4,
+                  itemsize_out: int = 4, itemsize_v: int = 4) -> int:
+    """Shared bytes of a staged K1 block (``csrc/modwt.cu`` fwd_layout): the
+    head; the V_{j0-1} segment (``itemsize_x``, and 16 bytes for its offset
+    mod 16 in device memory); two f32 buffers of V_j0's samples and 16
+    bytes (none for a single level); the stages of W (two, one for a single
+    level; ``tl`` samples of ``itemsize_out`` and 16 bytes for the row's
+    offset mod 16); for a single level the stage of V_j1 (``itemsize_v``:
+    the output's, or 4 for a scratch row), which otherwise takes the V
+    buffer the last level does not read. Each is rounded up to 16 bytes."""
+    total = _HEAD_BYTES + _r16(segment_length(tl, m, j0, j1) * itemsize_x) + 16
+    if j1 == j0:
+        return total + _r16(tl * itemsize_out) + 16 + _r16(tl * itemsize_v) + 16
+    total += 2 * (_r16(4 * segment_length(tl, m, j0 + 1, j1)) + 16)
+    return total + 2 * (_r16(tl * itemsize_out) + 16)
+
+
 @functools.lru_cache(maxsize=256)
 def level_groups(n: int, m: int, level: int) -> tuple[tuple[int, int, bool], ...]:
-    """K1's plan: runs (j0, j1, staged) whose tile plus halo
-    (M-1)(2^j1 - 2^(j0-1)) fits one shared buffer of ``BUF_FLOATS``; a level
-    whose halo alone does not fit runs unstaged, straight from device memory.
-    Cached: the wrappers ask on every call."""
+    """K1's plan: runs (j0, j1, staged) whose staged block fits
+    ``SMEM_BYTES`` in float32 (bf16 storage takes less); a level that does
+    not fit alone runs unstaged, straight from device memory. Cached: the
+    wrappers ask on every call."""
     tl = min(TILE, n)
-    return tuple(_groups(level, lambda j0, j1: segment_length(tl, m, j0, j1) <= BUF_FLOATS))
-
-
-def segment_length(tl: int, m: int, j0: int, j: int) -> int:
-    """Samples of W_j (and, at j = j1, of V_j1) that a group j0..j1 stages
-    for a tile of ``tl`` outputs: the tile and the halo of levels j0..j,
-    (M-1)(2^j - 2^(j0-1)) (``csrc/modwt.cu`` inv_wlen)."""
-    return tl + (m - 1) * ((1 << j) - (1 << (j0 - 1)))
+    return tuple(_groups(level, lambda j0, j1: k1_smem_bytes(tl, m, j0, j1) <= SMEM_BYTES))
 
 
 def k2_smem_bytes(tl: int, m: int, j0: int, j1: int, itemsize_v: int = 4,
@@ -150,22 +174,19 @@ def k2_smem_bytes(tl: int, m: int, j0: int, j1: int, itemsize_v: int = 4,
     head, the V_j1 segment, the W_j segments for j = j1..j0 and the f32 V
     buffers (two, one for a single level), each rounded up to 16 bytes (a
     segment is copied in whole 16 bytes)."""
-    def r16(b):
-        return (b + 15) & ~15
-
-    total = _K2_HEAD_BYTES + r16(segment_length(tl, m, j0, j1) * itemsize_v)
-    total += sum(r16(segment_length(tl, m, j0, j) * itemsize_c) for j in range(j0, j1 + 1))
-    return total + r16(4 * segment_length(tl, m, j0, j1 - 1)) * (2 if j1 > j0 else 1)
+    total = _HEAD_BYTES + _r16(segment_length(tl, m, j0, j1) * itemsize_v)
+    total += sum(_r16(segment_length(tl, m, j0, j) * itemsize_c) for j in range(j0, j1 + 1))
+    return total + _r16(4 * segment_length(tl, m, j0, j1 - 1)) * (2 if j1 > j0 else 1)
 
 
 @functools.lru_cache(maxsize=256)
 def inverse_level_groups(n: int, m: int, level: int) -> tuple[tuple[int, int, bool], ...]:
     """K2's plan: runs (j0, j1, staged) whose prefetched segments fit
-    ``K2_SMEM_BYTES`` in float32 (bf16 storage takes less); a level that
-    does not fit alone runs unstaged, straight from device memory. K2 runs
-    the groups from the last to the first."""
+    ``SMEM_BYTES`` in float32 (bf16 storage takes less); a level that does
+    not fit alone runs unstaged, straight from device memory. K2 runs the
+    groups from the last to the first."""
     tl = min(TILE, n)
-    return tuple(_groups(level, lambda j0, j1: k2_smem_bytes(tl, m, j0, j1) <= K2_SMEM_BYTES))
+    return tuple(_groups(level, lambda j0, j1: k2_smem_bytes(tl, m, j0, j1) <= SMEM_BYTES))
 
 
 def _check_cuda(t: torch.Tensor, ndim: int, what: str):

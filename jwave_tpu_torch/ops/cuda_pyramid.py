@@ -51,14 +51,12 @@ launch_counts = {"pyramid_rows": 0, "pyramid_rows_transposed": 0,
 MAX_TAPS = 64
 #: longest head one K3 block holds in shared memory (h/2 + h/4 floats)
 MAX_FUSED_HEAD = 65536
-#: shared-memory floats a K4 block may use (227 KB on Hopper, less the taps)
-_K4_SMEM_FLOATS = 56 * 1024
 K3_THREADS = 1024
 K4_THREADS = 512
-K4_MAX_ROWS_PER_BLOCK = 8
 K5_THREADS = 512
-#: K5's plan (``csrc/pyramid.cu`` kK5MaxRows, kK5Pairs): at most 8 rows a
-#: block, rb*n <= 16384 staged floats (64 KB), 8 output pairs a thread per level
+#: K4's and K5's plan (``csrc/pyramid.cu`` kMaxRows, kK5Pairs): at most 8
+#: rows a block, rb*n <= 16384 staged floats (64 KB), 8 output pairs a K5
+#: thread per level
 K5_MAX_ROWS_PER_BLOCK = 8
 K5_ROW_FLOATS = 16384
 K5_PAIRS = 8
@@ -224,14 +222,17 @@ def pyramid_rows(x: torch.Tensor, dec_lo, dec_hi, levels: int) -> torch.Tensor:
 
 
 def k4_rows_per_block(n: int) -> int:
-    """Rows a K4 block stages: the most (up to 8) whose n+1-float rows and
-    the n/2 + n/4 scratch fit shared memory; 0 when not even one fits."""
-    rb = K4_MAX_ROWS_PER_BLOCK
-    while rb >= 1:
-        if 2 * MAX_TAPS + rb * (n + 1) + n // 2 + n // 4 <= _K4_SMEM_FLOATS:
-            return rb
-        rb //= 2
-    return 0
+    """Rows a K4 block stages: K5's rule (:func:`k5_rows_per_block`), so K4
+    and K5, each the other's backward, take the same row lengths."""
+    return k5_rows_per_block(n)
+
+
+def k4_smem_bytes(n: int, rb: int) -> int:
+    """Shared bytes of a K4 block (``csrc/pyramid.cu``): the taps, the
+    mbarrier padded to 16 bytes, the rb staged rows at a stride of n + 4
+    floats and rb rows of level 1's approximations at a stride of
+    n/2 + 4."""
+    return 4 * (2 * MAX_TAPS + 4 + rb * (n + 4) + rb * (n // 2 + 4))
 
 
 def _k4(x: torch.Tensor, dec_lo, dec_hi, levels: int, gain: float) -> torch.Tensor:
@@ -280,8 +281,7 @@ def k5_rows_per_block(n: int) -> int:
     """Rows a K5 block stages: the most (up to 8) whose rb*n floats stay
     within ``K5_ROW_FLOATS``, so that three blocks share an SM and a level's
     rb*n/4 output pairs fit ``K5_PAIRS`` pairs of registers of each of
-    ``K5_THREADS`` threads; 0 when one row is longer than that. Positive wherever
-    :func:`k4_rows_per_block` is, as K5 is K4's backward."""
+    ``K5_THREADS`` threads; 0 when one row is longer than that."""
     if n > K5_ROW_FLOATS:
         return 0
     return min(K5_MAX_ROWS_PER_BLOCK, K5_ROW_FLOATS // n)

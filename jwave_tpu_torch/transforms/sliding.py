@@ -52,9 +52,9 @@ class SlidingState(NamedTuple):
     def from_numpy(cls, hist, coeffs, window, device=None) -> "SlidingState":
         """A state from numpy arrays (e.g. a state of the JAX package, as
         ``np.asarray`` of its leaves, which may be read-only), copied into
-        tensors on ``device`` ("cpu" by default)."""
+        tensors on ``device`` ("cuda" by default)."""
         def t(a):
-            return torch.tensor(np.asarray(a), device=device or "cpu")
+            return torch.tensor(np.asarray(a), device=device or "cuda")
 
         return cls(tuple(t(h) for h in hist), t(coeffs), t(window))
 

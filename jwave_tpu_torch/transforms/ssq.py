@@ -370,7 +370,8 @@ def issq_cwt(result: SSQResult, wavelet: ContinuousWavelet | str | None = None,
                 )
             tx = tx * sel[:, None].to(tx.real.dtype)
         else:
-            mask = band if isinstance(band, torch.Tensor) else torch.as_tensor(np.asarray(band))
-            tx = tx * mask.to(device=tx.device, dtype=tx.real.dtype)
+            mask = torch.as_tensor(band if isinstance(band, torch.Tensor) else np.asarray(band),
+                                   device=tx.device)
+            tx = tx * mask.to(tx.real.dtype)
     total = torch.sum(tx, dim=-2)
     return 2.0 * (total / c).real

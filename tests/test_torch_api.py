@@ -17,7 +17,7 @@ from torch_parity import assert_close  # noqa: E402
 
 def test_haar_fwt_of_ones():
     """Reference demo: the Haar FWT of ones(16) is [4, 0, ...] and reverses to ones."""
-    t = jt.TransformBuilder.create("Fast Wavelet Transform", "Haar")
+    t = jt.TransformBuilder.create("Fast Wavelet Transform", "Haar", device="cpu")
     y = t.forward(np.ones(16))
     assert y.device.type == "cpu"
     want = np.zeros(16)
@@ -27,7 +27,7 @@ def test_haar_fwt_of_ones():
 
 
 def test_modwt_db4_round_trip(rng):
-    m = jt.MODWTTransform("db4")
+    m = jt.MODWTTransform("db4", device="cpu")
     sig = rng.standard_normal(777)
     c = m.forward_modwt(sig, 4)
     assert tuple(c.shape) == (5, 777)
@@ -40,7 +40,7 @@ def test_modwt_db4_round_trip(rng):
 @pytest.mark.parametrize("shape", [(1024,), (64, 128), (8, 16, 32)])
 def test_builder_fwt_matches_jax_facade(shape, rng):
     x = rng.standard_normal(shape)
-    t = jt.TransformBuilder.create("Fast Wavelet Transform", "db4")
+    t = jt.TransformBuilder.create("Fast Wavelet Transform", "db4", device="cpu")
     tj = jw.TransformBuilder.create("Fast Wavelet Transform", "db4")
     y = t.forward(x)
     assert_close(y, tj.forward(x), 1e-12, "forward")
@@ -50,11 +50,11 @@ def test_builder_fwt_matches_jax_facade(shape, rng):
 
 def test_builder_levels_and_modwt_facade(rng):
     x = rng.standard_normal((64, 128))
-    t = jt.TransformBuilder.create("Fast Wavelet Transform", "sym8")
+    t = jt.TransformBuilder.create("Fast Wavelet Transform", "sym8", device="cpu")
     tj = jw.TransformBuilder.create("Fast Wavelet Transform", "sym8")
     assert_close(t.forward(x, 2, 3), tj.forward(x, 2, 3), 1e-12, "2D levels")
     assert_close(t.decompose(x[0]), tj.decompose(x[0]), 1e-12, "decompose")
-    m = jt.TransformBuilder.create("MODWT", "db4")
+    m = jt.TransformBuilder.create("MODWT", "db4", device="cpu")
     mj = jw.TransformBuilder.create("MODWT", "db4")
     s = rng.standard_normal(256)
     assert_close(m.forward(s), mj.forward(s), 1e-12, "flattened modwt")
@@ -75,6 +75,27 @@ def test_unported_transform_names_raise():
     for name in ("Wavelet Packet Transform", "Lifting Wavelet Transform", "nope"):
         with pytest.raises(jt.JWaveNotKnown, match="not ported yet"):
             jt.TransformBuilder.create(name, "db4")
+
+
+@pytest.mark.parametrize("entry", ["as_tensor", "modwt", "facade", "SlidingState.from_numpy"])
+def test_numpy_input_goes_to_the_card_by_default(entry):
+    """Numpy input with no ``device`` becomes a tensor on "cuda". Without a
+    card that raises torch's own error: nothing quietly runs on the CPU."""
+    from jwave_tpu_torch.ops.butterfly import as_tensor
+
+    x = np.ones(16)
+    calls = {
+        "as_tensor": lambda: as_tensor(x),
+        "modwt": lambda: jt.modwt(x, "db4", 2),
+        "facade": lambda: jt.TransformBuilder.create("Fast Wavelet Transform", "Haar").forward(x),
+        "SlidingState.from_numpy":
+            lambda: jt.SlidingState.from_numpy([x[:7]], np.ones((2, 16)), x).coeffs,
+    }
+    if torch.cuda.is_available():
+        assert calls[entry]().is_cuda
+    else:
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+            calls[entry]()
 
 
 def test_device_argument():

@@ -30,6 +30,12 @@ from torch_parity import assert_close  # noqa: E402
 EXACT = 1e-12
 FFT = 1e-10
 
+
+def cpu(a):
+    """numpy or a Python number as a tensor on the CPU (numpy input with no
+    ``device`` goes to the card)."""
+    return torch.as_tensor(np.asarray(a))
+
 WAVELETS = [
     ("morlet", ()), ("morlet", (2.0, 1.5)), ("mexican hat", (1.5,)), ("ricker", ()),
     ("paul", ()), ("paul", (2,)), ("dog", (1,)), ("dog", (3, 0.7)), ("dog", (4,)),
@@ -46,11 +52,12 @@ def test_psi_and_psi_hat_match_jax(name, args):
     wj, wt = _pair(name, args)
     t = np.linspace(-8.0, 8.0, 161)
     om = np.linspace(-25.0, 25.0, 201)
-    assert_close(wt.psi(t), wj.psi(jnp.asarray(t)), EXACT, "psi")
-    assert_close(wt.psi_hat(om), wj.psi_hat(jnp.asarray(om)), EXACT, "psi_hat")
-    assert_close(wt.psi_hat_scaled(om, 2.5, 0.3), wj.psi_hat_scaled(jnp.asarray(om), 2.5, 0.3),
-                 EXACT, "psi_hat_scaled")
-    assert_close(wt.psi_scaled(t, 1.7), wj.psi_scaled(jnp.asarray(t), 1.7), EXACT, "psi_scaled")
+    assert_close(wt.psi(cpu(t)), wj.psi(jnp.asarray(t)), EXACT, "psi")
+    assert_close(wt.psi_hat(cpu(om)), wj.psi_hat(jnp.asarray(om)), EXACT, "psi_hat")
+    assert_close(wt.psi_hat_scaled(cpu(om), 2.5, 0.3),
+                 wj.psi_hat_scaled(jnp.asarray(om), 2.5, 0.3), EXACT, "psi_hat_scaled")
+    assert_close(wt.psi_scaled(cpu(t), 1.7), wj.psi_scaled(jnp.asarray(t), 1.7), EXACT,
+                 "psi_scaled")
     assert wt.name == wj.name and wt.center_frequency == wj.center_frequency
     assert wt.is_analytic == wj.is_analytic
     assert wt.effective_support() == wj.effective_support()
@@ -69,19 +76,19 @@ def test_reference_point_values():
     """Mirror of tests/test_cwt.py's point checks (Morlet's psi_hat carries
     sqrt(2*pi*fb); Paul is zero for w <= 0; Meyer has compact support)."""
     m = jt.MorletWavelet(1.0, 1.0)
-    assert complex(m.psi(0.0)) == pytest.approx(1 / np.sqrt(2 * np.pi), abs=1e-12)
-    assert complex(m.psi_hat(2 * np.pi)) == pytest.approx(np.sqrt(2 * np.pi), abs=1e-12)
-    assert complex(jt.MexicanHatWavelet(1.0).psi(1.0)) == pytest.approx(0.0, abs=1e-12)
+    assert complex(m.psi(cpu(0.0))) == pytest.approx(1 / np.sqrt(2 * np.pi), abs=1e-12)
+    assert complex(m.psi_hat(cpu(2 * np.pi))) == pytest.approx(np.sqrt(2 * np.pi), abs=1e-12)
+    assert complex(jt.MexicanHatWavelet(1.0).psi(cpu(1.0))) == pytest.approx(0.0, abs=1e-12)
     p = jt.PaulWavelet(4)
-    assert complex(p.psi_hat(-1.0)) == 0.0 and complex(p.psi_hat(0.0)) == 0.0
+    assert complex(p.psi_hat(cpu(-1.0))) == 0.0 and complex(p.psi_hat(cpu(0.0))) == 0.0
     d = jt.DOGWavelet(2, 1.0)
-    assert complex(d.psi(0.0)).real == pytest.approx(-2.0 * d.norm, abs=1e-12)
+    assert complex(d.psi(cpu(0.0))).real == pytest.approx(-2.0 * d.norm, abs=1e-12)
     me = jt.MeyerWavelet()
-    assert abs(complex(me.psi_hat(2 * np.pi / 3 * 0.9))) == 0.0
-    assert abs(complex(me.psi_hat(8 * np.pi / 3 * 1.1))) == 0.0
+    assert abs(complex(me.psi_hat(cpu(2 * np.pi / 3 * 0.9)))) == 0.0
+    assert abs(complex(me.psi_hat(cpu(8 * np.pi / 3 * 1.1)))) == 0.0
     mo = jt.MorseWavelet(20.0, 3.0)
     om = np.linspace(0.01, 6.0, 20000)
-    mag = np.abs(mo.psi_hat(om).numpy())
+    mag = np.abs(mo.psi_hat(cpu(om)).numpy())
     assert abs(om[mag.argmax()] - mo.omega_peak) < 1e-3 and abs(mag.max() - 2.0) < 1e-5
     assert mo.admissibility_constant() == jw.MorseWavelet(20.0, 3.0).admissibility_constant()
     assert mo.bandwidth() == jw.MorseWavelet(20.0, 3.0).bandwidth()
@@ -92,15 +99,15 @@ def test_morse_checks_of_test_morse():
     below w = 0, Paul(m) proportional to Morse(m, 1), the closed-form
     admissibility against quadrature, no float32 overflow at beta = 120."""
     w = jt.MorseWavelet(20.0, 3.0)
-    assert np.array_equal(w.psi_hat(np.array([-2.0, -0.5, 0.0])).numpy(), np.zeros(3))
+    assert np.array_equal(w.psi_hat(cpu([-2.0, -0.5, 0.0])).numpy(), np.zeros(3))
     om = np.linspace(0.01, 30.0, 500)
-    rp = np.abs(jt.PaulWavelet(4).psi_hat(om).numpy())
-    rm = np.abs(jt.MorseWavelet(4.0, 1.0).psi_hat(om).numpy())
+    rp = np.abs(jt.PaulWavelet(4).psi_hat(cpu(om)).numpy())
+    rm = np.abs(jt.MorseWavelet(4.0, 1.0).psi_hat(cpu(om)).numpy())
     keep = rm > 1e-12
     assert np.allclose(rp[keep] / rm[keep], (rp[keep] / rm[keep])[0], rtol=1e-10, atol=0)
     w2 = jt.MorseWavelet(6.0, 2.0)
     om = np.linspace(1e-6, 30.0, 400000)
-    numeric = np.trapezoid(np.abs(w2.psi_hat(om).numpy()) ** 2 / om, om)
+    numeric = np.trapezoid(np.abs(w2.psi_hat(cpu(om)).numpy()) ** 2 / om, om)
     assert abs(w2.admissibility_constant() - numeric) <= 1e-4 * numeric
     big = jt.MorseWavelet(120.0, 3.0)
     mag = big.psi_hat(torch.linspace(0.1, 2.0 * big.omega_peak, 4000)).abs()
@@ -149,10 +156,11 @@ def test_bluestein_and_dft_match(n, rng):
     assert_close(tfft.dft(zt), jfft.dft(jnp.asarray(z)), FFT, "dft")
     assert_close(tfft.idft(tfft.dft(zt)), z, FFT, "idft round trip")
     x = rng.standard_normal(2 * n)
-    assert_close(tfft.fft_interleaved(x), jfft.fft_interleaved(jnp.asarray(x)), FFT, "fft il")
-    assert_close(tfft.ifft_interleaved(x), jfft.ifft_interleaved(jnp.asarray(x)), FFT, "ifft il")
-    assert_close(tfft.dft_interleaved(x), jfft.dft_interleaved(jnp.asarray(x)), FFT, "dft il")
-    assert_close(tfft.idft_interleaved(x), jfft.idft_interleaved(jnp.asarray(x)), FFT, "idft il")
+    xt = cpu(x)
+    assert_close(tfft.fft_interleaved(xt), jfft.fft_interleaved(jnp.asarray(x)), FFT, "fft il")
+    assert_close(tfft.ifft_interleaved(xt), jfft.ifft_interleaved(jnp.asarray(x)), FFT, "ifft il")
+    assert_close(tfft.dft_interleaved(xt), jfft.dft_interleaved(jnp.asarray(x)), FFT, "dft il")
+    assert_close(tfft.idft_interleaved(xt), jfft.idft_interleaved(jnp.asarray(x)), FFT, "idft il")
     assert tfft.bluestein_fft(torch.tensor(x[:n], dtype=torch.float32)).dtype == torch.complex64
 
 
@@ -161,7 +169,7 @@ def test_fft_conventions(rng):
     of a real input's spectrum, linearity."""
     d = np.zeros(8, complex)
     d[0] = 1.0
-    assert_close(jt.fft(d), np.ones(8), EXACT, "delta")
+    assert_close(jt.fft(cpu(d)), np.ones(8), EXACT, "delta")
     x = rng.standard_normal(64)
     X = jt.fft(torch.tensor(x)).numpy()
     assert np.allclose(X[1:], np.conj(X[1:][::-1]), atol=1e-9)
@@ -172,7 +180,7 @@ def test_fft_conventions(rng):
 
 @pytest.mark.parametrize("name", ["Fast Fourier Transform", "Discrete Fourier Transform"])
 def test_fourier_facades_match_jax(name, rng):
-    t = jt.TransformBuilder.create(name)
+    t = jt.TransformBuilder.create(name, device="cpu")
     tj = jw.TransformBuilder.create(name)
     z = rng.standard_normal(24) + 1j * rng.standard_normal(24)
     assert_close(t.forward(z), tj.forward(z), FFT, "complex forward")
@@ -310,7 +318,7 @@ def test_xwt_and_coherence_match_jax(rng):
 def test_cwt_facade_matches_jax(rng):
     sig = rng.standard_normal(256)
     sc = [2.0, 4.0]
-    t = jt.TransformBuilder.create("Continuous Wavelet Transform")
+    t = jt.TransformBuilder.create("Continuous Wavelet Transform", device="cpu")
     tj = jw.TransformBuilder.create("Continuous Wavelet Transform")
     b, bj = t.get_basic_transform(), tj.get_basic_transform()
     assert isinstance(b.cwavelet, jt.MorletWavelet)
@@ -324,7 +332,7 @@ def test_cwt_facade_matches_jax(rng):
         t.forward(sig)
     with pytest.raises(jt.JWaveFailure):
         t.reverse(sig)
-    p = jt.ContinuousWaveletTransform("paul", jt.PaddingType.ZERO)
+    p = jt.ContinuousWaveletTransform("paul", jt.PaddingType.ZERO, device="cpu")
     pj = jw.ContinuousWaveletTransform("paul", jw.PaddingType.ZERO)
     assert_close(p.transform_fft(sig, sc, 4.0).coefficients,
                  pj.transform_fft(sig, sc, 4.0).coefficients, FFT, "paul zero padding")

@@ -4,7 +4,7 @@ Tests marked ``cuda`` build and launch the kernels and hold them against
 their plain torch versions (run in float64 on the same input); they need a
 CUDA card and skip without one. Run them on the card with
 
-    python -m pytest tests/test_torch_kernels.py -m cuda -p no:xdist
+    python -m pytest tests/test_torch_kernels.py -m cuda --noconftest -o addopts=''
 
 The other tests check, on any machine, what surrounds the kernels: the
 level grouping of K1/K2, the row blocking of K4/K5, the build's error on a
@@ -76,6 +76,36 @@ def test_k1_k2_match_plain(cuda, shape, wavelet, level, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape,wavelet,level,dtype", [
+    ((64, 65536), "db4", 5, torch.float32),
+    ((3, 4099), "db4", 4, torch.float32),            # N % 4 != 0: rows off 16-byte alignment
+    ((8, 777), "db4", 9, torch.bfloat16),            # N % 8 != 0 in bf16
+    ((2, 100), "Discrete Meyer", 6, torch.float32),  # a halo longer than N
+    ((3, 5000), "db4", 6, torch.float32),            # a ragged last tile
+    ((4, 8192), "Haar", 13, torch.float32),          # three groups over f32 scratch
+    ((4, 8192), "Haar", 13, torch.bfloat16),         # the same, bf16 rows from f32 scratch
+    ((2, 65536), "db4", 13, torch.float32),          # staged groups, then unstaged levels
+])
+def test_k1_matches_plain(cuda, shape, wavelet, level, dtype):
+    """K1 alone, one launch per level group, against its plain version in
+    float64. The output's memory held NaN before (the caching allocator
+    hands the freed block to the wrapper), so an element left unstored
+    shows."""
+    g0, h0 = _modwt_base_filters(wavelet)
+    x = torch.as_tensor(np.random.default_rng(10).standard_normal(shape), dtype=dtype,
+                        device=cuda)
+    before = cuda_modwt.launch_counts["modwt_cascade"]
+    torch.full((shape[0], level + 1, shape[1]), float("nan"), dtype=dtype, device=cuda)
+    c = cuda_modwt.modwt_cascade(x, g0, h0, level)
+    torch.cuda.synchronize()
+    assert c.dtype == dtype and bool(torch.isfinite(c).all())
+    bound = F32_BOUND if dtype == torch.float32 else BF16_BOUND
+    assert _rel_err(c, cuda_modwt.modwt_cascade_torch(x.double(), g0, h0, level)) <= bound
+    groups = cuda_modwt.level_groups(shape[1], len(g0), level)
+    assert cuda_modwt.launch_counts["modwt_cascade"] == before + len(groups)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape,wavelet,level", [
     ((64, 65536), "db4", 8), ((16, 4096), "sym8", 6), ((8, 1024), "Battle 23", 10),
     ((8, 4096), "Haar", 12), ((4, 262144), "db4", 10),
@@ -92,18 +122,30 @@ def test_k3_matches_plain(cuda, shape, wavelet, level):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,wavelet,level", [
-    ((2048, 2048), "db4", 6), ((512, 1024), "Haar", 3), ((64, 16384), "sym8", 4),
+@pytest.mark.parametrize("shape,wavelet,level,gain,offset", [
+    ((2048, 2048), "db4", 6, 1.0, 0), ((512, 1024), "Haar", 3, 1.0, 0),
+    ((64, 16384), "sym8", 4, 1.0, 0),
+    ((6, 512), "db4", 5, 1.0, 0),                   # one ragged block of 6 rows: scalar stores
+    ((13, 1024), "sym8", 6, 1.0, 0),                # a ragged last block of 5 rows
+    ((64, 2), "Haar", 1, 1.0, 0),                   # rows of 2: staged by plain loads
+    ((128, 256), "db4", 0, 1.0, 0),                 # no level: staging and store alone
+    ((256, 512), "Haar orthogonal", 9, 0.5, 0),     # gain != 1 down to one sample
+    ((32, 1024), "db4", 5, 1.0, 1),                 # a source 4 bytes off 16-byte alignment
+    ((16, 16384), "db4", 8, 1.0, 0),                # one row a block
 ])
-def test_k4_matches_plain(cuda, shape, wavelet, level):
+def test_k4_matches_plain(cuda, shape, wavelet, level, gain, offset):
     fb = jt.get_filter(wavelet)
-    x = torch.as_tensor(np.random.default_rng(2).standard_normal(shape), dtype=torch.float32,
-                        device=cuda)
-    y = cuda_pyramid.pyramid_rows_transposed(x, fb.dec_lo, fb.dec_hi, level)
+    x = torch.empty(shape[0] * shape[1] + offset, dtype=torch.float32,
+                    device=cuda)[offset:].view(shape)
+    x.copy_(torch.as_tensor(np.random.default_rng(2).standard_normal(shape)))
+    before = cuda_pyramid.launch_counts["pyramid_rows_transposed"]
+    y = cuda_pyramid.pyramid_rows_transposed(x, fb.dec_lo, fb.dec_hi, level, gain)
     torch.cuda.synchronize()
-    ref = cuda_pyramid.pyramid_rows_transposed_torch(x.double(), fb.dec_lo, fb.dec_hi, level)
+    ref = cuda_pyramid.pyramid_rows_transposed_torch(x.double(), fb.dec_lo, fb.dec_hi, level,
+                                                     gain)
     assert tuple(y.shape) == (shape[1], shape[0])
     assert _rel_err(y, ref) <= F32_BOUND
+    assert cuda_pyramid.launch_counts["pyramid_rows_transposed"] == before + 1
 
 
 @pytest.mark.cuda
@@ -308,41 +350,63 @@ def test_ssq_and_ifwt2d_route_through_k5_k6(cuda):
 
 @pytest.mark.parametrize("n,m,level,k1,k2", [
     (65536, 8, 5, [(1, 5, True)], [(1, 5, True)]),
-    (8192, 2, 13, [(1, 12, True), (13, 13, True)],
+    (8192, 2, 13, [(1, 11, True), (12, 12, True), (13, 13, True)],
      [(1, 6, True), (7, 10, True), (11, 11, True), (12, 12, True), (13, 13, True)]),
-    (20000, 62, 10, [(1, 6, True), (7, 7, True), (8, 8, False), (9, 9, False), (10, 10, False)],
+    (20000, 62, 10, [(1, 5, True), (6, 6, True), (7, 7, True), (8, 8, True), (9, 9, False),
+                     (10, 10, False)],
      [(1, 4, True), (5, 6, True), (7, 7, True), (8, 8, False), (9, 9, False), (10, 10, False)]),
     (256, 62, 5, [(1, 5, True)], [(1, 5, True)]),
     (777, 8, 9, [(1, 9, True)], [(1, 8, True), (9, 9, True)]),
-    (65536, 8, 13, [(1, 9, True), (10, 10, True), (11, 11, False), (12, 12, False),
-                    (13, 13, False)],
+    (65536, 8, 13, [(1, 8, True), (9, 9, True), (10, 10, True), (11, 11, True),
+                    (12, 12, False), (13, 13, False)],
      [(1, 5, True), (6, 8, True), (9, 9, True), (10, 10, True), (11, 11, False),
       (12, 12, False), (13, 13, False)]),
 ])
 def test_level_groups(n, m, level, k1, k2):
-    """K1's plan (two buffers of BUF_FLOATS) and K2's (every segment of a
-    group prefetched, within K2_SMEM_BYTES): both cover levels 1..level in
-    order, every staged group fits 227 KB (K2's three to an SM), a level
-    runs unstaged only when it does not fit alone, and each group's segment
-    is the tile and its halo."""
+    """K1's plan (its segment, V buffers and store stages) and K2's (every
+    segment of a group prefetched), each within SMEM_BYTES: both cover
+    levels 1..level in order, every staged group leaves three blocks to an
+    SM, a group grows while the next level still fits, a level runs
+    unstaged only when it does not fit alone, and each group's segment is
+    the tile and its halo."""
     assert list(cuda_modwt.level_groups(n, m, level)) == k1
     assert list(cuda_modwt.inverse_level_groups(n, m, level)) == k2
     tl = min(cuda_modwt.TILE, n)
-    for groups in (k1, k2):
+    for groups, smem, bf16 in ((k1, cuda_modwt.k1_smem_bytes, (2, 2, 2)),
+                               (k2, cuda_modwt.k2_smem_bytes, (2, 2))):
         assert [j for j0, j1, _ in groups for j in range(j0, j1 + 1)] == list(range(1, level + 1))
-    for j0, j1, staged in k1:
-        if staged:
-            assert tl + (m - 1) * ((1 << j1) - (1 << (j0 - 1))) <= cuda_modwt.BUF_FLOATS
-            assert 4 * (2 * cuda_modwt.MAX_TAPS + 2 * cuda_modwt.BUF_FLOATS) <= 227 * 1024
-    for j0, j1, staged in k2:
-        f32 = cuda_modwt.k2_smem_bytes(tl, m, j0, j1)
-        if not staged:
-            assert f32 > cuda_modwt.K2_SMEM_BYTES
-            continue
-        assert f32 <= cuda_modwt.K2_SMEM_BYTES and 3 * (f32 + 1024) <= 228 * 1024
-        assert cuda_modwt.k2_smem_bytes(tl, m, j0, j1, 2, 2) < f32
-        length = cuda_modwt.segment_length(tl, m, j0, j1)
-        assert length == tl + (m - 1) * ((1 << j1) - (1 << (j0 - 1)))
+        for j0, j1, staged in groups:
+            f32 = smem(tl, m, j0, j1)
+            if not staged:
+                assert f32 > cuda_modwt.SMEM_BYTES
+                continue
+            assert f32 <= cuda_modwt.SMEM_BYTES and 3 * (f32 + 1024) <= 228 * 1024
+            assert j1 == level or smem(tl, m, j0, j1 + 1) > cuda_modwt.SMEM_BYTES
+            assert smem(tl, m, j0, j1, *bf16) < f32
+            length = cuda_modwt.segment_length(tl, m, j0, j1)
+            assert length == tl + (m - 1) * ((1 << j1) - (1 << (j0 - 1)))
+
+
+@pytest.mark.parametrize("tl,m,j0,j1,itemsize_x,itemsize_out,itemsize_v,want", [
+    (2048, 8, 1, 5, 4, 4, 4, 44256),  # the main path: db4 L5, f32
+    (2048, 8, 1, 5, 2, 2, 2, 31536),  # bf16 storage
+    (2048, 8, 1, 5, 4, 2, 4, 36064),  # bf16 W rows from f32 scratch
+    (2048, 2, 1, 1, 4, 4, 4, 25280),  # one level: no V buffer, one W stage, a V_j1 stage
+    (2048, 8, 6, 7, 4, 4, 4, 47952),  # two levels; the halo starts at 2^(j0-1)
+    (777, 8, 1, 9, 4, 4, 4, 59168),   # a short row: buffers rounded up to 16 bytes
+])
+def test_k1_smem_bytes(tl, m, j0, j1, itemsize_x, itemsize_out, itemsize_v, want):
+    """K1's shared bytes (``csrc/modwt.cu`` fwd_layout), worked out by hand:
+    640 bytes of taps and mbarriers; the V_{j0-1} segment of
+    tl + (M-1)(2^j1 - 2^(j0-1)) samples and 16 bytes for its offset mod 16
+    (main path: 2265 x 4 = 9060 -> 9072, + 16);
+    two f32 buffers of V_j0's tl + (M-1)(2^j1 - 2^j0) samples and 16 bytes
+    (2258 x 4 = 9032 -> 9040, + 16 each), the second holding V_j1's stage
+    at the last level; the W stages, two of tl samples plus 16 bytes (8192
+    + 16 each): 640 + 9088 + 18112 + 16416 = 44256. A single level has no V
+    buffer, one W stage and its own V_j1 stage."""
+    assert cuda_modwt.k1_smem_bytes(tl, m, j0, j1, itemsize_x, itemsize_out,
+                                    itemsize_v) == want
 
 
 @pytest.mark.parametrize("tl,m,j0,j1,itemsize_v,itemsize_c,want", [
@@ -361,9 +425,24 @@ def test_k2_smem_bytes(tl, m, j0, j1, itemsize_v, itemsize_c, want):
 
 
 def test_k4_rows_per_block():
+    """K4 stages K5's rows. Its shared layout, worked out by hand: 132
+    floats of taps and mbarrier (528 bytes), rb rows at a stride of n + 4
+    floats and rb rows of level 1's approximations at n/2 + 4 (2048:
+    528 + 8 x 2052 x 4 + 8 x 1028 x 4 = 99088). Positive for every power of
+    two n <= 16384, so fwt2d keeps K4 for every extent it took; two blocks
+    share an SM."""
     assert cuda_pyramid.k4_rows_per_block(2048) == 8
-    assert cuda_pyramid.k4_rows_per_block(16384) == 2
+    assert cuda_pyramid.k4_rows_per_block(16384) == 1
     assert cuda_pyramid.k4_rows_per_block(32768) == 0
+    assert cuda_pyramid.k4_smem_bytes(2048, 8) == 99088
+    assert cuda_pyramid.k4_smem_bytes(16384, 1) == 98864
+    assert cuda_pyramid.k4_smem_bytes(2, 8) == 880
+    for n in (1 << e for e in range(17)):
+        rb = cuda_pyramid.k4_rows_per_block(n)
+        assert (rb > 0) == (n <= 16384)
+        if rb:
+            assert 1 <= rb <= 8
+            assert 2 * (cuda_pyramid.k4_smem_bytes(n, rb) + 1024) <= 228 * 1024
 
 
 def test_k5_rows_per_block():

@@ -86,5 +86,5 @@ def test_ensure_float_promotes_integers():
 def test_as_tensor_keeps_tensors_where_they_lie():
     t = torch.zeros(3)
     assert tb.as_tensor(t) is t
-    assert tb.as_tensor(np.zeros(3)).device.type == "cpu"
+    assert tb.as_tensor(np.zeros(3), device="cpu").device.type == "cpu"
     assert tb.as_tensor([1.0, 2.0], device="meta").device.type == "meta"

@@ -37,7 +37,7 @@ def test_init_matches_jax(wavelet, level, wlen, rng):
 def test_updates_match_jax(step, rng):
     wlen, level = 128, 4
     sig = rng.standard_normal((2, wlen + 4 * step))
-    st_t = jt.SlidingMODWT("db4", level, wlen).init(sig[:, :wlen])
+    st_t = jt.SlidingMODWT("db4", level, wlen).init(torch.tensor(sig[:, :wlen]))
     st_j = jw.SlidingMODWT("db4", level, wlen).init(sig[:, :wlen])
     for pos in range(wlen, sig.shape[-1], step):
         st_t = jt.sliding_modwt_update(st_t, torch.tensor(sig[:, pos:pos + step]), "db4", level)
@@ -55,7 +55,8 @@ def test_resume_from_a_jax_state(rng):
     for pos in range(wlen, wlen + 3 * step, step):
         st_j = sl_j.update(st_j, sig[:, pos:pos + step])
     st_t = jt.SlidingState.from_numpy([np.asarray(h) for h in st_j.hist],
-                                      np.asarray(st_j.coeffs), np.asarray(st_j.window))
+                                      np.asarray(st_j.coeffs), np.asarray(st_j.window),
+                                      device="cpu")
     assert st_t.coeffs.dtype == torch.float64 and st_t.coeffs.device.type == "cpu"
     _assert_state(st_t, st_j, "carried over")
     sl_t = jt.SlidingMODWT("db4", level, wlen)
@@ -69,7 +70,7 @@ def test_interior_equals_modwt_of_the_window(rng):
     wlen, level, step = 256, 3, 32
     sig = rng.standard_normal(wlen + 5 * step)
     sl = jt.SlidingMODWT("db4", level, wlen)
-    st = sl.init(sig[:wlen])
+    st = sl.init(torch.tensor(sig[:wlen]))
     for pos in range(wlen, sig.shape[0], step):
         st = sl.update(st, sig[pos:pos + step])
     ref = jt.modwt(torch.tensor(sig[-wlen:]), "db4", level)
@@ -82,13 +83,13 @@ def test_interior_equals_modwt_of_the_window(rng):
 
 def test_errors_match():
     cases = [
-        lambda m: m.sliding_modwt_init(np.zeros(16), "db4", 9),
-        lambda m: m.SlidingMODWT("db4", 0, 64),
-        lambda m: m.SlidingMODWT("db4", 3, 64).init(np.zeros(32)),
+        lambda m, a: m.sliding_modwt_init(a(np.zeros(16)), "db4", 9),
+        lambda m, a: m.SlidingMODWT("db4", 0, 64),
+        lambda m, a: m.SlidingMODWT("db4", 3, 64).init(a(np.zeros(32))),
     ]
     for fn in cases:
         with pytest.raises(jw.JWaveFailure) as ej:
-            fn(jw)
+            fn(jw, np.asarray)
         with pytest.raises(jt.JWaveFailure) as et:
-            fn(jt)
+            fn(jt, torch.as_tensor)
         assert str(et.value) == str(ej.value)

@@ -82,13 +82,13 @@ def test_ewt_explicit_boundaries_and_errors(rng):
     b = [0.5, 1.5]
     assert_close(jt.ewt(torch.tensor(x), boundaries=b).modes,
                  jw.ewt(x, boundaries=b).modes, FFT_BOUND, "explicit")
-    for fn in (lambda m: m.ewt(np.zeros(4), 2), lambda m: m.ewt(np.zeros(64)),
-               lambda m: m.ewt_filter_bank(64, [0.5, 0.5]),
-               lambda m: m.ewt_filter_bank(64, [4.0])):
+    for fn in (lambda m, a: m.ewt(a(np.zeros(4)), 2), lambda m, a: m.ewt(a(np.zeros(64))),
+               lambda m, a: m.ewt_filter_bank(64, [0.5, 0.5]),
+               lambda m, a: m.ewt_filter_bank(64, [4.0])):
         with pytest.raises(jw.JWaveFailure) as ej:
-            fn(jw)
+            fn(jw, np.asarray)
         with pytest.raises(jt.JWaveFailure) as et:
-            fn(jt)
+            fn(jt, torch.as_tensor)
         assert str(et.value) == str(ej.value)
 
 
@@ -121,13 +121,13 @@ def test_vmd_odd_length_and_errors(rng):
     x = rng.standard_normal(101)
     assert_close(jt.vmd(torch.tensor(x), 2, n_iter=10).modes, jw.vmd(x, 2, n_iter=10).modes,
                  FFT_BOUND, "odd n")
-    for fn in (lambda m: m.vmd(np.zeros(2), 2), lambda m: m.vmd(np.zeros(16), 0),
-               lambda m: m.vmd(np.zeros(16), 2, init="random"),
-               lambda m: m.vmd(np.zeros(16), 2, n_iter=0)):
+    for fn in (lambda m, a: m.vmd(a(np.zeros(2)), 2), lambda m, a: m.vmd(a(np.zeros(16)), 0),
+               lambda m, a: m.vmd(a(np.zeros(16)), 2, init="random"),
+               lambda m, a: m.vmd(a(np.zeros(16)), 2, n_iter=0)):
         with pytest.raises(jw.JWaveFailure) as ej:
-            fn(jw)
+            fn(jw, np.asarray)
         with pytest.raises(jt.JWaveFailure) as et:
-            fn(jt)
+            fn(jt, torch.as_tensor)
         assert str(et.value) == str(ej.value)
 
 
@@ -156,11 +156,12 @@ def test_matching_pursuit_matches_jax(kw, rng):
 
 
 def test_matching_pursuit_errors():
-    for fn in (lambda m: m.matching_pursuit(np.zeros(8)),
-               lambda m: m.matching_pursuit(np.zeros(32), 0),
-               lambda m: m.matching_pursuit(np.zeros(32), 2, dictionary=m.gabor_dictionary(64))):
+    for fn in (lambda m, a: m.matching_pursuit(a(np.zeros(8))),
+               lambda m, a: m.matching_pursuit(a(np.zeros(32)), 0),
+               lambda m, a: m.matching_pursuit(a(np.zeros(32)), 2,
+                                               dictionary=m.gabor_dictionary(64))):
         with pytest.raises(jw.JWaveFailure) as ej:
-            fn(jw)
+            fn(jw, np.asarray)
         with pytest.raises(jt.JWaveFailure) as et:
-            fn(jt)
+            fn(jt, torch.as_tensor)
         assert str(et.value) == str(ej.value)
