@@ -11,8 +11,10 @@ it happened; any failed check ends the run with a non-zero exit:
    once, and prints the build seconds.
 3. kernels: K1-K6 on the card against their plain torch versions run in
    float64 on the same input, at the main paths' shapes and at edge shapes
-   (K6 at the main shape on the contributions and bin indices of a real
-   ssq_cwt of the main signal).
+   (K3 also where its tiled levels leave a tail, 62 taps or 16 levels, and
+   over two tiled passes; K6 at the main shape on the contributions and bin
+   indices of a real ssq_cwt of the main signal, on 64 bins and on 128, two
+   bin chunks).
 4. main paths, each with the launch counts set to 0 just before it and read
    just after, all through the public entry points (numpy input goes to the
    card by default, tensors are made there):
@@ -52,10 +54,13 @@ it happened; any failed check ends the run with a non-zero exit:
    beside its plain version and beside one PyTorch call that computes the
    same function (conv1d, matmul with the dense operator of a K3 row or a
    K4/K5 pass, scatter_add_; checked against the plain version first, never
-   called by the port); a byte floor for K1, K2, K4 and K5 (the same bytes
-   moved by one torch call, or by K4/K5 with no level); for context also
-   the torch FFT path of the MODWT (cuFFT) and the separable ifwt2d path,
-   which are not kernels of this package; the entry step's gradient,
+   called by the port); a byte floor for each kernel (the same bytes, or
+   for K6 a fifth more, moved by torch copies, or by K4/K5 with no level);
+   K3 at a shape with a tail and K6 at 128 bins; fwt and the 1D inverse
+   ifwt (plain synthesis butterflies, no kernel: the sum of its kernels'
+   times in a profiled call, and wall) at 64 x 65536; for context
+   also the torch FFT path of the MODWT (cuFFT) and the separable ifwt2d
+   path, which are not kernels of this package; the entry step's gradient,
    fwt2d's gradient (backward K5 x2), ifwt2d's gradient (backward K4 x2),
    the analysis calls and each call of 4g.
 
@@ -179,10 +184,16 @@ def main() -> int:
                        F32_BOUND)
 
     errors["K3"] = pyramid_case("64x65536 db4 L8", (64, 65536), "db4", 8)
-    pyramid_case("16x4096 sym8 L6", (16, 4096), "sym8", 6)
+    pyramid_case("16x4096 sym8 L6 (a row a block: the tail kernel)", (16, 4096), "sym8", 6)
     pyramid_case("8x1024 Battle 23 full", (8, 1024), "Battle 23", 10)
     pyramid_case("8x4096 Haar full", (8, 4096), "Haar", 12)
-    pyramid_case("4x262144 db4 L10 (cut long rows)", (4, 262144), "db4", 10)
+    pyramid_case("4x262144 db4 L10 (8 tiled levels, a tail of 2 in the same launch)",
+                 (4, 262144), "db4", 10)
+    pyramid_case("64x65536 db4 L16 (8 tiled levels, a tail of 8)", (64, 65536), "db4", 16)
+    pyramid_case("64x65536 Discrete Meyer L8 (62 taps: 5 tiled levels, a tail of 3)",
+                 (64, 65536), "Discrete Meyer", 8)
+    pyramid_case("2x1048576 Discrete Meyer L20 (two tiled passes)", (2, 1048576),
+                 "Discrete Meyer", 20)
 
     def fwt2d_case(label, shape, wavelet, level):
         fb = jt.get_filter(wavelet)
@@ -276,6 +287,8 @@ def main() -> int:
     bins = _default_bins(ssq_scales, morlet.center_frequency, None)
     wgt = ssq_scales ** -0.5 * _log_measure(ssq_scales)
     contrib, k_idx = _reassign_inputs(W, dW, wgt, bins, gamma, "clip")
+    bins128 = np.exp(np.linspace(np.log(bins[0]), np.log(bins[-1]), 128))
+    _, k_idx128 = _reassign_inputs(W, dW, wgt, bins128, gamma, "clip")
     del W, dW, mag2
     require(contrib.dtype == torch.complex64 and k_idx.dtype == torch.int32,
             f"ssq block {contrib.dtype} {k_idx.dtype}")
@@ -285,6 +298,8 @@ def main() -> int:
     compare("K6 column sums = kept weighted scale sums (clip)",
             torch.view_as_real(tx_main.sum(dim=-2)), torch.view_as_real(kept), F32_BOUND)
     del tx_main, kept
+    reassign_case("8x64x65536 K=128 (the same coefficients on 128 bins: two bin chunks)",
+                  contrib, k_idx128, 128)
 
     def rand_case(label, g, s_, n, n_bins):
         c = torch.complex(signal((g, s_, n)), signal((g, s_, n)))
@@ -885,6 +900,8 @@ def main() -> int:
                        lambda: cuda_pyramid.ipyramid_rows_transposed_torch(
                            cuda_pyramid.ipyramid_rows_transposed_torch(ximg, rlo, rhi, 1.0, 6),
                            rlo, rhi, 1.0, 6)),
+        "fwt": pair(lambda: jt.fwt(x, "db4", 8),
+                    lambda: cuda_pyramid.pyramid_rows_torch(x, lo, hi, done8)),
         "K6": turns(lambda: cuda_reassign.reassign(contrib, k_idx, 64),
                     lambda: cuda_reassign.reassign_torch(contrib, k_idx, 64), library["K6"]),
         "ssq_cwt": pair(lambda: jt.ssq_cwt(xs, ssq_scales, morlet, ssq_fs),
@@ -896,6 +913,7 @@ def main() -> int:
               "K2": ("imodwt db4 L5 64x65536", 64 * 65536, "Msamples_per_s"),
               "K1+K2": ("modwt+imodwt db4 L5 64x65536 (entry step)", 64 * 65536, "Msamples_per_s"),
               "K3": ("fwt db4 L8 64x65536", 64 * 65536, "Msamples_per_s"),
+              "fwt": ("fwt db4 L8 64x65536 through jt.fwt (K3)", 64 * 65536, "Msamples_per_s"),
               "K4": ("one K4 pass db4 L6 2048x2048", 2048 * 2048, "Mpix_per_s"),
               "fwt2d": ("fwt2d db4 L6 2048x2048 (K4 x2)", 2048 * 2048, "Mpix_per_s"),
               "K5": ("one K5 pass db4 L6 2048x2048", 2048 * 2048, "Mpix_per_s"),
@@ -910,9 +928,11 @@ def main() -> int:
     print(json.dumps({"time": "modwt+imodwt torch FFT path (cuFFT, for context)",
                       "shape": "db4 L5 64x65536", "ms": fft_ms,
                       "Msamples_per_s": 64 * 65536 / fft_ms / 1e3, "card": card}), flush=True)
-    # byte floors for K1, K2, K4 and K5 (device time): the same bytes moved
-    # without their arithmetic, by K4/K5 themselves with no level and by
-    # one-call torch copies and reductions
+    # byte floors (device time): the same bytes moved without the kernel's
+    # arithmetic, by K4/K5 themselves with no level and by torch copies and
+    # reductions. K6's moves more than K6 does: the two clones read and write
+    # 12 B a coefficient (806 MB), K6 reads them and writes 8 B a bin entry
+    # (671 MB at 64 bins)
     floors = {}
     k1_out = torch.empty_like(c32)
     for k, label, shape, fn in (
@@ -921,6 +941,10 @@ def main() -> int:
              lambda: x.unsqueeze(1).expand(-1, 6, -1).contiguous()),
             ("K2", "sum over the 6 rows of the coefficients, the bytes of K2", "64x6x65536",
              lambda: c32.sum(1)),
+            ("K3", "copy of the rows (clone), the bytes of K3", "64x65536", lambda: x.clone()),
+            ("K6", "copies of the contributions and the bin indices (two clones), 806 MB "
+             "moved against K6's 671", "8x64x65536",
+             lambda: (contrib.clone(), k_idx.clone())),
             ("K4", "K4 pass with 0 levels (staging and transposed store only)", "2048x2048",
              lambda: cuda_pyramid.pyramid_rows_transposed(ximg, lo, hi, 0)),
             ("K5", "K5 pass with 0 levels (staging and transposed store only)", "2048x2048",
@@ -935,6 +959,34 @@ def main() -> int:
         if k:
             floors[k] = ms
         print(json.dumps({"time": label, "shape": shape, "ms": ms, "card": card}), flush=True)
+    # K3 where its tiled levels leave a tail and K6 on two bin chunks
+    for label, shape, fn in (
+            ("K3 with a tail: fwt db4 L16 (8 tiled levels, a tail of 8, one launch)",
+             "64x65536", lambda: cuda_pyramid.pyramid_rows(x, lo, hi, 16)),
+            ("K6 at 128 bins (two bin chunks, each staging k_idx and c again)",
+             "8x64x65536 K=128", lambda: cuda_reassign.reassign(contrib, k_idx128, 128))):
+        print(json.dumps({"time": label, "shape": shape, "ms": median_ms(fn, device=True),
+                          "wall_ms": median_ms(fn), "card": card}), flush=True)
+    # The 1D inverse FWT has no kernel: ifwt, the facade's reverse and K3's
+    # backward all run the plain synthesis butterflies. Each level uploads its
+    # taps by a copy that waits for the stream, so the host cannot enqueue
+    # ahead of a spin: its device time is the sum of its kernels' times in one
+    # profiled call (warm L2), beside the wall time of a call.
+    y8 = cuda_pyramid.pyramid_rows(x, lo, hi, done8)
+    ifwt_wall = median_ms(lambda: jt.ifwt(y8, "db4", 8))
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        jt.ifwt(y8, "db4", 8)
+        torch.cuda.synchronize()
+    on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    require(len(on_card) > 0, "the profiler saw no kernel of ifwt")
+    print(json.dumps({"time": "ifwt db4 L8 through jt.ifwt (plain synthesis butterflies, no "
+                              "kernel): sum of its kernels' device times, and wall",
+                      "shape": "64x65536", "kernels": len(on_card),
+                      "ms": sum(e.time_range.elapsed_us() for e in on_card) / 1e3,
+                      "wall_ms": ifwt_wall, "card": card}), flush=True)
+    compare("ifwt(fwt(x)) = x, db4 L8 64x65536", jt.ifwt(y8, "db4", 8), x, F32_BOUND)
+    del y8
     sep_ms = median_ms(lambda: ndim.reverse_2d(lambda v, lvl: jt.ifwt(v, "db4", lvl), ximg, 6, 6))
     dense_ms = median_ms(lambda: cuda_reassign.reassign_dense_torch(contrib, k_idx, 64))
     for label, shape, ms in (

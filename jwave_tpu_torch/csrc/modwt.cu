@@ -169,70 +169,9 @@ __host__ __device__ inline InvLayout inv_layout(int tl, int m, int j0, int j1, i
   return L;
 }
 
-// Stage samples [t0, t0 + cnt) mod n of `row` into dst[0, cnt): one piece
-// per pass over the row. Thread 0 announces the stage's bulk bytes on `bar`
-// and starts one bulk copy per piece for its part that is 16-byte aligned
-// on both sides; every thread loads the rest plainly (the caller's
-// __syncthreads() publishes those).
-template <typename T>
-__device__ void stage_segment(T* dst, const T* row, long long t0, int cnt, int n,
-                              uint64_t* bar) {
-  constexpr int kVec = 16 / sizeof(T);
-  cnt = (cnt + kVec - 1) / kVec * kVec;  // whole 16 bytes: no plain-loaded tail where aligned
-  for (int pass = 0; pass < 2; ++pass) {  // 0: count the bulk bytes, 1: copy
-    uint32_t bulk_bytes = 0;
-    int o = 0;
-    long long s = t0;
-    while (o < cnt) {
-      const int len = (int)min((long long)(cnt - o), (long long)n - s);
-      const uintptr_t ga = reinterpret_cast<uintptr_t>(row + s);
-      int head = len, body = 0;  // [0, head) plain, [head, head + body) bulk, the rest plain
-      if ((ga & 15) == (jw::smem_addr(dst + o) & 15)) {
-        head = min(len, (int)(((16 - (ga & 15)) & 15) / sizeof(T)));
-        body = (len - head) / kVec * kVec;
-      }
-      if (pass == 0) {
-        bulk_bytes += body * sizeof(T);
-      } else {
-        if (body > 0 && threadIdx.x == 0)
-          jw::bulk_copy(dst + o + head, row + s + head, body * sizeof(T), bar);
-        for (int i = threadIdx.x; i < len - body; i += blockDim.x) {
-          const int e = i < head ? i : i + body;
-          dst[o + e] = row[s + e];
-        }
-      }
-      o += len;
-      s = 0;
-    }
-    if (pass == 0 && threadIdx.x == 0) jw::mbar_expect(bar, bulk_bytes);
-  }
-}
-
-// The stage for a tile bound for global `dst`: `base` (16-byte aligned)
-// advanced by dst's offset mod 16, so that the stage and dst agree mod 16.
-template <typename T>
-__device__ __forceinline__ T* stage_for(unsigned char* base, const T* dst) {
-  return reinterpret_cast<T*>(base + (reinterpret_cast<uintptr_t>(dst) & 15));
-}
-
-// dst[0, cnt) = src[0, cnt), src a stage from stage_for(dst): thread 0
-// issues one bulk store of the 16-byte aligned body into its current bulk
-// group, and every thread stores the ragged head and tail plainly. The
-// caller has fenced (jw::fence_async_smem) and synchronised the writes of
-// src, and later commits the group.
-template <typename T>
-__device__ void store_segment(T* dst, const T* src, int cnt) {
-  constexpr int kVec = 16 / sizeof(T);
-  const uintptr_t ga = reinterpret_cast<uintptr_t>(dst);
-  const int head = min(cnt, (int)(((16 - (ga & 15)) & 15) / sizeof(T)));
-  const int body = (cnt - head) / kVec * kVec;
-  if (body > 0 && threadIdx.x == 0)
-    jw::bulk_store(dst + head, src + head, body * (uint32_t)sizeof(T));
-  for (int i = threadIdx.x; i < cnt - body; i += blockDim.x) {
-    const int e = i < head ? i : i + body;
-    dst[e] = src[e];
-  }
-}
+using jw::stage_for;
+using jw::stage_segment;
+using jw::store_segment;
 
 __device__ __forceinline__ float ld_s(const float* p, int i) { return p[i]; }
 __device__ __forceinline__ float ld_s(const __nv_bfloat16* p, int i) {

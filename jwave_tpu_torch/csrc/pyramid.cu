@@ -17,14 +17,49 @@
 // row. The Pallas kernel's pair-tile matmuls exist for the TPU's MXU; here
 // the butterfly is a direct FMA loop.
 //
-// K3's design: one block a row. Level 1 reads the row straight from device
-// memory (a 64x65536 f32 batch is 16 MB and stays in the 50 MB L2); its
-// approximation, half the row, lives in shared memory, and every later level
-// ping-pongs between two shared buffers of h0/2 and h0/4 floats, so device
-// memory sees one read of the row and one write of each output element.
-// Details are stored as soon as they are computed. h0 <= 65536 fits (192 KB);
-// longer rows are first cut down by single-level launches of K3 whose
-// approximation goes to a scratch row.
+// K3's design: a row is spread over many blocks, by tiles with a halo.
+// Output i of level l reads level-0 samples 2^l i .. 2^l i + (2^l - 1)(M - 1),
+// circularly, so a block that owns `tile` samples of one row (a power of
+// two, its start a multiple of it) runs the first lt levels on its own from
+// tile + (2^lt - 1)(M - 1) samples, the halo lying to the right and wrapping
+// mod N. The host picks the plan (ops/cuda_pyramid.py::k3_plan): tiles of
+// 8192 samples, 256 threads, and the most levels whose halo stays within a
+// quarter of the tile: all 8 levels of db4 L8 (halo 1785, 93 KB a block, two
+// blocks an SM, 512 blocks at 64 x 65536). The first version ran one block
+// of 192 KB a row (64 blocks on 132 SMs), read level 1 tap by tap from
+// device memory and stored details 4 bytes a thread as they were made.
+//  - The segment is staged before any arithmetic by bulk copies (TMA) at its
+//    start's offset mod 16 (stage_segment, shared with K1: one copy a
+//    wrapped piece, the ragged edges by plain loads); a start that is not
+//    8-byte aligned takes plain loads, since the levels read float2.
+//  - A level reads one shared buffer and writes another, linearly: the halo
+//    is staged, so nothing wraps inside a tile, and only the outputs whose
+//    window stays inside the staged samples are made (after level l,
+//    tile/2^l + (2^(lt-l) - 1)(M - 1) approximations and the tile's tile/2^l
+//    details). A float2 pair a tap pair (2i + k is even: conflict-free; the
+//    taps past M are zero); db4's 8 taps are unrolled with a thread making
+//    two outputs from 16-byte reads. One barrier a level.
+//  - Level l's tile/2^l details are contiguous in out. Each level has a
+//    stage of its own in shared memory (none is written twice, so no level
+//    waits for a store), staged at its destination's offset mod 16, and one
+//    thread sends it by a bulk store while the next level computes; the
+//    ragged edges of an unaligned destination leave by plain stores.
+//  - The tail. Where lt < levels (62 taps at L8: 5 tiled levels; or more
+//    levels than a tile halves), the approximations of level lt go to a
+//    scratch row by plain stores, and the block of a row that finishes last
+//    (a counter a row, __threadfence and atomicAdd; that block zeroes it
+//    again) runs the levels left on the row's h >> lt samples in its own
+//    shared memory, circularly: one launch. A head left longer than a tile
+//    (rows of 2^22 and more at db4) takes a further tiled pass on the
+//    scratch row, and rows of at most 4096 samples run one block a row
+//    (pyramid_tail_kernel), so rows of any length fit.
+// On the H100 (PERF.md, "NVIDIA H100 80GB HBM3, 700.00 W") 64 x 65536 db4 L8
+// takes 0.0260 ms (the first version 0.0524) against a bound of 0.0100
+// (33.5 MB over 3.35 TB/s) and 0.0174 for a copy of the same rows by
+// clone(); all 16 levels (a tail of 8 in the same launch) take 0.0313.
+// Tiles of 4096 (four blocks an SM) and 16384 (one) took 0.027 at their best
+// block size, tiles of 2048 0.029; 128 to 256 threads a block differ by
+// under 2% at tiles of 8192, 512 threads cost 9%.
 //
 // K4 and K5 stage a block of rb rows in shared memory and store it
 // transposed; they share the staging (stage_rows) and the transposed store
@@ -99,70 +134,6 @@ namespace {
 
 constexpr int kMaxTaps = 64;
 
-// One row's pyramid: `levels` levels on the head of length h0 of row `x`.
-// `store(idx, v)` receives every output element at its in-place index.
-// A and B are shared scratch of h0/2 and h0/4 floats (unused when levels < 2).
-// Each level's outputs are scaled by `gain`.
-template <typename Store>
-__device__ void pyramid_row(const float* __restrict__ x, int h0, int levels,
-                            const float* lo, const float* hi, int m, float gain, float* A,
-                            float* B, Store store) {
-  if (levels == 0) {
-    for (int i = threadIdx.x; i < h0; i += blockDim.x) store(i, x[i]);
-    __syncthreads();
-    return;
-  }
-  int h = h0;
-  int half = h >> 1;
-  for (int i = threadIdx.x; i < half; i += blockDim.x) {
-    float sa = 0.f, sd = 0.f;
-    for (int k = 0; k < m; ++k) {
-      const float v = x[(2 * i + k) & (h - 1)];
-      sa = fmaf(lo[k], v, sa);
-      sd = fmaf(hi[k], v, sd);
-    }
-    sa *= gain;
-    store(half + i, gain * sd);
-    if (levels == 1) store(i, sa);
-    else A[i] = sa;
-  }
-  __syncthreads();
-  float* cur = A;
-  float* nxt = B;
-  h = half;
-  for (int l = 1; l < levels; ++l) {
-    half = h >> 1;
-    for (int i = threadIdx.x; i < half; i += blockDim.x) {
-      float sa = 0.f, sd = 0.f;
-      for (int k = 0; k < m; ++k) {
-        const float v = cur[(2 * i + k) & (h - 1)];
-        sa = fmaf(lo[k], v, sa);
-        sd = fmaf(hi[k], v, sd);
-      }
-      sa *= gain;
-      store(half + i, gain * sd);
-      if (l == levels - 1) store(i, sa);
-      else nxt[i] = sa;
-    }
-    __syncthreads();
-    float* tmp = cur;
-    cur = nxt;
-    nxt = tmp;
-    h = half;
-  }
-}
-
-// Final approximation (index < a_len) to `a`, everything else to `d`.
-struct RowStore {
-  float* d;
-  float* a;
-  int a_len;
-  __device__ void operator()(int idx, float v) const {
-    if (idx < a_len) a[idx] = v;
-    else d[idx] = v;
-  }
-};
-
 // The taps into shared lo[0, kMaxTaps), hi[0, kMaxTaps), zero past m (K4
 // reads taps in pairs).
 __device__ void load_taps(const float* taps, int m, float* lo, float* hi) {
@@ -171,26 +142,6 @@ __device__ void load_taps(const float* taps, int m, float* lo, float* hi) {
     hi[i] = i < m ? taps[m + i] : 0.f;
   }
   __syncthreads();
-}
-
-// K3: one block per row. Reads the head [0, h0) of row r of `src`; details
-// go to row r of `out` at their in-place index, the final approximation to
-// row r of `a_out` (which is `out` itself except when cutting a long row).
-__global__ void __launch_bounds__(1024)
-pyramid_rows_kernel(const float* __restrict__ src, long long src_stride,
-                                    float* __restrict__ out, long long out_stride,
-                                    float* __restrict__ a_out, long long a_stride,
-                                    const float* __restrict__ taps, int h0, int levels,
-                                    int m) {
-  extern __shared__ __align__(16) float smem[];
-  float* lo = smem;
-  float* hi = smem + kMaxTaps;
-  float* A = smem + 2 * kMaxTaps;
-  float* B = A + h0 / 2;
-  load_taps(taps, m, lo, hi);
-  const long long r = blockIdx.x;
-  RowStore st{out + r * out_stride, a_out + r * a_stride, h0 >> levels};
-  pyramid_row(src + r * src_stride, h0, levels, lo, hi, m, 1.f, A, B, st);
 }
 
 // K4 and K5 limits, mirrored by ops/cuda_pyramid.py: at most kMaxRows rows
@@ -232,6 +183,246 @@ __device__ void stage_rows(float* S, const float* y, int nr, int n, int ns, uint
     for (int i = threadIdx.x; i < nr * n; i += blockDim.x) S[i / n * ns + i % n] = y[i];
     __syncthreads();
   }
+}
+
+// ---- K3: tiles with a halo, then a tail. Mirrored by ops/cuda_pyramid.py
+// (k3_plan, k3_smem_bytes, k3_tail_smem_bytes). ----
+constexpr int kK3Threads = 512;
+
+__host__ __device__ inline int round4(int v) { return (v + 3) & ~3; }
+
+// Float offsets of a tile block's buffers; each starts 16-byte aligned and
+// has 4 floats of room for a stage's offset mod 16 (stage_for).
+struct K3Layout {
+  int halo;   // (2^lt - 1)(m - 1) samples right of the tile
+  int x;      // the staged segment, tile + halo samples; later the a of even levels
+  int a;      // the a of odd levels: tile/2 + (2^(lt-1) - 1)(m - 1) samples
+  int d;      // the stages of what leaves: the details of levels 1..lt (tile >> l
+              // samples each), then the last approximation (tile >> lt), one
+              // after another; k3_stage_floats() apart
+  int floats;
+};
+
+// floats a stage of cnt samples takes in the block's shared memory
+__host__ __device__ inline int k3_stage_floats(int cnt) { return round4(cnt) + 4; }
+
+__host__ __device__ inline K3Layout k3_layout(int tile, int lt, int m) {
+  K3Layout L;
+  L.halo = ((1 << lt) - 1) * (m - 1);
+  L.x = kRowsHead;
+  L.a = L.x + round4(tile + L.halo) + 4;
+  L.d = L.a + round4((tile >> 1) + ((1 << (lt - 1)) - 1) * (m - 1)) + 4;
+  L.floats = L.d + k3_stage_floats(tile >> lt);
+  for (int l = 1; l <= lt; ++l) L.floats += k3_stage_floats(tile >> l);
+  return L;
+}
+
+// One level on a staged, linear segment: a[i] for i < na and d[i] for
+// i < nd <= na from in[2i .. 2i + m - 1] (the taps past m are zero, and the
+// last sample read lies inside the valid samples of `in`, see the header).
+// MT = 0 takes any filter length, a float2 pair (2i + k is even) a tap
+// pair. MT > 0 is the filter length known at compile time and needs `in`
+// 16-byte aligned: the taps sit in registers and a thread makes the outputs
+// 2p and 2p + 1 from the MT + 2 samples in[4p ..], read 16 bytes at a time
+// (neighbouring threads 16 bytes apart: conflict-free, and 5 loads for two
+// outputs where pairs take 8).
+template <int MT>
+__device__ __forceinline__ void k3_level(const float* in, float* a, float* d, int na, int nd,
+                                         int m, const float* lo, const float* hi) {
+  if constexpr (MT > 0) {
+    static_assert(MT % 4 == 0, "the window is read as float4s and one float2");
+    float l[MT], h[MT];
+#pragma unroll
+    for (int k = 0; k < MT; ++k) {
+      l[k] = lo[k];
+      h[k] = hi[k];
+    }
+    for (int p = threadIdx.x; 2 * p < na; p += blockDim.x) {
+      float x[MT + 2];
+#pragma unroll
+      for (int q = 0; q < MT / 4; ++q) {
+        const float4 v = reinterpret_cast<const float4*>(in + 4 * p)[q];
+        x[4 * q] = v.x, x[4 * q + 1] = v.y, x[4 * q + 2] = v.z, x[4 * q + 3] = v.w;
+      }
+      const float2 w = *reinterpret_cast<const float2*>(in + 4 * p + MT);
+      x[MT] = w.x, x[MT + 1] = w.y;
+      float a0 = 0.f, a1 = 0.f, d0 = 0.f, d1 = 0.f;
+#pragma unroll
+      for (int k = 0; k < MT; ++k) {
+        a0 = fmaf(l[k], x[k], a0);
+        d0 = fmaf(h[k], x[k], d0);
+        a1 = fmaf(l[k], x[k + 2], a1);
+        d1 = fmaf(h[k], x[k + 2], d1);
+      }
+      const int i = 2 * p;
+      a[i] = a0;
+      if (i < nd) d[i] = d0;
+      if (i + 1 < na) a[i + 1] = a1;
+      if (i + 1 < nd) d[i + 1] = d1;
+    }
+  } else {
+    for (int i = threadIdx.x; i < na; i += blockDim.x) {
+      const float2* p = reinterpret_cast<const float2*>(in + 2 * i);
+      float sa = 0.f, sd = 0.f;
+      for (int k = 0; k < m; k += 2) {
+        const float2 v = p[k / 2];
+        sa = fmaf(lo[k + 1], v.y, fmaf(lo[k], v.x, sa));
+        sd = fmaf(hi[k + 1], v.y, fmaf(hi[k], v.x, sd));
+      }
+      a[i] = sa;
+      if (i < nd) d[i] = sd;
+    }
+  }
+}
+
+// `levels` levels on a head of hh samples staged in P (P and Q, of hh and
+// hh/2 floats, hold the approximations in turns), circularly: sample
+// (2i + k) mod hh, a float2 pair at a time (2i + k and hh are even).
+// Details go to `orow` at their in-place index, the last approximation to
+// its start. Every thread of the block calls it, after a barrier.
+__device__ void tail_levels(float* P, float* Q, float* orow, int hh, int levels, int m,
+                            const float* lo, const float* hi) {
+  const float* in = P;
+  for (int l = 1; l <= levels; ++l, hh >>= 1) {
+    const int half = hh >> 1;
+    const bool last = l == levels;
+    float* a = (l & 1) ? Q : P;
+    for (int i = threadIdx.x; i < half; i += blockDim.x) {
+      float sa = 0.f, sd = 0.f;
+      for (int k = 0; k < m; k += 2) {
+        const float2 v = *reinterpret_cast<const float2*>(in + ((2 * i + k) & (hh - 1)));
+        sa = fmaf(lo[k + 1], v.y, fmaf(lo[k], v.x, sa));
+        sd = fmaf(hi[k + 1], v.y, fmaf(hi[k], v.x, sd));
+      }
+      orow[half + i] = sd;
+      if (last) orow[i] = sa;
+      else a[i] = sa;
+    }
+    __syncthreads();
+    in = a;
+  }
+}
+
+// K3, the tiled levels: one block per (row, tile) of the head [0, h) of
+// each row of `src`. Runs levels 1..lt of that head on the tile's samples
+// and its right halo; level l's tile >> l details go to row r of `out` at
+// their in-place index h/2^l + ti * (tile >> l), the tile >> lt
+// approximations of level lt to row r of `a_out` at ti * (tile >> lt).
+// With tail_lv > 0, `a_out` is a scratch row and the block of a row that
+// finishes last (a counter a row in `counters`, zero before the launch and
+// zero again after it) runs that row's remaining tail_lv levels on the
+// h >> lt approximations, in the shared memory of its segment.
+// See the header for the design.
+template <int MT>
+__global__ void __launch_bounds__(kK3Threads)
+pyramid_tile_kernel(const float* __restrict__ src, long long src_stride, float* __restrict__ out,
+                    long long out_stride, float* __restrict__ a_out, long long a_stride,
+                    const float* __restrict__ taps, int h, int tile, int lt, int tail_lv,
+                    int* __restrict__ counters, int m) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int finishes_row;
+  float* lo = smem;
+  float* hi = smem + kMaxTaps;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + 2 * kMaxTaps);
+  const K3Layout L = k3_layout(tile, lt, m);
+  const int tiles = h / tile;
+  const long long r = blockIdx.x / tiles;
+  const int ti = blockIdx.x - (int)(r * tiles);
+  const float* row = src + r * src_stride;
+  const long long t0 = (long long)ti * tile;
+  if (threadIdx.x == 0) jw::mbar_init(bar);
+  load_taps(taps, m, lo, hi);  // its __syncthreads also publishes the barrier
+  // the segment [t0, t0 + tile + halo) mod h, staged before any arithmetic:
+  // by bulk copies at its start's offset mod 16 (every piece that agrees
+  // mod 16 on both sides; the ragged rest by plain loads), or, when the
+  // start is not 8-byte aligned (the levels read float2), by plain loads
+  const int cnt = tile + L.halo;
+  float* xbase = smem + L.x;
+  const float* in;
+  if ((reinterpret_cast<uintptr_t>(row + t0) & 7) == 0) {
+    float* X = jw::stage_for(reinterpret_cast<unsigned char*>(xbase), row + t0);
+    jw::stage_segment(X, row, t0, cnt, h, bar);
+    __syncthreads();  // the plain-loaded parts
+    jw::mbar_wait(bar, 0);
+    in = X;
+  } else {
+    for (int i = threadIdx.x; i < cnt; i += blockDim.x) xbase[i] = row[(t0 + i) & (h - 1)];
+    __syncthreads();
+    in = xbase;
+  }
+  float* orow = out + r * out_stride;
+  float* stage = smem + L.d;  // the next level's; none is written twice, so no level waits for a store
+  for (int l = 1; l <= lt; ++l) {
+    const int nd = tile >> l;                               // this tile's outputs
+    const int na = nd + ((1 << (lt - l)) - 1) * (m - 1);    // and the halo the later levels need
+    const bool last = l == lt;
+    float* ddst = orow + (h >> l) + (long long)ti * nd;
+    float* adst = a_out + r * a_stride + (long long)ti * nd;  // the last level's
+    float* d = jw::stage_for(reinterpret_cast<unsigned char*>(stage), ddst);
+    stage += k3_stage_floats(nd);
+    float* a = last ? jw::stage_for(reinterpret_cast<unsigned char*>(stage), adst)
+                    : (l & 1) ? smem + L.a : xbase;
+    if (MT > 0 && (reinterpret_cast<uintptr_t>(in) & 15) == 0)
+      k3_level<MT>(in, a, d, na, nd, m, lo, hi);
+    else  // any filter length, or level 1 of a source 8 bytes off 16-byte alignment
+      k3_level<0>(in, a, d, na, nd, m, lo, hi);
+    jw::fence_async_smem();
+    __syncthreads();
+    jw::store_segment(ddst, d, nd);
+    if (last) {
+      if (tail_lv == 0) {
+        jw::store_segment(adst, a, nd);
+      } else {  // another block may read them: plain stores, fenced before the count
+        for (int i = threadIdx.x; i < nd; i += blockDim.x) adst[i] = a[i];
+        __threadfence();
+      }
+    }
+    if (threadIdx.x == 0) jw::bulk_commit();
+    in = a;
+  }
+  if (tail_lv > 0) {
+    __syncthreads();  // every thread's approximations are stored and fenced
+    if (threadIdx.x == 0) {
+      finishes_row = atomicAdd(counters + r, 1) == tiles - 1;
+      if (finishes_row) counters[r] = 0;  // no other block of the row is left to count
+    }
+    __syncthreads();
+    if (finishes_row) {
+      __threadfence();
+      const int ht = h >> lt;
+      const float* arow = a_out + r * a_stride;
+      float* P = xbase;  // the segment and the odd levels' buffer are free: 1.5 ht floats fit
+      for (int i = threadIdx.x; i < ht; i += blockDim.x) P[i] = __ldcg(arow + i);
+      __syncthreads();
+      tail_levels(P, P + ht, orow, ht, tail_lv, m, lo, hi);
+    }
+  }
+  if (threadIdx.x == 0) jw::bulk_wait_read<0>();  // the stages outlive the stores
+}
+
+// K3, the tail on its own: one block per row runs `levels` levels on the
+// head [0, h) of row r of `src`, staged whole in shared memory
+// (tail_levels). With no level it copies the head.
+__global__ void __launch_bounds__(1024)
+pyramid_tail_kernel(const float* __restrict__ src, long long src_stride, float* __restrict__ out,
+                    long long out_stride, const float* __restrict__ taps, int h, int levels,
+                    int m) {
+  extern __shared__ __align__(16) float smem[];
+  const float* row = src + (long long)blockIdx.x * src_stride;
+  float* orow = out + (long long)blockIdx.x * out_stride;
+  if (levels == 0) {
+    for (int i = threadIdx.x; i < h; i += blockDim.x) orow[i] = row[i];
+    return;
+  }
+  float* lo = smem;
+  float* hi = smem + kMaxTaps;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + 2 * kMaxTaps);
+  float* P = smem + kRowsHead;
+  float* Q = P + h;
+  if (threadIdx.x == 0) jw::mbar_init(bar);
+  load_taps(taps, m, lo, hi);  // its __syncthreads also publishes the barrier
+  stage_rows(P, row, 1, h, h, bar, h % 4 == 0 && (reinterpret_cast<uintptr_t>(row) & 15) == 0);
+  tail_levels(P, Q, orow, h, levels, m, lo, hi);
 }
 
 // The nr staged rows of S (stride ns) to columns r0 .. r0+nr-1 of out (n
@@ -427,24 +618,55 @@ ipyramid_rows_t_kernel(const float* __restrict__ src, float* __restrict__ out,
   }
 }
 
+template <int MT>
+int launch_k3_tile(const float* src, long long src_stride, float* out, long long out_stride,
+                   float* a_out, long long a_stride, const float* taps, int rows, int h, int tile,
+                   int lt, int tail_lv, int* counters, int m, int threads,
+                   cudaStream_t stream) {
+  const int smem = k3_layout(tile, lt, m).floats * (int)sizeof(float);
+  auto kern = pyramid_tile_kernel<MT>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<(unsigned)rows * (h / tile), threads, smem, stream>>>(
+      src, src_stride, out, out_stride, a_out, a_stride, taps, h, tile, lt, tail_lv, counters, m);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 const char* jw_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-int jw_pyramid_rows(const void* src, long long src_stride, void* out, long long out_stride,
-                    void* a_out, long long a_stride, const void* taps, int rows, int h0,
-                    int levels, int m, int threads, void* stream) {
+// K3's tiled levels 1..lt of the head [0, h) of each row (tile and h powers
+// of two, tile <= h, 2^lt <= tile), and with tail_lv > 0 the tail_lv levels
+// after them in the same launch (h >> lt <= tile; `counters`: rows zeroed
+// ints); db4's 8 taps unroll at compile time.
+int jw_pyramid_tile(const void* src, long long src_stride, void* out, long long out_stride,
+                    void* a_out, long long a_stride, const void* taps, int rows, int h, int tile,
+                    int lt, int tail_lv, void* counters, int m, int threads, void* stream) {
   cudaGetLastError();
-  const int bufs = levels >= 2 ? h0 / 2 + h0 / 4 : 0;
-  const int smem = (2 * kMaxTaps + bufs) * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(pyramid_rows_kernel,
+  if (lt < 1 || tile > h || (tile >> lt) < 1 || threads > kK3Threads ||
+      (tail_lv > 0 && ((h >> lt) > tile || counters == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  auto fn = m == 8 ? launch_k3_tile<8> : launch_k3_tile<0>;
+  return fn((const float*)src, src_stride, (float*)out, out_stride, (float*)a_out, a_stride,
+            (const float*)taps, rows, h, tile, lt, tail_lv, (int*)counters, m, threads,
+            (cudaStream_t)stream);
+}
+
+// K3's tail: `levels` levels (0: a copy) on the head [0, h) of each row, one
+// block a row.
+int jw_pyramid_tail(const void* src, long long src_stride, void* out, long long out_stride,
+                    const void* taps, int rows, int h, int levels, int m, int threads,
+                    void* stream) {
+  cudaGetLastError();
+  const int smem = levels ? (kRowsHead + h + h / 2) * (int)sizeof(float) : 0;
+  cudaError_t err = cudaFuncSetAttribute(pyramid_tail_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  pyramid_rows_kernel<<<rows, threads, smem, (cudaStream_t)stream>>>(
-      (const float*)src, src_stride, (float*)out, out_stride, (float*)a_out, a_stride,
-      (const float*)taps, h0, levels, m);
+  pyramid_tail_kernel<<<rows, threads, smem, (cudaStream_t)stream>>>(
+      (const float*)src, src_stride, (float*)out, out_stride, (const float*)taps, h, levels, m);
   return (int)cudaGetLastError();
 }
 

@@ -40,6 +40,15 @@ def ensure_float(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def ensure_fft_float(x: torch.Tensor) -> torch.Tensor:
+    """:func:`ensure_float` for the FFT paths: bfloat16 and float16 become
+    float32 as well (``torch.fft`` takes neither; the JAX package computes
+    these paths in float32 for half-precision input)."""
+    if x.dtype in (torch.bfloat16, torch.float16):
+        return x.to(torch.float32)
+    return ensure_float(x)
+
+
 def taps(f, like: torch.Tensor) -> torch.Tensor:
     """Host filter taps as a tensor of ``like``'s dtype on its device."""
     return torch.as_tensor(np.ascontiguousarray(f, dtype=np.float64), dtype=like.dtype,

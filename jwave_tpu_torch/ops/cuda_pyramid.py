@@ -24,7 +24,7 @@ launches a kernel and counts as its launch):
 
 * K3's adjoint is ``ops/butterfly.synthesis_levels`` with the analysis
   filters and gain 1 (no kernel: K5's staged rows stop at 16384 samples,
-  K3 runs rows of 65536 and longer);
+  K3 runs rows of any length);
 * one K4 pass is T P (P the pyramid, T the transpose), so its adjoint
   P^T T is K5 with the same filters and gain on the transposed gradient,
   transposed back; one K5 pass likewise takes K4 with K5's filters as the
@@ -37,6 +37,8 @@ the first backward pass copies its gradient.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -49,9 +51,15 @@ launch_counts = {"pyramid_rows": 0, "pyramid_rows_transposed": 0,
                  "ipyramid_rows_transposed": 0}
 
 MAX_TAPS = 64
-#: longest head one K3 block holds in shared memory (h/2 + h/4 floats)
-MAX_FUSED_HEAD = 65536
-K3_THREADS = 1024
+#: K3's plan (``csrc/pyramid.cu``): level-0 samples a tile block owns (two
+#: 93 KB blocks an SM at db4, 512 blocks at 64 x 65536) and its threads;
+#: heads up to ``K3_TAIL_HEAD`` run whole in one block a row (the tail),
+#: whose shared memory holds a head of ``K3_TAIL_MAX_HEAD`` at most
+K3_TILE = 8192
+K3_TILE_THREADS = 256
+K3_TAIL_HEAD = 4096
+K3_TAIL_MAX_HEAD = 32768
+K3_TAIL_THREADS = 1024
 K4_THREADS = 512
 K5_THREADS = 512
 #: K4's and K5's plan (``csrc/pyramid.cu`` kMaxRows, kK5Pairs): at most 8
@@ -104,6 +112,40 @@ def pyramid_rows_torch(x: torch.Tensor, dec_lo, dec_hi, levels: int,
         out[..., :half] = a
         out[..., half:h] = d
         h = half
+    return out
+
+
+def pyramid_rows_tiled_torch(x: torch.Tensor, dec_lo, dec_hi, levels: int,
+                             plan: "K3Plan") -> torch.Tensor:
+    """:func:`pyramid_rows_torch` computed as K3's tile blocks partition it
+    (for the tests: the halo arithmetic has no other CPU check). Each tile of
+    ``plan.tile`` samples runs ``plan.levels`` levels on its own from the
+    tile and ``plan.halo`` samples to its right (mod N), level l keeping
+    ``tile/2^l + (2^(Lt-l) - 1)(M - 1)`` approximations and the tile's
+    ``tile/2^l`` details; the levels left run on the gathered approximations
+    of level Lt. An index outside a staged segment raises."""
+    n = x.shape[-1]
+    m = len(dec_lo)
+    t, lt = plan.tile, plan.levels
+    if lt == 0:
+        return pyramid_rows_torch(x, dec_lo, dec_hi, levels)
+    out = torch.empty_like(x)
+    approx = x.new_empty(x.shape[:-1] + (n >> lt,))
+    for ti in range(n // t):
+        cur = x[..., (ti * t + torch.arange(t + plan.halo, device=x.device)) % n]
+        for l in range(1, lt + 1):
+            nd = t >> l
+            na = nd + ((1 << (lt - l)) - 1) * (m - 1)
+            i2 = 2 * torch.arange(na, device=x.device)
+            a = torch.zeros_like(cur[..., :na])
+            d = torch.zeros_like(cur[..., :nd])
+            for j in range(m):
+                a = a + float(dec_lo[j]) * cur[..., i2 + j]
+                d = d + float(dec_hi[j]) * cur[..., i2[:nd] + j]
+            out[..., (n >> l) + ti * nd:(n >> l) + (ti + 1) * nd] = d
+            cur = a
+        approx[..., ti * (t >> lt):(ti + 1) * (t >> lt)] = cur
+    out[..., :n >> lt] = pyramid_rows_torch(approx, dec_lo, dec_hi, levels - lt)
     return out
 
 
@@ -174,7 +216,82 @@ def _fn(lib, name, argtypes):
     return fn
 
 
-def _k3(x: torch.Tensor, dec_lo, dec_hi, levels: int) -> torch.Tensor:
+class K3Plan(NamedTuple):
+    """One tiled pass of K3 over a head: ``tile`` samples a block, the
+    ``levels`` it runs there, its right ``halo``, the ``tail_levels`` that
+    the last block of each row runs after them in the same launch, and the
+    block's shared bytes."""
+
+    tile: int
+    levels: int
+    halo: int
+    tail_levels: int
+    smem_bytes: int
+
+
+def _round4(v: int) -> int:
+    return (v + 3) & ~3
+
+
+def k3_smem_bytes(tile: int, lt: int, m: int) -> int:
+    """Shared bytes of a K3 tile block (``csrc/pyramid.cu`` k3_layout): the
+    taps and the mbarrier padded to 16 bytes, then, each rounded up to 16
+    bytes with 16 more for a stage's offset, the segment (tile + halo), the
+    odd levels' approximations (tile/2 + (2^(lt-1) - 1)(m - 1)), and a stage
+    for everything that leaves: each level's details (tile >> l) and the
+    last approximation (tile >> lt)."""
+    halo = ((1 << lt) - 1) * (m - 1)
+    v1 = (tile >> 1) + ((1 << (lt - 1)) - 1) * (m - 1) if lt else 0
+    stages = [tile >> l for l in range(1, lt + 1)] + [tile >> lt]
+    return 4 * (2 * MAX_TAPS + 4 + sum(_round4(v) + 4 for v in [tile + halo, v1] + stages))
+
+
+def k3_tail_smem_bytes(h: int) -> int:
+    """Shared bytes of a K3 tail block: the taps, the mbarrier padded to 16
+    bytes, the staged head and half of it."""
+    return 4 * (2 * MAX_TAPS + 4 + h + h // 2)
+
+
+@functools.lru_cache(maxsize=None)
+def k3_plan(n: int, levels: int, m: int, tile: int = K3_TILE) -> K3Plan:
+    """How K3's tile blocks take the head ``n``: ``t = min(n, tile)`` samples
+    a block and the most levels Lt <= ``levels`` whose right halo
+    ``(2^Lt - 1)(m - 1)`` stays within a quarter of the tile (a halo is
+    loaded and filtered twice; 2^Lt never exceeds the tile). A head of at
+    most ``t`` samples is what a block's shared memory holds, so where the
+    tiled levels get down to one, the levels left run as the launch's tail
+    (``tail_levels``); else they are left to a further pass. Lt = 0 means
+    no tiled pass."""
+    t = min(n, tile)
+    lt = 0
+    while lt < levels and (t >> (lt + 1)) >= 1 and ((2 << lt) - 1) * (m - 1) <= t // 4:
+        lt += 1
+    tail = levels - lt if lt and (n >> lt) <= t else 0
+    return K3Plan(t, lt, ((1 << lt) - 1) * (m - 1), tail, k3_smem_bytes(t, lt, m))
+
+
+#: (device index, stream) -> K3's per-row counters, zero between launches
+_K3_COUNTERS: dict = {}
+
+
+def _k3_counters(device, stream: int, rows: int) -> torch.Tensor:
+    """Zeroed int32 counters, one a row, for a launch on ``stream``: each
+    launch leaves them zero again, and launches of one stream run in order,
+    so a stream keeps one buffer."""
+    key = (device.index, stream)
+    buf = _K3_COUNTERS.get(key)
+    if buf is None or buf.numel() < rows:
+        buf = _K3_COUNTERS[key] = torch.zeros(max(rows, 1024), dtype=torch.int32, device=device)
+    return buf
+
+
+def _k3(x: torch.Tensor, dec_lo, dec_hi, levels: int, plan: K3Plan | None = None) -> torch.Tensor:
+    """K3 on the card. Heads longer than ``K3_TAIL_HEAD`` lose their leading
+    levels to tiled passes (:func:`k3_plan`; ``plan`` overrides the first
+    one's), each passing the approximation on through a scratch row; a pass
+    that gets down to a head of one tile runs the levels left as its tail,
+    in the same launch. Shorter rows run in the tail kernel, one block a
+    row. One launch at 64 x 65536."""
     if x.device.type == "cpu":
         return pyramid_rows_torch(x, dec_lo, dec_hi, levels)
     _check(x, dec_lo, dec_hi, levels, "pyramid_rows")
@@ -184,24 +301,38 @@ def _k3(x: torch.Tensor, dec_lo, dec_hi, levels: int) -> torch.Tensor:
         return out
     lib = cuda_build.library("pyramid")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn = _fn(lib, "jw_pyramid_rows", [p, ll, p, ll, p, ll, p, i, i, i, i, i, p])
+    tile_fn = _fn(lib, "jw_pyramid_tile", [p, ll, p, ll, p, ll, p, i, i, i, i, i, p, i, i, p])
+    tail_fn = _fn(lib, "jw_pyramid_tail", [p, ll, p, ll, p, i, i, i, i, i, p])
     taps = cuda_build.device_taps(dec_lo, dec_hi, x.device)
     stream = cuda_build.stream_handle(x.device)
     m = len(dec_lo)
-    src, src_stride, h = x, n, n
-    # rows longer than one block's shared memory lose leading levels to
-    # single-level launches that park the approximation in a scratch row
-    while h > MAX_FUSED_HEAD and levels > 1:
-        scratch = torch.empty((r, h // 2), dtype=torch.float32, device=x.device)
-        err = fn(src.data_ptr(), src_stride, out.data_ptr(), n, scratch.data_ptr(), h // 2,
-                 taps.data_ptr(), r, h, 1, m, K3_THREADS, stream)
+    src, head, left = x, n, levels
+    while left > 0 and (plan is not None or head > K3_TAIL_HEAD):
+        pl = plan or k3_plan(head, left, m)
+        plan = None
+        if pl.levels == 0:
+            break
+        if r * (head // pl.tile) >= 2**31:
+            raise JWaveFailure(f"pyramid_rows - {r} rows of {head} exceed one launch")
+        done = pl.levels + pl.tail_levels
+        dst = out if pl.levels == left else torch.empty(
+            (r, head >> pl.levels), dtype=torch.float32, device=x.device)
+        counters = _k3_counters(x.device, stream.value or 0, r).data_ptr() if pl.tail_levels else None
+        err = tile_fn(src.data_ptr(), src.shape[1], out.data_ptr(), n, dst.data_ptr(),
+                      dst.shape[1], taps.data_ptr(), r, head, pl.tile, pl.levels,
+                      pl.tail_levels, counters, m, K3_TILE_THREADS, stream)
         cuda_build.check(lib, err, "pyramid_rows")
         launch_counts["pyramid_rows"] += 1
-        src, src_stride, h, levels = scratch, h // 2, h // 2, levels - 1
-    err = fn(src.data_ptr(), src_stride, out.data_ptr(), n, out.data_ptr(), n,
-             taps.data_ptr(), r, h, levels, m, K3_THREADS, stream)
-    cuda_build.check(lib, err, "pyramid_rows")
-    launch_counts["pyramid_rows"] += 1
+        src, head, left = dst, head >> pl.levels, left - done
+    if left > 0 or levels == 0:
+        if left > 0 and head > K3_TAIL_MAX_HEAD:
+            raise JWaveFailure(f"pyramid_rows - a head of {head} with {m} taps exceeds one "
+                               "block's shared memory")
+        threads = min(K3_TAIL_THREADS, max(32, head // 2))
+        err = tail_fn(src.data_ptr(), src.shape[1], out.data_ptr(), n, taps.data_ptr(), r, head,
+                      left, m, threads, stream)
+        cuda_build.check(lib, err, "pyramid_rows")
+        launch_counts["pyramid_rows"] += 1
     return out
 
 

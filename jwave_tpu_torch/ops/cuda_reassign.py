@@ -28,6 +28,11 @@ launch_counts = {"reassign": 0}
 
 #: bins one block accumulates (``kChunk`` in the source)
 BIN_CHUNK = 64
+#: the block's plan (``csrc/reassign.cu``): time columns (= threads) a
+#: block, s-rows a ring stage, ring stages
+K6_TILE = 128
+K6_STAGE_ROWS = 4
+K6_STAGES = 4
 
 
 def reset_launch_counts():
@@ -77,6 +82,16 @@ def reassign_dense_torch(contrib: torch.Tensor, k_idx: torch.Tensor, n_bins: int
 # kernel wrapper
 # ----------------------------------------------------------------------------
 
+def k6_smem_bytes(n_bins: int) -> int:
+    """Shared bytes of a K6 block (``csrc/reassign.cu`` smem_bytes): the
+    complex64 plane of min(n_bins, BIN_CHUNK) bin rows of ``K6_TILE``
+    columns, the ring of ``K6_STAGES`` stages of ``K6_STAGE_ROWS`` s-rows
+    (8 B of contribution and 4 B of index a column) and one 8-byte mbarrier
+    a stage."""
+    return (min(n_bins, BIN_CHUNK) * K6_TILE * 8 + K6_STAGES * K6_STAGE_ROWS * K6_TILE * 12
+            + K6_STAGES * 8)
+
+
 def _launch(contrib: torch.Tensor, k_idx: torch.Tensor, n_bins: int) -> torch.Tensor:
     if contrib.device.type != "cuda":
         raise JWaveFailure(f"reassign - tensor on {contrib.device}; "
@@ -96,7 +111,7 @@ def _launch(contrib: torch.Tensor, k_idx: torch.Tensor, n_bins: int) -> torch.Te
         return out.reshape(lead + (n_bins, n))
     if s == 0:
         return out.zero_().reshape(lead + (n_bins, n))
-    if g * -(-n // 128) >= 2**31:
+    if g * -(-n // K6_TILE) >= 2**31:
         raise JWaveFailure(f"reassign - {g} x {n} columns exceed one launch")
     lib = cuda_build.library("reassign")
     fn = lib.jw_reassign

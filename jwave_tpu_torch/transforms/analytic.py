@@ -9,7 +9,7 @@ import numpy as np
 import torch
 
 from ..exceptions import JWaveFailure
-from ..ops.butterfly import as_tensor, ensure_float
+from ..ops.butterfly import as_tensor, ensure_fft_float, ensure_float
 
 
 def real_signal(x, who: str) -> torch.Tensor:
@@ -30,7 +30,7 @@ def analytic_signal(x):
     x = as_tensor(x)
     if x.is_complex():
         raise JWaveFailure("analytic_signal - input must be real")
-    x = ensure_float(x)
+    x = ensure_fft_float(x)
     n = x.shape[-1]
     if n < 2:
         raise JWaveFailure("analytic_signal - need at least 2 samples")

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from ..cwavelets import ContinuousWavelet, get_continuous_wavelet
-from ..ops.butterfly import as_tensor, ensure_float
+from ..ops.butterfly import as_tensor, ensure_fft_float
 from ..ops.circular import _conv_valid_bank
 from ..utils.numerics import next_power_of_two
 from .fft import fft as _fft_any, ifft as _ifft_any
@@ -162,7 +162,9 @@ def _time_axis(n: int, fs: float, like: torch.Tensor) -> torch.Tensor:
 
 
 def _signal(signal) -> torch.Tensor:
-    return ensure_float(as_tensor(signal))
+    """The signal as a floating tensor the FFT takes: integers become the
+    default float, bfloat16 and float16 become float32."""
+    return ensure_fft_float(as_tensor(signal))
 
 
 def cwt(
@@ -180,6 +182,11 @@ def cwt(
     signal = _signal(signal)
     n = signal.shape[-1]
     padded_len = next_power_of_two(n)
+    if scales.size == 0:  # no FFT of an empty batch: (..., 0, N) in the usual dtype
+        cdtype = torch.promote_types(signal.dtype, torch.complex64)
+        res = torch.empty(signal.shape[:-1] + (0, n), dtype=cdtype, device=signal.device)
+        return CWTResult(res, torch.as_tensor(scales, device=signal.device),
+                         _time_axis(n, sampling_rate, res), float(sampling_rate), wav.name)
     sig_fft = _fft_any(pad_signal(signal, padded_len, padding))  # (..., P)
     # conj(F[psi_a])(w) = conj(sqrt(a) * psi_hat(a*w)) per scale
     bank, _ = _scaled_bank(wav, scales, _omega_axis(padded_len, sampling_rate), signal.device)

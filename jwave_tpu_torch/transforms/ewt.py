@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..exceptions import JWaveFailure
+from ..ops.butterfly import ensure_fft_float
 from .analytic import real_signal
 
 
@@ -127,12 +128,13 @@ def ewt(signal, n_modes: int | None = None, boundaries=None) -> EWTResult:
     n = x.shape[-1]
     if n < 8:
         raise JWaveFailure("ewt - need at least 8 samples")
+    xf = ensure_fft_float(x)  # half precision computes in float32 and is cast back
     if boundaries is None:
         if n_modes is None:
             raise JWaveFailure("ewt - pass n_modes or explicit boundaries")
-        boundaries = ewt_boundaries(x, n_modes)
-    spec = torch.fft.fft(x, dim=-1)
-    modes = torch.fft.ifft(spec[..., None, :] * _bank(n, boundaries, x), dim=-1).real.to(x.dtype)
+        boundaries = ewt_boundaries(xf, n_modes)
+    spec = torch.fft.fft(xf, dim=-1)
+    modes = torch.fft.ifft(spec[..., None, :] * _bank(n, boundaries, xf), dim=-1).real.to(x.dtype)
     return EWTResult(modes, boundaries)
 
 
@@ -140,6 +142,7 @@ def iewt(result: EWTResult) -> torch.Tensor:
     """Adjoint reconstruction ``sum_k ifft(fft(mode_k) * filt_k)``."""
     modes = result.modes
     n = modes.shape[-1]
-    spec = torch.fft.fft(modes, dim=-1)
-    return torch.sum(torch.fft.ifft(spec * _bank(n, result.boundaries, modes), dim=-1).real,
+    mf = ensure_fft_float(modes)
+    spec = torch.fft.fft(mf, dim=-1)
+    return torch.sum(torch.fft.ifft(spec * _bank(n, result.boundaries, mf), dim=-1).real,
                      dim=-2).to(modes.dtype)

@@ -15,30 +15,31 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.butterfly import as_tensor, ensure_float
+from ..ops.butterfly import as_tensor, ensure_fft_float, ensure_float
 from ..utils.numerics import next_power_of_two
 from .ndim import deinterleave, interleave
 
 
 def fft(z, axis: int = -1) -> torch.Tensor:
-    """Forward FFT (unscaled, the NumPy convention) of real or complex input."""
-    return torch.fft.fft(ensure_float(as_tensor(z)), dim=axis)
+    """Forward FFT (unscaled, the NumPy convention) of real or complex input;
+    bfloat16 and float16 input computes in float32 (complex64 out)."""
+    return torch.fft.fft(ensure_fft_float(as_tensor(z)), dim=axis)
 
 
 def ifft(z, axis: int = -1) -> torch.Tensor:
     """Inverse FFT (scaled by 1/N)."""
-    return torch.fft.ifft(ensure_float(as_tensor(z)), dim=axis)
+    return torch.fft.ifft(ensure_fft_float(as_tensor(z)), dim=axis)
 
 
 def fft_interleaved(x) -> torch.Tensor:
     """FFT on the reference's interleaved real format
     (FastFourierTransform.java:55-103): (..., 2N) -> (..., 2N)."""
-    return interleave(fft(deinterleave(ensure_float(as_tensor(x)))))
+    return interleave(fft(deinterleave(ensure_fft_float(as_tensor(x)))))
 
 
 def ifft_interleaved(x) -> torch.Tensor:
     """Inverse of :func:`fft_interleaved`."""
-    return interleave(ifft(deinterleave(ensure_float(as_tensor(x)))))
+    return interleave(ifft(deinterleave(ensure_fft_float(as_tensor(x)))))
 
 
 def _bluestein_consts(n: int):

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ..exceptions import JWaveFailure
-from ..ops.butterfly import as_tensor
+from ..ops.butterfly import as_tensor, ensure_fft_float
 from .analytic import real_signal
 
 
@@ -71,6 +71,8 @@ def vmd(
     if n_iter < 1:
         raise JWaveFailure("vmd - n_iter must be >= 1")
 
+    out_dtype = x.dtype  # half precision computes in float32; modes and omegas are cast back
+    x = ensure_fft_float(x)
     rdtype = x.dtype
     # mirror-extend to 2N: [x[N/2-1::-1], x, x[:N/2-1:-1]] (paper/MATLAB)
     half = n // 2
@@ -122,4 +124,4 @@ def vmd(
     modes = torch.fft.ifft(full, dim=-1).real[..., half : half + n].to(rdtype)
     omega, order = torch.sort(omega, dim=-1, stable=True)
     modes = torch.gather(modes, -2, order[..., None].expand(modes.shape))
-    return VMDResult(modes, omega, torch.stack(conv, dim=-1))
+    return VMDResult(modes.to(out_dtype), omega.to(out_dtype), torch.stack(conv, dim=-1))

@@ -7,7 +7,8 @@ CUDA card and skip without one. Run them on the card with
     python -m pytest tests/test_torch_kernels.py -m cuda --noconftest -o addopts=''
 
 The other tests check, on any machine, what surrounds the kernels: the
-level grouping of K1/K2, the row blocking of K4/K5, the build's error on a
+level grouping of K1/K2, K3's tile plan and its tiling run in plain torch,
+the row blocking of K4/K5, K6's shared bytes, the build's error on a
 missing compiler, that CPU tensors take the plain versions, and (where JAX
 is installed) the plain versions of K5/K6 and K6's gradient against the
 Pallas kernels they replace, run in interpret mode.
@@ -109,16 +110,98 @@ def test_k1_matches_plain(cuda, shape, wavelet, level, dtype):
 @pytest.mark.parametrize("shape,wavelet,level", [
     ((64, 65536), "db4", 8), ((16, 4096), "sym8", 6), ((8, 1024), "Battle 23", 10),
     ((8, 4096), "Haar", 12), ((4, 262144), "db4", 10),
+    ((64, 65536), "Discrete Meyer", 8),   # 62 taps: 5 tiled levels, then a tail of 3
+    ((64, 65536), "db4", 16),             # levels beyond the tiled ones: a tail of 8
+    ((4, 262144), "db4", 18),             # rows longer than one block could ever hold
+    ((2, 1048576), "Discrete Meyer", 20), # two tiled passes over a scratch row
+    ((1, 65536), "sym8", 3), ((133, 16384), "db4", 14), ((133, 8), "db4", 3),
+    ((3, 65536), "db4", 0), ((3, 65536), "db4", 1),
 ])
 def test_k3_matches_plain(cuda, shape, wavelet, level):
     fb = jt.get_filter(wavelet)
     x = torch.as_tensor(np.random.default_rng(1).standard_normal(shape), dtype=torch.float32,
                         device=cuda)
     done = cuda_pyramid.levels_done(shape[1], fb.transform_wavelength, level)
+    torch.full(shape, float("nan"), device=cuda)  # an element left unstored shows
     y = cuda_pyramid.pyramid_rows(x, fb.dec_lo, fb.dec_hi, done)
     torch.cuda.synchronize()
     ref = cuda_pyramid.pyramid_rows_torch(x.double(), fb.dec_lo, fb.dec_hi, done)
+    assert bool(torch.isfinite(y).all())
     assert _rel_err(y, ref) <= F32_BOUND
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 4, 8])
+@pytest.mark.parametrize("wavelet", ["Haar", "db4"])
+def test_k3_short_rows_every_level(cuda, n, wavelet):
+    fb = jt.get_filter(wavelet)
+    x = torch.as_tensor(np.random.default_rng(11).standard_normal((5, n)), dtype=torch.float32,
+                        device=cuda)
+    for levels in range(n.bit_length()):
+        y = cuda_pyramid.pyramid_rows(x, fb.dec_lo, fb.dec_hi, levels)
+        torch.cuda.synchronize()
+        ref = cuda_pyramid.pyramid_rows_torch(x.double(), fb.dec_lo, fb.dec_hi, levels)
+        assert _rel_err(y, ref) <= F32_BOUND, levels
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,wavelet,levels,tile,lt,tail", [
+    ((6, 64), "db4", 6, 64, 4, 2),               # a halo of 105 on rows of 64: wraps twice
+    ((6, 64), "db4", 6, 16, 4, 0),               # the same halo on tiles of 16, then the tail kernel
+    ((6, 256), "Discrete Meyer", 5, 64, 3, 0),   # 62 taps, halo 427 > N
+    ((6, 8192), "db4", 9, 1024, 6, 0),           # 8 tiles a row, head 128 left to the tail kernel
+    ((6, 8192), "db4", 9, 1024, 3, 6),           # head 1024 = one tile: the tail in the launch
+    ((6, 8192), "Haar", 13, 2, 1, 0),            # tiles of 2 samples
+    ((6, 16), "Haar", 4, 16, 2, 2),
+])
+def test_k3_forced_plans(cuda, shape, wavelet, levels, tile, lt, tail):
+    """Plans that :func:`k3_plan` does not choose at these sizes, to reach the
+    segment's wrap, the ragged stores and the counters at small shapes."""
+    fb = jt.get_filter(wavelet)
+    m = len(fb.dec_lo)
+    x = torch.as_tensor(np.random.default_rng(12).standard_normal(shape), dtype=torch.float32,
+                        device=cuda)
+    plan = cuda_pyramid.K3Plan(tile, lt, ((1 << lt) - 1) * (m - 1), tail,
+                               cuda_pyramid.k3_smem_bytes(tile, lt, m))
+    y = cuda_pyramid._k3(x, fb.dec_lo, fb.dec_hi, levels, plan)
+    torch.cuda.synchronize()
+    ref = cuda_pyramid.pyramid_rows_torch(x.double(), fb.dec_lo, fb.dec_hi, levels)
+    assert _rel_err(y, ref) <= F32_BOUND
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_k3_source_off_16_byte_alignment(cuda, offset):
+    """A source 4, 8 or 12 bytes off: the segment is staged at that offset,
+    or by plain loads where float2 reads would be misaligned."""
+    fb = jt.get_filter("db4")
+    shape = (32, 16384)
+    x = torch.empty(shape[0] * shape[1] + offset, dtype=torch.float32,
+                    device=cuda)[offset:].view(shape)
+    x.copy_(torch.as_tensor(np.random.default_rng(13).standard_normal(shape)))
+    y = cuda_pyramid.pyramid_rows(x, fb.dec_lo, fb.dec_hi, 9)
+    torch.cuda.synchronize()
+    ref = cuda_pyramid.pyramid_rows_torch(x.double(), fb.dec_lo, fb.dec_hi, 9)
+    assert _rel_err(y, ref) <= F32_BOUND
+
+
+@pytest.mark.cuda
+def test_k3_counters_are_zero_again_after_a_launch(cuda):
+    """Two calls back to back on one stream, both with a tail in the launch:
+    the second finds the per-row counters as the first left them."""
+    fb = jt.get_filter("db4")
+    x = torch.as_tensor(np.random.default_rng(14).standard_normal((64, 65536)),
+                        dtype=torch.float32, device=cuda)
+    before = cuda_pyramid.launch_counts["pyramid_rows"]
+    a = cuda_pyramid.pyramid_rows(x, fb.dec_lo, fb.dec_hi, 16)
+    b = cuda_pyramid.pyramid_rows(x, fb.dec_lo, fb.dec_hi, 16)
+    torch.cuda.synchronize()
+    assert cuda_pyramid.launch_counts["pyramid_rows"] == before + 2  # one launch a call
+    assert torch.equal(a, b)
+    assert _rel_err(b, cuda_pyramid.pyramid_rows_torch(x.double(), fb.dec_lo, fb.dec_hi,
+                                                       16)) <= F32_BOUND
+    counters = cuda_pyramid._K3_COUNTERS[(x.device.index, 0)]
+    assert int(counters.abs().sum()) == 0
 
 
 @pytest.mark.cuda
@@ -311,6 +394,39 @@ def test_k6_matches_plain(cuda, g, s, n, k, lo, hi):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("g,s,n,k,lo,hi,offset", [
+    (2, 9, 1026, 63, -3, 66, 0),     # N % 4 != 0: the ring takes plain loads, the plane bulk stores
+    (2, 5, 777, 65, -3, 68, 0),      # N odd: plain loads and stores; two bin chunks
+    (3, 7, 100, 20, -3, 23, 0),      # N < 128: one ragged tile
+    (2, 1, 512, 5, -3, 8, 0),        # S = 1
+    (2, 13, 4096, 64, -3, 67, 0),    # S not a multiple of the stage's rows
+    (2, 64, 4096, 1, -1, 1, 0),      # one bin
+    (3, 16, 1000, 200, -3, 203, 0),  # four bin chunks
+    (1, 33, 8192, 128, 0, 128, 0),   # two whole chunks
+    (2, 5, 4096, 8, 8, 20, 0),       # every index dropped: zeros
+    (2, 5, 4096, 8, -9, -1, 0),      # every index negative
+    (2, 13, 4096, 64, -3, 67, 1),    # views 8 and 4 bytes off 16-byte alignment
+])
+def test_k6_edges_match_plain_and_repeat_bitwise(cuda, g, s, n, k, lo, hi, offset):
+    rng = np.random.default_rng(6)
+    c = torch.empty(g * s * n + offset, dtype=torch.complex64, device=cuda)[offset:].view(g, s, n)
+    c.copy_(torch.as_tensor(rng.standard_normal((g, s, n)) + 1j * rng.standard_normal((g, s, n))))
+    kk = torch.empty(g * s * n + offset, dtype=torch.int32, device=cuda)[offset:].view(g, s, n)
+    kk.copy_(torch.as_tensor(rng.integers(lo, hi + 1, (g, s, n))))
+    torch.full((g, k, n), float("nan"), dtype=torch.complex64, device=cuda)
+    got = cuda_reassign.reassign(c, kk, k)
+    again = cuda_reassign.reassign(c, kk, k)
+    torch.cuda.synchronize()
+    ref = cuda_reassign.reassign_torch(c.to(torch.complex128), kk, k)
+    assert tuple(got.shape) == (g, k, n) and bool(torch.isfinite(torch.view_as_real(got)).all())
+    scale = float(ref.abs().max())
+    err = float((got.to(torch.complex128) - ref).abs().max())
+    assert err <= F32_BOUND * scale if scale else err == 0.0
+    # ascending s in every column, no atomics: two runs agree to the bit
+    assert torch.equal(torch.view_as_real(got), torch.view_as_real(again))
+
+
+@pytest.mark.cuda
 def test_k6_gradient_is_the_gather(cuda):
     rng = np.random.default_rng(8)
     c = torch.as_tensor(rng.standard_normal((2, 12, 300)) + 1j * rng.standard_normal((2, 12, 300)),
@@ -422,6 +538,85 @@ def test_k2_smem_bytes(tl, m, j0, j1, itemsize_v, itemsize_c, want):
     640 bytes of taps and mbarriers, the V_j1 segment, the W_j1..W_j0
     segments and the f32 V buffers, each rounded up to 16 bytes."""
     assert cuda_modwt.k2_smem_bytes(tl, m, j0, j1, itemsize_v, itemsize_c) == want
+
+
+@pytest.mark.parametrize("args,want", [
+    # tile 8192, quarter 2048. db4: halo 7 (2^Lt - 1), 1785 at Lt = 8 (3577 at 9): all 8 levels
+    # tiled. Floats: taps and barrier 132; segment 8192 + 1785 = 9977 -> 9980 + 4; odd levels'
+    # approximations 4096 + 127 * 7 = 4985 -> 4988 + 4; stages 4096, 2048, ..., 32 and 32 again,
+    # each + 4: 8192 + 36. 132 + 9984 + 4992 + 8228 = 23336 floats
+    ((65536, 8, 8), dict(tile=8192, levels=8, halo=1785, tail_levels=0, smem_bytes=93344)),
+    # 64 taps: halo 63 (2^Lt - 1) = 1953 at Lt = 5 (3969 at 6); the head left, 2048, fits a
+    # tile: the last 3 levels are the launch's tail. Segment 10145 -> 10148 + 4, approximations
+    # 4096 + 15 * 63 = 5041 -> 5044 + 4, stages 4096 .. 256 and 256 again = 8192, 6 x 4:
+    # 132 + 10152 + 5048 + 8216 = 23548 floats
+    ((65536, 8, 64), dict(tile=8192, levels=5, halo=1953, tail_levels=3, smem_bytes=94192)),
+    # rows of 2^20: 8 tiled levels leave a head of 4096 <= 8192: a tail of 2, one launch
+    ((1 << 20, 10, 8), dict(tile=8192, levels=8, halo=1785, tail_levels=2, smem_bytes=93344)),
+    # Haar on 16: tile 16, quarter 4, halo 2^Lt - 1 = 3 at Lt = 2 (7 at 3); head 4 left: tail 2.
+    # 132 + (19 -> 20 + 4) + (8 + 1 = 9 -> 12 + 4) + (8 + 4) + (4 + 4) + (4 + 4) = 200 floats
+    ((16, 4, 2), dict(tile=16, levels=2, halo=3, tail_levels=2, smem_bytes=800)),
+    # rows of 2: a quarter of the tile is 0 samples, no level is tiled
+    ((2, 1, 2), dict(tile=2, levels=0, halo=0, tail_levels=0, smem_bytes=608)),
+])
+def test_k3_plan(args, want):
+    """``csrc/pyramid.cu`` k3_layout's arithmetic for (n, levels, m), worked
+    out by hand."""
+    assert cuda_pyramid.k3_plan(*args)._asdict() == want
+
+
+def test_k3_plan_fits_every_row_length_and_filter():
+    for lg in range(21):
+        n = 1 << lg
+        for m in range(1, 65):
+            plan = cuda_pyramid.k3_plan(n, lg, m)
+            assert plan.tile == min(n, cuda_pyramid.K3_TILE) and 0 <= plan.levels <= lg
+            assert plan.halo == ((1 << plan.levels) - 1) * (m - 1) <= plan.tile // 4
+            assert plan.tile >> plan.levels >= 1
+            assert 0 < plan.smem_bytes and 2 * (plan.smem_bytes + 1024) <= 227 * 1024
+            # a tail in the launch only on a head that one tile's segment holds
+            assert plan.tail_levels in (0, lg - plan.levels)
+            assert not plan.tail_levels or (plan.levels and n >> plan.levels <= plan.tile)
+            # rows too long for the tail kernel always lose a level to a tiled pass
+            assert plan.levels >= 1 or n <= cuda_pyramid.K3_TAIL_HEAD or lg == 0
+    assert cuda_pyramid.k3_tail_smem_bytes(cuda_pyramid.K3_TAIL_MAX_HEAD) <= 227 * 1024
+
+
+@pytest.mark.parametrize("wavelet", ["Haar", "db4", "sym8", "Discrete Meyer"])
+@pytest.mark.parametrize("lg", range(1, 13))
+def test_k3_tiling_in_plain_torch(wavelet, lg, rng):
+    """The kernel's partition of the work (tiles, right halo mod N, valid
+    lengths per level, then the head that is left) computed in plain torch,
+    against the plain pyramid in float64 at 1e-12: the plan K3 would take,
+    a quarter-row tile, and forced plans whose halo exceeds the row."""
+    fb = jt.get_filter(wavelet)
+    m = len(fb.dec_lo)
+    n = 1 << lg
+    x = torch.tensor(rng.standard_normal((2, n)))
+    for levels in range(lg + 1):
+        ref = cuda_pyramid.pyramid_rows_torch(x, fb.dec_lo, fb.dec_hi, levels)
+        plans = [cuda_pyramid.k3_plan(n, levels, m),
+                 cuda_pyramid.k3_plan(n, levels, m, tile=max(2, n // 4))]
+        for t in {n, max(1, n // 2), max(1, n // 8)}:
+            for lt in range(min(levels, t.bit_length() - 1) + 1):
+                halo = ((1 << lt) - 1) * (m - 1)
+                if halo <= 8 * n + 64:
+                    plans.append(cuda_pyramid.K3Plan(t, lt, halo, 0, 0))
+        for plan in plans:
+            got = cuda_pyramid.pyramid_rows_tiled_torch(x, fb.dec_lo, fb.dec_hi, levels, plan)
+            err = float((got - ref).abs().max())
+            assert err <= 1e-12 * max(float(ref.abs().max()), 1.0), (levels, plan, err)
+
+
+def test_k6_smem_bytes():
+    """``csrc/reassign.cu`` smem_bytes by hand: a 64-bin plane of 128 complex64
+    columns is 65536 B, the ring 4 stages x 4 s-rows x 128 columns x 12 B =
+    24576 B, four mbarriers 32 B; two blocks fit an SM."""
+    assert cuda_reassign.k6_smem_bytes(64) == 65536 + 24576 + 32 == 90144
+    assert cuda_reassign.k6_smem_bytes(200) == 90144           # a chunk of 64 bins a block
+    assert cuda_reassign.k6_smem_bytes(1) == 1024 + 24576 + 32
+    assert cuda_reassign.k6_smem_bytes(20) == 20 * 1024 + 24576 + 32
+    assert 2 * (cuda_reassign.k6_smem_bytes(64) + 1024) <= 227 * 1024
 
 
 def test_k4_rows_per_block():

@@ -1,22 +1,25 @@
 """Another commit's kernels against this tree's, in one process on one CUDA
-card: the consumers of K1 and K4.
+card: the kernels and their consumers.
 
     python3 tools/ab_times.py --parent build/parent [--rounds 6] [--reps 25]
                               [--variants parent new] [--calls TEXT ...]
-                              [--out build/ab_times.jsonl] [--trace]
+                              [--out build/ab_times.jsonl] [--trace] [--k3-plans]
 
 ``--parent`` is another commit's tree, unpacked (``git archive <commit> |
 tar -x -C build/parent``). Its ``jwave_tpu_torch`` is imported under another
 name beside this tree's, so the two share one process, one CUDA context and
-one card, and whatever slows the host slows both. Each variant's K1 and K4
-are first held against the plain version (1e-5 of max|ref|).
+one card, and whatever slows the host slows both. Each variant's K1, K3, K4
+and K6 are first held against the plain version (1e-5 of max|ref|).
 
 The calls are the consumers of K1 (K1 alone at 64 x 65536 db4 L5 and at
 ``denoise``'s 8 x 65536 db4 L4, the entry step ``imodwt(modwt(x))`` and its
 gradient, whose backward runs K1 as K2's adjoint, ``modwt_mra`` at 64 x
 65536, ``denoise`` db4 L4 8 x 65536) and of K4 (one K4 pass and ``fwt2d`` at
 2048^2 db4 L6, the gradient of ``ifwt2d`` there, whose backward runs K4 as
-K5's adjoint). ``--variants`` keeps one or both trees (one alone measures
+K5's adjoint), K3 and ``fwt`` at 64 x 65536 db4 L8, K6 at 8 x 64 x 65536 on
+64 bins (uniform random indices in [0, 64], 64 dropped) and ``ssq_cwt`` at
+8 x 65536 with 64 scales, and K2 and one K5 pass, which no consumer here
+isolates. ``--variants`` keeps one or both trees (one alone measures
 one tree in a process of its own: the inputs are made by the plain
 versions, so no other kernel runs there), and ``--calls`` keeps the calls
 whose name contains one of the given texts.
@@ -36,7 +39,10 @@ of the round's two turns) and per call the ratio new/parent, with the ways
 whose rounds disagree on its side of 1 listed as "unresolved" (the spread
 exceeds the gap). With ``--trace``, one profiled call of each variant of
 the host-bound calls kept prints its heaviest host ops and its kernels'
-device time. Needs a CUDA card; exits 2 without one.
+device time. With ``--k3-plans``, this tree's K3 at 64 x 65536 db4 L8 is
+timed (device) once for each tile of 2048 to 16384 samples and each block of
+128 to 512 threads, after the rounds: the sweep that ``K3_TILE`` and
+``K3_TILE_THREADS`` were chosen from. Needs a CUDA card; exits 2 without one.
 """
 from __future__ import annotations
 
@@ -70,7 +76,8 @@ def _load(name: str, package_dir: Path):
 
 def _modules(name: str):
     sub = {k: importlib.import_module(f"{name}.{k}") for k in
-           ("ops.cuda_build", "ops.cuda_modwt", "ops.cuda_pyramid", "transforms.modwt")}
+           ("ops.cuda_build", "ops.cuda_modwt", "ops.cuda_pyramid", "ops.cuda_reassign",
+            "transforms.modwt")}
     return sys.modules[name], sub
 
 
@@ -84,6 +91,7 @@ def main() -> int:
                     choices=["parent", "new"])
     ap.add_argument("--calls", nargs="+", default=[""])
     ap.add_argument("--trace", action="store_true")
+    ap.add_argument("--k3-plans", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("ab_times: needs a CUDA card", file=sys.stderr)
@@ -100,9 +108,9 @@ def main() -> int:
     new_jt, new = _modules("jwave_tpu_torch")
     par_jt, par = _modules("jwave_tpu_torch_parent")
     trees = [new, par] if "parent" in args.variants else [new]
-    with ThreadPoolExecutor(4) as ex:
+    with ThreadPoolExecutor(6) as ex:
         for j in [ex.submit(m["ops.cuda_build"].library, k) for m in trees
-                  for k in ("modwt", "pyramid")]:
+                  for k in ("modwt", "pyramid", "reassign")]:
             j.result()
 
     dev = torch.device("cuda")
@@ -118,11 +126,24 @@ def main() -> int:
     g0, h0 = new["transforms.modwt"]._modwt_base_filters("db4")
     fb = new_jt.get_filter("db4")
     lo, hi = fb.dec_lo, fb.dec_hi
+    c32 = new["ops.cuda_modwt"].modwt_cascade_torch(x, g0, h0, 5)
+    contrib = torch.complex(dev_t((8, 64, 65536)), dev_t((8, 64, 65536)))
+    k_idx = torch.as_tensor(rng.integers(0, 65, (8, 64, 65536)), dtype=torch.int32, device=dev)
+    ssq_scales = new_jt.generate_log_scales(1e-5, 1e-2, 64)
 
     def calls(jt, m):
-        cm, cp = m["ops.cuda_modwt"], m["ops.cuda_pyramid"]
+        cm, cp, cr = m["ops.cuda_modwt"], m["ops.cuda_pyramid"], m["ops.cuda_reassign"]
         grad = torch.autograd.grad
+        morlet = jt.MorletWavelet(1.0, 1.0)
         return {
+            "K3 64x65536 db4 L8": lambda: cp.pyramid_rows(x, lo, hi, 8),
+            "fwt db4 L8 64x65536": lambda: jt.fwt(x, "db4", 8),
+            "fwt db4 full depth 64x65536": lambda: jt.fwt(x, "db4"),
+            "K6 8x64x65536 K=64": lambda: cr.reassign(contrib, k_idx, 64),
+            "ssq_cwt 8x65536, 64 scales": lambda: jt.ssq_cwt(x8, ssq_scales, morlet, 1e6),
+            "K2 64x65536 db4 L5": lambda: cm.imodwt_cascade(c32, g0, h0),
+            "K5 one pass db4 L6 2048^2":
+                lambda: cp.ipyramid_rows_transposed(img, fb.rec_lo, fb.rec_hi, 1.0, 6),
             "K1 64x65536 db4 L5": lambda: cm.modwt_cascade(x, g0, h0, 5),
             "entry step modwt+imodwt db4 L5 64x65536":
                 lambda: jt.imodwt(jt.modwt(x, "Daubechies 4", 5), "Daubechies 4"),
@@ -141,16 +162,21 @@ def main() -> int:
     variants = {v: {k: f for k, f in t.items() if any(c in k for c in args.calls)}
                 for v, t in variants.items() if v in args.variants}
 
-    # each variant's K1 and K4 against the plain version, in float64
+    # each variant's K1, K3, K4 and K6 against the plain version, in float64
     cm = new["ops.cuda_modwt"]
     cp = new["ops.cuda_pyramid"]
+    cr = new["ops.cuda_reassign"]
     refs = {"K1 64x65536 db4 L5": cm.modwt_cascade_torch(x.double(), g0, h0, 5),
-            "K4 one pass db4 L6 2048^2": cp.pyramid_rows_transposed_torch(img.double(), lo, hi, 6)}
+            "K3 64x65536 db4 L8": cp.pyramid_rows_torch(x.double(), lo, hi, 8),
+            "K4 one pass db4 L6 2048^2": cp.pyramid_rows_transposed_torch(img.double(), lo, hi, 6),
+            "K6 8x64x65536 K=64": torch.view_as_real(
+                cr.reassign_torch(contrib.to(torch.complex128), k_idx, 64))}
     for v, table in variants.items():
         for key, ref in refs.items():
             if key not in table:
                 continue
             got = table[key]()
+            got = torch.view_as_real(got) if got.is_complex() else got
             torch.cuda.synchronize()
             rel = float((got.double() - ref).abs().max() / ref.abs().max())
             print(json.dumps({"check": f"{v}: {key} against its plain version", "rel": rel,
@@ -224,6 +250,16 @@ def main() -> int:
                 for w_, v_ in ratios.items()},
                 "unresolved": [w_ for w_, v_ in ratios.items() if min(v_) < 1 < max(v_)]}),
                 flush=True)
+
+    if args.k3_plans:
+        for tile in (2048, 4096, 8192, 16384):
+            plan = cp.k3_plan(65536, 8, len(lo), tile=tile)
+            for threads in (128, 192, 256, 384, 512):
+                cp.K3_TILE_THREADS, kept = threads, cp.K3_TILE_THREADS
+                ms = measure(lambda: cp._k3(x, lo, hi, 8, plan))["device"]
+                cp.K3_TILE_THREADS = kept
+                print(json.dumps({"k3_plan": plan._asdict(), "threads": threads,
+                                  "device_ms": ms, "card": card}), flush=True)
 
     if args.trace:
         from torch.profiler import ProfilerActivity, profile

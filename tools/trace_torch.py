@@ -7,7 +7,8 @@ time by kernel name (top 12 each), the device's busy time against the span
 of its kernels and against the host wall time of an untraced call, and
 writes a Chrome trace per call into DIR (default build/trace/). The paths:
 ssq_cwt (8 x 65536 float32, Morlet(1,1), 64 log scales 1e-5..1e-2 s, fs =
-1e6), ifwt2d (2048 x 2048 db4 L6), the entry step's gradient (modwt ->
+1e6), fwt and ifwt (64 x 65536 db4 L8; ifwt runs the plain synthesis
+butterflies), ifwt2d (2048 x 2048 db4 L6), the entry step's gradient (modwt ->
 imodwt db4 L5 64 x 65536), denoise (db4 L4 8 x 65536), modwt_mra (db4 L5
 64 x 65536), one sliding MODWT update (8 streams, window 512, db4 L8, chunk
 64), and bench.py's shapes of wigner_ville, superlet, ewt -> iewt, vmd,
@@ -96,6 +97,8 @@ def main() -> int:
     xe = torch.as_tensor(np.tile(ewt_sig, (8, 1)), dtype=torch.float32, device=dev)
     paths = {
         "ssq_cwt": lambda: jt.ssq_cwt(x, scales, wav, 1e6),
+        "fwt": lambda: jt.fwt(x64.detach(), "db4", 8),
+        "ifwt": lambda: jt.ifwt(x64.detach(), "db4", 8),
         "ifwt2d": lambda: jt.ifwt2d(img, "db4", 6, 6),
         "entry_grad": lambda: torch.autograd.grad(
             (jt.imodwt(jt.modwt(x64, "db4", 5), "db4") * w64).sum(), x64),
