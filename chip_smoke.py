@@ -6,7 +6,15 @@ Phases, each ending in torch.cuda.synchronize() so that a fault shows where
 it happened; any failed check ends the run with a non-zero exit:
 
 1. device: needs a CUDA card; prints the card's name and power limit;
-   turns TF32 off (true float32, the JAX package's default precision).
+   checks that the port's precision dial reads 'highest' (true float32, the
+   JAX package's default) on a fresh import, with no call to it, and that
+   jt.ifwt (cuDNN convolutions, db4 L8, 64 x 65536 f32) then agrees with its
+   float64 run to 1e-5 of max|ref|, and jt.wpt (db4 L6, one conv1d of 64
+   channels of 442 taps) likewise; prints each call's error with the dial at
+   'high' (TF32 allowed) beside it, the error of that conv1d called
+   directly under each of torch's TF32 switches (which one governs cuDNN),
+   and at both dial settings iwpt's conv_transpose1d, dft's matmul and a
+   float32 matmul inside config.dial().
 2. build: compiles csrc/*.cu with nvcc, one compiler per source, all at
    once, and prints the build seconds.
 3. kernels: K1-K6 on the card against their plain torch versions run in
@@ -48,6 +56,20 @@ it happened; any failed check ends the run with a non-zero exit:
    g. the rest of the continuous layer at bench.py's shapes: wigner_ville,
       superlet, ewt -> iewt, vmd, matching_pursuit, analytic_signal; their
       identities, and each against the port's float64 CPU run at a small size.
+   h. the rest of the discrete family at bench.py's shapes: wpt -> iwpt (db4
+      L6, 64 x 65536: fused, level by level, interleaved; two rows against
+      tests/oracle.py) and the WPT facade's 2D forward on a 2048^2 image;
+      best_basis (8 x 65536, max level 6) and best_basis_2d (512^2, L4),
+      their nodes equal to the port's float64 CPU run's; the Ancient
+      Egyptian FWT (db4, 64 x 100000: one K3 launch per chunk) through the
+      builder's prefix; shifting (db4, 64 x 65536 and 64 x 65537);
+      lifting_fwt -> lifting_ifwt (CDF 9/7 L8, 64 x 65536, both boundaries);
+      dtcwt -> idtcwt (L6, 8 x 65536), dtcwt2d -> idtcwt2d (L4, 512^2),
+      denoise_dtcwt (512^2, L4); the variants: the in-place FWT (K3 once,
+      the input's storage), the streaming MODWT (db4 L5, 2^20 samples in
+      chunks of 65536: K1 once a chunk), a pooled MODWT round trip (K1, K2),
+      CompressorMagnitude on the WPT'd image. WPT, lifting and DTCWT launch
+      no kernel of this package.
 5. times: CUDA events, median of 25 runs after warm-up with the L2 cache
    flushed before each and a GPU spin that hides the host's launch time
    (device time; each also once without the spin, as wall time), kernel
@@ -62,7 +84,9 @@ it happened; any failed check ends the run with a non-zero exit:
    also the torch FFT path of the MODWT (cuFFT) and the separable ifwt2d
    path, which are not kernels of this package; the entry step's gradient,
    fwt2d's gradient (backward K5 x2), ifwt2d's gradient (backward K4 x2),
-   the analysis calls and each call of 4g.
+   the analysis calls, each call of 4g and each call of 4h (device time and
+   wall; WPT fused against level by level in each direction, with the sum
+   of its kernels' device times in a profiled call and its byte bound).
 
 The second line from the end is a JSON object listing each kernel with its
 launches on its path and on the main path (4a), its error, its time beside
@@ -116,9 +140,103 @@ def main() -> int:
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
-    jt.config.set_conv_precision("highest")
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
+
+    # true float32 with no call to the dial: TF32 would keep ~3 digits
+    require(jt.config.conv_precision() == "highest",
+            f"the dial reads {jt.config.conv_precision()!r} on a fresh import")
+    y_tf = torch.as_tensor(rng.standard_normal((64, 65536)), dtype=torch.float32, device=dev)
+    ref_tf = jt.ifwt(y_tf.double(), "db4", 8)
+    err_highest = float((jt.ifwt(y_tf, "db4", 8).double() - ref_tf).abs().max()
+                        / ref_tf.abs().max())
+    jt.config.set_conv_precision("high")
+    try:
+        err_high = float((jt.ifwt(y_tf, "db4", 8).double() - ref_tf).abs().max()
+                         / ref_tf.abs().max())
+    finally:
+        jt.config.set_conv_precision("highest")
+    conv_switch = getattr(getattr(torch.backends.cudnn, "conv", None), "fp32_precision", None)
+    print(json.dumps({"check": "ifwt db4 L8 64x65536 f32 (cuDNN) against float64, the dial "
+                      "untouched ('highest')", "rel": err_highest, "bound": F32_BOUND,
+                      "rel_with_dial_high": err_high,
+                      "cudnn_allow_tf32_outside": torch.backends.cudnn.allow_tf32,
+                      "cudnn_conv_fp32_precision_outside": conv_switch}), flush=True)
+    require(err_highest <= F32_BOUND, f"ifwt with the default dial: {err_highest} > {F32_BOUND}")
+    # The same for wpt db4 L6 (one conv1d of 64 channels of 442 taps, which
+    # cuDNN may run on the tensor cores), and that conv1d called directly
+    # under each of torch's switches: which one governs cuDNN's float32
+    # convolutions on this torch
+    fbp = jt.get_filter("db4")
+    ref_w = jt.wpt(y_tf.double(), "db4", 6)
+    err_w = float((jt.wpt(y_tf, "db4", 6).double() - ref_w).abs().max() / ref_w.abs().max())
+    jt.config.set_conv_precision("high")
+    try:
+        err_w_high = float((jt.wpt(y_tf, "db4", 6).double() - ref_w).abs().max()
+                           / ref_w.abs().max())
+    finally:
+        jt.config.set_conv_precision("highest")
+    from jwave_tpu_torch.ops.composite import _bank
+    wq = _bank(fbp.dec_lo, fbp.dec_hi, 6, 65536, y_tf)
+    ext = torch.cat([y_tf, y_tf[:, :wq.shape[-1] - 1]], dim=-1)[:, None]
+    ref_q = torch.nn.functional.conv1d(ext.double(), wq.double(), stride=64)
+
+    def conv_err():
+        got = torch.nn.functional.conv1d(ext, wq, stride=64)
+        torch.cuda.synchronize()
+        return float((got.double() - ref_q).abs().max() / ref_q.abs().max())
+
+    cudnn_b = torch.backends.cudnn
+    saved_tf32 = cudnn_b.allow_tf32
+    switches = {}
+    try:
+        for flag in (True, False):
+            cudnn_b.allow_tf32 = flag
+            switches[f"cudnn.allow_tf32={flag}"] = conv_err()
+        if conv_switch is not None:
+            for prec in ("tf32", "ieee"):
+                cudnn_b.allow_tf32 = prec == "ieee"   # the legacy switch says the opposite
+                cudnn_b.conv.fp32_precision = prec
+                switches[f"cudnn.conv.fp32_precision={prec} (allow_tf32 opposite)"] = conv_err()
+    finally:
+        cudnn_b.allow_tf32 = saved_tf32           # sets conv and rnn back together
+    # iwpt's conv_transpose1d (64 input channels), dft's complex matmul and a
+    # float32 matmul inside the dial, each with the dial at 'highest' and at
+    # 'high': where cuDNN or cuBLAS take TF32 when allowed, 'high' shows it
+    yc_w = jt.wpt(y_tf, "db4", 6)
+    z_d = torch.complex(y_tf[:8, :2048], y_tf[8:16, :2048])
+    a_m, b_m = y_tf.reshape(4, 1024, 1024)[0], y_tf.reshape(4, 1024, 1024)[1]
+
+    def in_dial(a, b):
+        with jt.config.dial():
+            return a @ b
+
+    probes = {"iwpt db4 L6 (conv_transpose1d)": (lambda: jt.iwpt(yc_w, "db4", 6),
+                                                lambda: jt.iwpt(yc_w.double(), "db4", 6)),
+              "dft 8x2048 complex64 (matmul)": (lambda: torch.view_as_real(jt.transforms.dft(z_d)),
+                                                lambda: torch.view_as_real(
+                                                    jt.transforms.dft(z_d.to(torch.complex128)))),
+              "1024^2 float32 matmul inside config.dial()": (
+                  lambda: in_dial(a_m, b_m), lambda: in_dial(a_m.double(), b_m.double()))}
+    dial_errs = {}
+    for label, (fn, ref_fn) in probes.items():
+        ref_p = ref_fn()
+        errs = []
+        for prec in ("highest", "high"):
+            jt.config.set_conv_precision(prec)
+            try:
+                errs.append(float((fn().double() - ref_p).abs().max() / ref_p.abs().max()))
+            finally:
+                jt.config.set_conv_precision("highest")
+        dial_errs[label] = {"highest": errs[0], "high": errs[1]}
+    print(json.dumps({"check": "wpt db4 L6 64x65536 f32 against float64, the dial untouched",
+                      "rel": err_w, "bound": F32_BOUND, "rel_with_dial_high": err_w_high,
+                      "its conv1d (64 x 442 taps, stride 64) under torch's switches": switches,
+                      "other sites, dial highest / high": dial_errs}), flush=True)
+    require(err_w <= F32_BOUND, f"wpt with the default dial: {err_w} > {F32_BOUND}")
+    require(all(e["highest"] <= F32_BOUND for e in dial_errs.values()),
+            f"a site with the default dial is not true float32: {dial_errs}")
+    del y_tf, ref_tf, ref_w, ext, ref_q, yc_w, z_d, a_m, b_m
 
     # ---- 2. build ------------------------------------------------------
     names = ("modwt", "pyramid", "reassign")
@@ -766,6 +884,171 @@ def main() -> int:
     small_check("matching_pursuit 2x256 reconstruction", mp_c.reconstruct(), mp_d.reconstruct())
     torch.cuda.synchronize()
 
+    # ---- 4h. the rest of the discrete family --------------------------------
+    def no_kernel(name, fn):
+        """A path that runs no kernel of this package: every count stays 0."""
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        print(json.dumps({"main_path": name, "launches": counts}), flush=True)
+        require(not any(counts.values()), f"{name} launched a kernel of this package: {counts}")
+        return out
+
+    fb4 = jt.get_filter("db4")
+    xp_np = np.random.default_rng(26).standard_normal((64, 65536)).astype(np.float32)
+    xp = torch.as_tensor(xp_np, device=dev)
+    wpt_modes = {"fused": {}, "level by level": {"fused": False},
+                 "interleaved": {"layout": "interleaved"}}
+    for mode, kw in wpt_modes.items():
+        def wpt_round(kw=kw):
+            y = jt.wpt(xp, "db4", 6, **kw)
+            return y, jt.iwpt(y, "db4", 6, **kw)
+
+        yw, backw = no_kernel(f"wpt -> iwpt db4 L6 64x65536 ({mode})", wpt_round)
+        finite(yw, (64, 65536), f"wpt {mode}")
+        compare(f"iwpt(wpt(x)) db4 L6 64x65536 ({mode})", backw, xp, F32_BOUND)
+        sub = jt.wpt_interleaved_to_subband(yw, 6) if mode == "interleaved" else yw
+        want_w = np.stack([oracle.wpt(r.astype(np.float64), fb4, 6) for r in xp_np[:2]])
+        err = float(np.abs(sub[:2].double().cpu().numpy() - want_w).max())
+        print(json.dumps({"oracle": f"wpt 2 rows of 64x65536 db4 L6 ({mode})",
+                          "max_abs_err": err, "rel": err / np.abs(want_w).max()}), flush=True)
+        require(err <= F32_BOUND * np.abs(want_w).max(), f"wpt {mode} against the oracle")
+    del yw, backw, sub
+    wpt_t = jt.TransformBuilder.create("Wavelet Packet Transform", "db4")
+    img_w = no_kernel("WPT facade forward_2d -> reverse_2d 2048x2048 db4 (full depth)",
+                      lambda: wpt_t.forward(img))             # numpy -> "cuda" by default
+    img_wb = wpt_t.reverse(img_w)
+    finite(img_w, (2048, 2048), "WPT facade 2D")
+    compare("WPT facade 2D round trip 2048x2048", img_wb, torch.as_tensor(img, device=dev),
+            F32_BOUND)
+    del img_wb
+
+    tb_ = np.arange(65536)
+    bb_np = (np.sin(2 * np.pi * tb_ / 37.0) + np.sign(np.sin(2 * np.pi * tb_ / 4096.0))
+             + 0.3 * np.random.default_rng(27).standard_normal((8, 65536)))
+    xbb = torch.as_tensor(bb_np, dtype=torch.float32, device=dev)
+    bb = no_kernel("best_basis db4 8x65536 max level 6", lambda: jt.best_basis(xbb, "db4", 6))
+    bb_cpu = jt.best_basis(xbb.double().cpu(), "db4", 6)
+    print(json.dumps({"check": "best_basis 8x65536: nodes of the card's f32 run = the CPU's f64",
+                      "nodes": len(bb.nodes), "equal": bb.nodes == bb_cpu.nodes}), flush=True)
+    require(bb.nodes == bb_cpu.nodes, "best_basis nodes differ from the float64 CPU run")
+    compare("best_basis_reconstruct 8x65536", jt.best_basis_reconstruct(bb), xbb, F32_BOUND)
+    yy2, xx2 = np.mgrid[0:512, 0:512]
+    img512_np = (np.sin(2 * np.pi * xx2 / 16.0) * np.cos(2 * np.pi * yy2 / 64.0) + (xx2 > 200)
+                 + 0.2 * np.random.default_rng(28).standard_normal((512, 512)))
+    img512 = torch.as_tensor(img512_np, dtype=torch.float32, device=dev)
+    bb2 = no_kernel("best_basis_2d db4 512x512 L4", lambda: jt.best_basis_2d(img512, "db4", 4))
+    bb2_cpu = jt.best_basis_2d(img512.double().cpu(), "db4", 4)
+    print(json.dumps({"check": "best_basis_2d 512^2: nodes of the card's f32 run = the CPU's f64",
+                      "nodes": len(bb2.nodes), "equal": bb2.nodes == bb2_cpu.nodes}), flush=True)
+    require(bb2.nodes == bb2_cpu.nodes, "best_basis_2d nodes differ from the float64 CPU run")
+    compare("best_basis_2d_reconstruct 512x512", jt.best_basis_2d_reconstruct(bb2), img512,
+            F32_BOUND)
+
+    xa_np = np.random.default_rng(29).standard_normal((64, 100000)).astype(np.float32)
+    aed_t = jt.TransformBuilder.create("Ancient Egyptian Decomposition Fast Wavelet Transform",
+                                       "db4")
+    chunks = len(jt.utils.ancient_egyptian_decompose(100000))
+    aed_b = aed_t.get_basic_transform()                      # 1D along the rows
+    ya = path("AED over FWT db4 64x100000 (forward)",
+              lambda: aed_b.forward(xa_np), ("K3",))            # numpy rows -> "cuda"
+    k3_aed = cuda_pyramid.launch_counts["pyramid_rows"]
+    print(json.dumps({"check": "AED: one K3 launch per power-of-two chunk", "chunks": chunks,
+                      "k3_launches": k3_aed}), flush=True)
+    require(k3_aed == chunks, f"AED launched K3 {k3_aed} times for {chunks} chunks")
+    finite(ya, (64, 100000), "AED forward")
+    compare("AED reverse(forward(x)) 64x100000", aed_b.reverse(ya), torch.as_tensor(xa_np,
+            device=dev), F32_BOUND)
+    del ya
+    for n_s in (65536, 65537):
+        xs_np = np.random.default_rng(30).standard_normal((64, n_s)).astype(np.float32)
+        xsh = torch.as_tensor(xs_np, device=dev)
+        ysh = no_kernel(f"shifting_forward db4 64x{n_s}", lambda: jt.shifting_forward(xsh, "db4"))
+        finite(ysh, (64, n_s), "shifting")
+        compare(f"shifting_reverse(shifting_forward(x)) 64x{n_s}",
+                jt.shifting_reverse(ysh, "db4"), xsh, F32_BOUND)
+        compare(f"shifting_forward 64x{n_s} against float64", ysh,
+                jt.shifting_forward(xsh.double(), "db4"), F32_BOUND)
+    del xsh, ysh
+    for bnd in ("periodic", "symmetric"):
+        def lift_round(bnd=bnd):
+            c = jt.lifting_fwt(xp, "CDF 9/7", 8, bnd)
+            return c, jt.lifting_ifwt(c, "CDF 9/7", 8, bnd)
+
+        cl, backl = no_kernel(f"lifting_fwt -> lifting_ifwt CDF 9/7 L8 64x65536 ({bnd})",
+                              lift_round)
+        compare(f"lifting round trip ({bnd})", backl, xp, F32_BOUND)
+        compare(f"lifting_fwt ({bnd}) against float64", cl,
+                jt.lifting_fwt(xp.double(), "CDF 9/7", 8, bnd), F32_BOUND)
+    del cl, backl
+    xd = xp[:8]
+
+    def dt_round():
+        r = jt.dtcwt(xd, 6)
+        return r, jt.idtcwt(r)
+
+    rd, backd = no_kernel("dtcwt -> idtcwt L6 8x65536", dt_round)
+    require(rd.highpasses[0].dtype == torch.complex64, f"dtcwt {rd.highpasses[0].dtype}")
+    compare("idtcwt(dtcwt(x)) L6 8x65536", backd, xd, F32_BOUND)
+    rd64 = jt.dtcwt(xd.double(), 6)
+    for j, (g, w) in enumerate(zip(rd.highpasses, rd64.highpasses)):
+        compare(f"dtcwt level {j + 1} against float64", torch.view_as_real(g),
+                torch.view_as_real(w), F32_BOUND)
+
+    def dt2_round():
+        r = jt.dtcwt2d(img512, 4)
+        return r, jt.idtcwt2d(r)
+
+    rd2, backd2 = no_kernel("dtcwt2d -> idtcwt2d L4 512x512", dt2_round)
+    compare("idtcwt2d(dtcwt2d(x)) L4 512x512", backd2, img512, F32_BOUND)
+    rd2_64 = jt.dtcwt2d(img512.double(), 4)
+    compare("dtcwt2d level 1 against float64", torch.view_as_real(rd2.highpasses[0]),
+            torch.view_as_real(rd2_64.highpasses[0]), F32_BOUND)
+    den_d = no_kernel("denoise_dtcwt 512x512 L4", lambda: jt.denoise_dtcwt(img512, 4))
+    finite(den_d, (512, 512), "denoise_dtcwt")
+    compare("denoise_dtcwt against the float64 route (sigma through a median; bound 1e-4)",
+            den_d, jt.denoise_dtcwt(img512.double(), 4), 1e-4)
+    del rd, backd, rd64, rd2, backd2, rd2_64
+
+    ip = jt.InPlaceFastWaveletTransform("db4")
+    buf = xp.clone()
+    ptr = buf.data_ptr()
+    ref_ip = jt.fwt(xp.double(), "db4")
+    y_ip = path("InPlaceFastWaveletTransform.forward_in_place 64x65536",
+                lambda: ip.forward_in_place(buf), ("K3",))
+    k3_ip = cuda_pyramid.launch_counts["pyramid_rows"]
+    require(k3_ip == 1 and y_ip.data_ptr() == ptr,
+            f"in-place FWT: K3 {k3_ip} launches, storage reused {y_ip.data_ptr() == ptr}")
+    compare("forward_in_place against fwt in float64", y_ip, ref_ip, F32_BOUND)
+    del buf, y_ip, ref_ip
+    stream_np = np.random.default_rng(31).standard_normal(1 << 20).astype(np.float32)
+    eff = jt.EfficientMODWTTransform("db4")
+    st_m = path("EfficientMODWTTransform.forward_streaming db4 L5, 2^20 samples, chunks of 65536",
+                lambda: eff.forward_streaming(stream_np, 5, 65536), ("K1",))
+    k1_st = cuda_modwt.launch_counts["modwt_cascade"]
+    require(k1_st == 16, f"forward_streaming launched K1 {k1_st} times for 16 chunks")
+    compare("forward_streaming = forward_modwt of the whole signal", st_m,
+            eff.forward_modwt(stream_np, 5), F32_BOUND)
+    del st_m
+    pooled = jt.PooledMODWTTransform("db4")
+
+    def pooled_round():
+        c = pooled.forward_modwt(xp, 5)
+        return pooled.inverse_modwt(c)
+
+    back_p = path("PooledMODWTTransform round trip db4 L5 64x65536", pooled_round, ("K1", "K2"))
+    compare("pooled MODWT round trip", back_p, xp, F32_BOUND)
+    comp = jt.CompressorMagnitude(1.0)
+    kept = no_kernel("CompressorMagnitude on the WPT'd 2048^2 image", lambda: comp.compress(img_w))
+    mask_ok = bool(torch.equal(kept != 0, img_w.abs() >= comp.magnitude))
+    rate = float(jt.Compressor.compression_rate(kept))
+    print(json.dumps({"check": "CompressorMagnitude: kept where |c| >= mean|c|",
+                      "equal": mask_ok, "compression_rate_percent": rate}), flush=True)
+    require(mask_ok and 0.0 < rate < 100.0, "CompressorMagnitude mask")
+    del back_p, kept
+    torch.cuda.synchronize()
+
     # ---- 5. times --------------------------------------------------------
     # written before every timed run so that each starts with a cold 50 MB L2,
     # as a caller with fresh data would find it
@@ -1053,6 +1336,75 @@ def main() -> int:
         ms = median_ms(fn, reps)
         print(json.dumps({"time": label, "ms": ms, "Msamples_per_s": count / ms / 1e3,
                           "card": card}), flush=True)
+
+    # 4h's calls: device time (the spin; a call that waits for the stream, as
+    # each butterfly's tap upload does, carries its host gaps into it) and
+    # wall. WPT fused against level by level in each direction, in turns, with
+    # the sum of its kernels' device times in one profiled call (warm L2) and
+    # its byte bound: 64x65536 f32 read once and written once.
+    def busy_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        return sum(e.time_range.elapsed_us() for e in ev) / 1e3, len(ev)
+
+    yw_f, yw_l = jt.wpt(xp, "db4", 6), jt.wpt(xp, "db4", 6, fused=False)
+    xa_t = torch.as_tensor(xa_np, device=dev)        # timed on the card: no upload inside
+    stream_t = torch.as_tensor(stream_np, device=dev)
+    wpt_bytes = 2 * xp.numel() * 4
+    wpt_bound = wpt_bytes / 3.35e12 * 1e3  # H100 SXM HBM3 rate (data sheet)
+    for direction, fused_fn, level_fn in (
+            ("wpt", lambda: jt.wpt(xp, "db4", 6), lambda: jt.wpt(xp, "db4", 6, fused=False)),
+            ("iwpt", lambda: jt.iwpt(yw_f, "db4", 6),
+             lambda: jt.iwpt(yw_l, "db4", 6, fused=False))):
+        f1, l1 = median_ms(fused_fn, device=True), median_ms(level_fn, device=True)
+        l2, f2 = median_ms(level_fn, device=True), median_ms(fused_fn, device=True)
+        (bf, nf), (bl, nl) = busy_ms(fused_fn), busy_ms(level_fn)
+        print(json.dumps({
+            "time": f"{direction} db4 L6 64x65536: fused (one composite conv) against level by "
+                    "level (six butterflies)",
+            "fused_ms": (f1 + f2) / 2, "level_ms": (l1 + l2) / 2,
+            "fused_wall_ms": median_ms(fused_fn), "level_wall_ms": median_ms(level_fn),
+            "fused_kernels_busy_ms": bf, "fused_kernels": nf,
+            "level_kernels_busy_ms": bl, "level_kernels": nl,
+            "bound_ms": wpt_bound, "bound_by": "bytes", "bound_bytes": wpt_bytes,
+            "Msamples_per_s_fused": xp.numel() / ((f1 + f2) / 2) / 1e3, "card": card}),
+            flush=True)
+    del yw_f, yw_l
+    buf_t = xp.clone()
+    calls_h = {
+        "wpt -> iwpt db4 L6 64x65536 interleaved": (
+            lambda: jt.iwpt(jt.wpt(xp, "db4", 6, layout="interleaved"), "db4", 6,
+                            layout="interleaved"), 64 * 65536),
+        "WPT facade 2D forward 2048x2048 db4 full depth": (lambda: wpt_t.forward(img_w),
+                                                            2048 * 2048),
+        "best_basis db4 8x65536 max level 6": (lambda: jt.best_basis(xbb, "db4", 6), 8 * 65536),
+        "best_basis_2d db4 512x512 L4": (lambda: jt.best_basis_2d(img512, "db4", 4), 512 * 512),
+        "AED over FWT db4 64x100000 forward (6 K3 launches)": (
+            lambda: aed_b.forward(xa_t), 64 * 100000),
+        "shifting_forward db4 64x65536": (lambda: jt.shifting_forward(xp, "db4"), 64 * 65536),
+        "lifting_fwt -> lifting_ifwt CDF 9/7 L8 64x65536 periodic": (
+            lambda: jt.lifting_ifwt(jt.lifting_fwt(xp, "CDF 9/7", 8), "CDF 9/7", 8), 64 * 65536),
+        "dtcwt -> idtcwt L6 8x65536": (lambda: jt.idtcwt(jt.dtcwt(xd, 6)), 8 * 65536),
+        "dtcwt2d -> idtcwt2d L4 512x512": (lambda: jt.idtcwt2d(jt.dtcwt2d(img512, 4)),
+                                           512 * 512),
+        "denoise_dtcwt 512x512 L4": (lambda: jt.denoise_dtcwt(img512, 4), 512 * 512),
+        "InPlaceFastWaveletTransform.forward_in_place 64x65536 (K3)": (
+            lambda: ip.forward_in_place(buf_t), 64 * 65536),
+        "forward_streaming db4 L5 2^20 samples, chunks of 65536 (16 K1)": (
+            lambda: eff.forward_streaming(stream_t, 5, 65536), 1 << 20),
+        "PooledMODWTTransform round trip db4 L5 64x65536 (K1, K2)": (pooled_round, 64 * 65536),
+        "CompressorMagnitude 2048x2048": (lambda: comp.compress(img_w), 2048 * 2048),
+    }
+    for label, (fn, count) in calls_h.items():
+        ms = median_ms(fn, 10, device=True)
+        print(json.dumps({"time": label, "ms": ms, "wall_ms": median_ms(fn, 10),
+                          "Msamples_per_s": count / ms / 1e3, "card": card}), flush=True)
+    del buf_t, xa_t, stream_t
     for key, (ms, plain_ms, lib_ms, wall_ms) in timing.items():
         label, count, unit = shapes[key]
         extra = {"library_ms": lib_ms} if lib_ms is not None else {}

@@ -1,8 +1,9 @@
 """User-facing facade: Transform + TransformBuilder (reference jwave/
 Transform.java, TransformBuilder.java), with the JAX package's names and
-contracts for the transforms this package has: the Fast Wavelet Transform,
-the MODWT, the Discrete and Fast Fourier Transforms and the Continuous
-Wavelet Transform.
+contracts: the Fast Wavelet, Wavelet Packet, Shifting and Lifting Wavelet
+Transforms, the MODWT, the Discrete and Fast Fourier Transforms, the
+Continuous Wavelet Transform, and the Ancient Egyptian Decomposition around
+any of the discrete ones.
 
 Any leading axes of an input are batch axes. A tensor is computed on the
 device where it lies; any other input (numpy, lists) becomes a tensor on the
@@ -17,7 +18,9 @@ from .exceptions import JWaveFailure, JWaveNotKnown
 from .filters import FilterBank, get_filter
 from .ops.butterfly import as_tensor
 from .cwavelets import get_continuous_wavelet
+from .transforms import aed as _aed
 from .transforms import ndim as _ndim
+from .transforms import shifting as _shifting
 from .transforms.cwt import CWTResult, PaddingType, cwt, cwt_direct
 from .transforms.fft import (
     dft,
@@ -30,6 +33,7 @@ from .transforms.fft import (
     ifft_interleaved,
 )
 from .transforms.fwt import fwt, fwt2d, fwt_decompose, fwt_recompose, ifwt, ifwt2d
+from .transforms.lifting import LiftingScheme, get_scheme, lifting_fwt, lifting_ifwt
 from .transforms.modwt import (
     DEFAULT_FFT_THRESHOLD,
     ConvolutionMethod,
@@ -40,6 +44,7 @@ from .transforms.modwt import (
     modwt_1d,
     modwt_2d,
 )
+from .transforms.wpt import iwpt, wpt
 from .utils.numerics import exponent_of_two
 
 
@@ -151,6 +156,56 @@ class FastWaveletTransform(WaveletTransform):
         return fwt_recompose(self._in(mat), self.wavelet, level)
 
 
+class WaveletPacketTransform(WaveletTransform):
+    """WPT facade (WaveletPacketTransform.java)."""
+
+    name = "Wavelet Packet Transform"
+
+    def _forward_core(self, x, level=None):
+        return wpt(x, self.wavelet, level)
+
+    def _reverse_core(self, y, level=None):
+        return iwpt(y, self.wavelet, level)
+
+
+class LiftingWaveletTransform(BasicTransform):
+    """Lifting-scheme FWT facade: runs the CDF banks the reference's builder
+    refuses to create (WaveletBuilder.java:363-385); see
+    transforms/lifting.py. Shares the FWT pyramid layout, so 2D/3D,
+    compression and decompose/recompose compose unchanged."""
+
+    name = "Lifting Wavelet Transform"
+
+    def __init__(self, scheme="CDF 9/7", device=None):
+        super().__init__(device)
+        self.scheme: LiftingScheme = get_scheme(scheme)
+
+    def get_wavelet(self) -> LiftingScheme:
+        return self.scheme
+
+    def _forward_core(self, x, level=None):
+        return lifting_fwt(x, self.scheme, level)
+
+    def _reverse_core(self, y, level=None):
+        return lifting_ifwt(y, self.scheme, level)
+
+    # the generic all-level bundle only touches _forward/_reverse_core
+    decompose = WaveletTransform.decompose
+    recompose = WaveletTransform.recompose
+
+
+class ShiftingWaveletTransform(WaveletTransform):
+    """Shifting WT facade (ShiftingWaveletTransform.java)."""
+
+    name = "Shifting Wavelet Transform"
+
+    def _forward_core(self, x, level=None):
+        return _shifting.shifting_forward(x, self.wavelet)
+
+    def _reverse_core(self, y, level=None):
+        return _shifting.shifting_reverse(y, self.wavelet)
+
+
 class MODWTTransform(WaveletTransform):
     """MODWT facade (MODWTTransform.java). 1D forward/reverse use the
     flattened (J+1)*N layout; forward_modwt/inverse_modwt expose the
@@ -241,6 +296,30 @@ class FastFourierTransform(DiscreteFourierTransform):
         return ifft(y) if y.is_complex() else ifft_interleaved(y)
 
 
+class AncientEgyptianDecomposition(BasicTransform):
+    """Arbitrary-length driver splitting into power-of-two chunks
+    (AncientEgyptianDecomposition.java:97-185). Non-tensor input goes to
+    ``device``, the inner transform's unless one is given."""
+
+    name = "Ancient Egyptian Decomposition"
+
+    def __init__(self, inner: BasicTransform, initial_wavelet_space_size: int = 0,
+                 device=None):
+        super().__init__(inner.device if device is None else device)
+        self.inner = inner
+        # stored-but-unused in the reference too (AncientEgyptianDecomposition.java:77-85)
+        self.initial_wavelet_space_size = initial_wavelet_space_size
+
+    def get_wavelet(self):
+        return self.inner.get_wavelet()
+
+    def _forward_core(self, x, level=None):
+        return _aed.aed_forward(x, lambda c: self.inner._forward_core(c, level))
+
+    def _reverse_core(self, y, level=None):
+        return _aed.aed_reverse(y, lambda c: self.inner._reverse_core(c, level))
+
+
 class ContinuousWaveletTransform(BasicTransform):
     """CWT facade (ContinuousWaveletTransform.java). Like the reference,
     plain forward/reverse raise: use :meth:`transform` /
@@ -326,11 +405,17 @@ class Transform:
 
 
 class TransformBuilder:
-    """String -> Transform factory (TransformBuilder.java:40-110) for the
-    transforms this package has so far."""
+    """String -> Transform factory (TransformBuilder.java:40-110) covering
+    every transform, unlike the reference's stale registry."""
 
     _NAMES = {
         "fast wavelet transform": lambda w, device=None, **kw: FastWaveletTransform(w, device),
+        "wavelet packet transform":
+            lambda w, device=None, **kw: WaveletPacketTransform(w, device),
+        "shifting wavelet transform":
+            lambda w, device=None, **kw: ShiftingWaveletTransform(w, device),
+        "lifting wavelet transform":
+            lambda w, device=None, **kw: LiftingWaveletTransform(w, device),
         "maximal overlap discrete wavelet transform":
             lambda w, device=None, **kw: MODWTTransform(w, device=device, **kw),
         "modwt": lambda w, device=None, **kw: MODWTTransform(w, device=device, **kw),
@@ -344,17 +429,22 @@ class TransformBuilder:
     @classmethod
     def create(cls, transform_name: str, wavelet=None, device=None, **kwargs) -> Transform:
         """``device`` receives non-tensor inputs ("cuda" by default). The
-        wavelet defaults to Haar, and to Morlet for the CWT."""
+        wavelet defaults to Haar, and to Morlet for the CWT. A name prefixed
+        by "Ancient Egyptian Decomposition" wraps that transform (the FWT
+        when nothing follows) in :class:`AncientEgyptianDecomposition`."""
         key = str(transform_name).lower().strip()
+        if wavelet is None:
+            wavelet = "morlet" if key == "continuous wavelet transform" else "Haar"
+        if key.startswith("ancient egyptian decomposition"):
+            rest = key[len("ancient egyptian decomposition"):].strip() or "fast wavelet transform"
+            inner = cls.create(rest, wavelet, device=device, **kwargs).get_basic_transform()
+            return Transform(AncientEgyptianDecomposition(inner))
         if key not in cls._NAMES:
             raise JWaveNotKnown(
                 f"TransformBuilder.create - unknown transform {transform_name!r}; "
-                f"jwave_tpu_torch has {sorted(cls._NAMES)} (the wavelet packet, "
-                f"shifting, lifting and Ancient Egyptian transforms of jwave_tpu "
-                f"are not ported yet)"
+                f"available: {sorted(cls._NAMES)} (optionally prefixed by "
+                f"'Ancient Egyptian Decomposition')"
             )
-        if wavelet is None:
-            wavelet = "morlet" if key == "continuous wavelet transform" else "Haar"
         return Transform(cls._NAMES[key](wavelet, device=device, **kwargs))
 
     @staticmethod

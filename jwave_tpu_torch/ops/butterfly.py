@@ -22,6 +22,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import config
+
 
 def as_tensor(x, device=None) -> torch.Tensor:
     """A tensor stays where it lies; anything else becomes a tensor on
@@ -30,6 +32,13 @@ def as_tensor(x, device=None) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x
     return torch.as_tensor(np.asarray(x), device=device or "cuda")
+
+
+def copy_to_device(a, device=None) -> torch.Tensor:
+    """A copy of ``a`` (numpy, possibly read-only, e.g. a JAX package
+    result's ``np.asarray``) as a tensor on ``device``, the card ("cuda")
+    unless one is given: what the ``from_numpy`` constructors carry across."""
+    return torch.tensor(np.asarray(a), device=device or "cuda")
 
 
 def ensure_float(x: torch.Tensor) -> torch.Tensor:
@@ -75,7 +84,8 @@ def butterfly_forward(x: torch.Tensor, dec_lo: np.ndarray, dec_hi: np.ndarray) -
     ext = _tile_to(x, h + max(m - 2, 0))
     flat = ext.reshape(-1, 1, ext.shape[-1])
     w = taps(np.stack([dec_lo, dec_hi])[:, None, :], x)  # (2, 1, M)
-    out = F.conv1d(flat, w, stride=2)[:, :, :half]
+    with config.dial():
+        out = F.conv1d(flat, w, stride=2)[:, :, :half]
     merged = torch.cat([out[:, 0], out[:, 1]], dim=-1)
     return merged.reshape(x.shape[:-1] + (h,))
 
@@ -100,7 +110,8 @@ def butterfly_reverse(y: torch.Tensor, rec_lo: np.ndarray, rec_hi: np.ndarray,
     ext = full[..., reps * h - pad: reps * h + h]
     flat = ext.reshape(-1, 2, h + pad)
     w = taps(np.stack([rec_lo[::-1], rec_hi[::-1]])[None, :, :], y)  # (1, 2, M)
-    res = F.conv1d(flat, w)[:, 0, :h].reshape(y.shape[:-1] + (h,))
+    with config.dial():
+        res = F.conv1d(flat, w)[:, 0, :h].reshape(y.shape[:-1] + (h,))
     if recon_gain != 1.0:
         res = res * recon_gain
     return res

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import config
 from .butterfly import ensure_float, taps
 
 
@@ -31,19 +32,19 @@ def wrap_filter(f: np.ndarray, n: int) -> np.ndarray:
 
 def _correlate_valid(ext: torch.Tensor, kernel: np.ndarray, n: int) -> torch.Tensor:
     flat = ext.reshape(-1, 1, ext.shape[-1])
-    out = F.conv1d(flat, taps(kernel[None, None, :], ext))
+    with config.dial():
+        out = F.conv1d(flat, taps(kernel[None, None, :], ext))
     return out[:, 0].reshape(ext.shape[:-1] + (n,))
 
 
 def _conv_valid_bank(flat: torch.Tensor, kernels: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
     """(B, L) x (K, M) -> (B, K, L-M+1): one ``conv1d`` applies a whole bank
     of same-length kernels (K output channels) to every row, as a
-    correlation (``out[b, k, t] = sum_d kernels[k, d] * flat[b, t + d]``).
-    On a card, ``config.set_conv_precision("highest")`` keeps cuDNN's TF32
-    off for it."""
+    correlation (``out[b, k, t] = sum_d kernels[k, d] * flat[b, t + d]``)."""
     w = torch.as_tensor(np.ascontiguousarray(kernels, dtype=np.float64), dtype=dtype,
                         device=flat.device)
-    return F.conv1d(flat[:, None, :].to(dtype), w[:, None, :])
+    with config.dial():
+        return F.conv1d(flat[:, None, :].to(dtype), w[:, None, :])
 
 
 def circular_conv(x: torch.Tensor, f: np.ndarray) -> torch.Tensor:

@@ -1,3 +1,4 @@
+from .aed import aed_forward, aed_reverse
 from .analytic import analytic_signal, envelope, instantaneous_frequency
 from .cwt import (
     CWTResult,
@@ -11,6 +12,7 @@ from .cwt import (
     wavelet_coherence,
     xwt,
 )
+from .dtcwt import DTCWT2DResult, DTCWTResult, dtcwt, dtcwt2d, idtcwt, idtcwt2d
 from .ewt import EWTResult, ewt, ewt_boundaries, ewt_filter_bank, iewt
 from .fft import (
     bluestein_fft,
@@ -34,6 +36,15 @@ from .fwt import (
     ifwt,
     ifwt2d,
 )
+from .lifting import (
+    LiftingScheme,
+    get_scheme,
+    lifting_dwt,
+    lifting_fwt,
+    lifting_idwt,
+    lifting_ifwt,
+    lifting_schemes,
+)
 from .modwt import (
     DEFAULT_FFT_THRESHOLD,
     MAX_DECOMPOSITION_LEVEL,
@@ -55,6 +66,7 @@ from .modwt import (
 )
 from .ndim import forward_2d, forward_3d, reverse_2d, reverse_3d
 from .pursuit import GaborDictionary, MPResult, gabor_dictionary, matching_pursuit
+from .shifting import shifting_forward, shifting_reverse
 from .sliding import SlidingMODWT, SlidingState, sliding_modwt_init, sliding_modwt_update
 from .ssq import (
     SSQResult,
@@ -66,11 +78,26 @@ from .ssq import (
 )
 from .superlet import superlet
 from .vmd import VMDResult, vmd
+from .wpt import (
+    BestBasis,
+    BestBasis2D,
+    best_basis,
+    best_basis_2d,
+    best_basis_2d_reconstruct,
+    best_basis_reconstruct,
+    iwpt,
+    wpt,
+    wpt_interleaved_to_subband,
+    wpt_subband_to_interleaved,
+)
 from .wvd import wigner_ville
 
 __all__ = [
     "fwt", "ifwt", "fwt2d", "ifwt2d", "fwt_decompose", "fwt_recompose",
     "fwt_split", "fwt_merge", "fwt_max_level",
+    "wpt", "iwpt", "wpt_interleaved_to_subband", "wpt_subband_to_interleaved",
+    "BestBasis", "best_basis", "best_basis_reconstruct",
+    "BestBasis2D", "best_basis_2d", "best_basis_2d_reconstruct",
     "ConvolutionMethod", "DEFAULT_FFT_THRESHOLD", "MAX_DECOMPOSITION_LEVEL",
     "modwt", "imodwt", "modwt_1d", "imodwt_1d", "modwt_2d", "imodwt_2d",
     "modwt_mra", "modwt_mra_2d", "modwt_variance", "modwt_variance_ci",
@@ -86,4 +113,8 @@ __all__ = [
     "analytic_signal", "envelope", "instantaneous_frequency", "superlet",
     "EWTResult", "ewt", "iewt", "ewt_boundaries", "ewt_filter_bank", "wigner_ville",
     "VMDResult", "vmd", "GaborDictionary", "MPResult", "gabor_dictionary", "matching_pursuit",
+    "dtcwt", "idtcwt", "dtcwt2d", "idtcwt2d", "DTCWTResult", "DTCWT2DResult",
+    "LiftingScheme", "get_scheme", "lifting_schemes",
+    "lifting_dwt", "lifting_idwt", "lifting_fwt", "lifting_ifwt",
+    "aed_forward", "aed_reverse", "shifting_forward", "shifting_reverse",
 ]

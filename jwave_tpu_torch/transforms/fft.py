@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import config
 from ..ops.butterfly import as_tensor, ensure_fft_float, ensure_float
 from ..utils.numerics import next_power_of_two
 from .ndim import deinterleave, interleave
@@ -83,7 +84,8 @@ def _dense(z, sign: float) -> torch.Tensor:
     z = ensure_float(as_tensor(z))
     dt = torch.promote_types(z.dtype, torch.complex64)
     w = torch.as_tensor(_dft_matrix(z.shape[-1], sign), dtype=dt, device=z.device)
-    return z.to(dt) @ w.T
+    with config.dial():
+        return z.to(dt) @ w.T
 
 
 def dft(z) -> torch.Tensor:

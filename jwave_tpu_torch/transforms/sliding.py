@@ -28,9 +28,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import config
 from ..exceptions import JWaveFailure
 from ..filters import get_filter
-from ..ops.butterfly import as_tensor, ensure_float
+from ..ops.butterfly import as_tensor, copy_to_device, ensure_float
 from .modwt import MAX_DECOMPOSITION_LEVEL, _modwt_base_filters, _validate_level
 
 
@@ -53,10 +54,8 @@ class SlidingState(NamedTuple):
         """A state from numpy arrays (e.g. a state of the JAX package, as
         ``np.asarray`` of its leaves, which may be read-only), copied into
         tensors on ``device`` ("cuda" by default)."""
-        def t(a):
-            return torch.tensor(np.asarray(a), device=device or "cuda")
-
-        return cls(tuple(t(h) for h in hist), t(coeffs), t(window))
+        return cls(tuple(copy_to_device(h, device) for h in hist),
+                   copy_to_device(coeffs, device), copy_to_device(window, device))
 
 
 def _hist_len(m: int, j: int) -> int:
@@ -113,7 +112,8 @@ def sliding_modwt_update(state: SlidingState, samples, wavelet, level: int) -> S
     for j in range(level):
         need = state.hist[j].shape[-1]
         ext = torch.cat([state.hist[j].reshape(-1, 1, need), v], dim=-1)  # (B, 1, need + S)
-        wv = F.conv1d(ext, weight, dilation=1 << j)  # (B, 2, S): W_{j+1}, V_{j+1}
+        with config.dial():
+            wv = F.conv1d(ext, weight, dilation=1 << j)  # (B, 2, S): W_{j+1}, V_{j+1}
         rows.append(wv[:, 0])
         new_hist.append(ext[:, 0, ext.shape[-1] - need:].reshape(lead + (need,)))
         v = wv[:, 1:]

@@ -1,6 +1,10 @@
 """The jwave_tpu_torch facade against jwave_tpu's, and the slice whole: the
 step of __graft_entry__.entry() (MODWT db4 L5 then its inverse on a batched
 float32 signal) through both packages on the same input."""
+import pathlib
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 
@@ -72,12 +76,19 @@ def test_complex_input_bridges(rng):
 
 
 def test_unported_transform_names_raise():
-    for name in ("Wavelet Packet Transform", "Lifting Wavelet Transform", "nope"):
-        with pytest.raises(jt.JWaveNotKnown, match="not ported yet"):
-            jt.TransformBuilder.create(name, "db4")
+    """Every name of the JAX package's builder is ported now: an unknown name
+    raises JWaveNotKnown with the JAX package's message."""
+    with pytest.raises(jw.JWaveNotKnown) as ej:
+        jw.TransformBuilder.create("nope", "db4")
+    with pytest.raises(jt.JWaveNotKnown) as et:
+        jt.TransformBuilder.create("nope", "db4")
+    assert str(et.value) == str(ej.value)
 
 
-@pytest.mark.parametrize("entry", ["as_tensor", "modwt", "facade", "SlidingState.from_numpy"])
+@pytest.mark.parametrize("entry", ["as_tensor", "modwt", "facade", "SlidingState.from_numpy",
+                                   "wpt", "lifting_fwt", "dtcwt", "aed facade",
+                                   "BestBasis.from_numpy", "DTCWTResult.from_numpy",
+                                   "Line.to_torch", "compress"])
 def test_numpy_input_goes_to_the_card_by_default(entry):
     """Numpy input with no ``device`` becomes a tensor on "cuda". Without a
     card that raises torch's own error: nothing quietly runs on the CPU."""
@@ -90,6 +101,17 @@ def test_numpy_input_goes_to_the_card_by_default(entry):
         "facade": lambda: jt.TransformBuilder.create("Fast Wavelet Transform", "Haar").forward(x),
         "SlidingState.from_numpy":
             lambda: jt.SlidingState.from_numpy([x[:7]], np.ones((2, 16)), x).coeffs,
+        "wpt": lambda: jt.wpt(x, "db4", 2),
+        "lifting_fwt": lambda: jt.lifting_fwt(x),
+        "dtcwt": lambda: jt.dtcwt(x, 2).lowpasses,
+        "aed facade": lambda: jt.TransformBuilder.create(
+            "Ancient Egyptian Decomposition Wavelet Packet Transform").forward(np.ones(12)),
+        "BestBasis.from_numpy":
+            lambda: jt.BestBasis.from_numpy([(0, 0)], [x], 1.0, 16, "Haar").coefficients[0],
+        "DTCWTResult.from_numpy": lambda: jt.DTCWTResult.from_numpy([x[:8] + 0j], np.ones((2, 8)))
+        .lowpasses,
+        "Line.to_torch": lambda: jt.Line(16).alloc().to_torch(),
+        "compress": lambda: jt.CompressorMagnitude().compress(x),
     }
     if torch.cuda.is_available():
         assert calls[entry]().is_cuda
@@ -151,3 +173,98 @@ def test_slice_whole_matches_entry():
     assert_close(c2, np.asarray(coeffs_j, dtype=np.float64), 1e-5, "cascade coefficients")
     b2 = jt.imodwt(c2, "Daubechies 4", method=jt.ConvolutionMethod.PALLAS)
     assert_close(b2, x.astype(np.float64), 1e-5, "cascade round trip")
+
+
+def test_public_names_are_the_jax_packages_but_scattering():
+    assert set(jw.__all__) - set(dir(jt)) == {
+        "scattering1d", "scattering_filter_bank", "ScatteringResult",
+        "scattering2d", "scattering_filter_bank_2d", "Scattering2DResult"}
+    assert set(jt.__all__) <= set(dir(jt))
+
+
+def test_fresh_import_keeps_torch_switches_and_dials_highest():
+    """Importing the port sets no torch switch; its own dial starts at
+    'highest', the JAX package's default."""
+    code = (
+        "import torch\n"
+        "before = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,\n"
+        "          torch.get_float32_matmul_precision())\n"
+        "import jwave_tpu_torch as jt\n"
+        "after = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,\n"
+        "         torch.get_float32_matmul_precision())\n"
+        "assert before == after == (True, False, 'highest'), (before, after)\n"
+        "assert jt.config.conv_precision() == 'highest'\n"
+        "print('ok')\n")
+    root = pathlib.Path(__file__).resolve().parent.parent
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def _spy_on(monkeypatch, module, name):
+    """Wrap ``module.name`` so that each call records the TF32 switches."""
+    seen = []
+    real = getattr(module, name)
+
+    def spy(*args, **kwargs):
+        seen.append((torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(module, name, spy)
+    return seen
+
+
+@pytest.mark.parametrize("site", ["butterfly_forward", "butterfly_reverse", "circular_conv",
+                                  "wpt_fused_forward", "wpt_fused_inverse", "sliding", "dft"])
+def test_convolutions_run_under_the_dial(site, monkeypatch):
+    """True float32 inside every convolution and matmul of the port by
+    default; TF32 after set_conv_precision('high'); torch's own switches as
+    they were after each call."""
+    from jwave_tpu_torch.ops import butterfly, circular, composite
+
+    fb = jt.get_filter("db4")
+    x = torch.ones(2, 64, dtype=torch.float32)
+    calls = {
+        "butterfly_forward": ("conv1d", lambda: butterfly.butterfly_forward(
+            x, fb.dec_lo, fb.dec_hi)),
+        "butterfly_reverse": ("conv1d", lambda: butterfly.butterfly_reverse(
+            x, fb.rec_lo, fb.rec_hi)),
+        "circular_conv": ("conv1d", lambda: circular.circular_conv(x, fb.dec_lo)),
+        "wpt_fused_forward": ("conv1d", lambda: composite.wpt_fused_forward(
+            x, fb.dec_lo, fb.dec_hi, 3)),
+        "wpt_fused_inverse": ("conv_transpose1d", lambda: composite.wpt_fused_inverse(
+            x, fb.rec_lo, fb.rec_hi, 3)),
+        "sliding": ("conv1d", lambda: jt.sliding_modwt_update(
+            jt.sliding_modwt_init(x, "db4", 2), x[:, :8], "db4", 2)),
+        "dft": (None, lambda: jt.transforms.dft(x)),
+    }
+    fn_name, call = calls[site]
+    if fn_name is None:  # the dense DFT: a matmul, seen through the tensor operator
+        seen = []
+        real = torch.Tensor.__matmul__
+
+        def spy(a, b):
+            seen.append((torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()))
+            return real(a, b)
+
+        monkeypatch.setattr(torch.Tensor, "__matmul__", spy)
+    else:
+        seen = _spy_on(monkeypatch, torch.nn.functional, fn_name)
+    before = (torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision())
+    call()
+    assert seen and all(s == (False, "highest") for s in seen), seen
+    assert (torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()) == before
+    seen.clear()
+    try:
+        jt.config.set_conv_precision("high")
+        call()
+        assert seen and all(s == (True, "high") for s in seen), seen
+        seen.clear()
+        jt.config.set_conv_precision("default")
+        call()
+        assert seen and all(s == (True, "medium") for s in seen), seen
+    finally:
+        jt.config.set_conv_precision("highest")
+    assert (torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()) == before
+    with pytest.raises(ValueError, match="unknown precision"):
+        jt.config.set_conv_precision("fast")

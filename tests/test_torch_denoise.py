@@ -167,5 +167,10 @@ def test_denoise_errors_match(fn, kw):
     assert str(et.value) == str(ej.value)
 
 
-def test_denoise_dtcwt_is_not_exported():
-    assert not hasattr(jt, "denoise_dtcwt")
+def test_denoise_dtcwt_is_not_exported(rng):
+    """denoise_dtcwt is exported now: held against the JAX package's at
+    1e-10 (the bivariate shrinkage of tests/test_torch_dtcwt.py, here on one
+    image with the default levels and window)."""
+    img = _noisy(rng, (64, 64), 16.0)
+    got = jt.denoise_dtcwt(torch.tensor(img))
+    assert_close(got, jax.jit(jw.denoise_dtcwt)(img), 1e-10, "denoise_dtcwt")

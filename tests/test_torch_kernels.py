@@ -460,6 +460,68 @@ def test_ssq_and_ifwt2d_route_through_k5_k6(cuda):
     assert cuda_pyramid.launch_counts["ipyramid_rows_transposed"] == 2
 
 
+@pytest.mark.cuda
+def test_convolutions_are_true_float32_by_default(cuda):
+    """With no call to the dial, a cuDNN path (ifwt) agrees with float64 to
+    1e-5: TF32's 10-bit mantissa would miss by orders of magnitude."""
+    assert jt.config.conv_precision() == "highest"
+    y = torch.as_tensor(np.random.default_rng(0).standard_normal((8, 4096)), dtype=torch.float32,
+                        device=cuda)
+    got = jt.ifwt(y, "db4", 8)
+    assert _rel_err(got, jt.ifwt(y.double(), "db4", 8)) <= F32_BOUND
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fused", "level by level", "interleaved"])
+def test_wpt_on_the_card_matches_float64(cuda, mode):
+    x = torch.as_tensor(np.random.default_rng(1).standard_normal((8, 4096)), dtype=torch.float32,
+                        device=cuda)
+    kw = {"fused": {}, "level by level": {"fused": False},
+          "interleaved": {"layout": "interleaved"}}[mode]
+    cuda_pyramid.reset_launch_counts()
+    cuda_modwt.reset_launch_counts()
+    y = jt.wpt(x, "db4", 6, **kw)
+    back = jt.iwpt(y, "db4", 6, **kw)
+    torch.cuda.synchronize()
+    assert y.is_cuda and y.dtype == torch.float32
+    assert _rel_err(y, jt.wpt(x.double(), "db4", 6, **kw)) <= F32_BOUND
+    assert _rel_err(back, x) <= F32_BOUND
+    assert not any(cuda_pyramid.launch_counts.values())
+    assert not any(cuda_modwt.launch_counts.values())
+
+
+@pytest.mark.cuda
+def test_dtcwt_on_the_card_matches_float64(cuda):
+    x = torch.as_tensor(np.random.default_rng(2).standard_normal((4, 4096)), dtype=torch.float32,
+                        device=cuda)
+    res = jt.dtcwt(x, 6)
+    ref = jt.dtcwt(x.double(), 6)
+    for g, r in zip(res.highpasses, ref.highpasses):
+        assert g.dtype == torch.complex64
+        assert _rel_err(torch.view_as_real(g), torch.view_as_real(r)) <= F32_BOUND
+    assert _rel_err(jt.idtcwt(res), x) <= F32_BOUND
+    img = x[:, :1024].reshape(64, 64)
+    res2 = jt.dtcwt2d(img, 4)
+    ref2 = jt.dtcwt2d(img.double(), 4)
+    for g, r in zip(res2.highpasses, ref2.highpasses):
+        assert _rel_err(torch.view_as_real(g), torch.view_as_real(r)) <= F32_BOUND
+    assert _rel_err(jt.idtcwt2d(res2), img) <= F32_BOUND
+
+
+@pytest.mark.cuda
+def test_in_place_fwt_reuses_storage_on_the_card(cuda):
+    x = torch.as_tensor(np.random.default_rng(3).standard_normal((8, 4096)), dtype=torch.float32,
+                        device=cuda)
+    ref = jt.fwt(x.double(), "db4")
+    buf = x.clone()
+    ptr = buf.data_ptr()
+    cuda_pyramid.reset_launch_counts()
+    y = jt.InPlaceFastWaveletTransform("db4").forward_in_place(buf)
+    torch.cuda.synchronize()
+    assert y.data_ptr() == ptr and cuda_pyramid.launch_counts["pyramid_rows"] == 1
+    assert _rel_err(y, ref) <= F32_BOUND
+
+
 # --------------------------------------------------------------------------
 # on any machine
 # --------------------------------------------------------------------------

@@ -11,9 +11,11 @@ ssq_cwt (8 x 65536 float32, Morlet(1,1), 64 log scales 1e-5..1e-2 s, fs =
 butterflies), ifwt2d (2048 x 2048 db4 L6), the entry step's gradient (modwt ->
 imodwt db4 L5 64 x 65536), denoise (db4 L4 8 x 65536), modwt_mra (db4 L5
 64 x 65536), one sliding MODWT update (8 streams, window 512, db4 L8, chunk
-64), and bench.py's shapes of wigner_ville, superlet, ewt -> iewt, vmd,
-matching_pursuit and analytic_signal. Needs a CUDA card; exits 2 without
-one.
+64), bench.py's shapes of wigner_ville, superlet, ewt -> iewt, vmd,
+matching_pursuit and analytic_signal, wpt and iwpt (db4 L6 64 x 65536,
+fused), lifting_fwt (CDF 9/7 L8 64 x 65536) and dtcwt (L6 8 x 65536). The
+port's precision dial stays at its default, true float32. Needs a CUDA
+card; exits 2 without one.
 """
 from __future__ import annotations
 
@@ -72,7 +74,6 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import jwave_tpu_torch as jt
 
-    jt.config.set_conv_precision("highest")
     dev = torch.device("cuda")
     x = torch.as_tensor(np.random.default_rng(5).standard_normal((8, 65536)),
                         dtype=torch.float32, device=dev)
@@ -111,6 +112,10 @@ def main() -> int:
         "vmd": lambda: jt.vmd(xv, 3),
         "matching_pursuit": lambda: jt.matching_pursuit(xm, 16),
         "analytic_signal": lambda: jt.analytic_signal(x8),
+        "wpt": lambda: jt.wpt(x64.detach(), "db4", 6),
+        "iwpt": lambda: jt.iwpt(x64.detach(), "db4", 6),
+        "lifting_fwt": lambda: jt.lifting_fwt(x64.detach(), "CDF 9/7", 8),
+        "dtcwt": lambda: jt.dtcwt(x8, 6),
     }
     out = Path(args.out)
     for name, fn in paths.items():
