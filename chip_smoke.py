@@ -70,6 +70,14 @@ it happened; any failed check ends the run with a non-zero exit:
       chunks of 65536: K1 once a chunk), a pooled MODWT round trip (K1, K2),
       CompressorMagnitude on the WPT'd image. WPT, lifting and DTCWT launch
       no kernel of this package.
+   i. scattering at bench.py's shapes: scattering1d (8 x 65536 f32, J=8,
+      Q=8) and scattering2d (256^2 f32, J=3, L=8), spectral form on cuFFT,
+      K1-K6 launched 0 times; each order against the card's float64 run
+      (1e-4 of max|ref|), the card's float64 against the CPU's (2 rows and
+      the image, 1e-10), shapes, dtypes, features() and n_paths against the
+      bank; a warm call traced by utils.profiling.trace makes no
+      host-to-device copy. The CLI demo (cli.main, FWT Daubechies 4) on the
+      card returns 0; utils.profiling.time_fn times both scattering calls.
 5. times: CUDA events, median of 25 runs after warm-up with the L2 cache
    flushed before each and a GPU spin that hides the host's launch time
    (device time; each also once without the spin, as wall time), kernel
@@ -86,7 +94,10 @@ it happened; any failed check ends the run with a non-zero exit:
    fwt2d's gradient (backward K5 x2), ifwt2d's gradient (backward K4 x2),
    the analysis calls, each call of 4g and each call of 4h (device time and
    wall; WPT fused against level by level in each direction, with the sum
-   of its kernels' device times in a profiled call and its byte bound).
+   of its kernels' device times in a profiled call and its byte bound); the
+   scattering calls of 4i: device time, wall, time_fn's mean beside them,
+   busy time, kernels and cuFFT's share in a profiled call, the peak memory
+   of a warm call and the bytes of its FFT rounds.
 
 The second line from the end is a JSON object listing each kernel with its
 launches on its path and on the main path (4a), its error, its time beside
@@ -1049,6 +1060,95 @@ def main() -> int:
     del back_p, kept
     torch.cuda.synchronize()
 
+    # ---- 4i. scattering, the CLI and profiling ------------------------------
+    from jwave_tpu_torch import cli
+    from jwave_tpu_torch.transforms import scattering as scat
+    from jwave_tpu_torch.utils import profiling
+
+    def per_order(label, got, want, bound, rows=slice(None)):
+        """Each order of ``got[rows]`` against ``want``, relative to its own
+        max|ref|."""
+        for name in ("S0", "S1", "S2"):
+            compare(f"{label} {name}", getattr(got, name)[rows], getattr(want, name).to(dev),
+                    bound)
+
+    def h2d_copies(label, fn):
+        """Host-to-device copies in a warm call, traced by profiling.trace."""
+        fn()
+        torch.cuda.synchronize()
+        with profiling.trace(str(ROOT / "build" / "trace_4i")) as prof:
+            fn()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and "HtoD" in e.name]
+        print(json.dumps({"check": f"{label}: host-to-device copies in a warm call",
+                          "copies": len(names), "names": sorted(set(names))}), flush=True)
+        require(not names, f"{label}: a warm call copies from the host: {names}")
+
+    xsc_np = np.random.default_rng(32).standard_normal((8, 65536)).astype(np.float32)
+    xsc = torch.as_tensor(xsc_np, device=dev)
+    img_sc = torch.as_tensor(np.random.default_rng(33).standard_normal((256, 256)),
+                             dtype=torch.float32, device=dev)
+    scat_calls = {"scattering1d J8 Q8 8x65536": (lambda: jt.scattering1d(xsc, 8, Q=8),
+                                                  8 * 65536, "Msamples_per_s"),
+                  "scattering2d J3 L8 256x256": (lambda: jt.scattering2d(img_sc, 3, L=8),
+                                                  256 * 256, "Mpix_per_s")}
+    peak = {}
+    for label, (fn, _, _) in scat_calls.items():
+        no_kernel(label + " f32", fn)
+        h2d_copies(label, fn)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fn()
+        peak[label] = torch.cuda.max_memory_allocated() - base  # above the inputs, warm
+    # bytes of the FFT rounds from the shapes: each FFT reads and writes its
+    # complex64 planes once. 1D: fft(x), the lowpass of S0, then per group
+    # of rate r (or R) an inverse FFT, fft(|.|) and the lowpass's inverse FFT
+    # over its rows of padded / r points; 2D likewise over 512^2 planes
+    plan1 = scat._plan_1d(65536, 8, 8, 1, 0, torch.float32, dev)
+    planes1 = 2 * plan1.padded + sum(3 * g.psi.shape[0] * plan1.padded // g.r
+                                     for g in plan1.order1) + sum(
+        3 * g.psi.shape[0] * plan1.padded // g.R for g in plan1.order2)
+    plan2 = scat._plan_2d(256, 256, 3, 8, 0, torch.float32, dev)
+    planes2 = (2 + 3 * plan2.psi.shape[0] + 3 * len(plan2.bank.paths)) * plan2.py * plan2.px
+    fft_bytes = {"scattering1d J8 Q8 8x65536": 2 * 8 * 8 * planes1,
+                 "scattering2d J3 L8 256x256": 2 * 8 * planes2}
+    sc1 = jt.scattering1d(xsc, 8, Q=8)
+    sc1_64 = jt.scattering1d(xsc.double(), 8, Q=8)
+    bank1 = jt.scattering_filter_bank(131072, 8, 8, 1)
+    k1, p1, t1 = len(bank1.xi1), len(bank1.paths), 65536 // 256
+    require(tuple(sc1.S0.shape) == (8, t1) and tuple(sc1.S1.shape) == (8, k1, t1)
+            and tuple(sc1.S2.shape) == (8, p1, t1) and sc1.n_paths == p1
+            and tuple(sc1.features().shape) == (8, 1 + k1 + p1, t1)
+            and all(getattr(sc1, n).dtype == torch.float32 for n in ("S0", "S1", "S2")),
+            f"scattering1d shapes or dtypes: {sc1.S0.shape} {sc1.S1.shape} {sc1.S2.shape}")
+    per_order("scattering1d 8x65536 f32 against the card's float64 (bound 1e-4)", sc1, sc1_64,
+              1e-4)
+    sc1_cpu = jt.scattering1d(xsc[:2].double().cpu(), 8, Q=8)
+    per_order("scattering1d 2x65536 float64: the card against the CPU (bound 1e-10)", sc1_64,
+              sc1_cpu, 1e-10, rows=slice(0, 2))
+    sc2 = jt.scattering2d(img_sc, 3, L=8)
+    sc2_64 = jt.scattering2d(img_sc.double(), 3, L=8)
+    bank2 = jt.scattering_filter_bank_2d(512, 512, 3, 8)
+    p2 = len(bank2.paths)
+    require(tuple(sc2.S0.shape) == (32, 32) and tuple(sc2.S1.shape) == (24, 32, 32)
+            and tuple(sc2.S2.shape) == (p2, 32, 32) and sc2.n_paths == p2 == 192
+            and tuple(sc2.features().shape) == (1 + 24 + p2, 32, 32)
+            and all(getattr(sc2, n).dtype == torch.float32 for n in ("S0", "S1", "S2")),
+            f"scattering2d shapes or dtypes: {sc2.S0.shape} {sc2.S1.shape} {sc2.S2.shape}")
+    per_order("scattering2d 256^2 f32 against the card's float64 (bound 1e-4)", sc2, sc2_64, 1e-4)
+    per_order("scattering2d 256^2 float64: the card against the CPU (bound 1e-10)", sc2_64,
+              jt.scattering2d(img_sc.double().cpu(), 3, L=8), 1e-10)
+    del sc1, sc1_64, sc1_cpu, sc2, sc2_64
+    torch.cuda.empty_cache()
+    rc_cli = path("python -m jwave_tpu_torch 'Fast Wavelet Transform' 'Daubechies 4' "
+                  "(cli.main in this process, on the card)",
+                  lambda: cli.main(["Fast Wavelet Transform", "Daubechies 4"]))
+    require(rc_cli == 0, f"the CLI demo returned {rc_cli}")
+    time_fn_ms = {label: profiling.time_fn(fn, warmup=2, iters=10) * 1e3
+                  for label, (fn, _, _) in scat_calls.items()}
+    torch.cuda.synchronize()
+
     # ---- 5. times --------------------------------------------------------
     # written before every timed run so that each starts with a cold 50 MB L2,
     # as a caller with fresh data would find it
@@ -1342,15 +1442,20 @@ def main() -> int:
     # wall. WPT fused against level by level in each direction, in turns, with
     # the sum of its kernels' device times in one profiled call (warm L2) and
     # its byte bound: 64x65536 f32 read once and written once.
-    def busy_ms(fn):
+    def device_events(fn):
+        """(name, ms) of each kernel and copy on the card in one profiled call."""
         fn()
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        return sum(e.time_range.elapsed_us() for e in ev) / 1e3, len(ev)
+        return [(e.name, e.time_range.elapsed_us() / 1e3) for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def busy_ms(fn):
+        ev = device_events(fn)
+        return sum(ms for _, ms in ev), len(ev)
 
     yw_f, yw_l = jt.wpt(xp, "db4", 6), jt.wpt(xp, "db4", 6, fused=False)
     xa_t = torch.as_tensor(xa_np, device=dev)        # timed on the card: no upload inside
@@ -1405,6 +1510,22 @@ def main() -> int:
         print(json.dumps({"time": label, "ms": ms, "wall_ms": median_ms(fn, 10),
                           "Msamples_per_s": count / ms / 1e3, "card": card}), flush=True)
     del buf_t, xa_t, stream_t
+    # 4i's calls: device time (the spin) and wall; time_fn's mean of the same
+    # call (host clock, a synchronize after each); from one profiled call the
+    # busy time, its kernels and cuFFT's share; the peak memory of a warm call
+    # above its input; the FFT rounds' bytes and their time at 3.35 TB/s
+    for label, (fn, count, unit) in scat_calls.items():
+        ms = median_ms(fn, device=True)
+        ev = device_events(fn)
+        busy = sum(t for _, t in ev)
+        fft_ms = sum(t for name, t in ev if "fft" in name.lower())
+        print(json.dumps({"time": label + " f32 (cuFFT, no kernel of this package)", "ms": ms,
+                          "wall_ms": median_ms(fn), "time_fn_ms": time_fn_ms[label],
+                          "busy_ms": busy, "kernels": len(ev), "cufft_ms": fft_ms,
+                          "cufft_share_of_busy": fft_ms / busy,
+                          "peak_memory_mb": peak[label] / 2**20, "fft_bytes": fft_bytes[label],
+                          "fft_bytes_ms": fft_bytes[label] / 3.35e12 * 1e3,
+                          unit: count / ms / 1e3, "card": card}), flush=True)
     for key, (ms, plain_ms, lib_ms, wall_ms) in timing.items():
         label, count, unit = shapes[key]
         extra = {"library_ms": lib_ms} if lib_ms is not None else {}

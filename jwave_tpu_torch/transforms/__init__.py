@@ -64,8 +64,16 @@ from .modwt import (
     modwt_variance_ci,
     wavelet_log_spectrum,
 )
-from .ndim import forward_2d, forward_3d, reverse_2d, reverse_3d
+from .ndim import forward_2d, forward_3d, forward_complex, reverse_2d, reverse_3d, reverse_complex
 from .pursuit import GaborDictionary, MPResult, gabor_dictionary, matching_pursuit
+from .scattering import (
+    Scattering2DResult,
+    ScatteringResult,
+    scattering1d,
+    scattering2d,
+    scattering_filter_bank,
+    scattering_filter_bank_2d,
+)
 from .shifting import shifting_forward, shifting_reverse
 from .sliding import SlidingMODWT, SlidingState, sliding_modwt_init, sliding_modwt_update
 from .ssq import (
@@ -92,29 +100,28 @@ from .wpt import (
 )
 from .wvd import wigner_ville
 
+# the JAX package's list: the other names above are attributes, not exports
 __all__ = [
-    "fwt", "ifwt", "fwt2d", "ifwt2d", "fwt_decompose", "fwt_recompose",
-    "fwt_split", "fwt_merge", "fwt_max_level",
+    "fwt", "fwt2d", "ifwt", "ifwt2d", "fwt_max_level", "fwt_decompose", "fwt_recompose",
+    "fwt_split", "fwt_merge",
     "wpt", "iwpt", "wpt_interleaved_to_subband", "wpt_subband_to_interleaved",
-    "BestBasis", "best_basis", "best_basis_reconstruct",
-    "BestBasis2D", "best_basis_2d", "best_basis_2d_reconstruct",
-    "ConvolutionMethod", "DEFAULT_FFT_THRESHOLD", "MAX_DECOMPOSITION_LEVEL",
-    "modwt", "imodwt", "modwt_1d", "imodwt_1d", "modwt_2d", "imodwt_2d",
-    "modwt_mra", "modwt_mra_2d", "modwt_variance", "modwt_variance_ci",
-    "modwt_covariance", "modwt_correlation", "wavelet_log_spectrum", "hurst_exponent",
-    "SlidingState", "SlidingMODWT", "sliding_modwt_init", "sliding_modwt_update",
-    "forward_2d", "reverse_2d", "forward_3d", "reverse_3d",
-    "fft", "ifft", "fft_interleaved", "ifft_interleaved", "bluestein_fft",
-    "dft", "idft", "dft_interleaved", "idft_interleaved",
-    "cwt", "cwt_chunked", "cwt_direct", "icwt", "xwt", "wavelet_coherence",
-    "CWTResult", "PaddingType", "generate_log_scales", "generate_linear_scales",
-    "ssq_cwt", "issq_cwt", "SSQResult", "extract_ridge", "ridge_tube_mask",
-    "one_integral_constant",
-    "analytic_signal", "envelope", "instantaneous_frequency", "superlet",
-    "EWTResult", "ewt", "iewt", "ewt_boundaries", "ewt_filter_bank", "wigner_ville",
-    "VMDResult", "vmd", "GaborDictionary", "MPResult", "gabor_dictionary", "matching_pursuit",
+    "modwt", "imodwt", "modwt_1d", "imodwt_1d", "modwt_2d", "imodwt_2d", "ConvolutionMethod",
+    "SlidingMODWT", "SlidingState", "sliding_modwt_init", "sliding_modwt_update",
+    "cwt", "cwt_chunked", "cwt_direct", "icwt", "CWTResult", "generate_log_scales",
+    "generate_linear_scales", "PaddingType",
+    "scattering1d", "scattering_filter_bank", "ScatteringResult",
+    "scattering2d", "scattering_filter_bank_2d", "Scattering2DResult",
+    "vmd", "VMDResult",
+    "matching_pursuit", "gabor_dictionary", "GaborDictionary", "MPResult",
     "dtcwt", "idtcwt", "dtcwt2d", "idtcwt2d", "DTCWTResult", "DTCWT2DResult",
+    "superlet",
+    "analytic_signal", "envelope", "instantaneous_frequency",
+    "ewt", "iewt", "ewt_boundaries", "ewt_filter_bank", "EWTResult",
+    "wigner_ville",
     "LiftingScheme", "get_scheme", "lifting_schemes",
     "lifting_dwt", "lifting_idwt", "lifting_fwt", "lifting_ifwt",
-    "aed_forward", "aed_reverse", "shifting_forward", "shifting_reverse",
+    "fft", "ifft", "dft", "idft", "fft_interleaved", "ifft_interleaved",
+    "aed_forward", "aed_reverse",
+    "shifting_forward", "shifting_reverse",
+    "forward_2d", "reverse_2d", "forward_3d", "reverse_3d", "forward_complex", "reverse_complex",
 ]

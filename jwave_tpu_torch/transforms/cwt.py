@@ -130,10 +130,9 @@ def pad_signal(x: torch.Tensor, target: int, padding: PaddingType) -> torch.Tens
     elif padding is PaddingType.SYMMETRIC:
         # reference mirror: padded[i] = signal[2N - i - 2] while in range,
         # zero beyond (ContinuousWaveletTransform.java:283-291)
-        idx = 2 * n - np.arange(n, target) - 2
-        valid = (idx >= 0) & (idx < n)
-        safe = torch.as_tensor(np.where(valid, idx, 0), device=x.device)
-        tail = torch.where(torch.as_tensor(valid, device=x.device), x[..., safe], 0.0).to(x.dtype)
+        # (indices made where x lies: no copy from the host)
+        idx = 2 * n - 2 - torch.arange(n, target, device=x.device)
+        tail = torch.where(idx >= 0, x[..., idx.clamp(min=0)], 0.0).to(x.dtype)
     else:
         raise ValueError(f"unknown padding {padding}")
     return torch.cat([x, tail], dim=-1)

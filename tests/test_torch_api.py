@@ -88,7 +88,8 @@ def test_unported_transform_names_raise():
 @pytest.mark.parametrize("entry", ["as_tensor", "modwt", "facade", "SlidingState.from_numpy",
                                    "wpt", "lifting_fwt", "dtcwt", "aed facade",
                                    "BestBasis.from_numpy", "DTCWTResult.from_numpy",
-                                   "Line.to_torch", "compress"])
+                                   "Line.to_torch", "compress", "scattering1d",
+                                   "scattering2d"])
 def test_numpy_input_goes_to_the_card_by_default(entry):
     """Numpy input with no ``device`` becomes a tensor on "cuda". Without a
     card that raises torch's own error: nothing quietly runs on the CPU."""
@@ -112,6 +113,8 @@ def test_numpy_input_goes_to_the_card_by_default(entry):
         .lowpasses,
         "Line.to_torch": lambda: jt.Line(16).alloc().to_torch(),
         "compress": lambda: jt.CompressorMagnitude().compress(x),
+        "scattering1d": lambda: jt.scattering1d(x, 2).S1,
+        "scattering2d": lambda: jt.scattering2d(np.ones((16, 16)), 2).S1,
     }
     if torch.cuda.is_available():
         assert calls[entry]().is_cuda
@@ -176,10 +179,22 @@ def test_slice_whole_matches_entry():
 
 
 def test_public_names_are_the_jax_packages_but_scattering():
-    assert set(jw.__all__) - set(dir(jt)) == {
-        "scattering1d", "scattering_filter_bank", "ScatteringResult",
-        "scattering2d", "scattering_filter_bank_2d", "Scattering2DResult"}
+    """Every public name of the JAX package, the six scattering names (the
+    last to be ported) included."""
+    assert set(jw.__all__) - set(dir(jt)) == set()
+    assert {"scattering1d", "scattering_filter_bank", "ScatteringResult", "scattering2d",
+            "scattering_filter_bank_2d", "Scattering2DResult"} <= set(jt.__all__)
     assert set(jt.__all__) <= set(dir(jt))
+
+
+def test_transforms_exports_are_the_jax_packages():
+    """``jwave_tpu_torch.transforms`` exports the JAX subpackage's list, the
+    complex bridges ``forward_complex``/``reverse_complex`` included."""
+    import jwave_tpu.transforms as jwt
+    import jwave_tpu_torch.transforms as jtt
+
+    assert set(jwt.__all__) == set(jtt.__all__)
+    assert set(jtt.__all__) <= set(dir(jtt))
 
 
 def test_fresh_import_keeps_torch_switches_and_dials_highest():

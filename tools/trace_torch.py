@@ -13,7 +13,8 @@ imodwt db4 L5 64 x 65536), denoise (db4 L4 8 x 65536), modwt_mra (db4 L5
 64 x 65536), one sliding MODWT update (8 streams, window 512, db4 L8, chunk
 64), bench.py's shapes of wigner_ville, superlet, ewt -> iewt, vmd,
 matching_pursuit and analytic_signal, wpt and iwpt (db4 L6 64 x 65536,
-fused), lifting_fwt (CDF 9/7 L8 64 x 65536) and dtcwt (L6 8 x 65536). The
+fused), lifting_fwt (CDF 9/7 L8 64 x 65536), dtcwt (L6 8 x 65536),
+scattering1d (8 x 65536, J=8, Q=8) and scattering2d (256 x 256, J=3, L=8). The
 port's precision dial stays at its default, true float32. Needs a CUDA
 card; exits 2 without one.
 """
@@ -96,6 +97,7 @@ def main() -> int:
     ewt_sig = np.random.default_rng(19).standard_normal(16384)
     ewt_b = jt.ewt_boundaries(ewt_sig, 5)
     xe = torch.as_tensor(np.tile(ewt_sig, (8, 1)), dtype=torch.float32, device=dev)
+    img256 = sig((256, 256), 33)
     paths = {
         "ssq_cwt": lambda: jt.ssq_cwt(x, scales, wav, 1e6),
         "fwt": lambda: jt.fwt(x64.detach(), "db4", 8),
@@ -116,6 +118,8 @@ def main() -> int:
         "iwpt": lambda: jt.iwpt(x64.detach(), "db4", 6),
         "lifting_fwt": lambda: jt.lifting_fwt(x64.detach(), "CDF 9/7", 8),
         "dtcwt": lambda: jt.dtcwt(x8, 6),
+        "scattering1d": lambda: jt.scattering1d(x8, 8, Q=8),
+        "scattering2d": lambda: jt.scattering2d(img256, 3, L=8),
     }
     out = Path(args.out)
     for name, fn in paths.items():
