@@ -78,6 +78,20 @@ it happened; any failed check ends the run with a non-zero exit:
       bank; a warm call traced by utils.profiling.trace makes no
       host-to-device copy. The CLI demo (cli.main, FWT Daubechies 4) on the
       card returns 0; utils.profiling.time_fn times both scattering calls.
+   j. the sharded layer (jwave_tpu_torch.parallel) in a one-rank NCCL world
+      formed by initialize_distributed from torchrun's variables, on
+      make_mesh()'s 1D mesh and a (1, 1) mesh: all 29 names at full size,
+      f32 on the card (the 2D transforms db4 L6 2048^2, the batch-sharded
+      MODWT round trip db4 L5 64 x 65536, the scale-sharded CWT and SSQ at
+      8 x 65536 with 64 scales, the time-sharded paths on 2^22 samples, the
+      time-sharded CWT on 2^20, pfft on 8 x 2^20, pfft2 and the 2D MODWT on
+      2048^2, the 3D transforms on 256^3), each against the port's
+      single-device function (1e-5 of max|ref|), its float64 run against
+      the single device's (1e-10) and against its own f32 run, and by its
+      identity; every output's local block on the card; K3 in the 2D/3D
+      FWTs and the halo FWT's tail, K6 in ssq_scale_sharded, K1 and K2 in
+      the batch-sharded round trip and the 2D MODWT. Then every example's
+      main() on the card (jwave_tpu_torch.examples).
 5. times: CUDA events, median of 25 runs after warm-up with the L2 cache
    flushed before each and a GPU spin that hides the host's launch time
    (device time; each also once without the spin, as wall time), kernel
@@ -97,10 +111,12 @@ it happened; any failed check ends the run with a non-zero exit:
    of its kernels' device times in a profiled call and its byte bound); the
    scattering calls of 4i: device time, wall, time_fn's mean beside them,
    busy time, kernels and cuFFT's share in a profiled call, the peak memory
-   of a warm call and the bytes of its FFT rounds.
+   of a warm call and the bytes of its FFT rounds; each call of 4j beside
+   its single-device counterpart (device time and wall, in turns): on one
+   rank the difference is the sharded layer's own cost.
 
 The second line from the end is a JSON object listing each kernel with its
-launches on its path and on the main path (4a), its error, its time beside
+launches on its paths (4a-4b and 4j), on the main path (4a) and in 4j, its error, its time beside
 its plain version's, the library call's, its byte floor and its bound
 (bytes over 3.35 TB/s or FLOPs over 67 TFLOP/s, the larger), and its
 backward route with that route's error; the last line is
@@ -1149,6 +1165,231 @@ def main() -> int:
                   for label, (fn, _, _) in scat_calls.items()}
     torch.cuda.synchronize()
 
+    # ---- 4j. the sharded layer ------------------------------------------------
+    # A one-rank NCCL world, as torchrun would set it up (the machine has one
+    # card, so no collective crosses cards here). Every name of
+    # jwave_tpu_torch.parallel at full size, f32 on the card: each result
+    # against the port's single-device function on the same input (F32_BOUND
+    # of max|ref|), its float64 run against the single device's float64 run
+    # (1e-10, JAX's bound for the sharded paths), f32 against its own float64
+    # run, and its identity (round trips; the gathered pyramids equal fwt's
+    # and fwt2d's layout); every output's local block on the card; the
+    # launches read around each call: K3 in the 2D/3D FWTs and the halo
+    # FWT's tail, K6 in ssq_scale_sharded, K1/K2 in the batch-sharded MODWT.
+    import os
+    import socket
+
+    import torch.distributed as dist
+
+    from jwave_tpu_torch import parallel as par
+    from jwave_tpu_torch.transforms.modwt import imodwt_2d, modwt_2d
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        free_port = sock.getsockname()[1]
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port), RANK="0",
+                      WORLD_SIZE="1")
+    joined = par.initialize_distributed()
+    mesh = par.make_mesh()
+    mesh2 = par.make_mesh((1, 1), ("batch", "scale"))
+    group_backend = dist.get_backend(mesh.get_group("shard"))
+    print(json.dumps({"sharded": "process group", "joined": list(joined),
+                      "backend": dist.get_backend(), "mesh_backend": group_backend,
+                      "world_size": dist.get_world_size(), "mesh": str(mesh),
+                      "mesh_2d": str(mesh2)}), flush=True)
+    require(dist.is_initialized() and joined == (0, 1) and "nccl" in group_backend,
+            f"the one-rank NCCL world: {joined} {group_backend}")
+
+    def full(r):
+        """A result's global value as a tensor on the card (a DTensor gathered;
+        its local block must lie on the card)."""
+        for attr in ("coefficients", "Tx"):
+            r = getattr(r, attr, r)
+        if isinstance(r, np.ndarray):
+            return torch.as_tensor(r, device=dev)
+        if hasattr(r, "to_local"):
+            require(r.to_local().is_cuda, "a sharded output's local block is not on the card")
+            return r.full_tensor()
+        return r
+
+    def real_view(t):
+        return torch.view_as_real(t) if t.is_complex() else t
+
+    f64 = torch.float64
+    rng_4j = np.random.default_rng(40)
+    base = {k: rng_4j.standard_normal(shape) for k, shape in (
+        ("img", (2048, 2048)), ("xb", (64, 65536)), ("xs", (8, 65536)), ("s22", 1 << 22),
+        ("s20", 1 << 20), ("p20", (8, 1 << 20)), ("vol", (256, 256, 256)))}
+    sharded_in = {dt: {k: torch.as_tensor(v, dtype=dt, device=dev) for k, v in base.items()}
+               for dt in (torch.float32, f64)}
+    del base
+    fwt_f = jt.TransformBuilder.create("Fast Wavelet Transform", "db4")
+    wpt_f = jt.TransformBuilder.create("Wavelet Packet Transform", "db4")
+    fft_m = jt.ConvolutionMethod.FFT
+    sharded_launches = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6"), 0)
+    # label -> (sharded call, single-device call) on f32, timed in phase 5; the
+    # inputs of the inverses (the forwards' outputs) stay on the card for it
+    sharded_calls = {}
+
+    def sharded(label, fn, single, ident=None, need=(), vs_f64=True, timed=None):
+        """``fn(dt)`` the sharded call and ``single(dt)`` its single-device
+        counterpart on the inputs of dtype ``dt``; ``ident(dt)`` what the
+        result must equal; ``timed`` the f32 call phase 5 times, if not
+        ``fn``'s (the sharded call without the host-side gather)."""
+        reset_counts()
+        out = fn(torch.float32)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        for k, v in counts.items():
+            sharded_launches[k] += v
+        print(json.dumps({"main_path": f"sharded: {label}", "launches": counts}), flush=True)
+        require(all(counts[k] >= 1 for k in need), f"{label}: {need} not all launched: {counts}")
+        got = full(out)
+        require(bool(torch.isfinite(real_view(got)).all()), f"{label}: not finite")
+        compare(f"sharded {label} f32 against the single device", real_view(got),
+                real_view(full(single(torch.float32))), F32_BOUND)
+        if ident is not None:
+            compare(f"sharded {label} f32: identity", real_view(got),
+                    real_view(full(ident(torch.float32))), F32_BOUND)
+        got64 = full(fn(f64))
+        compare(f"sharded {label} float64 against the single device's float64",
+                real_view(got64), real_view(full(single(f64))), 1e-10)
+        if vs_f64:
+            compare(f"sharded {label} f32 against its float64 run", real_view(got),
+                    real_view(got64), F32_BOUND)
+        sharded_calls[label] = (timed or (lambda: fn(torch.float32)),
+                                lambda: single(torch.float32))
+        del out, got, got64
+
+    def inp(name):
+        return lambda dt: sharded_in[dt][name]
+
+    img_, xb_, xs_, s22_, s20_, p20_, vol_ = (inp(k) for k in
+                                              ("img", "xb", "xs", "s22", "s20", "p20", "vol"))
+    fwt2_out = {dt: par.fwt2d_sharded(img_(dt), "db4", mesh, 6, 6) for dt in sharded_in}
+    wpt2_out = {dt: par.wpt2d_sharded(img_(dt), "db4", mesh, 6, 6) for dt in sharded_in}
+    sharded("fwt2d_sharded db4 L6 2048^2 (single: fwt2d, K4 x2)",
+            lambda dt: par.fwt2d_sharded(img_(dt), "db4", mesh, 6, 6),
+            lambda dt: jt.fwt2d(img_(dt), "db4", 6, 6), need=("K3",))
+    sharded("ifwt2d_sharded db4 L6 2048^2 (single: ifwt2d, K5 x2)",
+            lambda dt: par.ifwt2d_sharded(fwt2_out[dt], "db4", mesh, 6, 6),
+            lambda dt: jt.ifwt2d(fwt2_out[dt].full_tensor(), "db4", 6, 6), ident=img_)
+    sharded("wpt2d_sharded db4 L6 2048^2",
+            lambda dt: par.wpt2d_sharded(img_(dt), "db4", mesh, 6, 6),
+            lambda dt: wpt_f.forward(img_(dt), 6, 6))
+    sharded("iwpt2d_sharded db4 L6 2048^2",
+            lambda dt: par.iwpt2d_sharded(wpt2_out[dt], "db4", mesh, 6, 6),
+            lambda dt: wpt_f.reverse(wpt2_out[dt].full_tensor(), 6, 6), ident=img_)
+    sharded("fwt2d_tile_sharded db4 L6 2048^2 on a (1, 1) mesh, gather_pyramid_2d",
+            lambda dt: par.gather_pyramid_2d(par.fwt2d_tile_sharded(img_(dt), "db4", mesh2, 6, 6),
+                                             "db4", 6, 6, 1, 1),
+            lambda dt: jt.fwt2d(img_(dt), "db4", 6, 6),
+            timed=lambda: par.fwt2d_tile_sharded(img_(torch.float32), "db4", mesh2, 6, 6))
+    fwt3_out = {dt: par.fwt3d_sharded(vol_(dt), "db4", mesh) for dt in sharded_in}
+    sharded("fwt3d_sharded db4 256^3 (full depth)",
+            lambda dt: par.fwt3d_sharded(vol_(dt), "db4", mesh),
+            lambda dt: fwt_f.forward(vol_(dt)), need=("K3",))
+    sharded("ifwt3d_sharded db4 256^3", lambda dt: par.ifwt3d_sharded(fwt3_out[dt], "db4", mesh),
+            lambda dt: fwt_f.reverse(fwt3_out[dt].full_tensor()), ident=vol_)
+    wpt3_out = {dt: par.wpt3d_sharded(vol_(dt), "db4", mesh, 4, 4, 4) for dt in sharded_in}
+    sharded("wpt3d_sharded db4 L4 256^3",
+            lambda dt: par.wpt3d_sharded(vol_(dt), "db4", mesh, 4, 4, 4),
+            lambda dt: wpt_f.forward(vol_(dt), 4, 4, 4))
+    sharded("iwpt3d_sharded db4 L4 256^3",
+            lambda dt: par.iwpt3d_sharded(wpt3_out[dt], "db4", mesh, 4, 4, 4),
+            lambda dt: wpt_f.reverse(wpt3_out[dt].full_tensor(), 4, 4, 4), ident=vol_)
+    sharded("batch_sharded(modwt -> imodwt) db4 L5 64x65536",
+            lambda dt: par.batch_sharded(lambda b: jt.imodwt(jt.modwt(b, "db4", 5), "db4"),
+                                         mesh)(xb_(dt)),
+            lambda dt: jt.imodwt(jt.modwt(xb_(dt), "db4", 5), "db4"), ident=xb_,
+            need=("K1", "K2"))
+    sharded("cwt_scale_sharded 8x65536, Morlet(1,1), 64 scales",
+            lambda dt: par.cwt_scale_sharded(xs_(dt), ssq_scales, morlet, mesh, ssq_fs),
+            lambda dt: jt.cwt(xs_(dt), ssq_scales, morlet, ssq_fs))
+    # f32 against float64 is not compared for SSQ: the |W| threshold and the
+    # bin of a coefficient near a bin edge differ between the two
+    sharded("ssq_scale_sharded 8x65536, Morlet(1,1), 64 scales (K6)",
+            lambda dt: par.ssq_scale_sharded(xs_(dt), ssq_scales, morlet, mesh, ssq_fs),
+            lambda dt: jt.ssq_cwt(xs_(dt), ssq_scales, morlet, ssq_fs), need=("K6",),
+            vs_f64=False)
+    sharded("cwt_batch_scale_sharded 8x65536 on a (1, 1) mesh",
+            lambda dt: par.cwt_batch_scale_sharded(xs_(dt), ssq_scales, morlet, mesh2, ssq_fs),
+            lambda dt: jt.cwt(xs_(dt), ssq_scales, morlet, ssq_fs))
+    mh_out = {dt: par.modwt_halo_sharded(s22_(dt), "db4", 5, mesh) for dt in sharded_in}
+    sharded("modwt_halo_sharded db4 L5 2^22",
+            lambda dt: par.modwt_halo_sharded(s22_(dt), "db4", 5, mesh),
+            lambda dt: jt.modwt(s22_(dt), "db4", 5))
+    sharded("imodwt_halo_sharded db4 L5 2^22",
+            lambda dt: par.imodwt_halo_sharded(mh_out[dt], "db4", mesh),
+            lambda dt: jt.imodwt(mh_out[dt].full_tensor(), "db4"), ident=s22_)
+    sharded("fwt_halo_sharded db4 L8 2^22, gather_pyramid",
+            lambda dt: par.gather_pyramid(par.fwt_halo_sharded(s22_(dt), "db4", mesh, 8),
+                                          "db4", 8, 1),
+            lambda dt: jt.fwt(s22_(dt), "db4", 8),
+            timed=lambda: par.fwt_halo_sharded(s22_(torch.float32), "db4", mesh, 8))
+    sharded("fwt_halo_sharded db4 full depth 2^22 (a 2-level tail through fwt, K3)",
+            lambda dt: par.gather_pyramid(par.fwt_halo_sharded(s22_(dt), "db4", mesh),
+                                          "db4", 22, 1),
+            lambda dt: jt.fwt(s22_(dt), "db4"), need=("K3",),
+            timed=lambda: par.fwt_halo_sharded(s22_(torch.float32), "db4", mesh))
+    mf_out = {dt: par.modwt_fft_sharded(s22_(dt), "db4", 6, mesh) for dt in sharded_in}
+    sharded("modwt_fft_sharded db4 L6 2^22",
+            lambda dt: par.modwt_fft_sharded(s22_(dt), "db4", 6, mesh),
+            lambda dt: jt.modwt(s22_(dt), "db4", 6, method=fft_m))
+    sharded("imodwt_fft_sharded db4 L6 2^22",
+            lambda dt: par.imodwt_fft_sharded(mf_out[dt], "db4", mesh),
+            lambda dt: jt.imodwt(mf_out[dt].full_tensor(), "db4", method=fft_m), ident=s22_)
+    sharded("cwt_time_sharded 2^20, Morlet(1,1), 64 scales",
+            lambda dt: par.cwt_time_sharded(s20_(dt), ssq_scales, morlet, mesh, ssq_fs),
+            lambda dt: jt.cwt(s20_(dt), ssq_scales, morlet, ssq_fs))
+    pf_out = {dt: par.pfft(p20_(dt), mesh) for dt in sharded_in}
+    sharded("pfft 8x2^20", lambda dt: par.pfft(p20_(dt), mesh),
+            lambda dt: torch.fft.fft(p20_(dt)).reshape(8, 1, -1))
+    sharded("pifft 8x2^20", lambda dt: par.pifft(pf_out[dt], mesh),
+            lambda dt: torch.fft.ifft(pf_out[dt].full_tensor().reshape(8, -1)),
+            ident=lambda dt:
+                p20_(dt).to(torch.complex64 if dt == torch.float32 else torch.complex128))
+    pf2_out = {dt: par.pfft2(img_(dt), mesh) for dt in sharded_in}
+    sharded("pfft2 2048^2",
+            lambda dt: par.pfft2(img_(dt), mesh), lambda dt: torch.fft.fft2(img_(dt)))
+    sharded("pifft2 2048^2", lambda dt: par.pifft2(pf2_out[dt], mesh),
+            lambda dt: torch.fft.ifft2(pf2_out[dt].full_tensor()),
+            ident=lambda dt:
+                img_(dt).to(torch.complex64 if dt == torch.float32 else torch.complex128))
+    m2_out = {dt: par.modwt2d_sharded(img_(dt), "db4", 5, mesh) for dt in sharded_in}
+    sharded("modwt2d_sharded db4 L5 2048^2 (K1)",
+            lambda dt: par.modwt2d_sharded(img_(dt), "db4", 5, mesh),
+            lambda dt: modwt_2d(img_(dt), "db4", 5), need=("K1",))
+    sharded("imodwt2d_sharded db4 L5 2048^2 (K2)",
+            lambda dt: par.imodwt2d_sharded(m2_out[dt], "db4", mesh),
+            lambda dt: imodwt_2d(m2_out[dt].full_tensor(), "db4"), ident=img_, need=("K2",))
+    torch.cuda.empty_cache()
+    print(json.dumps({"sharded": "launches of phase 4j", "launches": sharded_launches}), flush=True)
+    for k, v in sharded_launches.items():
+        launches[k] += v
+
+    # the examples, on the card, in this one-rank world
+    from jwave_tpu_torch.examples import (adaptive_example, continuous_wavelets_example,
+                                          cwt_example, denoise_example, image_pipeline_example,
+                                          lifting_compression_example, modwt_example,
+                                          scattering_classify_example, sharded_example,
+                                          sliding_window_example, timefreq_example)
+    example_s = {}
+    for module in (sharded_example, adaptive_example, continuous_wavelets_example, cwt_example,
+                   denoise_example, image_pipeline_example, lifting_compression_example,
+                   modwt_example, scattering_classify_example, sliding_window_example,
+                   timefreq_example):
+        t0 = time.perf_counter()
+        module.main()
+        if module is cwt_example:
+            module.inverse_demo()
+        torch.cuda.synchronize()
+        example_s[module.__name__.rsplit(".", 1)[1]] = time.perf_counter() - t0
+    require(jt.config.conv_precision() == "highest", "an example left the dial changed")
+    print(json.dumps({"examples": "each main() on the card returned", "seconds": example_s}),
+          flush=True)
+    torch.cuda.synchronize()
+
     # ---- 5. times --------------------------------------------------------
     # written before every timed run so that each starts with a cold 50 MB L2,
     # as a caller with fresh data would find it
@@ -1534,6 +1775,20 @@ def main() -> int:
                           f"plain_{unit}": count / plain_ms / 1e3, "card": card}), flush=True)
     torch.cuda.synchronize()
 
+    # 4j's calls beside their single-device counterparts, in turns: device
+    # time (the spin) and wall. On one rank the difference is the sharded
+    # layer's own cost: the block layout, the collectives of a one-rank NCCL
+    # group, the DTensor around the result; the halo and tile FWTs are timed
+    # without gather_pyramid's host permutation
+    for label, (shard_fn, single_fn) in sharded_calls.items():
+        s1, o1 = median_ms(single_fn, 10, device=True), median_ms(shard_fn, 10, device=True)
+        o2, s2 = median_ms(shard_fn, 10, device=True), median_ms(single_fn, 10, device=True)
+        ms_sh, ms_si = (o1 + o2) / 2, (s1 + s2) / 2
+        print(json.dumps({"time": f"sharded {label}", "ms": ms_sh, "single_ms": ms_si,
+                          "overhead_ms": ms_sh - ms_si, "wall_ms": median_ms(shard_fn, 10),
+                          "single_wall_ms": median_ms(single_fn, 10), "card": card}), flush=True)
+    torch.cuda.synchronize()
+
     # The least time the card could take for each kernel's work at the timed
     # shape: the larger of the bytes it must move (each input read once, each
     # output written once) over 3.35 TB/s and its FLOPs over the 67 TFLOP/s
@@ -1571,6 +1826,7 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": csrc + src, "replaces": replaces,
                         "launches": launches[k], "max_abs_err": errors[k],
                         "main_path_launches": main_launches[k],
+                        "phase_4j_launches": sharded_launches[k],
                         "ms": timing[k][0], "plain_ms": timing[k][1],
                         "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
                         "share_of_bound": bounds[k][0] / timing[k][0],
