@@ -115,6 +115,13 @@ it happened; any failed check ends the run with a non-zero exit:
    its single-device counterpart (device time and wall, in turns): on one
    rank the difference is the sharded layer's own cost.
 
+6. the bench entry point, in this process: jwave_tpu_torch.bench.main()
+   (bench.py's 28 rows at its shapes, BENCH_BUDGET_S=300), bench.sweep() and
+   bench.pallas_smoke(); requires the headline as the rows' last line, the
+   28 names of bench.py, no row skipped or with an error, each row's error
+   within its bound, the kernels launched in the rows that reach them, the
+   sweep's lines, and pallas_smoke ok; one summary line a row.
+
 The second line from the end is a JSON object listing each kernel with its
 launches on its paths (4a-4b and 4j), on the main path (4a) and in 4j, its error, its time beside
 its plain version's, the library call's, its byte floor and its bound
@@ -457,18 +464,7 @@ def main() -> int:
     torch.cuda.synchronize()
 
     # ---- 4a. the MODWT + FWT path through the entry points --------------
-    def reset_counts():
-        cuda_modwt.reset_launch_counts()
-        cuda_pyramid.reset_launch_counts()
-        cuda_reassign.reset_launch_counts()
-
-    def read_counts():
-        return {"K1": cuda_modwt.launch_counts["modwt_cascade"],
-                "K2": cuda_modwt.launch_counts["imodwt_cascade"],
-                "K3": cuda_pyramid.launch_counts["pyramid_rows"],
-                "K4": cuda_pyramid.launch_counts["pyramid_rows_transposed"],
-                "K5": cuda_pyramid.launch_counts["ipyramid_rows_transposed"],
-                "K6": cuda_reassign.launch_counts["reassign"]}
+    reset_counts, read_counts = jt.ops.reset_launch_counts, jt.ops.launch_counts
 
     x64 = np.random.default_rng(1).standard_normal((64, 65536)).astype(np.float32)
     img = np.random.default_rng(2).standard_normal((2048, 2048)).astype(np.float32)
@@ -1391,31 +1387,10 @@ def main() -> int:
     torch.cuda.synchronize()
 
     # ---- 5. times --------------------------------------------------------
-    # written before every timed run so that each starts with a cold 50 MB L2,
-    # as a caller with fresh data would find it
-    flush = torch.empty(128 * 2**20 // 4, dtype=torch.float32, device=dev)
-
+    # each timed run starts with a cold 50 MB L2, as a caller with fresh data
+    # would find it (utils.profiling.median_ms)
     def median_ms(fn, reps=REPS, device=False):
-        """Median ms of fn between two events. With ``device``, a ~5 ms GPU
-        spin after the flush lets the host enqueue fn's launches (an autograd
-        backward's too) before the first event, so the interval is device
-        time alone; without, a host slower than the flush shows up in the
-        interval (wall time)."""
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            flush.fill_(1.0)
-            if device:
-                torch.cuda._sleep(10_000_000)
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        return float(np.median(times))
+        return profiling.median_ms(fn, reps, device)
 
     def pair(kernel, plain):
         """plain, kernel, kernel, plain, device time; the mean of each side's
@@ -1832,11 +1807,93 @@ def main() -> int:
                         "share_of_bound": bounds[k][0] / timing[k][0],
                         "library_ms": timing[k][2], "floor_ms": floors.get(k),
                         "backward": {"route": backward[k][0], "max_abs_err": backward[k][1]}})
+    bench_phase(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+#: bench rows that must launch each kernel (K5 has none: bench.py has no ifwt2d row)
+BENCH_KERNELS = {
+    "K1": ("modwt_db4_L5", "modwt_db4_L5_pallas", "modwt_db4_L5_bf16dial",
+           "denoise_modwt_8x64K", "sliding_modwt_w512_L8_step64", "pallas_smoke"),
+    "K2": ("denoise_modwt_8x64K", "pallas_smoke"),
+    "K3": ("fwt1d_db4_L8", "fwt1d_db4_L8_256x16K_pallas", "fwt3d_db4_L4_256", "pallas_smoke"),
+    "K4": ("fwt2d_db4_L6_2048", "fwt2d_db4_L6_2048_bf16dial"),
+    "K6": ("ssq_cwt_64scales_8x64K",),
+}
+#: the sweep's lines: its three sections, then the card's rows
+SWEEP_KEYS = ("modwt_sweep_us", "wpt_sweep", "cwt_sweep", "fwt1d_db4_L8_conv_us",
+              "wpt_db4_L6_conv_us", "fwt2d_db4_L6_2048_default_us", "fwt2d_db4_L6_2048_high_us",
+              "fwt2d_db4_L6_2048_highest_us", "wpt_fwd_interleaved_us")
+
+
+def bench_phase(card: str):
+    """Phase 6: the port's bench entry point on the card, in this process:
+    bench.main() (every row of bench.py), bench.sweep() and pallas_smoke().
+    The rows' lines are read here and summed up one line a row."""
+    import contextlib
+    import io
+    import os
+    import re
+
+    from jwave_tpu_torch import bench
+
+    t0 = time.perf_counter()
+    os.environ["BENCH_BUDGET_S"] = "300"
+    outs = {}
+    for label, fn in (("rows", bench.main), ("sweep", bench.sweep),
+                      ("smoke", bench.pallas_smoke)):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            result = fn()
+        outs[label] = (result, [ln for ln in buf.getvalue().splitlines() if ln])
+    details, rows_out = outs["rows"]
+    headline = json.loads(rows_out[-1])
+    print(json.dumps({"bench": "headline", **headline}), flush=True)
+    require(headline["metric"] == "MODWT-db4-L5 throughput per chip"
+            and headline["unit"] == "Msamples/s" and headline["value"] > 0
+            and headline["device"] == card and headline["partial"] is False,
+            f"the bench's last line is not its headline: {rows_out[-1][:300]}")
+    src = (ROOT / "bench.py").read_text()
+    names = (set(re.findall(r'\brow\(\s*"([^"]+)"', src))
+             | set(re.findall(r'details\["([^"]+)"\]', src)))
+    rows = {k: v for k, v in details.items() if isinstance(v, dict)}
+    require(set(rows) == names and len(names) == 28,
+            f"bench rows {sorted(set(rows) ^ names)} differ from bench.py's")
+    for name, r in rows.items():
+        brief = {k: r.get(k) for k in ("ms", "wall_ms", "host_syncs", "launches", "err", "bound")
+                 if k in r}
+        if name == "sliding_modwt_w512_L8_step64":
+            brief.update({k: r[k] for k in ("us_per_update", "us_recompute_per_window",
+                                             "wall_us_per_update_in_chain") if k in r})
+        if name == "modwt_sweep_us_b8_L4":
+            brief.update({k: v for k, v in r.items() if k[0].isdigit()})
+        print(json.dumps({"bench_row": name, **brief, **{k: r[k] for k in (
+            "skipped", "error", "ok", "picks_equal") if k in r}}), flush=True)
+    require(bench.failures(details) == [], f"bench rows with errors: {bench.failures(details)}")
+    require(not [k for k, r in rows.items() if "skipped" in r],
+            f"bench rows skipped: {[k for k, r in rows.items() if 'skipped' in r]}")
+    require(all(r["err"] <= r["bound"] for r in rows.values() if "err" in r),
+            "a bench row's error is over its bound")
+    for k, row_names in BENCH_KERNELS.items():
+        for name in row_names:
+            got = rows[name].get("launches", {}).get(k, 0)
+            require(got > 0, f"bench row {name} launched {k} {got} times")
+    sweep_lines = [d for d in map(json.loads, (ln for ln in outs["sweep"][1] if ln[0] == "{"))
+                   if "build_s" not in d]
+    require({next(iter(d)) for d in sweep_lines} == set(SWEEP_KEYS),
+            f"sweep lines {[next(iter(d)) for d in sweep_lines]}")
+    for d in sweep_lines:
+        print(json.dumps({"bench_sweep": d}), flush=True)
+    smoke = outs["smoke"][0]
+    print(json.dumps({"bench": "pallas_smoke", **smoke}), flush=True)
+    require(smoke["ok"] and details["pallas_smoke"]["ok"], f"pallas_smoke: {smoke}")
+    print(json.dumps({"bench": "phase 6 seconds", "s": time.perf_counter() - t0,
+                      "bench_elapsed_s": headline["elapsed_s"]}), flush=True)
+    torch.cuda.synchronize()
 
 
 if __name__ == "__main__":

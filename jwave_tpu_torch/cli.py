@@ -3,9 +3,11 @@
 Mirrors the reference CLI demo (jwave/JWave.java:62-123): transform a
 constant length-16 array, print the time-domain input, the coefficient
 ("Hilbert") domain, and the reconstruction. Adds ``list``, ``denoise`` and
-``bench`` subcommands the reference lacks. ``--device`` says where the work
-runs: the card ("cuda") unless it names another; without a card the demo
-prints torch's error and exits 1.
+``bench`` subcommands the reference lacks; ``bench`` runs
+:mod:`jwave_tpu_torch.bench` (``--sweep``, ``--pallas-smoke``).
+``--device`` says where the work runs: the card ("cuda") unless it names
+another; without a card the demo and the bench print torch's error and
+exit 1.
 """
 from __future__ import annotations
 
@@ -81,12 +83,6 @@ def _denoise_demo(wavelet_name: str, device: str) -> int:
     return 0
 
 
-def _bench() -> int:
-    print("the port's benchmark is not written yet (python -m jwave_tpu bench runs the "
-          "JAX package's)", file=sys.stderr)
-    return 1
-
-
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="jwave_tpu_torch", description=__doc__)
     p.add_argument("transform", nargs="?", default="Fast Wavelet Transform",
@@ -94,12 +90,21 @@ def main(argv=None) -> int:
     p.add_argument("wavelet", nargs="?", default="Haar", help='e.g. "Haar", "db4", "sym8"')
     p.add_argument("--device", default="cuda",
                    help='where the work runs: "cuda" (the default) or "cpu"')
+    mode = p.add_mutually_exclusive_group()
+    mode.add_argument("--sweep", action="store_true", help="bench: the reference's sweeps")
+    mode.add_argument("--pallas-smoke", action="store_true",
+                      help="bench: the kernels' proof (K1-K3 on the card)")
     args = p.parse_args(argv)
     try:
+        if args.transform == "bench":
+            from . import bench
+
+            mode = "sweep" if args.sweep else "pallas_smoke" if args.pallas_smoke else "rows"
+            return bench.run(mode, args.device)
+        if args.sweep or args.pallas_smoke:
+            raise ValueError("--sweep and --pallas-smoke go with bench")
         if args.transform == "list":
             return _list()
-        if args.transform == "bench":
-            return _bench()
         if args.transform == "denoise":
             return _denoise_demo(args.wavelet, args.device)
         return _demo(args.transform, args.wavelet, args.device)

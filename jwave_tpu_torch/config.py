@@ -9,6 +9,12 @@ every convolution and matmul of its own inside :func:`dial`, which sets
 torch's TF32 switches from the dial for the call and restores them after.
 Importing the package changes none of torch's switches. The hand-written
 kernels always accumulate in float32 and ignore the dial.
+
+The JAX package's other dials are here under the same names, so that code
+written for it runs on the port: :func:`enable_x64` sets the float dtype that
+integer and bool input promotes to; :func:`set_mxu_dft` and
+:func:`set_mxu_butterfly` keep and validate their mode but select nothing,
+since the port has one formulation of each path.
 """
 from __future__ import annotations
 
@@ -62,9 +68,62 @@ def dial():
             torch.set_float32_matmul_precision(old_mm)
 
 
+#: the float dtype of integer and bool input: None follows torch's default
+#: dtype (float32 unless the caller changed it) until :func:`enable_x64`
+_X64: bool | None = None
+
+
+def enable_x64(enabled: bool = True):
+    """JAX's float64 switch, for input that is not floating point: when on,
+    integer and bool input promotes to float64, otherwise to float32.
+    Floating-point input keeps its dtype either way, as in torch."""
+    global _X64
+    _X64 = bool(enabled)
+
+
 def default_real_dtype() -> torch.dtype:
-    return torch.get_default_dtype()
+    """The float dtype integer and bool input promotes to."""
+    if _X64 is None:
+        return torch.get_default_dtype()
+    return torch.float64 if _X64 else torch.float32
 
 
 def default_complex_dtype() -> torch.dtype:
-    return torch.complex128 if torch.get_default_dtype() == torch.float64 else torch.complex64
+    return torch.complex128 if default_real_dtype() == torch.float64 else torch.complex64
+
+
+_MODES = ("auto", "on", "off")
+_MXU_DFT = "auto"
+
+
+def set_mxu_dft(mode: str):
+    """JAX's switch between dense MXU matmuls and the FFT for small DFTs:
+    'auto' (the default), 'on' or 'off'. The port keeps and validates the
+    mode but has one formulation, cuFFT, so the mode selects nothing."""
+    global _MXU_DFT
+    if mode not in _MODES:
+        raise ValueError(f"unknown mxu_dft mode {mode!r}")
+    _MXU_DFT = mode
+
+
+def mxu_dft() -> str:
+    return _MXU_DFT
+
+
+_MXU_BUTTERFLY = "auto"
+
+
+def set_mxu_butterfly(mode: str):
+    """JAX's switch between MXU tile matmuls and convolutions for the FWT/WPT
+    butterfly: 'auto' (the default), 'on' or 'off'. The port keeps and
+    validates the mode but has one formulation of each path (the pyramid
+    kernels, or cuDNN's convolutions), so the mode selects nothing; the plain
+    butterfly route is called directly where it is wanted."""
+    global _MXU_BUTTERFLY
+    if mode not in _MODES:
+        raise ValueError(f"unknown mxu_butterfly mode {mode!r}")
+    _MXU_BUTTERFLY = mode
+
+
+def mxu_butterfly() -> str:
+    return _MXU_BUTTERFLY

@@ -13,6 +13,7 @@ import math
 
 import torch
 
+from .. import config
 from ..ops.butterfly import as_tensor
 
 
@@ -22,9 +23,10 @@ def to_complex(val: torch.Tensor) -> torch.Tensor:
 
 
 def real_tensor(t) -> torch.Tensor:
-    """``t`` as a floating tensor (integers promote to the default float)."""
+    """``t`` as a floating tensor (integers promote to
+    :func:`config.default_real_dtype`)."""
     t = as_tensor(t)
-    return t if t.is_floating_point() else t.to(torch.get_default_dtype())
+    return t if t.is_floating_point() else t.to(config.default_real_dtype())
 
 
 def _sqrt(v):

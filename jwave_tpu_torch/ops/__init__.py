@@ -1,6 +1,7 @@
 """Torch primitives (butterfly, circular convolutions) and the hand-written
 CUDA kernels K1-K6 with their plain versions. Importing this package builds
 no kernel."""
+from . import cuda_modwt, cuda_pyramid, cuda_reassign
 from .butterfly import butterfly_forward, butterfly_reverse, ensure_float
 from .circular import (
     circular_conv,
@@ -16,3 +17,19 @@ __all__ = [
     "circular_conv", "circular_conv_adjoint", "circular_conv_fft",
     "circular_conv_adjoint_fft", "filter_spectrum", "wrap_filter",
 ]
+
+
+def reset_launch_counts():
+    """Set every kernel's launch count to 0."""
+    for mod in (cuda_modwt, cuda_pyramid, cuda_reassign):
+        mod.reset_launch_counts()
+
+
+def launch_counts() -> dict:
+    """Launches of K1-K6 since the last :func:`reset_launch_counts`."""
+    return {"K1": cuda_modwt.launch_counts["modwt_cascade"],
+            "K2": cuda_modwt.launch_counts["imodwt_cascade"],
+            "K3": cuda_pyramid.launch_counts["pyramid_rows"],
+            "K4": cuda_pyramid.launch_counts["pyramid_rows_transposed"],
+            "K5": cuda_pyramid.launch_counts["ipyramid_rows_transposed"],
+            "K6": cuda_reassign.launch_counts["reassign"]}

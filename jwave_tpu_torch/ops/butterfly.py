@@ -42,10 +42,10 @@ def copy_to_device(a, device=None) -> torch.Tensor:
 
 
 def ensure_float(x: torch.Tensor) -> torch.Tensor:
-    """Promote integer/bool inputs to torch's default float dtype (the filter
-    constants would truncate to zero under integer arithmetic)."""
+    """Promote integer/bool inputs to :func:`config.default_real_dtype` (the
+    filter constants would truncate to zero under integer arithmetic)."""
     if not (x.is_floating_point() or x.is_complex()):
-        return x.to(torch.get_default_dtype())
+        return x.to(config.default_real_dtype())
     return x
 
 

@@ -57,6 +57,13 @@ def fwt(x, wavelet, level: int | None = None):
         done = cuda_pyramid.levels_done(n, fb.transform_wavelength, level)
         flat = x.reshape(-1, n).contiguous()
         return cuda_pyramid.pyramid_rows(flat, fb.dec_lo, fb.dec_hi, done).reshape(x.shape)
+    return _butterfly_levels(x, fb, level)
+
+
+def _butterfly_levels(x: torch.Tensor, fb, level: int) -> torch.Tensor:
+    """fwt's route where no kernel applies: the level loop over the torch
+    butterfly (cuDNN convolutions on the card)."""
+    n = x.shape[-1]
     h = n
     l = 0
     while h >= fb.transform_wavelength and l < level:

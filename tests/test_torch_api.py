@@ -283,3 +283,100 @@ def test_convolutions_run_under_the_dial(site, monkeypatch):
     assert (torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()) == before
     with pytest.raises(ValueError, match="unknown precision"):
         jt.config.set_conv_precision("fast")
+
+
+@pytest.fixture
+def config_state():
+    """Each test's dials are set back to what they were."""
+    saved = (jt.config._X64, jt.config.mxu_dft(), jt.config.mxu_butterfly())
+    yield
+    jt.config._X64 = saved[0]
+    jt.config.set_mxu_dft(saved[1])
+    jt.config.set_mxu_butterfly(saved[2])
+
+
+def test_config_has_every_name_of_the_jax_packages():
+    import jwave_tpu.config as jcfg
+
+    assert set(dir(jcfg)) - set(dir(jt.config)) == {"jax"}
+
+
+@pytest.mark.parametrize("dial", ["mxu_dft", "mxu_butterfly"])
+def test_mxu_dials_keep_and_validate_their_modes_as_jax(dial, config_state):
+    import jwave_tpu.config as jcfg
+
+    get_t, set_t = getattr(jt.config, dial), getattr(jt.config, "set_" + dial)
+    get_j, set_j = getattr(jcfg, dial), getattr(jcfg, "set_" + dial)
+    assert get_t() == get_j() == "auto"
+    saved = get_j()
+    try:
+        for mode in ("on", "off", "auto"):
+            set_t(mode)
+            set_j(mode)
+            assert get_t() == get_j() == mode
+        for bad in ("On", "", "yes", None):
+            with pytest.raises(ValueError) as et:
+                set_t(bad)
+            with pytest.raises(ValueError) as ej:
+                set_j(bad)
+            assert str(et.value) == str(ej.value)
+            assert get_t() == "auto"
+    finally:
+        set_j(saved)
+
+
+def test_mxu_dials_select_nothing(config_state, rng):
+    """'off' (the JAX package's hatch) and 'on' give the same results."""
+    x = torch.as_tensor(rng.standard_normal((2, 256)))
+    runs = []
+    for mode in ("off", "on"):
+        jt.config.set_mxu_dft(mode)
+        jt.config.set_mxu_butterfly(mode)
+        runs.append((jt.fwt(x, "db4"), jt.wpt(x, "db4", 3),
+                     jt.wigner_ville(x, 1.0, n_bins=64)[0]))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("entry", ["modwt", "fwt", "cwt", "wpt", "denoise", "ssq_cwt"])
+@pytest.mark.parametrize("dtype", ["int64", "int32", "bool"])
+def test_enable_x64_sets_the_dtype_of_integer_input(entry, dtype, config_state):
+    """Integer and bool input promotes to float64 under enable_x64() (as in
+    the JAX package with x64 on, as the tests run it) and to float32 under
+    enable_x64(False); floating input keeps its dtype."""
+    a = (np.arange(64) % 7 - 3).astype(dtype)
+    scales = jt.generate_log_scales(2.0, 16.0, 4)
+    calls = {"modwt": lambda m, v: m.modwt(v, "db4", 2),
+             "fwt": lambda m, v: m.fwt(v, "db4"),
+             "cwt": lambda m, v: m.cwt(v, scales).coefficients,
+             "wpt": lambda m, v: m.wpt(v, "db4", 2),
+             "denoise": lambda m, v: m.denoise(v, "db4", 2),
+             "ssq_cwt": lambda m, v: m.ssq_cwt(v, scales).Tx}
+    call = calls[entry]
+    want = np.asarray(call(jw, a))
+    jt.config.enable_x64()
+    got = call(jt, torch.as_tensor(a))
+    assert str(got.dtype).removeprefix("torch.") == str(want.dtype)
+    # values for int64 (JAX computes some paths of int32 and bool input in
+    # float32 before its float64 output); ssq_cwt's bins sit on ties here
+    if dtype == "int64" and entry != "ssq_cwt":
+        assert_close(got, want, 1e-10, entry)
+    jt.config.enable_x64(False)
+    assert call(jt, torch.as_tensor(a)).dtype in (torch.float32, torch.complex64)
+    assert call(jt, torch.as_tensor(a.astype(np.float64))).dtype in (torch.float64,
+                                                                    torch.complex128)
+
+
+def test_without_enable_x64_integer_input_follows_torchs_default(config_state):
+    """Until enable_x64 is called, integer input promotes as before: to
+    torch's default dtype."""
+    jt.config._X64 = None
+    x = torch.arange(32)
+    assert jt.fwt(x, "db4").dtype == torch.get_default_dtype()
+    old = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        assert jt.fwt(x, "db4").dtype == torch.float64
+        assert jt.config.default_complex_dtype() == torch.complex128
+    finally:
+        torch.set_default_dtype(old)

@@ -65,11 +65,29 @@ def test_denoise_prints_the_jax_packages_errors(capsys):
         assert abs(float(t.split()[-1]) - float(j.split()[-1])) <= 1e-6
 
 
-def test_bench_says_the_port_has_none_yet(capsys):
-    rc, out, err = _run(tcli.main, ["bench"], capsys)
-    assert rc == 1 and out == [] and err == [
-        "the port's benchmark is not written yet (python -m jwave_tpu bench runs the JAX "
-        "package's)"]
+def test_bench_runs_on_the_cpu(monkeypatch, capsys):
+    """``bench --device cpu`` runs the port's bench (at tiny shapes here) and
+    returns 0; ``--sweep`` and ``--pallas-smoke`` likewise."""
+    import json
+
+    from jwave_tpu_torch import bench
+    from test_torch_bench import TINY
+
+    for key, value in TINY.items():
+        monkeypatch.setitem(bench.SHAPES, key, value)
+    monkeypatch.setattr(bench, "REPS", 1)
+    assert tcli.main(["bench", "--device", "cpu"]) == 0
+    last = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert last["metric"] == "MODWT-db4-L5 throughput per chip" and last["partial"] is False
+    assert tcli.main(["bench", "--sweep", "--device", "cpu"]) == 0
+    assert capsys.readouterr().out.count("\n# ") == 2
+    assert tcli.main(["bench", "--pallas-smoke", "--device", "cpu"]) == 0
+    assert json.loads(capsys.readouterr().out)["pallas_smoke"]["ok"] is True
+
+
+def test_bench_flags_go_with_bench_only(capsys):
+    rc, out, err = _run(tcli.main, ["list", "--sweep"], capsys)
+    assert rc == 1 and out == [] and err == ["error: --sweep and --pallas-smoke go with bench"]
 
 
 def test_unknown_transform_is_one_error_line(capsys):
