@@ -121,6 +121,24 @@ it happened; any failed check ends the run with a non-zero exit:
    28 names of bench.py, no row skipped or with an error, each row's error
    within its bound, the kernels launched in the rows that reach them, the
    sweep's lines, and pallas_smoke ok; one summary line a row.
+7. the parity census (tests/torch_census_cases.py, the same case table
+   that tier-1 holds against the JAX package on the CPU in float64, the
+   card-only cases included): every case the
+   card runs, through the public names, in float32 on the card against the
+   port's own float64 run on the CPU (the card's host needs no JAX): the same
+   raise or return and exception class, structure and shapes, values
+   within 1e-5 of max(max|ref|, 1) (1e-4 through a median, a threshold or
+   an iteration), discrete outputs exactly but where float32 takes the
+   other side of a tie (pursuit picks, a best-basis tree: printed as a
+   near-tie), dtypes as the CPU's in the same input dtype, every output
+   tensor on the card; and the card-only cases at the kernels' eligibility
+   edges (K1-K6 through modwt, fwt, fwt2d, ifwt2d and ssq_cwt: levels 0, 1
+   and split level groups, lengths off the tile, batches of 1 and odd, N =
+   1, 2, 4, sources off 16-byte alignment, transposed and non-square
+   images, Haar orthogonal's gain, bins outside [0, K)) in float32, bf16
+   and f16 where JAX takes them. One line a card-only case with its
+   launches; one line for the phase: cases, runs, mismatches, near-ties,
+   K1-K6 launches, seconds. Any mismatch fails the run.
 
 The second line from the end is a JSON object listing each kernel with its
 launches on its paths (4a-4b and 4j), on the main path (4a) and in 4j, its error, its time beside
@@ -1808,6 +1826,7 @@ def main() -> int:
                         "library_ms": timing[k][2], "floor_ms": floors.get(k),
                         "backward": {"route": backward[k][0], "max_abs_err": backward[k][1]}})
     bench_phase(card)
+    census_phase(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -1894,6 +1913,58 @@ def bench_phase(card: str):
     print(json.dumps({"bench": "phase 6 seconds", "s": time.perf_counter() - t0,
                       "bench_elapsed_s": headline["elapsed_s"]}), flush=True)
     torch.cuda.synchronize()
+
+
+def census_phase(card: str):
+    """Phase 7: the parity census on the card. Every case of
+    tests/torch_census_cases.py that runs on the card (``Case.card``), in
+    each of its dtypes: the port's call on CUDA tensors against the same
+    call on the CPU in float64 (raise or return and the exception's class,
+    structure, shapes, values within the case's bound, discrete outputs
+    exactly), its dtypes against the CPU's in the same input dtype, and
+    every output tensor on the card. A difference in a leaf the case names
+    as a near-tie (float32 taking the other side of a tie) is printed, not
+    failed. The launch counts are set to 0 before the phase and read after
+    it; the card-only cases at the kernels' eligibility edges print theirs,
+    and each that names a kernel must launch it in float32."""
+    import torch_census_cases as census
+
+    import jwave_tpu_torch as jt
+    from jwave_tpu_torch import ops
+
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    runs, cases, mismatches, ties = 0, 0, [], []
+    for c in census.CASES:
+        if not c.card:
+            continue
+        cases += 1
+        for dtype in c.card_dtypes:
+            before = ops.launch_counts()
+            bad, tied = census.run_on_card(c, jt, dtype)
+            runs += 1
+            mismatches += [f"{c.name} [{dtype}] {b}" for b in bad]
+            ties += [f"{c.name} [{dtype}] {t}" for t in tied]
+            if c.file.startswith("card"):
+                after = ops.launch_counts()
+                edge = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+                print(json.dumps({"census_edge": c.name, "dtype": dtype, "ok": not bad,
+                                  "launches": edge}), flush=True)
+                if c.kernel and dtype == "float32" and c.kernel not in edge:
+                    mismatches.append(f"{c.name} [{dtype}] launched no {c.kernel}")
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    for line in mismatches[:60]:
+        print(json.dumps({"census_mismatch": line}), flush=True)
+    for line in ties:
+        print(json.dumps({"census_near_tie": line}), flush=True)
+    print(json.dumps({"census": "phase 7", "cases": cases, "runs": runs,
+                      "mismatches": len(mismatches), "near_ties": len(ties),
+                      "launches": launches, "s": time.perf_counter() - t0, "card": card}),
+          flush=True)
+    require(not mismatches, f"census: {len(mismatches)} mismatches, first {mismatches[:3]}")
+    require(all(launches[k] > 0 for k in launches),
+            f"census: a kernel was not launched: {launches}")
 
 
 if __name__ == "__main__":

@@ -16,7 +16,6 @@ import torch
 
 from .exceptions import JWaveFailure, JWaveNotKnown
 from .filters import FilterBank, get_filter
-from .ops.butterfly import as_tensor
 from .cwavelets import get_continuous_wavelet
 from .transforms import aed as _aed
 from .transforms import ndim as _ndim
@@ -32,7 +31,8 @@ from .transforms.fft import (
     ifft,
     ifft_interleaved,
 )
-from .transforms.fwt import fwt, fwt2d, fwt_decompose, fwt_recompose, ifwt, ifwt2d
+from .transforms.fwt import decompose_row, fwt, fwt2d, fwt_decompose, fwt_recompose, ifwt, \
+    ifwt2d
 from .transforms.lifting import LiftingScheme, get_scheme, lifting_fwt, lifting_ifwt
 from .transforms.modwt import (
     DEFAULT_FFT_THRESHOLD,
@@ -45,6 +45,7 @@ from .transforms.modwt import (
     modwt_2d,
 )
 from .transforms.wpt import iwpt, wpt
+from .utils.host import as_tensor
 from .utils.numerics import exponent_of_two
 
 
@@ -127,7 +128,7 @@ class WaveletTransform(BasicTransform):
         mat = self._in(mat)
         if level is None:
             level = mat.shape[-2] - 1
-        return self._reverse_core(mat[..., level, :], level)
+        return self._reverse_core(decompose_row(mat, level), level)
 
 
 class FastWaveletTransform(WaveletTransform):

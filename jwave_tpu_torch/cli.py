@@ -17,9 +17,7 @@ import sys
 import numpy as np
 import torch
 
-
-def _numpy(t) -> np.ndarray:
-    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+from .utils.host import host_array
 
 
 def _demo(transform_name: str, wavelet_name: str, device: str) -> int:
@@ -28,10 +26,10 @@ def _demo(transform_name: str, wavelet_name: str, device: str) -> int:
     t = TransformBuilder.create(transform_name, wavelet_name, device=device)
     x = np.ones(16)
     y = t.forward(x)  # on the device first: a fault prints nothing else
-    xr = _numpy(t.reverse(y))
+    xr = host_array(t.reverse(y))
     print(f"{transform_name} ({wavelet_name})")
     print("time domain:   ", np.array2string(x, precision=3))
-    print("hilbert domain:", np.array2string(_numpy(y), precision=3, suppress_small=True))
+    print("hilbert domain:", np.array2string(host_array(y), precision=3, suppress_small=True))
     print("reconstruction:", np.array2string(xr, precision=3, suppress_small=True))
     err = float(np.max(np.abs(xr - x)))
     print(f"max |error| = {err:.2e}")
@@ -78,7 +76,7 @@ def _denoise_demo(wavelet_name: str, device: str) -> int:
     print(f"denoise demo ({wavelet_name}): square wave + N(0, 0.4^2), n={n}")
     print(f"  noisy MSE      {np.mean((noisy - clean) ** 2):.4f}")
     for method in ("universal", "sure", "bayes"):
-        out = _numpy(denoise(x, wavelet_name, 5, method=method))
+        out = host_array(denoise(x, wavelet_name, 5, method=method))
         print(f"  {method:<9} MSE  {np.mean((out - clean) ** 2):.4f}")
     return 0
 

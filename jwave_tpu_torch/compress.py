@@ -11,7 +11,8 @@ from __future__ import annotations
 import torch
 
 from .exceptions import JWaveFailure
-from .ops.butterfly import as_tensor, ensure_float
+from .ops.butterfly import ensure_float
+from .utils.host import as_tensor
 
 
 class Compressor:

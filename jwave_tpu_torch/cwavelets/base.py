@@ -14,7 +14,7 @@ import math
 import torch
 
 from .. import config
-from ..ops.butterfly import as_tensor
+from ..utils.host import as_tensor
 
 
 def to_complex(val: torch.Tensor) -> torch.Tensor:

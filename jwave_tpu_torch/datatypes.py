@@ -19,11 +19,12 @@ from __future__ import annotations
 import numpy as np
 
 from .exceptions import JWaveNotAllocated, JWaveNotValid
+from .utils.host import host_array
 
 
 def complex_to_interleaved(z):
     """complex (..., N) -> real (..., 2N) [re0, im0, ...] (Complex bridging)."""
-    z = np.asarray(z)
+    z = host_array(z)
     out = np.empty(z.shape[:-1] + (2 * z.shape[-1],), dtype=np.float64)
     out[..., 0::2] = z.real
     out[..., 1::2] = z.imag
@@ -32,7 +33,7 @@ def complex_to_interleaved(z):
 
 def interleaved_to_complex(x):
     """real (..., 2N) -> complex (..., N)."""
-    x = np.asarray(x)
+    x = host_array(x)
     return x[..., 0::2] + 1j * x[..., 1::2]
 
 

@@ -15,8 +15,9 @@ import math
 import torch
 
 from .exceptions import JWaveFailure
-from .ops.butterfly import as_tensor, ensure_float
+from .ops.butterfly import ensure_float
 from .transforms.modwt import imodwt, imodwt_2d, modwt, modwt_2d
+from .utils.host import as_tensor
 from .utils.select import median_abs
 
 

@@ -4,14 +4,13 @@ from __future__ import annotations
 import argparse
 
 import numpy as np
-import torch
+
+from ..utils.host import host_array
 
 
 def host(t) -> np.ndarray:
     """A tensor (or DTensor, gathered) as a numpy array on the host."""
-    if hasattr(t, "full_tensor"):
-        t = t.full_tensor()
-    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+    return host_array(t.full_tensor() if hasattr(t, "full_tensor") else t)
 
 
 def run(*entries):

@@ -25,22 +25,6 @@ import torch.nn.functional as F
 from .. import config
 
 
-def as_tensor(x, device=None) -> torch.Tensor:
-    """A tensor stays where it lies; anything else becomes a tensor on
-    ``device``, the card ("cuda") unless one is given. A caller asks for the
-    CPU with a CPU tensor or ``device="cpu"``."""
-    if isinstance(x, torch.Tensor):
-        return x
-    return torch.as_tensor(np.asarray(x), device=device or "cuda")
-
-
-def copy_to_device(a, device=None) -> torch.Tensor:
-    """A copy of ``a`` (numpy, possibly read-only, e.g. a JAX package
-    result's ``np.asarray``) as a tensor on ``device``, the card ("cuda")
-    unless one is given: what the ``from_numpy`` constructors carry across."""
-    return torch.tensor(np.asarray(a), device=device or "cuda")
-
-
 def ensure_float(x: torch.Tensor) -> torch.Tensor:
     """Promote integer/bool inputs to :func:`config.default_real_dtype` (the
     filter constants would truncate to zero under integer arithmetic)."""

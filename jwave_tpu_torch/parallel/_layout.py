@@ -13,7 +13,7 @@ import torch
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from ..ops.butterfly import as_tensor
+from ..utils.host import as_tensor
 
 
 def mesh_device(mesh: DeviceMesh) -> torch.device:

@@ -42,6 +42,7 @@ from ..transforms.modwt import _level_filters, _modwt_base_filters, _validate_le
 from ..transforms.ssq import SSQResult, _cwt_and_derivative, _default_bins, _log_measure, \
     _squeeze_plane
 from ..transforms.wpt import _check as _wpt_check, iwpt, wpt
+from ..utils.host import host_array
 from ..utils.numerics import exponent_of_two, is_power_of_two
 from ._collectives import all_gather, all_to_all, axis_index, axis_size, pmax, psum, ring_shift
 from ._layout import global_input, local_block, mesh_device, sharded_output
@@ -97,7 +98,7 @@ def cwt_scale_sharded(
     axis_name = axis_name or mesh.mesh_dim_names[0]
     n_dev = axis_size(mesh, axis_name)
     wav = get_continuous_wavelet(wavelet)
-    scales = np.atleast_1d(np.asarray(scales, dtype=np.float64))
+    scales = np.atleast_1d(host_array(scales, np.float64))
     if scales.shape[0] % n_dev != 0:
         raise JWaveFailure(
             f"cwt_scale_sharded - number of scales {scales.shape[0]} must divide "
@@ -144,7 +145,7 @@ def ssq_scale_sharded(
             f"ssq_scale_sharded - synchrosqueezing needs an analytic wavelet "
             f"(Morlet, Paul, Morse); got {wav.name!r}"
         )
-    scales_np = np.atleast_1d(np.asarray(scales, dtype=np.float64))
+    scales_np = np.atleast_1d(host_array(scales, np.float64))
     if scales_np.shape[0] % n_dev != 0:
         raise JWaveFailure(
             f"ssq_scale_sharded - number of scales {scales_np.shape[0]} must "
@@ -195,7 +196,7 @@ def cwt_batch_scale_sharded(
     scale_axis = scale_axis or names[1]
     nb, ns = axis_size(mesh, batch_axis), axis_size(mesh, scale_axis)
     wav = get_continuous_wavelet(wavelet)
-    scales = np.atleast_1d(np.asarray(scales, dtype=np.float64))
+    scales = np.atleast_1d(host_array(scales, np.float64))
     signals = global_input(signals, mesh)
     if signals.dim() != 2:
         raise JWaveFailure("cwt_batch_scale_sharded - signals must be (B, N)")
@@ -514,11 +515,7 @@ def _pyramid_permutation(n: int, n_dev: int, fb, level: int) -> np.ndarray:
 
 def _host(x) -> np.ndarray:
     """A DTensor (gathered), tensor or array as a host numpy array."""
-    if isinstance(x, DTensor):
-        x = x.full_tensor()
-    if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
-    return np.asarray(x)
+    return host_array(x.full_tensor() if isinstance(x, DTensor) else x)
 
 
 def gather_pyramid(dist, wavelet, level: int, n_dev: int):
@@ -772,7 +769,7 @@ def cwt_time_sharded(
     axis_name = axis_name or mesh.mesh_dim_names[0]
     n_dev = axis_size(mesh, axis_name)
     wav = get_continuous_wavelet(wavelet)
-    scales = np.atleast_1d(np.asarray(scales, dtype=np.float64))
+    scales = np.atleast_1d(host_array(scales, np.float64))
     signal = ensure_float(global_input(signal, mesh))
     if signal.dim() != 1:
         raise JWaveFailure("cwt_time_sharded - expects a 1D signal (shard batches separately)")

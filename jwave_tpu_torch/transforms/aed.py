@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.butterfly import as_tensor
+from ..utils.host import as_tensor
 from ..utils.numerics import ancient_egyptian_decompose
 
 

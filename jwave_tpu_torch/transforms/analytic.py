@@ -9,7 +9,8 @@ import numpy as np
 import torch
 
 from ..exceptions import JWaveFailure
-from ..ops.butterfly import as_tensor, ensure_fft_float, ensure_float
+from ..ops.butterfly import ensure_fft_float, ensure_float
+from ..utils.host import as_tensor
 
 
 def real_signal(x, who: str) -> torch.Tensor:

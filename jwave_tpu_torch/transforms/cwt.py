@@ -23,8 +23,9 @@ import numpy as np
 import torch
 
 from ..cwavelets import ContinuousWavelet, get_continuous_wavelet
-from ..ops.butterfly import as_tensor, ensure_fft_float
+from ..ops.butterfly import ensure_fft_float
 from ..ops.circular import _conv_valid_bank
+from ..utils.host import as_tensor, host_array
 from ..utils.numerics import next_power_of_two
 from .fft import fft as _fft_any, ifft as _ifft_any
 
@@ -177,7 +178,7 @@ def cwt(
     batched over the leading dims of ``signal``; the scales are one tensor
     axis of a single product and inverse FFT."""
     wav = get_continuous_wavelet(wavelet)
-    scales = np.atleast_1d(np.asarray(scales, dtype=np.float64))
+    scales = np.atleast_1d(host_array(scales, np.float64))
     signal = _signal(signal)
     n = signal.shape[-1]
     padded_len = next_power_of_two(n)
@@ -207,7 +208,7 @@ def cwt_direct(
     (== zero padding). Per-scale kernels span the wavelet's effective support.
     """
     wav = get_continuous_wavelet(wavelet)
-    scales = np.atleast_1d(np.asarray(scales, dtype=np.float64))
+    scales = np.atleast_1d(host_array(scales, np.float64))
     signal = _signal(signal)
     n = signal.shape[-1]
     fs = float(sampling_rate)
@@ -311,7 +312,7 @@ def cwt_chunked(
 ) -> CWTResult:
     """Memory-bounded CWT: scales processed in chunks of ``scale_chunk``, so
     the live (scales, padded_len) grid holds at most that many rows."""
-    scales = np.atleast_1d(np.asarray(scales, dtype=np.float64))
+    scales = np.atleast_1d(host_array(scales, np.float64))
     signal = _signal(signal)
     parts = [cwt(signal, scales[start: start + scale_chunk], wavelet, sampling_rate,
                  padding).coefficients
@@ -347,7 +348,7 @@ def _smooth_time_scale(power: torch.Tensor, scales: np.ndarray, dt: float, boxca
     pad = int(next_power_of_two(2 * n))
     dev = power.device
     fr = torch.as_tensor(np.fft.fftfreq(pad), device=dev)  # cycles/sample
-    sig = torch.as_tensor(np.atleast_1d(np.asarray(scales, dtype=np.float64)) / dt,
+    sig = torch.as_tensor(np.atleast_1d(host_array(scales, np.float64)) / dt,
                           device=dev)[:, None]
     ker = torch.exp(-0.5 * (sig * (2 * np.pi * fr[None, :])) ** 2)
     spec = _fft_any(torch.nn.functional.pad(power, (0, pad - n)))
@@ -372,7 +373,7 @@ def wavelet_coherence(signal_a, signal_b, scales,
     """Wavelet coherence R^2 in [0, 1] per (scale, time) (Torrence & Webster
     1999): |S(W_ab / s)|^2 / (S(|W_a|^2 / s) * S(|W_b|^2 / s)) with the
     time-Gaussian + scale-boxcar smoothing S. Returns (R2, xwt_result)."""
-    scales = np.atleast_1d(np.asarray(scales, dtype=np.float64))
+    scales = np.atleast_1d(host_array(scales, np.float64))
     ra = cwt(signal_a, scales, wavelet, sampling_rate, padding)
     rb = cwt(signal_b, scales, wavelet, sampling_rate, padding)
     cross = ra.coefficients * torch.conj(rb.coefficients)

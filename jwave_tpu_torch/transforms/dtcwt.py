@@ -32,13 +32,8 @@ import torch
 from ..exceptions import JWaveFailure
 from ..filters import get_filter
 from ..filters.qshift import qshift_filters
-from ..ops.butterfly import (
-    as_tensor,
-    butterfly_forward,
-    butterfly_reverse,
-    copy_to_device,
-    ensure_float,
-)
+from ..ops.butterfly import butterfly_forward, butterfly_reverse, ensure_float
+from ..utils.host import as_tensor, copy_to_device
 
 _SQRT2 = math.sqrt(2.0)
 

@@ -17,6 +17,7 @@ import torch
 
 from ..exceptions import JWaveFailure
 from ..ops.butterfly import ensure_fft_float
+from ..utils.host import host_array
 from .analytic import real_signal
 
 
@@ -30,7 +31,7 @@ def ewt_boundaries(signal, n_modes: int, min_separation: int | None = None) -> n
     ``n_modes`` largest, at least ``min_separation`` bins apart, maxima of
     the magnitude spectrum pooled over batch rows; ``n_modes - 1``
     boundaries in (0, pi) rad/sample."""
-    x = signal.detach().cpu().numpy() if isinstance(signal, torch.Tensor) else np.asarray(signal)
+    x = host_array(signal)
     n = x.shape[-1]
     if n_modes < 1:
         raise JWaveFailure("ewt_boundaries - n_modes must be >= 1")
@@ -65,7 +66,7 @@ def ewt_filter_bank(n: int, boundaries) -> np.ndarray:
     """(K, N) tight Meyer bank on an N-point FFT grid from K-1 boundaries in
     (0, pi): one scaling lowpass and K-1 band wavelets (the last reaches
     Nyquist). float64 numpy."""
-    b = np.sort(np.atleast_1d(np.asarray(boundaries, dtype=np.float64)))
+    b = np.sort(np.atleast_1d(host_array(boundaries, np.float64)))
     if b.size and (b[0] <= 0 or b[-1] >= np.pi):
         raise JWaveFailure("ewt_filter_bank - boundaries must lie in (0, pi)")
     if np.any(np.diff(b) <= 0):
@@ -107,7 +108,7 @@ class EWTResult:
     boundaries: np.ndarray
 
     def __post_init__(self):
-        self.boundaries = np.sort(np.atleast_1d(np.asarray(self.boundaries, dtype=np.float64)))
+        self.boundaries = np.sort(np.atleast_1d(host_array(self.boundaries, np.float64)))
 
     @property
     def n_modes(self) -> int:

@@ -16,7 +16,8 @@ import numpy as np
 import torch
 
 from .. import config
-from ..ops.butterfly import as_tensor, ensure_fft_float, ensure_float
+from ..ops.butterfly import ensure_fft_float, ensure_float
+from ..utils.host import as_tensor
 from ..utils.numerics import next_power_of_two
 from .ndim import deinterleave, interleave
 

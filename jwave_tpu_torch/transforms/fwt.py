@@ -18,7 +18,8 @@ import torch
 from ..exceptions import JWaveFailure
 from ..filters import get_filter
 from ..ops import cuda_pyramid
-from ..ops.butterfly import as_tensor, butterfly_forward, ensure_float, synthesis_levels
+from ..ops.butterfly import butterfly_forward, ensure_float, synthesis_levels
+from ..utils.host import as_tensor
 from ..utils.numerics import exponent_of_two, is_power_of_two
 from .ndim import forward_2d, reverse_2d
 
@@ -115,12 +116,21 @@ def fwt_decompose(x, wavelet):
     return torch.stack(rows, dim=-2)
 
 
+def decompose_row(mat: torch.Tensor, level: int) -> torch.Tensor:
+    """Row ``level`` of a decompose matrix (..., rows, N). A level past the
+    last row reads the last row, as JAX's clamped index does: the inverse
+    then rejects a level the length cannot hold, or stops where the forward
+    stopped."""
+    rows = mat.shape[-2]
+    return mat[..., max(min(level, rows - 1), -rows), :]
+
+
 def fwt_recompose(mat, wavelet, level: int | None = None):
     """Reconstruct from one row of a decompose matrix (highest by default)."""
     mat = as_tensor(mat)
     if level is None:
         level = mat.shape[-2] - 1
-    return ifwt(mat[..., level, :], wavelet, level)
+    return ifwt(decompose_row(mat, level), wavelet, level)
 
 
 def fwt_split(y, level: int | None = None):

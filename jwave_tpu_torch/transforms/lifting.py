@@ -33,7 +33,8 @@ from dataclasses import dataclass
 import torch
 
 from ..exceptions import JWaveFailure, JWaveNotKnown
-from ..ops.butterfly import as_tensor, ensure_float
+from ..ops.butterfly import ensure_float
+from ..utils.host import as_tensor
 from ..utils.numerics import exponent_of_two, is_power_of_two
 
 _SQRT2 = math.sqrt(2.0)

@@ -36,7 +36,7 @@ import torch
 from ..exceptions import JWaveFailure
 from ..filters import get_filter
 from ..ops import cuda_modwt
-from ..ops.butterfly import as_tensor, ensure_float
+from ..ops.butterfly import ensure_float
 from ..ops.circular import (
     circular_conv,
     circular_conv_adjoint,
@@ -44,6 +44,7 @@ from ..ops.circular import (
     filter_spectrum,
     wrap_filter,
 )
+from ..utils.host import as_tensor
 from ..utils.numerics import exponent_of_two, is_power_of_two
 
 #: maximum supported decomposition level (MODWTTransform.java:111)

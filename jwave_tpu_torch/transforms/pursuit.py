@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from ..exceptions import JWaveFailure
-from ..ops.butterfly import as_tensor
+from ..utils.host import as_tensor
 from .analytic import real_signal
 
 

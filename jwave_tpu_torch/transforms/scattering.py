@@ -34,7 +34,8 @@ import numpy as np
 import torch
 
 from ..exceptions import JWaveFailure
-from ..ops.butterfly import as_tensor, ensure_fft_float
+from ..ops.butterfly import ensure_fft_float
+from ..utils.host import as_tensor
 from ..utils.numerics import next_power_of_two
 from .cwt import PaddingType, pad_signal
 

@@ -12,7 +12,8 @@ from __future__ import annotations
 import torch
 
 from ..filters import get_filter
-from ..ops.butterfly import as_tensor, butterfly_forward, butterfly_reverse
+from ..ops.butterfly import butterfly_forward, butterfly_reverse
+from ..utils.host import as_tensor
 
 
 def _pass(x: torch.Tensor, div: int, fn) -> torch.Tensor:

@@ -31,7 +31,8 @@ import torch.nn.functional as F
 from .. import config
 from ..exceptions import JWaveFailure
 from ..filters import get_filter
-from ..ops.butterfly import as_tensor, copy_to_device, ensure_float
+from ..ops.butterfly import ensure_float
+from ..utils.host import as_tensor, copy_to_device
 from .modwt import MAX_DECOMPOSITION_LEVEL, _modwt_base_filters, _validate_level
 
 

@@ -34,6 +34,7 @@ import torch
 from ..cwavelets import ContinuousWavelet, get_continuous_wavelet
 from ..exceptions import JWaveFailure
 from ..ops import cuda_reassign
+from ..utils.host import host_array
 from ..utils.numerics import next_power_of_two
 from .cwt import PaddingType, _omega_axis, _resolve_wavelet_by_name, _scaled_bank, _signal, \
     _time_axis, pad_signal
@@ -188,7 +189,7 @@ def _default_bins(scales_np: np.ndarray, fc: float, frequencies) -> np.ndarray:
         f_lo = fc / scales_np.max()
         f_hi = fc / scales_np.min()
         return np.exp(np.linspace(math.log(f_lo), math.log(f_hi), k))
-    freqs_np = np.asarray(frequencies, dtype=np.float64)
+    freqs_np = host_array(frequencies, np.float64)
     if freqs_np.ndim != 1 or freqs_np.shape[0] < 2 or np.any(np.diff(freqs_np) <= 0):
         raise JWaveFailure("ssq_cwt - frequencies must be a 1D increasing grid")
     return freqs_np
@@ -252,7 +253,7 @@ def ssq_cwt(
             f"Paul, Morse); {wav.name!r} has negative-frequency support, so the "
             f"instantaneous-frequency estimate of a real signal is meaningless"
         )
-    scales_np = np.atleast_1d(np.asarray(scales, dtype=np.float64))
+    scales_np = np.atleast_1d(host_array(scales, np.float64))
     if scales_np.ndim != 1 or scales_np.shape[0] < 2:
         raise JWaveFailure("ssq_cwt - need a 1D grid of at least 2 scales")
     fs = float(sampling_rate)
@@ -306,8 +307,8 @@ def extract_ridge(result: SSQResult, n_ridges: int = 1, penalty: float = 2.0,
     """Penalized multi-ridge extraction from the squeezed plane (Carmona et
     al. 1999-style dynamic programming).
 
-    Returns ``(indices, frequencies)`` of shape (..., n_ridges, N): per
-    ridge, the frequency-bin path through ``|Tx|^2`` that maximizes energy
+    Returns ``(indices, frequencies)`` of shape (..., n_ridges, N), the
+    indices int32: per ridge, the frequency-bin path through ``|Tx|^2`` that maximizes energy
     minus ``penalty * (bin step)^2``. Ridges are peeled greedily: after each
     extraction a ``tube_width``-bin tube around the ridge is suppressed. Use
     :func:`ridge_tube_mask` + ``issq_cwt(..., band=mask)`` to reconstruct
@@ -327,7 +328,7 @@ def extract_ridge(result: SSQResult, n_ridges: int = 1, penalty: float = 2.0,
         ridges.append(idx)
         dist = torch.abs(ar - idx[..., None, :])  # (..., K, N)
         energy = torch.where(dist <= tube_width, floor, energy)
-    indices = torch.stack(ridges, dim=-2)  # (..., R, N)
+    indices = torch.stack(ridges, dim=-2).to(torch.int32)  # (..., R, N), int32 as in JAX
     return indices, result.frequencies[indices]
 
 

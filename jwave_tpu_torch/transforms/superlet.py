@@ -17,6 +17,7 @@ import torch
 
 from ..cwavelets import MorletWavelet
 from ..exceptions import JWaveFailure
+from ..utils.host import host_array
 from .cwt import PaddingType, cwt
 
 K_SD = 5.0  # cycles-per-stddev convention of the superlet paper
@@ -40,7 +41,7 @@ def superlet(
     base_cycles`` cycles (``multiplicative``) or ``base_cycles + i - 1``.
     Returns the (..., F, N) nonnegative superlet magnitude plane.
     """
-    freqs_np = np.atleast_1d(np.asarray(freqs, dtype=np.float64))
+    freqs_np = np.atleast_1d(host_array(freqs, np.float64))
     if freqs_np.ndim != 1 or freqs_np.size == 0:
         raise JWaveFailure("superlet - freqs must be a non-empty 1D grid")
     if np.any(freqs_np <= 0):

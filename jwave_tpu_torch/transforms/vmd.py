@@ -18,7 +18,8 @@ import numpy as np
 import torch
 
 from ..exceptions import JWaveFailure
-from ..ops.butterfly import as_tensor, ensure_fft_float
+from ..ops.butterfly import ensure_fft_float
+from ..utils.host import as_tensor
 from .analytic import real_signal
 
 

@@ -20,10 +20,12 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import config
 from ..exceptions import JWaveFailure
 from ..filters import get_filter
-from ..ops.butterfly import as_tensor, butterfly_forward, butterfly_reverse, copy_to_device
+from ..ops.butterfly import butterfly_forward, butterfly_reverse
 from ..ops.composite import wpt_fused_forward, wpt_fused_inverse
+from ..utils.host import as_tensor, copy_to_device
 from ..utils.numerics import exponent_of_two, is_power_of_two
 
 #: max levels fused into one composite conv (2^6 = 64 output channels)
@@ -60,14 +62,17 @@ def _chunk_schedule(n: int, level: int, fb) -> list[tuple[int, int]]:
 
 def _interleaved_ok(n: int, level: int, fb, fused: bool, who: str):
     """layout='interleaved' is defined where the JAX package runs the whole
-    transform as ONE fused chunk of its tile kernel: raise elsewhere."""
+    transform as ONE fused chunk of its tile kernel: raise elsewhere, and
+    whenever the butterfly dial is 'off', which in JAX turns that kernel off.
+    'auto' keeps the layout, as JAX does on its TPU."""
     sched = _chunk_schedule(n, level, fb)
-    if not (fused and n % LANES == 0 and 1 <= level and (1 << level) <= LANES
-            and len(sched) == 1 and sched[0][1] == level):
+    if not (fused and config.mxu_butterfly() != "off" and n % LANES == 0 and 1 <= level
+            and (1 << level) <= LANES and len(sched) == 1 and sched[0][1] == level):
         raise JWaveFailure(
-            f"{who} - layout='interleaved' requires the single-chunk fused path "
+            f"{who} - layout='interleaved' requires the single-chunk MXU path "
             f"(N % 128 == 0, 1 <= level <= {FUSE_MAX_LEVELS}, composite bank "
-            f"<= {FUSE_MAX_TAPS} taps, fused=True); use layout='subband' otherwise"
+            f"<= {FUSE_MAX_TAPS} taps, fused=True, and the MXU butterfly dial "
+            f"enabled); use layout='subband' otherwise"
         )
 
 

@@ -93,7 +93,7 @@ def test_unported_transform_names_raise():
 def test_numpy_input_goes_to_the_card_by_default(entry):
     """Numpy input with no ``device`` becomes a tensor on "cuda". Without a
     card that raises torch's own error: nothing quietly runs on the CPU."""
-    from jwave_tpu_torch.ops.butterfly import as_tensor
+    from jwave_tpu_torch.utils.host import as_tensor
 
     x = np.ones(16)
     calls = {

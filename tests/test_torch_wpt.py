@@ -111,6 +111,26 @@ def test_interleaved_layout_matches_jax(wavelet, level, rng):
                  jw.wpt_subband_to_interleaved(np.asarray(sub), level), 0.0, "JAX's permutation")
 
 
+@pytest.mark.parametrize("fn", ["wpt", "iwpt"])
+def test_interleaved_layout_raises_with_the_dial_off_as_jax_does(fn, rng):
+    """JAX's interleaved layout needs its MXU tile kernel, which the butterfly
+    dial turns off: both packages raise the same failure, word for word."""
+    x = rng.standard_normal((2, 256))
+    jw.config.set_mxu_butterfly("off")
+    jt.config.set_mxu_butterfly("off")
+    try:
+        with pytest.raises(jw.JWaveFailure) as want:
+            getattr(jw, fn)(x, "Daubechies 2", 3, layout="interleaved")
+        with pytest.raises(jt.JWaveFailure) as got:
+            getattr(jt, fn)(torch.tensor(x), "Daubechies 2", 3, layout="interleaved")
+    finally:
+        jw.config.set_mxu_butterfly("auto")
+        jt.config.set_mxu_butterfly("auto")
+    assert type(got.value).__name__ == type(want.value).__name__
+    assert str(got.value) == str(want.value)
+    assert "and the MXU butterfly dial enabled" in str(got.value)
+
+
 @pytest.mark.parametrize("case", ["N % 128", "level 0", "level 7", "composite bank > 512",
                                   "fused=False"])
 def test_interleaved_layout_raises_where_jax_does(case, rng):

@@ -170,6 +170,19 @@ case(name="wpt2d_sharded_matches_single", worlds=(8,),
      jax=lambda jp, jw, m, i: {"y": jp.wpt2d_sharded(i["mat"], "db2", m["1d"])},
      single=lambda jt, i: {"y": _facade(jt, "Wavelet Packet Transform", "db2").forward(i["mat"])})
 
+
+def _wpt2d_roundtrip(P, m, mat, lr, lc):
+    y = P.wpt2d_sharded(mat, "db2", m["1d"], lr, lc)
+    return {"y": y, "back": P.iwpt2d_sharded(y, "db2", m["1d"], lr, lc)}
+
+
+case(name="iwpt2d_sharded_roundtrip", worlds=(8,),
+     inputs=lambda d: {"mat": _r42().standard_normal((64, 32))},
+     port=lambda P, jt, m, i: _wpt2d_roundtrip(P, m, i["mat"], 3, 2),
+     jax=lambda jp, jw, m, i: _wpt2d_roundtrip(jp, m, i["mat"], 3, 2),
+     single=lambda jt, i: {"y": _facade(jt, "Wavelet Packet Transform", "db2").forward(i["mat"], 3, 2)},
+     identity=(("back", "mat", 1e-8),))
+
 case(name="2d_sharded_uneven_raises", worlds=(8,), raises=True, inputs=lambda d: {},
      port=lambda P, jt, m, i: P.fwt2d_sharded(np.zeros((30, 64)), "Haar", m["1d"]),
      jax=lambda jp, jw, m, i: jp.fwt2d_sharded(np.zeros((30, 64)), "Haar", m["1d"]))
