@@ -8,8 +8,9 @@ it happened; any failed check ends the run with a non-zero exit:
 1. device: needs a CUDA card; prints the card's name and power limit;
    checks that the port's precision dial reads 'highest' (true float32, the
    JAX package's default) on a fresh import, with no call to it, and that
-   jt.ifwt (cuDNN convolutions, db4 L8, 64 x 65536 f32) then agrees with its
-   float64 run to 1e-5 of max|ref|, and jt.wpt (db4 L6, one conv1d of 64
+   ops.butterfly.synthesis_levels (ifwt's cuDNN route where K7 does not
+   run; db4 L8, 64 x 65536 f32) then agrees with its float64 run to 1e-5 of
+   max|ref|, and jt.wpt (db4 L6, one conv1d of 64
    channels of 442 taps) likewise; prints each call's error with the dial at
    'high' (TF32 allowed) beside it, the error of that conv1d called
    directly under each of torch's TF32 switches (which one governs cuDNN),
@@ -17,31 +18,35 @@ it happened; any failed check ends the run with a non-zero exit:
    float32 matmul inside config.dial().
 2. build: compiles csrc/*.cu with nvcc, one compiler per source, all at
    once, and prints the build seconds.
-3. kernels: K1-K6 on the card against their plain torch versions run in
+3. kernels: K1-K7 on the card against their plain torch versions run in
    float64 on the same input, at the main paths' shapes and at edge shapes
-   (K3 also where its tiled levels leave a tail, 62 taps or 16 levels, and
-   over two tiled passes; K6 at the main shape on the contributions and bin
-   indices of a real ssq_cwt of the main signal, on 64 bins and on 128, two
-   bin chunks).
+   (K3 also where its tiled levels leave a tail, 62 taps or 16 levels, over
+   two tiled passes, and with a gain; K6 at the main shape on the
+   contributions and bin indices of a real ssq_cwt of the main signal, on 64
+   bins and on 128, two bin chunks; K7 at 64 x 65536 db4 L8 and L16, 62
+   taps, Haar orthogonal's gain, Battle 23's partial levels, rows of 1, 2
+   and 4 samples, odd batches, rows of 2^22 and a source off 16-byte
+   alignment).
 4. main paths, each with the launch counts set to 0 just before it and read
    just after, all through the public entry points (numpy input goes to the
    card by default, tensors are made there):
    a. MODWT + FWT: modwt -> imodwt (db4 L5, 64 x 65536 f32) and the FWT
-      facade forward/reverse on 64 x 65536 rows and a 2048 x 2048 image
-      (fwt2d as K4 x2, ifwt2d as K5 x2); small inputs against the numpy
-      oracle in tests/oracle.py.
+      facade forward/reverse on 64 x 65536 rows (K3, then K7 once) and a
+      2048 x 2048 image (fwt2d as K4 x2, ifwt2d as K5 x2); small inputs
+      against the numpy oracle in tests/oracle.py.
    b. continuous: ssq_cwt -> issq_cwt at 8 x 65536 f32, Morlet(1,1), 64 log
       scales 1e-5..1e-2 s, fs = 1e6 (K6), held against the same call with
       the plain scatter and by the column-sum identity; extract_ridge and
       ridge_tube_mask, a tone's ridge and a two-tone round trip at small
       size; the CWT facade's transform_fft and transform, against the
       port's CPU float64 run on a small input.
-   c. gradients through K1-K5: torch.autograd.grad of (f(x) * w).sum() for
-      modwt and imodwt (db4 L5, 64 x 65536), fwt (db4 L8, 64 x 65536),
-      fwt2d and ifwt2d (db4 L6, 2048 x 2048) and Haar orthogonal ifwt2d
-      (256 x 256), against autograd through the plain versions in float64;
-      the backward's launches are read on their own (modwt's must launch K2,
-      fwt2d's K5, ifwt2d's K4); hurst_exponent's gradient at 8 x 65536
+   c. gradients through K1-K5 and K7: torch.autograd.grad of (f(x) *
+      w).sum() for modwt and imodwt (db4 L5, 64 x 65536), fwt and ifwt (db4
+      L8, 64 x 65536), fwt2d and ifwt2d (db4 L6, 2048 x 2048) and Haar
+      orthogonal ifwt2d (256 x 256), against autograd through the plain
+      versions in float64; the backward's launches are read on their own
+      (modwt's must launch K2, fwt's K7, ifwt's K3, fwt2d's K5, ifwt2d's
+      K4); hurst_exponent's gradient at 8 x 65536
       against the float64 route. The K6 gather against the plain scatter's.
    d. MODWT analysis: modwt_mra (64 x 65536, db4 L5), modwt_2d -> imodwt_2d
       (2048 x 2048, L5), modwt_mra_2d (1024 x 1024, L3), the scale
@@ -72,7 +77,7 @@ it happened; any failed check ends the run with a non-zero exit:
       no kernel of this package.
    i. scattering at bench.py's shapes: scattering1d (8 x 65536 f32, J=8,
       Q=8) and scattering2d (256^2 f32, J=3, L=8), spectral form on cuFFT,
-      K1-K6 launched 0 times; each order against the card's float64 run
+      K1-K7 launched 0 times; each order against the card's float64 run
       (1e-4 of max|ref|), the card's float64 against the CPU's (2 rows and
       the image, 1e-10), shapes, dtypes, features() and n_paths against the
       bank; a warm call traced by utils.profiling.trace makes no
@@ -89,20 +94,22 @@ it happened; any failed check ends the run with a non-zero exit:
       single-device function (1e-5 of max|ref|), its float64 run against
       the single device's (1e-10) and against its own f32 run, and by its
       identity; every output's local block on the card; K3 in the 2D/3D
-      FWTs and the halo FWT's tail, K6 in ssq_scale_sharded, K1 and K2 in
-      the batch-sharded round trip and the 2D MODWT. Then every example's
+      FWTs and the halo FWT's tail, K7 in their inverses, K6 in
+      ssq_scale_sharded, K1 and K2 in the batch-sharded round trip and the
+      2D MODWT. Then every example's
       main() on the card (jwave_tpu_torch.examples).
 5. times: CUDA events, median of 25 runs after warm-up with the L2 cache
    flushed before each and a GPU spin that hides the host's launch time
    (device time; each also once without the spin, as wall time), kernel
    beside its plain version and beside one PyTorch call that computes the
-   same function (conv1d, matmul with the dense operator of a K3 row or a
-   K4/K5 pass, scatter_add_; checked against the plain version first, never
+   same function (conv1d, matmul with the dense operator of a K3 or K7 row
+   or a K4/K5 pass, scatter_add_; checked against the plain version first, never
    called by the port); a byte floor for each kernel (the same bytes, or
    for K6 a fifth more, moved by torch copies, or by K4/K5 with no level);
-   K3 at a shape with a tail and K6 at 128 bins; fwt and the 1D inverse
-   ifwt (plain synthesis butterflies, no kernel: the sum of its kernels'
-   times in a profiled call, and wall) at 64 x 65536; for context
+   K3 at a shape with a tail and K6 at 128 bins; K7 at 1, 2, 4 and 8
+   levels and Haar's at 8; fwt and ifwt (K7) at 64 x 65536, and the 1D inverse's route before K7 (the synthesis butterflies:
+   the sum of its kernels' times in a profiled call, and wall); ifwt3d db4
+   256^3 and ifwt2d_sharded 2048^2 before and after K7, in turns; for context
    also the torch FFT path of the MODWT (cuFFT) and the separable ifwt2d
    path, which are not kernels of this package; the entry step's gradient,
    fwt2d's gradient (backward K5 x2), ifwt2d's gradient (backward K4 x2),
@@ -120,7 +127,8 @@ it happened; any failed check ends the run with a non-zero exit:
    bench.pallas_smoke(); requires the headline as the rows' last line, the
    28 names of bench.py, no row skipped or with an error, each row's error
    within its bound, the kernels launched in the rows that reach them, the
-   sweep's lines, and pallas_smoke ok; one summary line a row.
+   sweep's lines, and pallas_smoke ok (K1-K3 and K7 launched); one summary
+   line a row.
 7. the parity census (tests/torch_census_cases.py, the same case table
    that tier-1 holds against the JAX package on the CPU in float64, the
    card-only cases included): every case the
@@ -132,13 +140,13 @@ it happened; any failed check ends the run with a non-zero exit:
    other side of a tie (pursuit picks, a best-basis tree: printed as a
    near-tie), dtypes as the CPU's in the same input dtype, every output
    tensor on the card; and the card-only cases at the kernels' eligibility
-   edges (K1-K6 through modwt, fwt, fwt2d, ifwt2d and ssq_cwt: levels 0, 1
+   edges (K1-K7 through modwt, fwt, ifwt, fwt2d, ifwt2d and ssq_cwt: levels 0, 1
    and split level groups, lengths off the tile, batches of 1 and odd, N =
    1, 2, 4, sources off 16-byte alignment, transposed and non-square
    images, Haar orthogonal's gain, bins outside [0, K)) in float32, bf16
    and f16 where JAX takes them. One line a card-only case with its
    launches; one line for the phase: cases, runs, mismatches, near-ties,
-   K1-K6 launches, seconds. Any mismatch fails the run.
+   K1-K7 launches, seconds. Any mismatch fails the run.
 
 The second line from the end is a JSON object listing each kernel with its
 launches on its paths (4a-4b and 4j), on the main path (4a) and in 4j, its error, its time beside
@@ -181,6 +189,7 @@ def main() -> int:
     import jwave_tpu_torch as jt
     import oracle
     from jwave_tpu_torch.ops import cuda_build, cuda_modwt, cuda_pyramid, cuda_reassign
+    from jwave_tpu_torch.ops.butterfly import synthesis_levels
     from jwave_tpu_torch.transforms import ndim
     from jwave_tpu_torch.transforms.modwt import _modwt_base_filters
     from jwave_tpu_torch.transforms.ssq import _cwt_and_derivative, _default_bins, \
@@ -195,26 +204,33 @@ def main() -> int:
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
 
-    # true float32 with no call to the dial: TF32 would keep ~3 digits
+    # true float32 with no call to the dial: TF32 would keep ~3 digits. The
+    # witness is the synthesis butterflies (cuDNN), the 1D inverse's route
+    # where K7 does not run (ifwt itself runs K7 on a CUDA f32 tensor)
     require(jt.config.conv_precision() == "highest",
             f"the dial reads {jt.config.conv_precision()!r} on a fresh import")
     y_tf = torch.as_tensor(rng.standard_normal((64, 65536)), dtype=torch.float32, device=dev)
-    ref_tf = jt.ifwt(y_tf.double(), "db4", 8)
-    err_highest = float((jt.ifwt(y_tf, "db4", 8).double() - ref_tf).abs().max()
-                        / ref_tf.abs().max())
+    fb_tf = jt.get_filter("db4")
+
+    def butterflies(y):
+        return synthesis_levels(y, fb_tf.rec_lo, fb_tf.rec_hi, 8)
+
+    ref_tf = butterflies(y_tf.double())
+    err_highest = float((butterflies(y_tf).double() - ref_tf).abs().max() / ref_tf.abs().max())
     jt.config.set_conv_precision("high")
     try:
-        err_high = float((jt.ifwt(y_tf, "db4", 8).double() - ref_tf).abs().max()
-                         / ref_tf.abs().max())
+        err_high = float((butterflies(y_tf).double() - ref_tf).abs().max() / ref_tf.abs().max())
     finally:
         jt.config.set_conv_precision("highest")
     conv_switch = getattr(getattr(torch.backends.cudnn, "conv", None), "fp32_precision", None)
-    print(json.dumps({"check": "ifwt db4 L8 64x65536 f32 (cuDNN) against float64, the dial "
-                      "untouched ('highest')", "rel": err_highest, "bound": F32_BOUND,
+    print(json.dumps({"check": "synthesis_levels (ifwt's butterfly route) db4 L8 64x65536 f32 "
+                      "(cuDNN) against float64, the dial untouched ('highest')",
+                      "rel": err_highest, "bound": F32_BOUND,
                       "rel_with_dial_high": err_high,
                       "cudnn_allow_tf32_outside": torch.backends.cudnn.allow_tf32,
                       "cudnn_conv_fp32_precision_outside": conv_switch}), flush=True)
-    require(err_highest <= F32_BOUND, f"ifwt with the default dial: {err_highest} > {F32_BOUND}")
+    require(err_highest <= F32_BOUND,
+            f"synthesis_levels with the default dial: {err_highest} > {F32_BOUND}")
     # The same for wpt db4 L6 (one conv1d of 64 channels of 442 taps, which
     # cuDNN may run on the tensor cores), and that conv1d called directly
     # under each of torch's switches: which one governs cuDNN's float32
@@ -364,6 +380,40 @@ def main() -> int:
                  (64, 65536), "Discrete Meyer", 8)
     pyramid_case("2x1048576 Discrete Meyer L20 (two tiled passes)", (2, 1048576),
                  "Discrete Meyer", 20)
+    for label, shape, wavelet, level, gain in (
+            ("16x4096 Haar orthogonal L12, gain 0.5", (16, 4096), "Haar orthogonal", 12, 0.5),
+            ("64x65536 db4 L8, gain 2", (64, 65536), "db4", 8, 2.0)):
+        fb = jt.get_filter(wavelet)
+        x = signal(shape)
+        got = cuda_pyramid.pyramid_rows(x, fb.rec_lo, fb.rec_hi, level, gain)
+        torch.cuda.synchronize()
+        compare(f"K3 {label}", got,
+                cuda_pyramid.pyramid_rows_torch(x.double(), fb.rec_lo, fb.rec_hi, level, gain),
+                F32_BOUND)
+
+    def ipyramid_case(label, shape, wavelet, level, offset=0):
+        fb = jt.get_filter(wavelet)
+        y = torch.empty(shape[0] * shape[1] + offset, device=dev)[offset:].view(shape)
+        y.copy_(signal(shape))
+        done = cuda_pyramid.levels_done(shape[1], fb.transform_wavelength, level)
+        args = (fb.rec_lo, fb.rec_hi, fb.recon_gain, done)
+        got = cuda_pyramid.ipyramid_rows(y, *args)
+        torch.cuda.synchronize()
+        return compare(f"K7 {label}", got, cuda_pyramid.ipyramid_rows_torch(y.double(), *args),
+                       F32_BOUND)
+
+    errors["K7"] = ipyramid_case("64x65536 db4 L8", (64, 65536), "db4", 8)
+    ipyramid_case("64x65536 db4 L16 (all levels)", (64, 65536), "db4", 16)
+    ipyramid_case("64x65536 Discrete Meyer L8 (62 taps)", (64, 65536), "Discrete Meyer", 8)
+    ipyramid_case("16x4096 Haar orthogonal L12 (gain 0.5)", (16, 4096), "Haar orthogonal", 12)
+    ipyramid_case("256x1024 Battle 23 L8 (partial levels)", (256, 1024), "Battle 23", 8)
+    for n_k7 in (1, 2, 4):
+        ipyramid_case(f"5x{n_k7} db4, all its levels (one block a row)", (5, n_k7), "db4", 8)
+    ipyramid_case("7x1024 sym8 L10 (odd batch)", (7, 1024), "sym8", 10)
+    ipyramid_case("133x8 db4 L3 (odd batch of short rows)", (133, 8), "db4", 3)
+    ipyramid_case("2x4194304 db4 L22 (rows of 2^22)", (2, 1 << 22), "db4", 22)
+    ipyramid_case("32x16384 db4 L9 (a source 4 bytes off 16-byte alignment)", (32, 16384),
+                  "db4", 9, 1)
 
     def fwt2d_case(label, shape, wavelet, level):
         fb = jt.get_filter(wavelet)
@@ -500,6 +550,8 @@ def main() -> int:
     print(json.dumps({"main_path": "MODWT + FWT", "launches": launches}), flush=True)
     require(all(launches[k] >= 1 for k in ("K1", "K2", "K3", "K4", "K5")),
             f"a kernel of the MODWT + FWT path was not launched: {launches}")
+    require(launches["K7"] == 1, f"the FWT facade's reverse of the rows launched K7 "
+            f"{launches['K7']} times, not once")
     for label, got, want, shape in (
         ("modwt->imodwt 64x65536 db4 L5", xr, x64, (64, 65536)),
         ("fwt->ifwt rows 64x65536 db4", rows_back, x64, (64, 65536)),
@@ -660,9 +712,13 @@ def main() -> int:
         "imodwt db4 L5 64x6x65536", lambda a: jt.imodwt(a, "db4"),
         lambda a: cuda_modwt.imodwt_cascade_torch(a, gm, hm), c_np, ("K1",)))
     del c_np
-    backward["K3"] = ("plain synthesis butterflies (ops/butterfly.py, conv1d)", grad_case(
+    backward["K3"] = ("K7 ipyramid_rows with the analysis filters, gain 1", grad_case(
         "fwt db4 L8 64x65536", lambda a: jt.fwt(a, "db4", 8),
-        lambda a: cuda_pyramid.pyramid_rows_torch(a, fb4.dec_lo, fb4.dec_hi, 8), x64, ()))
+        lambda a: cuda_pyramid.pyramid_rows_torch(a, fb4.dec_lo, fb4.dec_hi, 8), x64, ("K7",)))
+    backward["K7"] = ("K3 pyramid_rows with the synthesis filters, gain recon_gain", grad_case(
+        "ifwt db4 L8 64x65536", lambda a: jt.ifwt(a, "db4", 8),
+        lambda a: cuda_pyramid.ipyramid_rows_torch(a, fb4.rec_lo, fb4.rec_hi, fb4.recon_gain, 8),
+        x64, ("K3",)))
 
     def k4x2_plain(a, fb, levels):
         return cuda_pyramid.pyramid_rows_transposed_torch(
@@ -1240,7 +1296,7 @@ def main() -> int:
     fwt_f = jt.TransformBuilder.create("Fast Wavelet Transform", "db4")
     wpt_f = jt.TransformBuilder.create("Wavelet Packet Transform", "db4")
     fft_m = jt.ConvolutionMethod.FFT
-    sharded_launches = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6"), 0)
+    sharded_launches = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6", "K7"), 0)
     # label -> (sharded call, single-device call) on f32, timed in phase 5; the
     # inputs of the inverses (the forwards' outputs) stay on the card for it
     sharded_calls = {}
@@ -1287,7 +1343,8 @@ def main() -> int:
             lambda dt: jt.fwt2d(img_(dt), "db4", 6, 6), need=("K3",))
     sharded("ifwt2d_sharded db4 L6 2048^2 (single: ifwt2d, K5 x2)",
             lambda dt: par.ifwt2d_sharded(fwt2_out[dt], "db4", mesh, 6, 6),
-            lambda dt: jt.ifwt2d(fwt2_out[dt].full_tensor(), "db4", 6, 6), ident=img_)
+            lambda dt: jt.ifwt2d(fwt2_out[dt].full_tensor(), "db4", 6, 6), ident=img_,
+            need=("K7",))
     sharded("wpt2d_sharded db4 L6 2048^2",
             lambda dt: par.wpt2d_sharded(img_(dt), "db4", mesh, 6, 6),
             lambda dt: wpt_f.forward(img_(dt), 6, 6))
@@ -1304,7 +1361,7 @@ def main() -> int:
             lambda dt: par.fwt3d_sharded(vol_(dt), "db4", mesh),
             lambda dt: fwt_f.forward(vol_(dt)), need=("K3",))
     sharded("ifwt3d_sharded db4 256^3", lambda dt: par.ifwt3d_sharded(fwt3_out[dt], "db4", mesh),
-            lambda dt: fwt_f.reverse(fwt3_out[dt].full_tensor()), ident=vol_)
+            lambda dt: fwt_f.reverse(fwt3_out[dt].full_tensor()), ident=vol_, need=("K7",))
     wpt3_out = {dt: par.wpt3d_sharded(vol_(dt), "db4", mesh, 4, 4, 4) for dt in sharded_in}
     sharded("wpt3d_sharded db4 L4 256^3",
             lambda dt: par.wpt3d_sharded(vol_(dt), "db4", mesh, 4, 4, 4),
@@ -1526,11 +1583,37 @@ def main() -> int:
     }
     del x_pad, c_pad, op_k3, op_k4, op_k5
     torch.cuda.empty_cache()
+    # K7 on fwt's output: kernel, plain version, and one matmul with the
+    # dense 65536^2 synthesis operator of a row (row i the plain version run
+    # on e_i in float64), built as K3's was, after K3's is freed
+    y8 = cuda_pyramid.pyramid_rows(x, lo, hi, done8)
+    t_op = time.perf_counter()
+    op_k7 = torch.empty((65536, 65536), dtype=torch.float32, device=dev)
+    for i0 in range(0, 65536, 1024):
+        e_blk = torch.zeros((1024, 65536), dtype=torch.float64, device=dev)
+        e_blk.diagonal(i0).fill_(1.0)
+        op_k7[i0:i0 + 1024] = cuda_pyramid.ipyramid_rows_torch(e_blk, rlo, rhi, 1.0, done8).float()
+    del e_blk
+    torch.cuda.synchronize()
+    print(json.dumps({"built": "K7's dense 65536^2 operator", "gb": op_k7.numel() * 4 / 1e9,
+                      "s": time.perf_counter() - t_op}), flush=True)
+    compare("library call for K7 against its plain version", torch.matmul(y8, op_k7),
+            cuda_pyramid.ipyramid_rows_torch(y8.double(), rlo, rhi, 1.0, done8), F32_BOUND)
+    timing["K7"] = turns(lambda: cuda_pyramid.ipyramid_rows(y8, rlo, rhi, 1.0, done8),
+                         lambda: cuda_pyramid.ipyramid_rows_torch(y8, rlo, rhi, 1.0, done8),
+                         lambda: torch.matmul(y8, op_k7))
+    timing["ifwt"] = pair(lambda: jt.ifwt(y8, "db4", 8),
+                          lambda: cuda_pyramid.ipyramid_rows_torch(y8, rlo, rhi, 1.0, done8))
+    del op_k7
+    torch.cuda.empty_cache()
     shapes = {"K1": ("modwt db4 L5 64x65536", 64 * 65536, "Msamples_per_s"),
               "K2": ("imodwt db4 L5 64x65536", 64 * 65536, "Msamples_per_s"),
               "K1+K2": ("modwt+imodwt db4 L5 64x65536 (entry step)", 64 * 65536, "Msamples_per_s"),
               "K3": ("fwt db4 L8 64x65536", 64 * 65536, "Msamples_per_s"),
               "fwt": ("fwt db4 L8 64x65536 through jt.fwt (K3)", 64 * 65536, "Msamples_per_s"),
+              "K7": ("ifwt db4 L8 64x65536", 64 * 65536, "Msamples_per_s"),
+              "ifwt": ("ifwt db4 L8 64x65536 through jt.ifwt (K7)", 64 * 65536,
+                       "Msamples_per_s"),
               "K4": ("one K4 pass db4 L6 2048x2048", 2048 * 2048, "Mpix_per_s"),
               "fwt2d": ("fwt2d db4 L6 2048x2048 (K4 x2)", 2048 * 2048, "Mpix_per_s"),
               "K5": ("one K5 pass db4 L6 2048x2048", 2048 * 2048, "Mpix_per_s"),
@@ -1576,6 +1659,16 @@ def main() -> int:
         if k:
             floors[k] = ms
         print(json.dumps({"time": label, "shape": shape, "ms": ms, "card": card}), flush=True)
+    floors["K7"] = floors["K3"]  # the same rows in and out
+    # where K7's time goes: 1, 2, 4 and 8 levels of db4 (one launch each, the
+    # same bytes but for the coarser cones), and Haar's one tap pair at 8
+    fb_haar = jt.get_filter("Haar")
+    k7_levels = {f"db4 L{lv}": median_ms(lambda lv=lv: cuda_pyramid.ipyramid_rows(
+        x, rlo, rhi, 1.0, lv), device=True) for lv in (1, 2, 4, 8)}
+    k7_levels["Haar L8"] = median_ms(lambda: cuda_pyramid.ipyramid_rows(
+        x, fb_haar.rec_lo, fb_haar.rec_hi, 1.0, 8), device=True)
+    print(json.dumps({"time": "K7 by levels, 64x65536 (device ms)", **k7_levels, "card": card}),
+          flush=True)
     # K3 where its tiled levels leave a tail and K6 on two bin chunks
     for label, shape, fn in (
             ("K3 with a tail: fwt db4 L16 (8 tiled levels, a tail of 8, one launch)",
@@ -1584,26 +1677,64 @@ def main() -> int:
              "8x64x65536 K=128", lambda: cuda_reassign.reassign(contrib, k_idx128, 128))):
         print(json.dumps({"time": label, "shape": shape, "ms": median_ms(fn, device=True),
                           "wall_ms": median_ms(fn), "card": card}), flush=True)
-    # The 1D inverse FWT has no kernel: ifwt, the facade's reverse and K3's
-    # backward all run the plain synthesis butterflies. Each level uploads its
+    # The 1D inverse's route before K7 (ifwt, the facade's reverse and K3's
+    # backward ran it): the synthesis butterflies. Each level uploads its
     # taps by a copy that waits for the stream, so the host cannot enqueue
     # ahead of a spin: its device time is the sum of its kernels' times in one
     # profiled call (warm L2), beside the wall time of a call.
-    y8 = cuda_pyramid.pyramid_rows(x, lo, hi, done8)
-    ifwt_wall = median_ms(lambda: jt.ifwt(y8, "db4", 8))
+    old_wall = median_ms(lambda: synthesis_levels(y8, rlo, rhi, done8))
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
-        jt.ifwt(y8, "db4", 8)
+        synthesis_levels(y8, rlo, rhi, done8)
         torch.cuda.synchronize()
     on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    require(len(on_card) > 0, "the profiler saw no kernel of ifwt")
-    print(json.dumps({"time": "ifwt db4 L8 through jt.ifwt (plain synthesis butterflies, no "
-                              "kernel): sum of its kernels' device times, and wall",
+    require(len(on_card) > 0, "the profiler saw no kernel of synthesis_levels")
+    print(json.dumps({"time": "ifwt db4 L8 by its route before K7 (synthesis_levels, cuDNN "
+                              "butterflies): sum of its kernels' device times, and wall",
                       "shape": "64x65536", "kernels": len(on_card),
                       "ms": sum(e.time_range.elapsed_us() for e in on_card) / 1e3,
-                      "wall_ms": ifwt_wall, "card": card}), flush=True)
-    compare("ifwt(fwt(x)) = x, db4 L8 64x65536", jt.ifwt(y8, "db4", 8), x, F32_BOUND)
+                      "wall_ms": old_wall, "card": card}), flush=True)
+    compare("ifwt(fwt(x)) = x, db4 L8 64x65536 (K7)", jt.ifwt(y8, "db4", 8), x, F32_BOUND)
     del y8
+    # ifwt3d (the facade's 3D reverse) db4 256^3 and ifwt2d_sharded 2048^2
+    # before and after K7, in turns (before, after, after, before): before
+    # runs the same calls with the 1D inverse they reach set back to the
+    # butterflies, device time (the spin) and wall
+    from jwave_tpu_torch import api as jt_api
+    from jwave_tpu_torch.parallel import sharded as par_sharded
+
+    def ifwt_butterflies(y, wavelet, level=None):
+        fb_b = jt.get_filter(wavelet)
+        n_b = y.shape[-1]
+        lv = n_b.bit_length() - 1 if level is None else level
+        return synthesis_levels(y, fb_b.rec_lo, fb_b.rec_hi,
+                                cuda_pyramid.levels_done(n_b, fb_b.transform_wavelength, lv),
+                                fb_b.recon_gain)
+
+    def before(fn):
+        def run():
+            saved = jt_api.ifwt, par_sharded._PASSES["ifwt"]
+            jt_api.ifwt = par_sharded._PASSES["ifwt"] = ifwt_butterflies
+            try:
+                return fn()
+            finally:
+                jt_api.ifwt, par_sharded._PASSES["ifwt"] = saved
+        return run
+
+    vol_c = fwt3_out[torch.float32].full_tensor()
+    for label, fn in (("ifwt3d db4 256^3 (the facade's 3D reverse)",
+                       lambda: fwt_f.reverse(vol_c)),
+                      ("ifwt2d_sharded db4 L6 2048^2 (one rank)",
+                       lambda: par.ifwt2d_sharded(fwt2_out[torch.float32], "db4", mesh, 6, 6))):
+        old_fn = before(fn)
+        compare(f"{label}: after against before", full(fn()), full(old_fn()), F32_BOUND)
+        b1, a1 = median_ms(old_fn, 10, device=True), median_ms(fn, 10, device=True)
+        a2, b2 = median_ms(fn, 10, device=True), median_ms(old_fn, 10, device=True)
+        print(json.dumps({"time": f"{label}, before (butterflies) and after (K7)",
+                          "before_ms": (b1 + b2) / 2, "after_ms": (a1 + a2) / 2,
+                          "before_wall_ms": median_ms(old_fn, 10),
+                          "after_wall_ms": median_ms(fn, 10), "card": card}), flush=True)
+    del vol_c
     sep_ms = median_ms(lambda: ndim.reverse_2d(lambda v, lvl: jt.ifwt(v, "db4", lvl), ximg, 6, 6))
     dense_ms = median_ms(lambda: cuda_reassign.reassign_dense_torch(contrib, k_idx, 64))
     for label, shape, ms in (
@@ -1785,11 +1916,12 @@ def main() -> int:
     # The least time the card could take for each kernel's work at the timed
     # shape: the larger of the bytes it must move (each input read once, each
     # output written once) over 3.35 TB/s and its FLOPs over the 67 TFLOP/s
-    # float32 rate (H100 SXM data sheet, at 700 W). All six are bound by
+    # float32 rate (H100 SXM data sheet, at 700 W). All seven are bound by
     # bytes. K1/K2: 64x65536 in, 64x6x65536 out (or the reverse), 2M FMAs
-    # per sample and level; K3: 64x65536 in and out, ~2N*M FMAs a row; K4/K5
-    # one pass: 2048^2 in and out, the same FMAs per row; K6: the complex64
-    # contributions and int32 bins in, the complex64 plane out, 2 adds each.
+    # per sample and level; K3 and K7: 64x65536 in and out, ~2N*M FMAs a row;
+    # K4/K5 one pass: 2048^2 in and out, the same FMAs per row; K6: the
+    # complex64 contributions and int32 bins in, the complex64 plane out, 2
+    # adds each.
     hbm, f32_rate = 3.35e12, 67e12
     b, n_s, lv, m8 = 64, 65536, 5, 8
     work = {"K1": (4 * b * n_s * (lv + 2), 2 * 2 * m8 * b * n_s * lv),
@@ -1798,7 +1930,8 @@ def main() -> int:
             "K4": (2 * 4 * 2048 * 2048, 2 * 2 * 2048 * m8 * 2048),
             "K5": (2 * 4 * 2048 * 2048, 2 * 2 * 2048 * m8 * 2048),
             "K6": (contrib.numel() * (8 + 4) + 8 * 64 * contrib.shape[-1] * 8,
-                   2 * contrib.numel())}
+                   2 * contrib.numel()),
+            "K7": (2 * 4 * b * n_s, 2 * 2 * n_s * m8 * b)}
     bounds = {}
     for k, (nbytes, flops) in work.items():
         t_bytes, t_ops = nbytes / hbm * 1e3, flops / f32_rate * 1e3
@@ -1812,6 +1945,8 @@ def main() -> int:
         ("K4 pyramid_rows_transposed", "pyramid.cu", "jwave_tpu/ops/pallas_pyramid.py:141"),
         ("K5 ipyramid_rows_transposed", "pyramid.cu", "jwave_tpu/ops/pallas_pyramid.py:538"),
         ("K6 reassign", "reassign.cu", "jwave_tpu/ops/pallas_reassign.py:29"),
+        # no pallas_call: the counterpart of the XLA/MXU fused inverse pyramid
+        ("K7 ipyramid_rows", "pyramid.cu", "jwave_tpu/ops/mxu_pyramid.py:159"),
     ]
     kernels = []
     for (name, src, replaces) in table:
@@ -1842,6 +1977,7 @@ BENCH_KERNELS = {
     "K3": ("fwt1d_db4_L8", "fwt1d_db4_L8_256x16K_pallas", "fwt3d_db4_L4_256", "pallas_smoke"),
     "K4": ("fwt2d_db4_L6_2048", "fwt2d_db4_L6_2048_bf16dial"),
     "K6": ("ssq_cwt_64scales_8x64K",),
+    "K7": ("pallas_smoke",),
 }
 #: the sweep's lines: its three sections, then the card's rows
 SWEEP_KEYS = ("modwt_sweep_us", "wpt_sweep", "cwt_sweep", "fwt1d_db4_L8_conv_us",

@@ -12,8 +12,8 @@ two lines: the ``details`` of every row so far, then the compact headline
 (MODWT db4 L5 throughput against ``BASELINE_MODWT_MSAMPLES``, the
 reference's Java figure) last. ``--sweep`` runs :func:`sweep`, the
 reference's performance-test sweeps; ``--pallas-smoke`` runs
-:func:`pallas_smoke`, which in the port proves the CUDA kernels K1-K3 (the
-JAX flag's name is kept). Everything runs on the card unless ``--device``
+:func:`pallas_smoke`, which in the port proves the CUDA kernels K1-K3 and K7
+(the JAX flag's name is kept). Everything runs on the card unless ``--device``
 names another; without a card the run exits 1 with torch's error.
 
 Each row records, beside ``bench.py``'s throughput key:
@@ -26,7 +26,7 @@ Each row records, beside ``bench.py``'s throughput key:
 - ``host_syncs``: the host's waits for the stream in one warm call, counted
   by torch's sync debug mode. Above 0, the spin cannot keep the host ahead,
   and ``ms`` includes the host's gaps (``device_ms_includes_host_waits``);
-- ``launches``: launches of K1-K6 in one warm call;
+- ``launches``: launches of K1-K7 in one warm call;
 - ``err``: max |error| of the float32 call against the same call in float64
   on the same device, relative to max |ref| (for several outputs, the
   largest), beside its ``bound``.
@@ -118,7 +118,7 @@ def _card_name(dev: torch.device) -> str:
 
 
 def _build(dev: torch.device):
-    """Compile K1-K6 (one nvcc per source, all at once) before any row, and
+    """Compile K1-K7 (one nvcc per source, all at once) before any row, and
     print the seconds on their own line; a failure is printed and left to
     the rows that need the kernels."""
     if dev.type != "cuda":
@@ -539,10 +539,11 @@ def pallas_smoke(device="cuda") -> dict:
     """The kernels' proof on the card, as bench.py's Pallas smoke: db4 on a
     pinned 8 x 1024 float32 input, MODWT L3 through K1 (``method=PALLAS``)
     against cuFFT (``method=FFT``), K2's round trip, ``method=MXU`` (K1
-    again in the port) and ``ifwt(fwt(., L6))`` with ``fwt`` on K3, and a
-    content hash of the coefficients as bench.py computes it. ``ok`` only
-    when every error is below 1e-4 and, on the card, K1, K2 and K3 were
-    launched (their launch counts are in the result)."""
+    again in the port) and ``ifwt(fwt(., L6))`` with ``fwt`` on K3 and
+    ``ifwt`` on K7, and a content hash of the coefficients as bench.py
+    computes it. ``ok`` only when every error is below 1e-4 and, on the
+    card, K1, K2, K3 and K7 were launched (their launch counts are in the
+    result)."""
     dev = _device(device)
     m = jt.ConvolutionMethod
     rng = np.random.default_rng(1234)
@@ -563,11 +564,11 @@ def pallas_smoke(device="cuda") -> dict:
            "mxu_err_vs_fft": err(mxu, want), "mxu_fwt_roundtrip_err": err(fwt_rt, x)}
     ok = all(v < 1e-4 for v in res.values())
     if dev.type == "cuda":
-        ok = ok and launches["K1"] >= 2 and launches["K2"] >= 1 and launches["K3"] >= 1
+        ok = ok and launches["K1"] >= 2 and all(launches[k] >= 1 for k in ("K2", "K3", "K7"))
     digest = hashlib.sha256(np.round(c.astype(np.float64), 4).tobytes()).hexdigest()[:16]
     return {"ok": bool(ok), **res, "sha256_coeffs_r4": digest, "shape": [8, 1024],
             "wavelet": "db4", "level": 3,
-            "launches": {k: launches[k] for k in ("K1", "K2", "K3")}}
+            "launches": {k: launches[k] for k in ("K1", "K2", "K3", "K7")}}
 
 
 def sweep(shapes=None, device="cuda"):

@@ -1,4 +1,5 @@
-// K3 and K4: the whole FWT pyramid along each row, for Hopper (sm_90a).
+// K3 and K4: the whole FWT pyramid along each row, for Hopper (sm_90a); K5
+// and K7 its inverse.
 //
 // Replaces: jwave_tpu/ops/pallas_pyramid.py::_pyramid_rows_kernel_flat (K3,
 // in-place rows, output (R, N)) and ::_pyramid_rows_kernel (K4, the same
@@ -10,7 +11,9 @@
 // giving the in-place layout [A_L | D_L | ... | D_1]. K4 takes a `gain` that
 // scales each level's a and d as they are made (so the level-l details carry
 // gain^l): with the synthesis filters and recon_gain it is K5's adjoint, the
-// backward of ifwt2d. K3 runs with gain 1.
+// backward of ifwt2d. K3 takes its gain folded into the taps by the host
+// (ops/cuda_pyramid.py::_gained_taps), the same scaling: with K7's filters
+// and gain it is K7's adjoint, and K7 with K3's is K3's.
 //
 // Bound on this card: bytes. The pyramid does about 4M FMAs per sample in
 // all (2M at level 1, halving after), against one read and one write of the
@@ -126,6 +129,57 @@
 // than a plain copy of the same bytes (chip_smoke.py prints both).
 // The TPU kernel's folded dense head, split a/d matmuls, tail roll and
 // chunked contractions were MXU and Mosaic needs and are not carried over.
+//
+// K7 replaces jwave_tpu/ops/mxu_pyramid.py::fwt_inverse_fused (:159, no
+// pallas_call: XLA matmuls; ifwt routes there at transforms/fwt.py:111-112,
+// and fwt1d_fused's VJP at pallas_pyramid.py:460-470 is its linear
+// transpose): the inverse pyramid of each row in place, output (R, N), any
+// power-of-two N, K5's arithmetic with the gain folded into the taps. Per
+// row, for heads h = N >> (L-1), ..., N, on a = y[:h/2], d = y[h/2:h]:
+//   x[2c + q] = sum_t (lo[2t+q] a[(c-t) mod h/2] + hi[2t+q] d[(c-t) mod h/2])
+// for q = 0, 1; x overwrites y[:h].
+// Bound on this card: bytes, as for K3 (64 x 65536 f32 read once and written
+// once: 33.5 MB, 10 us at 3.35 TB/s; ~4M FMAs a sample). JAX's dense head
+// matrix and split matmuls exist for the MXU and are not carried over.
+// Design: one launch, no dependence between blocks. A block owns `tile`
+// output samples of one row (8192, as K3's tiles; its start a multiple of
+// it). Synthesis reads (c - t), to the left, so the block's dependency cone
+// R_l at level l (head h_l) is half of R_{l-1} and at most ceil(M/2) + 5
+// samples more, its ends rounded out to multiples of 4, or the whole head
+// once it would cover it (then read circularly): at 64 x 65536 db4 L8,
+// 4104, 2060, ..., 44 samples of A_8, about 8.3K floats of cones for an
+// 8192-sample tile.
+// The host mirrors the plan (ops/cuda_pyramid.py::k7_plan, k7_cones;
+// ipyramid_rows_tiled_torch runs the same partition on the CPU).
+//  - Every cone (A_L's, then each level's details from the coarsest down) is
+//    staged by bulk copies at its start's offset mod 16 (stage_segment, as
+//    K1 and K3 do), each on its own mbarrier, before any arithmetic, so the
+//    coarse levels start while the finest details still arrive. A cone's
+//    ends are multiples of 4 samples, so that on rows of 16-byte aligned
+//    starts the piece after a wrap is a bulk copy too, not plain loads
+//    (cones rounded to even left the first tile of each row to load most
+//    of every wrapped cone plainly, and were measurably slower).
+//  - The levels run from the coarsest up in shared memory, K5's pair routine
+//    without the transposed store: a thread takes pairs (2c, 2c+1) from the
+//    same a[c - t], d[c - t] with the even and the odd taps; db4's taps sit
+//    in registers. Each level writes the buffer of its parity (the even and
+//    the odd levels' outputs alternate), so no level reads where it writes:
+//    one barrier a level.
+//  - The last level stores its pairs straight to the output row, 8 bytes a
+//    thread, neighbours adjacent.
+//  - Rows of one tile or less run one block a row, every cone its whole
+//    head (N = 2, 4, Battle 23's partial levels, 62-tap banks on short
+//    rows), which is a slice of the row: such a block stages its row by one
+//    bulk copy on one mbarrier, as K3's tail kernel does (per-level cones,
+//    each on its own mbarrier, took about twice as long on rows of 256).
+//    Rows of any length take one launch, since a cone stays about
+//    2(ceil(M/2) + 1) samples however deep the levels go. 59 KB a block at
+//    db4 L8: three blocks an SM, 512 blocks at 64 x 65536.
+// Issuing every bulk copy before any plain load was slower on this card at
+// every tile tried, waiting on every barrier before the first level too,
+// and unrolling the pair loop changed nothing; tiles of 4096 took about as
+// long as 8192. The time is in the levels, not the bytes: chip_smoke.py
+// times K7 at 1, 2, 4 and 8 levels and Haar's one tap pair beside db4.
 #include <cuda_runtime.h>
 
 #include "async_copy.cuh"
@@ -618,6 +672,187 @@ ipyramid_rows_t_kernel(const float* __restrict__ src, float* __restrict__ out,
   }
 }
 
+// ---- K7: the inverse pyramid in place, one block a tile of the output.
+// Mirrored by ops/cuda_pyramid.py (k7_plan, _k7_layout, k7_cones). ----
+constexpr int kK7Threads = 256;
+constexpr int kK7Bars = 32;    // one mbarrier for A_L and one a level: levels < kK7Bars
+constexpr int kK7Meta = 36;    // ints of each table of a block's cones (indices 0 .. 33)
+// shared floats before the stages: the taps, the mbarriers, four tables of ints
+constexpr int kK7Head = 2 * kMaxTaps + 2 * kK7Bars + 4 * kK7Meta;
+
+// B_{l+1} from B_l: the most samples of the cone one level coarser, on a
+// head of 2 * half (its ends rounded out to multiples of 4 add at most 6)
+__host__ __device__ inline int k7_bound_next(int b, int half, int mh) {
+  return min(half, (b / 2 + mh + 5) & ~3);
+}
+
+// Floats of a K7 block's shared memory: the head; a stage for each level's
+// details D_l over the cone of level l + 1 (bound B_{l+1}), then for A_L
+// over the cone of level L + 1, or, where the tile is the whole row, one
+// stage of the row; the buffers of the outputs of the even and the odd
+// levels 2..L (their largest bound each).
+__host__ __device__ inline int k7_floats(int n, int tile, int levels, int m) {
+  const int mh = (m + 1) / 2;
+  int b = tile, stages = 0, even = 0, odd = 0;
+  for (int l = 1; l <= levels; ++l) {
+    if (l >= 2) {
+      if (l & 1) odd = max(odd, b);
+      else even = max(even, b);
+    }
+    b = k7_bound_next(b, n >> l, mh);
+    stages += k3_stage_floats(b);
+  }
+  stages = tile == n ? k3_stage_floats(n) : stages + k3_stage_floats(b);
+  return kK7Head + stages + round4(even) + round4(odd);
+}
+
+// One synthesis level: the output pairs (2c, 2c+1), c = c0 + p for p <
+// npairs, from a[i] and d[i] at i = (c - t - sin) & mask, t < mh (the cone
+// of the coarser level starts at sin; mask is half - 1 where that cone is
+// its whole head, so i wraps, else -1); the even output takes the even
+// taps, the odd one the odd taps (zero past m), the gain folded in. The
+// pair goes to x[2p], x[2p + 1] as one float2. MH > 0 is mh known at compile
+// time (db4: 4), the taps then in registers.
+template <int MH>
+__device__ __forceinline__ void k7_level(const float* a, const float* d, float* x, int c0,
+                                         int npairs, int sin, int mask, int mh,
+                                         const float* lo, const float* hi) {
+  if constexpr (MH > 0) {
+    float le[MH], lod[MH], he[MH], hod[MH];
+#pragma unroll
+    for (int t = 0; t < MH; ++t) {
+      le[t] = lo[2 * t], lod[t] = lo[2 * t + 1], he[t] = hi[2 * t], hod[t] = hi[2 * t + 1];
+    }
+    for (int p = threadIdx.x; p < npairs; p += blockDim.x) {
+      const int c = c0 + p - sin;
+      float x0 = 0.f, x1 = 0.f;
+#pragma unroll
+      for (int t = 0; t < MH; ++t) {
+        const int i = (c - t) & mask;
+        const float av = a[i], dv = d[i];
+        x0 = fmaf(he[t], dv, fmaf(le[t], av, x0));
+        x1 = fmaf(hod[t], dv, fmaf(lod[t], av, x1));
+      }
+      *reinterpret_cast<float2*>(x + 2 * p) = make_float2(x0, x1);
+    }
+  } else {
+    for (int p = threadIdx.x; p < npairs; p += blockDim.x) {
+      const int c = c0 + p - sin;
+      float x0 = 0.f, x1 = 0.f;
+      for (int t = 0; t < mh; ++t) {
+        const int i = (c - t) & mask;
+        const float av = a[i], dv = d[i];
+        x0 = fmaf(hi[2 * t], dv, fmaf(lo[2 * t], av, x0));
+        x1 = fmaf(hi[2 * t + 1], dv, fmaf(lo[2 * t + 1], av, x1));
+      }
+      *reinterpret_cast<float2*>(x + 2 * p) = make_float2(x0, x1);
+    }
+  }
+}
+
+// K7: one block per (row, tile) of rows of n samples; the block writes
+// out[t0, t0 + tile) of its row from its dependency cone. Level l (head
+// h = n >> (l-1), l = levels .. 1) makes the outputs of its cone R_l =
+// [s_l, s_l + n_l) (unwrapped; mod h) from R_{l+1} of A (the level above's
+// outputs) and of D_l = src[h/2, h); R_1 is the tile. See the header.
+template <int MH>
+__global__ void __launch_bounds__(kK7Threads)
+ipyramid_tile_kernel(const float* __restrict__ src, float* __restrict__ out,
+                     const float* __restrict__ taps, int n, int tile, int levels, int m) {
+  extern __shared__ __align__(16) float smem[];
+  float* lo = smem;
+  float* hi = smem + kMaxTaps;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + 2 * kMaxTaps);
+  // the cones: cs[l], cn[l], cf[l] R_l's start, count and whether it is its
+  // whole head (l = 1 .. levels + 1); coff[l] D_l's stage, coff[0] A_L's,
+  // coff[kK7Bars], coff[kK7Bars + 1] the buffers of the even and odd levels
+  int* cs = reinterpret_cast<int*>(smem + 2 * kMaxTaps + 2 * kK7Bars);
+  int* cn = cs + kK7Meta;
+  int* cf = cn + kK7Meta;
+  int* coff = cf + kK7Meta;
+  const int tiles = n / tile;
+  const long long r = blockIdx.x / tiles;
+  const int ti = blockIdx.x - (int)(r * tiles);
+  const float* row = src + r * n;
+  const int mh = (m + 1) / 2;
+  // a tile that is the whole row: every cone is its whole head, a slice of
+  // the row, which is staged once (coff[0])
+  const bool whole = tile == n;
+  if (threadIdx.x == 0) {
+    for (int l = 0; l <= (whole ? 0 : levels); ++l) jw::mbar_init(bars + l);
+    int s = ti * tile, cnt = tile, b = tile, f = kK7Head, even = 0, odd = 0;
+    cs[1] = s, cn[1] = cnt, cf[1] = whole;
+    for (int l = 1; l <= levels; ++l) {
+      if (l >= 2) {
+        if (l & 1) odd = max(odd, b);
+        else even = max(even, b);
+      }
+      // R_{l+1}: the inputs of pairs [s/2, s/2 + cnt/2) of head n >> (l-1)
+      // reach back mh - 1 samples; its ends rounded out to multiples of 4,
+      // so that a cone that wraps has its second piece 16-byte aligned too
+      const int half = n >> l;
+      const int u = s >> 1;
+      const int st = (u - (mh - 1)) & ~3, en = (u + cnt / 2 + 3) & ~3;
+      if (en - st >= half) s = 0, cnt = half;
+      else s = st, cnt = en - st;
+      cs[l + 1] = s, cn[l + 1] = cnt, cf[l + 1] = cnt == half;
+      b = k7_bound_next(b, half, mh);
+      coff[l] = f;
+      f += k3_stage_floats(b);
+    }
+    coff[0] = whole ? kK7Head : f;
+    f = whole ? kK7Head + k3_stage_floats(n) : f + k3_stage_floats(b);
+    coff[kK7Bars] = f;
+    coff[kK7Bars + 1] = f + round4(even);
+  }
+  load_taps(taps, m, lo, hi);  // its __syncthreads publishes the barriers and the cones
+  // each cone's samples, by bulk copies at their start's offset mod 16 (one
+  // a wrapped piece, the ragged rest by plain loads), the coarsest first
+  auto stage = [&](int l) -> float* {  // A_L (l = 0) or D_l
+    const int half = l ? n >> l : n >> levels;
+    if (whole)
+      return jw::stage_for(reinterpret_cast<unsigned char*>(smem + coff[0]), row) + (l ? half : 0);
+    const float* g = l ? row + half : row;
+    const int c = l ? l + 1 : levels + 1;
+    return jw::stage_for(reinterpret_cast<unsigned char*>(smem + coff[l]), g + (cs[c] & (half - 1)));
+  };
+  if (whole) {
+    jw::stage_segment(stage(0), row, 0, n, n, bars);
+  } else {
+    for (int k = 0; k <= levels; ++k) {
+      const int l = k ? levels + 1 - k : 0;  // A_L, then D_L .. D_1
+      const int half = l ? n >> l : n >> levels;
+      const int c = l ? l + 1 : levels + 1;
+      jw::stage_segment(stage(l), l ? row + half : row, cs[c] & (half - 1), cn[c], half,
+                        bars + l);
+    }
+  }
+  __syncthreads();  // the plain-loaded parts
+  const float* a = stage(0);
+  float* orow = out + r * n;
+  for (int l = levels; l >= 1; --l) {
+    if (l == levels) jw::mbar_wait(bars, 0);
+    if (!whole) jw::mbar_wait(bars + l, 0);
+    const int half = n >> l;
+    float* x = l == 1 ? orow + cs[1] : smem + coff[kK7Bars + (l & 1)];
+    k7_level<MH>(a, stage(l), x, cs[l] >> 1, cn[l] >> 1, cs[l + 1], cf[l + 1] ? half - 1 : -1,
+                 mh, lo, hi);
+    if (l > 1) __syncthreads();
+    a = x;
+  }
+}
+
+template <int MH>
+int launch_k7(const float* src, float* out, const float* taps, int rows, int n, int tile,
+              int levels, int m, int threads, cudaStream_t stream) {
+  const int smem = k7_floats(n, tile, levels, m) * (int)sizeof(float);
+  auto kern = ipyramid_tile_kernel<MH>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<(unsigned)rows * (n / tile), threads, smem, stream>>>(src, out, taps, n, tile, levels, m);
+  return (int)cudaGetLastError();
+}
+
 template <int MT>
 int launch_k3_tile(const float* src, long long src_stride, float* out, long long out_stride,
                    float* a_out, long long a_stride, const float* taps, int rows, int h, int tile,
@@ -668,6 +903,20 @@ int jw_pyramid_tail(const void* src, long long src_stride, void* out, long long 
   pyramid_tail_kernel<<<rows, threads, smem, (cudaStream_t)stream>>>(
       (const float*)src, src_stride, (float*)out, out_stride, (const float*)taps, h, levels, m);
   return (int)cudaGetLastError();
+}
+
+// K7: `levels` synthesis levels (1 .. kK7Bars - 1) of each row of (rows, n),
+// into out, one block a tile of `tile` samples (a power of two dividing n);
+// the gain is folded into the taps; db4's 8 taps unroll at compile time.
+int jw_ipyramid_tile(const void* src, void* out, const void* taps, int rows, int n, int tile,
+                     int levels, int m, int threads, void* stream) {
+  cudaGetLastError();
+  if (levels < 1 || levels >= kK7Bars || (n >> levels) < 1 || tile < 2 || tile > n ||
+      n % tile || threads > kK7Threads || m < 1 || m > kMaxTaps)
+    return (int)cudaErrorInvalidValue;
+  auto fn = m == 8 ? launch_k7<4> : launch_k7<0>;
+  return fn((const float*)src, (float*)out, (const float*)taps, rows, n, tile, levels, m,
+            threads, (cudaStream_t)stream);
 }
 
 int jw_pyramid_rows_t(const void* src, void* out, const void* taps, int rows, int n,

@@ -1,5 +1,5 @@
 """Torch primitives (butterfly, circular convolutions) and the hand-written
-CUDA kernels K1-K6 with their plain versions. Importing this package builds
+CUDA kernels K1-K7 with their plain versions. Importing this package builds
 no kernel."""
 from . import cuda_modwt, cuda_pyramid, cuda_reassign
 from .butterfly import butterfly_forward, butterfly_reverse, ensure_float
@@ -26,10 +26,11 @@ def reset_launch_counts():
 
 
 def launch_counts() -> dict:
-    """Launches of K1-K6 since the last :func:`reset_launch_counts`."""
+    """Launches of K1-K7 since the last :func:`reset_launch_counts`."""
     return {"K1": cuda_modwt.launch_counts["modwt_cascade"],
             "K2": cuda_modwt.launch_counts["imodwt_cascade"],
             "K3": cuda_pyramid.launch_counts["pyramid_rows"],
             "K4": cuda_pyramid.launch_counts["pyramid_rows_transposed"],
             "K5": cuda_pyramid.launch_counts["ipyramid_rows_transposed"],
-            "K6": cuda_reassign.launch_counts["reassign"]}
+            "K6": cuda_reassign.launch_counts["reassign"],
+            "K7": cuda_pyramid.launch_counts["ipyramid_rows"]}

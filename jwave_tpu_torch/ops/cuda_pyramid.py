@@ -1,20 +1,24 @@
-"""K3/K4/K5: the fused FWT pyramid and its inverse (``csrc/pyramid.cu``),
+"""K3/K4/K5/K7: the fused FWT pyramid and its inverse (``csrc/pyramid.cu``),
 with plain versions.
 
 Replaces ``jwave_tpu/ops/pallas_pyramid.py`` ``_pyramid_rows_kernel_flat``
 (K3: the pyramid along each row, in place, output (R, N)),
 ``_pyramid_rows_kernel`` (K4: the same with each row stored transposed,
 output (N, R)) and ``_ipyramid_rows_kernel`` (K5: the inverse pyramid of
-each row, stored transposed, output (N, R)). Per row, for each of
+each row, stored transposed, output (N, R)); and, with no ``pallas_call``
+behind it, ``jwave_tpu/ops/mxu_pyramid.py`` ``fwt_inverse_fused`` (K7: the
+inverse pyramid of each row, in place, output (R, N)). Per row, for each of
 ``levels`` levels on the head h:
 
     a[i] = sum_j x[(2i+j) mod h] dec_lo[j],  d[i] = sum_j x[(2i+j) mod h] dec_hi[j]
 
 ``d`` goes to ``out[h/2:h]``, the head becomes ``a``, and the last ``a``
 goes to ``out[:h]``: the layout ``[A_L | D_L | ... | D_1]``. ``levels`` is
-the number of levels actually done (:func:`levels_done`). K5 undoes them
-from the smallest head up, each level the synthesis butterfly of
-``ops/butterfly.py`` scaled by the bank's ``recon_gain``.
+the number of levels actually done (:func:`levels_done`). K5 and K7 undo
+them from the smallest head up, each level the synthesis butterfly of
+``ops/butterfly.py`` scaled by the bank's ``recon_gain``. K3 and K7 take a
+``gain`` folded into the taps on the host (the float64 product, then
+float32): K3 scales each level's a and d by it, K7 each level's outputs.
 
 The wrappers launch the kernels for CUDA tensors and take the plain
 versions only for tensors on the CPU. Each wrapper goes through a
@@ -22,9 +26,10 @@ versions only for tensors on the CPU. Each wrapper goes through a
 adjoint (for K4 and K5 the other wrapper, so a backward on the card
 launches a kernel and counts as its launch):
 
-* K3's adjoint is ``ops/butterfly.synthesis_levels`` with the analysis
-  filters and gain 1 (no kernel: K5's staged rows stop at 16384 samples,
-  K3 runs rows of any length);
+* K3 with a pair of filters and a gain and K7 with the same pair and gain
+  are each other's adjoint (a synthesis level is the transpose of the
+  analysis level with the same filters), so K3's backward is K7 and K7's
+  is K3, on rows of any length;
 * one K4 pass is T P (P the pyramid, T the transpose), so its adjoint
   P^T T is K5 with the same filters and gain on the transposed gradient,
   transposed back; one K5 pass likewise takes K4 with K5's filters as the
@@ -40,15 +45,15 @@ import ctypes
 import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..exceptions import JWaveFailure
 from . import cuda_build
-from .butterfly import synthesis_levels
 
 #: launches of each kernel since the last :func:`reset_launch_counts`
 launch_counts = {"pyramid_rows": 0, "pyramid_rows_transposed": 0,
-                 "ipyramid_rows_transposed": 0}
+                 "ipyramid_rows_transposed": 0, "ipyramid_rows": 0}
 
 MAX_TAPS = 64
 #: K3's plan (``csrc/pyramid.cu``): level-0 samples a tile block owns (two
@@ -68,6 +73,14 @@ K5_THREADS = 512
 K5_MAX_ROWS_PER_BLOCK = 8
 K5_ROW_FLOATS = 16384
 K5_PAIRS = 8
+#: K7's plan (``csrc/pyramid.cu`` kK7*): output samples a block owns, at
+#: most 256 threads, one mbarrier a level and one for A_L (so at most 31
+#: levels), the shared floats before the stages, and what a block may use
+K7_TILE = 8192
+K7_THREADS = 256
+K7_BARS = 32
+K7_HEAD = 2 * MAX_TAPS + 2 * K7_BARS + 4 * 36
+SMEM_LIMIT = 227 * 1024
 
 
 def reset_launch_counts():
@@ -188,6 +201,72 @@ def ipyramid_rows_transposed_torch(y: torch.Tensor, rec_lo, rec_hi, recon_gain: 
     return ipyramid_rows_torch(y, rec_lo, rec_hi, recon_gain, levels).transpose(0, 1).contiguous()
 
 
+def k7_cones(n: int, levels: int, m: int, tile: int, t0: int) -> list:
+    """The dependency cones of K7's block that owns output samples
+    [t0, t0 + tile) (``csrc/pyramid.cu`` ipyramid_tile_kernel): entry l - 1
+    is (start, count, whole) of R_l, the outputs of level l (head
+    n >> (l-1)) the block makes, for l = 1 .. levels + 1; R_1 is the tile,
+    R_{levels+1} the part of A_L it reads. The pairs (2c, 2c+1) of R_l read
+    the samples c - t, t < ceil(m/2), of R_{l+1}; its ends are rounded out
+    to multiples of 4 (16 bytes), and a cone that would cover its head is
+    the whole head."""
+    mh = (m + 1) // 2
+    s, cnt = t0, tile
+    out = [(s, cnt, tile == n)]
+    for l in range(1, levels + 1):
+        half = n >> l
+        u = s >> 1
+        st, en = (u - (mh - 1)) & ~3, (u + cnt // 2 + 3) & ~3
+        s, cnt = (0, half) if en - st >= half else (st, en - st)
+        out.append((s, cnt, cnt == half))
+    return out
+
+
+def ipyramid_rows_tiled_torch(y: torch.Tensor, rec_lo, rec_hi, recon_gain: float,
+                              levels: int, plan: "K7Plan") -> torch.Tensor:
+    """:func:`ipyramid_rows_torch` computed as K7's blocks partition it (for
+    the tests: the cone arithmetic has no other CPU check). Each tile of
+    ``plan.tile`` output samples stages its cones (:func:`k7_cones`: A_L
+    and each level's details, mod their heads, each within its bound in
+    ``plan.cone``) and runs the levels from the coarsest up on them alone,
+    a whole-head cone read circularly; an index outside a staged cone
+    raises."""
+    if levels == 0:
+        return y.clone()
+    n, m = y.shape[-1], len(rec_lo)
+    mh = (m + 1) // 2
+    lo = np.zeros(2 * mh)
+    hi = np.zeros(2 * mh)
+    lo[:m], hi[:m] = np.asarray(rec_lo) * recon_gain, np.asarray(rec_hi) * recon_gain
+    out = torch.empty_like(y)
+
+    def stage(base, half, s, cnt):
+        return y[..., base + (s + torch.arange(cnt, device=y.device)) % half]
+
+    for ti in range(n // plan.tile):
+        cones = k7_cones(n, levels, m, plan.tile, ti * plan.tile)
+        if any(c[1] > b for c, b in zip(cones[1:], plan.cone)):
+            raise IndexError(f"a cone outgrows its bound: {cones} {plan.cone}")
+        a = stage(0, n >> levels, *cones[levels][:2])
+        for l in range(levels, 0, -1):
+            half = n >> l
+            s_in, c_in, whole = cones[l]
+            d = stage(half, half, s_in, c_in)
+            s_out, c_out, _ = cones[l - 1]
+            c = s_out // 2 + torch.arange(c_out // 2, device=y.device)
+            x0 = torch.zeros_like(a[..., :c_out // 2])
+            x1 = torch.zeros_like(x0)
+            for t in range(mh):
+                i = (c - t) % half if whole else c - t - s_in
+                if int(i.min()) < 0 or int(i.max()) >= c_in:
+                    raise IndexError(f"level {l} reads outside its staged cone")
+                x0 = x0 + lo[2 * t] * a[..., i] + hi[2 * t] * d[..., i]
+                x1 = x1 + lo[2 * t + 1] * a[..., i] + hi[2 * t + 1] * d[..., i]
+            a = torch.stack([x0, x1], dim=-1).reshape(x0.shape[:-1] + (c_out,))
+        out[..., ti * plan.tile:(ti + 1) * plan.tile] = a
+    return out
+
+
 # ----------------------------------------------------------------------------
 # kernel wrappers
 # ----------------------------------------------------------------------------
@@ -285,7 +364,15 @@ def _k3_counters(device, stream: int, rows: int) -> torch.Tensor:
     return buf
 
 
-def _k3(x: torch.Tensor, dec_lo, dec_hi, levels: int, plan: K3Plan | None = None) -> torch.Tensor:
+def _gained_taps(f1, f2, gain: float, device) -> torch.Tensor:
+    """The filters [f1 | f2] times ``gain`` (in float64, then float32) on
+    ``device``: K3 and K7 take their gain in the taps."""
+    return cuda_build.device_taps(np.asarray(f1, np.float64) * gain,
+                                  np.asarray(f2, np.float64) * gain, device)
+
+
+def _k3(x: torch.Tensor, dec_lo, dec_hi, levels: int, plan: K3Plan | None = None,
+        gain: float = 1.0) -> torch.Tensor:
     """K3 on the card. Heads longer than ``K3_TAIL_HEAD`` lose their leading
     levels to tiled passes (:func:`k3_plan`; ``plan`` overrides the first
     one's), each passing the approximation on through a scratch row; a pass
@@ -293,7 +380,7 @@ def _k3(x: torch.Tensor, dec_lo, dec_hi, levels: int, plan: K3Plan | None = None
     in the same launch. Shorter rows run in the tail kernel, one block a
     row. One launch at 64 x 65536."""
     if x.device.type == "cpu":
-        return pyramid_rows_torch(x, dec_lo, dec_hi, levels)
+        return pyramid_rows_torch(x, dec_lo, dec_hi, levels, gain)
     _check(x, dec_lo, dec_hi, levels, "pyramid_rows")
     r, n = x.shape
     out = torch.empty_like(x)
@@ -303,7 +390,7 @@ def _k3(x: torch.Tensor, dec_lo, dec_hi, levels: int, plan: K3Plan | None = None
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     tile_fn = _fn(lib, "jw_pyramid_tile", [p, ll, p, ll, p, ll, p, i, i, i, i, i, p, i, i, p])
     tail_fn = _fn(lib, "jw_pyramid_tail", [p, ll, p, ll, p, i, i, i, i, i, p])
-    taps = cuda_build.device_taps(dec_lo, dec_hi, x.device)
+    taps = _gained_taps(dec_lo, dec_hi, gain, x.device)
     stream = cuda_build.stream_handle(x.device)
     m = len(dec_lo)
     src, head, left = x, n, levels
@@ -338,18 +425,117 @@ def _k3(x: torch.Tensor, dec_lo, dec_hi, levels: int, plan: K3Plan | None = None
 
 class _PyramidRows(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, dec_lo, dec_hi, levels):
-        ctx.args = (dec_lo, dec_hi, levels)
-        return _k3(x, dec_lo, dec_hi, levels)
+    def forward(ctx, x, dec_lo, dec_hi, levels, gain):
+        ctx.args = (dec_lo, dec_hi, gain, levels)
+        return _k3(x, dec_lo, dec_hi, levels, gain=gain)
 
     @staticmethod
     def backward(ctx, g):
-        return synthesis_levels(g.contiguous(), *ctx.args), None, None, None
+        return ipyramid_rows(g.contiguous(), *ctx.args), None, None, None, None
 
 
-def pyramid_rows(x: torch.Tensor, dec_lo, dec_hi, levels: int) -> torch.Tensor:
-    """K3: the pyramid along each row of (R, N) f32, output (R, N)."""
-    return _PyramidRows.apply(x, dec_lo, dec_hi, levels)
+def pyramid_rows(x: torch.Tensor, dec_lo, dec_hi, levels: int,
+                 gain: float = 1.0) -> torch.Tensor:
+    """K3: the pyramid along each row of (R, N) f32, output (R, N); each
+    level's a and d scaled by ``gain``."""
+    return _PyramidRows.apply(x, dec_lo, dec_hi, levels, gain)
+
+
+class K7Plan(NamedTuple):
+    """K7's blocks: ``tile`` output samples a block, ``cone`` the bounds
+    B_2 .. B_{L+1} of the cones R_2 .. R_{L+1} of every block
+    (:func:`k7_cones`), and the block's shared bytes."""
+
+    tile: int
+    cone: tuple
+    smem_bytes: int
+
+
+def _k7_layout(n: int, tile: int, levels: int, m: int) -> tuple:
+    """(the bounds B_2 .. B_{L+1}, a K7 block's shared floats), as
+    ``csrc/pyramid.cu`` k7_floats counts them: the head (taps, mbarriers,
+    the cone tables); a stage of round4(B_{l+1}) + 4 floats for each level's
+    details and one for A_L (B_{L+1}), or, where the tile is the whole row,
+    one of round4(n) + 4 for the row; the buffers of the even and of the odd
+    levels' outputs, round4 of the largest B_l of each (l = 2 .. L; level 1
+    stores to the output)."""
+    mh = (m + 1) // 2
+    b, stages, even, odd, bounds = tile, 0, 0, 0, []
+    for l in range(1, levels + 1):
+        if l >= 2:
+            if l & 1:
+                odd = max(odd, b)
+            else:
+                even = max(even, b)
+        b = min(n >> l, (b // 2 + mh + 5) & ~3)
+        bounds.append(b)
+        stages += _round4(b) + 4
+    stages = _round4(n) + 4 if tile == n else stages + _round4(b) + 4
+    return tuple(bounds), K7_HEAD + stages + _round4(even) + _round4(odd)
+
+
+@functools.lru_cache(maxsize=None)
+def k7_plan(n: int, levels: int, m: int, tile: int = K7_TILE) -> K7Plan:
+    """K7's plan for rows of ``n``: ``min(n, tile)`` output samples a block.
+    A cone R_{l+1} holds at most half of R_l and ceil(m/2) + 5 samples
+    (B_{l+1}, a multiple of 4), and at most its head, so the stages of a
+    block sum to about the tile and ``levels`` halos of ceil(m/2) + 5
+    whatever the row length. A row of one tile is staged whole (its cones
+    are its heads)."""
+    t = min(n, tile)
+    cone, floats = _k7_layout(n, t, levels, m)
+    return K7Plan(t, cone, 4 * floats)
+
+
+def _k7(y: torch.Tensor, rec_lo, rec_hi, recon_gain: float, levels: int,
+        plan: K7Plan | None = None) -> torch.Tensor:
+    """K7 on the card: one launch, one block per tile of each row
+    (:func:`k7_plan`; ``plan`` overrides it). With no level it copies."""
+    if y.device.type == "cpu":
+        return ipyramid_rows_torch(y, rec_lo, rec_hi, recon_gain, levels)
+    _check(y, rec_lo, rec_hi, levels, "ipyramid_rows")
+    r, n = y.shape
+    if levels == 0:
+        return y.clone()
+    if levels >= K7_BARS:
+        raise JWaveFailure(f"ipyramid_rows - {levels} levels exceed the kernel's {K7_BARS - 1}")
+    plan = plan or k7_plan(n, levels, len(rec_lo))
+    if plan.smem_bytes > SMEM_LIMIT:
+        raise JWaveFailure(f"ipyramid_rows - a block of {plan.smem_bytes} shared bytes exceeds "
+                           f"the card's {SMEM_LIMIT}")
+    if r * (n // plan.tile) >= 2**31:
+        raise JWaveFailure(f"ipyramid_rows - {r} rows of {n} exceed one launch")
+    out = torch.empty_like(y)
+    if r == 0:
+        return out
+    lib = cuda_build.library("pyramid")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = _fn(lib, "jw_ipyramid_tile", [p, p, p, i, i, i, i, i, i, p])
+    taps = _gained_taps(rec_lo, rec_hi, recon_gain, y.device)
+    threads = min(K7_THREADS, max(32, plan.tile // 2))
+    err = fn(y.data_ptr(), out.data_ptr(), taps.data_ptr(), r, n, plan.tile, levels,
+             len(rec_lo), threads, cuda_build.stream_handle(y.device))
+    cuda_build.check(lib, err, "ipyramid_rows")
+    launch_counts["ipyramid_rows"] += 1
+    return out
+
+
+class _IPyramidRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, rec_lo, rec_hi, recon_gain, levels):
+        ctx.args = (rec_lo, rec_hi, levels, recon_gain)
+        return _k7(y, rec_lo, rec_hi, recon_gain, levels)
+
+    @staticmethod
+    def backward(ctx, g):
+        return pyramid_rows(g.contiguous(), *ctx.args), None, None, None, None
+
+
+def ipyramid_rows(y: torch.Tensor, rec_lo, rec_hi, recon_gain: float,
+                  levels: int) -> torch.Tensor:
+    """K7: the inverse pyramid along each row of (R, N) f32, output (R, N);
+    each level's outputs scaled by ``recon_gain``."""
+    return _IPyramidRows.apply(y, rec_lo, rec_hi, recon_gain, levels)
 
 
 def k4_rows_per_block(n: int) -> int:

@@ -6,10 +6,11 @@ rewrites the shrinking head ``h = N, N/2, ..`` of one array, producing the
 in-place layout ``[A_L | D_L | D_{L-1} | ... | D_1]``.
 
 Routing: a CUDA float32 tensor goes to the fused pyramid kernels, K3 for
-``fwt`` (``ops.cuda_pyramid.pyramid_rows``), K4 twice for a 2D ``fwt2d``
-(``pyramid_rows_transposed``) and K5 twice for a 2D ``ifwt2d``
-(``ipyramid_rows_transposed``). Everything else, and the 1D inverse, run
-the level loop over the torch butterfly.
+``fwt`` (``ops.cuda_pyramid.pyramid_rows``), K7 for ``ifwt``
+(``ipyramid_rows``; each the other's backward), K4 twice for a 2D
+``fwt2d`` (``pyramid_rows_transposed``) and K5 twice for a 2D ``ifwt2d``
+(``ipyramid_rows_transposed``). Everything else (the CPU, float64, bf16,
+f16) runs the level loop over the torch butterfly.
 """
 from __future__ import annotations
 
@@ -92,6 +93,10 @@ def ifwt(y, wavelet, level: int | None = None):
     # reference's h = tw << (steps - level) is right only for tw == 2; for
     # Battle 23, tw = 8, its partial-level inverse would do nothing)
     done = cuda_pyramid.levels_done(n, fb.transform_wavelength, level)
+    if done > 0 and _on_kernel(y):
+        flat = y.reshape(-1, n).contiguous()
+        return cuda_pyramid.ipyramid_rows(flat, fb.rec_lo, fb.rec_hi, fb.recon_gain,
+                                          done).reshape(y.shape)
     return synthesis_levels(y, fb.rec_lo, fb.rec_hi, done, fb.recon_gain)
 
 

@@ -25,7 +25,6 @@ import jax.numpy as jnp  # noqa: E402
 import jwave_tpu as jw  # noqa: E402
 import jwave_tpu_torch as jt  # noqa: E402
 from jwave_tpu_torch.ops import cuda_modwt, cuda_pyramid  # noqa: E402
-from jwave_tpu_torch.ops.butterfly import synthesis_levels  # noqa: E402
 from jwave_tpu_torch.transforms.modwt import _modwt_base_filters  # noqa: E402
 
 from torch_parity import assert_close  # noqa: E402
@@ -116,7 +115,7 @@ def test_k1_k2_adjoint_identity(wavelet, n, level, rng):
 @pytest.mark.parametrize("which", ["K3", "K4", "K5"])
 def test_pyramid_adjoint_identities(which, wavelet, rng):
     """<P x, y> = <x, P^T y> for each pyramid operator and the backward route
-    its Function takes (K3: the synthesis butterflies; K4: K5; K5: K4)."""
+    its Function takes (K3: K7 with the analysis filters, gain 1; K4: K5; K5: K4)."""
     fb = jt.get_filter(wavelet)
     r, n = 5, 64
     done = cuda_pyramid.levels_done(n, fb.transform_wavelength, 4)
@@ -124,7 +123,7 @@ def test_pyramid_adjoint_identities(which, wavelet, rng):
     if which == "K3":
         y = _t(rng.standard_normal((r, n)))
         lhs = _dot(cuda_pyramid.pyramid_rows(x, fb.dec_lo, fb.dec_hi, done), y)
-        rhs = _dot(x, synthesis_levels(y, fb.dec_lo, fb.dec_hi, done))
+        rhs = _dot(x, cuda_pyramid.ipyramid_rows(y, fb.dec_lo, fb.dec_hi, 1.0, done))
     elif which == "K4":
         y = _t(rng.standard_normal((n, r)))
         lhs = _dot(cuda_pyramid.pyramid_rows_transposed(x, fb.dec_lo, fb.dec_hi, done), y)

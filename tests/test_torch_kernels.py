@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernels K1-K6 of jwave_tpu_torch.
+"""The hand-written CUDA kernels K1-K7 of jwave_tpu_torch.
 
 Tests marked ``cuda`` build and launch the kernels and hold them against
 their plain torch versions (run in float64 on the same input); they need a
@@ -7,7 +7,8 @@ CUDA card and skip without one. Run them on the card with
     python -m pytest tests/test_torch_kernels.py -m cuda --noconftest -o addopts=''
 
 The other tests check, on any machine, what surrounds the kernels: the
-level grouping of K1/K2, K3's tile plan and its tiling run in plain torch,
+level grouping of K1/K2, K3's tile plan and its tiling run in plain torch
+(K7's are in tests/test_torch_ipyramid.py),
 the row blocking of K4/K5, K6's shared bytes, the build's error on a
 missing compiler, that CPU tensors take the plain versions, and (where JAX
 is installed) the plain versions of K5/K6 and K6's gradient against the
@@ -21,6 +22,7 @@ torch.set_num_threads(2)
 
 import jwave_tpu_torch as jt  # noqa: E402
 from jwave_tpu_torch.ops import cuda_build, cuda_modwt, cuda_pyramid, cuda_reassign  # noqa: E402
+from jwave_tpu_torch.ops.butterfly import synthesis_levels  # noqa: E402
 from jwave_tpu_torch.transforms.modwt import _modwt_base_filters  # noqa: E402
 
 F32_BOUND = 1e-5   # f32 storage, f32 accumulation in another order than the plain version
@@ -205,6 +207,130 @@ def test_k3_counters_are_zero_again_after_a_launch(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("wavelet,shape,levels,gain", [
+    ("Haar orthogonal", (16, 4096), 12, 0.5), ("db4", (64, 65536), 8, 2.0),
+    ("Discrete Meyer", (8, 65536), 8, 0.75),
+])
+def test_k3_gain_matches_plain(cuda, wavelet, shape, levels, gain):
+    """K3 with a gain folded into its taps: each level's a and d scaled."""
+    fb = jt.get_filter(wavelet)
+    x = torch.as_tensor(np.random.default_rng(15).standard_normal(shape), dtype=torch.float32,
+                        device=cuda)
+    got = cuda_pyramid.pyramid_rows(x, fb.rec_lo, fb.rec_hi, levels, gain)
+    torch.cuda.synchronize()
+    ref = cuda_pyramid.pyramid_rows_torch(x.double(), fb.rec_lo, fb.rec_hi, levels, gain)
+    assert _rel_err(got, ref) <= F32_BOUND
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,wavelet,level", [
+    ((64, 65536), "db4", 8), ((64, 65536), "db4", 16), ((16, 4096), "sym8", 6),
+    ((8, 1024), "Battle 23", 10), ((256, 1024), "Battle 23", 8), ((8, 4096), "Haar", 12),
+    ((16, 4096), "Haar orthogonal", 12),  # recon_gain 0.5 folded into the taps
+    ((64, 65536), "Discrete Meyer", 8),   # 62 taps: halos of 32 a level
+    ((2, 1 << 22), "db4", 22),            # rows of 2^22: 512 tiles, cones of 10 samples deep down
+    ((1, 65536), "sym8", 3), ((133, 16384), "db4", 14), ((133, 8), "db4", 3),
+    ((3, 65536), "db4", 1), ((5, 2), "Haar", 1), ((5, 4), "db4", 2),
+])
+def test_k7_matches_plain(cuda, shape, wavelet, level):
+    fb = jt.get_filter(wavelet)
+    y = torch.as_tensor(np.random.default_rng(16).standard_normal(shape), dtype=torch.float32,
+                        device=cuda)
+    done = cuda_pyramid.levels_done(shape[1], fb.transform_wavelength, level)
+    before = cuda_pyramid.launch_counts["ipyramid_rows"]
+    torch.full(shape, float("nan"), device=cuda)  # an element left unstored shows
+    x = cuda_pyramid.ipyramid_rows(y, fb.rec_lo, fb.rec_hi, fb.recon_gain, done)
+    torch.cuda.synchronize()
+    ref = cuda_pyramid.ipyramid_rows_torch(y.double(), fb.rec_lo, fb.rec_hi, fb.recon_gain, done)
+    assert bool(torch.isfinite(x).all())
+    assert _rel_err(x, ref) <= F32_BOUND
+    assert cuda_pyramid.launch_counts["ipyramid_rows"] == before + 1  # one launch a call
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 4, 8])
+@pytest.mark.parametrize("wavelet", ["Haar", "db4"])
+def test_k7_short_rows_every_level(cuda, n, wavelet):
+    """Rows of one tile whose heads are shorter than the filter: every cone
+    is its whole head, read circularly; no level, no launch."""
+    fb = jt.get_filter(wavelet)
+    y = torch.as_tensor(np.random.default_rng(17).standard_normal((5, n)), dtype=torch.float32,
+                        device=cuda)
+    for levels in range(n.bit_length()):
+        before = cuda_pyramid.launch_counts["ipyramid_rows"]
+        x = cuda_pyramid.ipyramid_rows(y, fb.rec_lo, fb.rec_hi, 1.0, levels)
+        torch.cuda.synchronize()
+        ref = cuda_pyramid.ipyramid_rows_torch(y.double(), fb.rec_lo, fb.rec_hi, 1.0, levels)
+        assert _rel_err(x, ref) <= F32_BOUND, levels
+        assert cuda_pyramid.launch_counts["ipyramid_rows"] == before + (levels > 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,wavelet,levels,tile", [
+    ((6, 64), "db4", 6, 16),               # cones that wrap at every level
+    ((6, 256), "Discrete Meyer", 8, 2),    # tiles of 2 samples, 62 taps
+    ((6, 8192), "Haar", 13, 4),
+    ((6, 8192), "sym8", 9, 1024),
+    ((3, 65536), "db4", 8, 4096), ((3, 65536), "db4", 8, 16384),
+])
+def test_k7_forced_plans(cuda, shape, wavelet, levels, tile):
+    """Plans that :func:`k7_plan` does not choose at these sizes."""
+    fb = jt.get_filter(wavelet)
+    y = torch.as_tensor(np.random.default_rng(18).standard_normal(shape), dtype=torch.float32,
+                        device=cuda)
+    plan = cuda_pyramid.k7_plan(shape[1], levels, len(fb.rec_lo), tile)
+    x = cuda_pyramid._k7(y, fb.rec_lo, fb.rec_hi, 1.0, levels, plan)
+    torch.cuda.synchronize()
+    ref = cuda_pyramid.ipyramid_rows_torch(y.double(), fb.rec_lo, fb.rec_hi, 1.0, levels)
+    assert _rel_err(x, ref) <= F32_BOUND
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_k7_source_off_16_byte_alignment(cuda, offset):
+    """A source 4, 8 or 12 bytes off: each cone is staged at its start's
+    offset mod 16, its ragged edges by plain loads."""
+    fb = jt.get_filter("db4")
+    shape = (32, 16384)
+    y = torch.empty(shape[0] * shape[1] + offset, dtype=torch.float32,
+                    device=cuda)[offset:].view(shape)
+    y.copy_(torch.as_tensor(np.random.default_rng(19).standard_normal(shape)))
+    x = cuda_pyramid.ipyramid_rows(y, fb.rec_lo, fb.rec_hi, 1.0, 9)
+    torch.cuda.synchronize()
+    ref = cuda_pyramid.ipyramid_rows_torch(y.double(), fb.rec_lo, fb.rec_hi, 1.0, 9)
+    assert _rel_err(x, ref) <= F32_BOUND
+
+
+@pytest.mark.cuda
+def test_inverse_fwt_paths_route_through_k7(cuda):
+    """ifwt, the facade's reverse (1D and 3D), fwt_recompose, the in-place
+    reverse and an ifwt2d that K5 does not take (rows of 32768) launch K7,
+    never K5, and invert fwt."""
+    x = torch.as_tensor(np.random.default_rng(20).standard_normal((8, 4096)), dtype=torch.float32,
+                        device=cuda)
+    t = jt.TransformBuilder.create("Fast Wavelet Transform", "db4", device="cuda")
+    vol = x.reshape(8, 64, 64).contiguous()
+    wide = x.reshape(1, 32768).expand(4, -1).contiguous()
+    calls = {
+        "ifwt": (lambda: jt.ifwt(jt.fwt(x, "db4"), "db4"), x, 1),
+        "reverse": (lambda: t.get_basic_transform().reverse(t.get_basic_transform().forward(x)),
+                    x, 1),
+        "3D reverse": (lambda: t.reverse(t.forward(vol)), vol, 3),
+        "fwt_recompose": (lambda: jt.fwt_recompose(jt.fwt_decompose(x, "db4"), "db4"), x, 1),
+        "reverse_in_place": (lambda: jt.InPlaceFastWaveletTransform("db4").reverse_in_place(
+            jt.fwt(x, "db4")), x, 1),
+        "ifwt2d 4x32768": (lambda: jt.ifwt2d(jt.fwt2d(wide, "db4"), "db4"), wide, 2),
+    }
+    for label, (fn, want, k7) in calls.items():
+        cuda_pyramid.reset_launch_counts()
+        got = fn()
+        torch.cuda.synchronize()
+        assert cuda_pyramid.launch_counts["ipyramid_rows"] == k7, label
+        assert cuda_pyramid.launch_counts["ipyramid_rows_transposed"] == 0, label
+        assert _rel_err(got, want) <= F32_BOUND, label
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape,wavelet,level,gain,offset", [
     ((2048, 2048), "db4", 6, 1.0, 0), ((512, 1024), "Haar", 3, 1.0, 0),
     ((64, 16384), "sym8", 4, 1.0, 0),
@@ -246,7 +372,7 @@ def test_main_path_routes_through_the_kernels(cuda):
     assert rows.is_cuda and img.is_cuda
     assert cuda_modwt.launch_counts == {"modwt_cascade": 1, "imodwt_cascade": 1}
     assert cuda_pyramid.launch_counts == {"pyramid_rows": 1, "pyramid_rows_transposed": 2,
-                                          "ipyramid_rows_transposed": 0}
+                                          "ipyramid_rows_transposed": 0, "ipyramid_rows": 0}
 
 
 def _grad_of(fn, x, w):
@@ -275,7 +401,13 @@ def _routes(op, wavelet, shape, levels):
     if op == "fwt":
         return (lambda a: jt.fwt(a, wavelet, levels),
                 lambda a: cuda_pyramid.pyramid_rows(a, fb.dec_lo, fb.dec_hi,
-                                                    done(shape[1], levels)), None)
+                                                    done(shape[1], levels)),
+                (cuda_pyramid, "ipyramid_rows"))
+    if op == "ifwt":
+        return (lambda a: jt.ifwt(a, wavelet, levels),
+                lambda a: cuda_pyramid.ipyramid_rows(a, fb.rec_lo, fb.rec_hi, fb.recon_gain,
+                                                     done(shape[1], levels)),
+                (cuda_pyramid, "pyramid_rows"))
     lr, lc = levels
     if op == "fwt2d":
         def plain(a):
@@ -297,27 +429,30 @@ def _routes(op, wavelet, shape, levels):
 @pytest.mark.parametrize("op,wavelet,shape,levels", [
     ("modwt", "db4", (8, 4096), 5), ("modwt", "Haar", (4, 8192), 13),
     ("imodwt", "db4", (8, 6, 4096), 5), ("fwt", "db4", (8, 65536), 8),
-    ("fwt", "Battle 23", (8, 1024), 10), ("fwt2d", "db4", (256, 1024), (3, 5)),
+    ("fwt", "Battle 23", (8, 1024), 10), ("ifwt", "db4", (8, 65536), 8),
+    ("ifwt", "Haar orthogonal", (8, 4096), 12), ("ifwt", "Battle 23", (8, 1024), 10),
+    ("fwt2d", "db4", (256, 1024), (3, 5)),
     ("fwt2d", "Haar orthogonal", (128, 64), (5, 2)), ("ifwt2d", "db4", (256, 1024), (3, 5)),
     ("ifwt2d", "Haar orthogonal", (256, 256), (6, 6)),
 ])
 def test_kernel_gradients_match_plain(cuda, op, wavelet, shape, levels):
-    """Gradients of the entry points through K1-K5 on CUDA f32 against the
-    same operators on the plain versions in float64; bound 1e-5 of max|ref|.
-    The backward launches the adjoint kernel: modwt's K2, imodwt's K1,
-    fwt2d's K5, ifwt2d's K4 (fwt's adjoint is the plain butterflies)."""
+    """Gradients of the entry points through K1-K5 and K7 on CUDA f32 against
+    the same operators on the plain versions in float64; bound 1e-5 of
+    max|ref|. The backward launches the adjoint kernel: modwt's K2, imodwt's
+    K1, fwt's K7, ifwt's K3, fwt2d's K5, ifwt2d's K4."""
     rng = np.random.default_rng(4)
     entry, plain, launched = _routes(op, wavelet, shape, levels)
     x = torch.tensor(rng.standard_normal(shape))
     with torch.no_grad():
         w = torch.tensor(rng.standard_normal(tuple(plain(x).shape)))
-    before = launched[0].launch_counts[launched[1]] if launched else 0
-    g = _grad_of(entry, x.to(cuda, torch.float32), w.to(cuda, torch.float32))
+    xc, wc = x.to(cuda, torch.float32).requires_grad_(), w.to(cuda, torch.float32)
+    loss = (entry(xc) * wc).sum()
+    before = launched[0].launch_counts[launched[1]]
+    (g,) = torch.autograd.grad(loss, xc)
     torch.cuda.synchronize()
     assert g.is_cuda and g.dtype == torch.float32 and tuple(g.shape) == shape
     assert _rel_err(g.cpu(), _grad_of(plain, x, w)) <= F32_BOUND
-    if launched:
-        assert launched[0].launch_counts[launched[1]] >= before + 1
+    assert launched[0].launch_counts[launched[1]] >= before + 1  # in the backward alone
 
 
 @pytest.mark.cuda
@@ -462,13 +597,15 @@ def test_ssq_and_ifwt2d_route_through_k5_k6(cuda):
 
 @pytest.mark.cuda
 def test_convolutions_are_true_float32_by_default(cuda):
-    """With no call to the dial, a cuDNN path (ifwt) agrees with float64 to
-    1e-5: TF32's 10-bit mantissa would miss by orders of magnitude."""
+    """With no call to the dial, a cuDNN path (the synthesis butterflies that
+    ifwt takes where K7 does not) agrees with float64 to 1e-5: TF32's 10-bit
+    mantissa would miss by orders of magnitude."""
     assert jt.config.conv_precision() == "highest"
     y = torch.as_tensor(np.random.default_rng(0).standard_normal((8, 4096)), dtype=torch.float32,
                         device=cuda)
-    got = jt.ifwt(y, "db4", 8)
-    assert _rel_err(got, jt.ifwt(y.double(), "db4", 8)) <= F32_BOUND
+    fb = jt.get_filter("db4")
+    got = synthesis_levels(y, fb.rec_lo, fb.rec_hi, 8)
+    assert _rel_err(got, synthesis_levels(y.double(), fb.rec_lo, fb.rec_hi, 8)) <= F32_BOUND
 
 
 @pytest.mark.cuda
@@ -826,7 +963,7 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
     assert not list(tmp_path.glob("*.so"))
 
 
-@pytest.mark.parametrize("which", ["K1", "K2", "K3", "K4", "K5", "K6"])
+@pytest.mark.parametrize("which", ["K1", "K2", "K3", "K4", "K5", "K6", "K7"])
 def test_cpu_tensors_take_the_plain_version(which, rng):
     cuda_modwt.reset_launch_counts()
     cuda_pyramid.reset_launch_counts()
@@ -849,6 +986,9 @@ def test_cpu_tensors_take_the_plain_version(which, rng):
     elif which == "K5":
         got, want = (cuda_pyramid.ipyramid_rows_transposed(x, fb.rec_lo, fb.rec_hi, 1.0, 4),
                      cuda_pyramid.ipyramid_rows_transposed_torch(x, fb.rec_lo, fb.rec_hi, 1.0, 4))
+    elif which == "K7":
+        got, want = (cuda_pyramid.ipyramid_rows(x, fb.rec_lo, fb.rec_hi, 1.0, 4),
+                     cuda_pyramid.ipyramid_rows_torch(x, fb.rec_lo, fb.rec_hi, 1.0, 4))
     else:
         c = torch.complex(x, x.flip(-1))
         k = torch.tensor(rng.integers(-1, 6, (4, 256)), dtype=torch.int32)

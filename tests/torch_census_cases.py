@@ -1307,6 +1307,30 @@ case(name="card fwt unaligned long rows", file="card_1", kernel="K3",
      port=lambda m, i: i.jit(lambda v: m.fwt(v, "Symlet 8"))(_unaligned(i, 2, 16384)))
 
 
+def _ifwt_levels(m, i, x, bank, levels):
+    return {f"ifwt {lv}": i.jit(lambda v: m.ifwt(v, bank, lv))(x) for lv in levels}
+
+
+# K7 (ifwt on the card): levels 0 (no launch) and 1 on rows of 1, 2 and 4
+# samples (one block a row, every cone its whole head); an odd batch; Haar
+# orthogonal's gain at full depth; Battle 23 stopping at its transform
+# wavelength (levels 2 and 6 of 64 samples do 2 and 4); a source off
+# 16-byte alignment
+for _n in (1, 2, 4):
+    case(name=f"card ifwt N{_n} levels 0 and 1", file="card_2", kernel="K7" if _n > 1 else None,
+         card_dtypes=HALF, half_tol=CARD_TOL_HALF_LEVELS,
+         port=lambda m, i, n=_n: _ifwt_levels(m, i, i.x(3, n), "Daubechies 4",
+                                              (0, 1) if n > 1 else (0,)))
+for _name, _shape, _bank, _levels in (("odd batch", (5, 64), "Daubechies 4", (3,)),
+                                      ("Haar orthogonal", (3, 256), "Haar orthogonal", (8,)),
+                                      ("Battle 23 partial levels", (3, 64), "Battle 23", (2, 6))):
+    case(name=f"card ifwt {_name}", file="card_2", kernel="K7", card_dtypes=HALF,
+         half_tol=CARD_TOL_HALF_LEVELS,
+         port=lambda m, i, s=_shape, b=_bank, lv=_levels: _ifwt_levels(m, i, i.x(*s), b, lv))
+case(name="card ifwt unaligned source", file="card_2", kernel="K7",
+     port=lambda m, i: _ifwt_levels(m, i, _unaligned(i, 3, 64), "Symlet 8", (6,)))
+
+
 def _image(i, rows, cols, transposed):
     return i.x(cols, rows).T if transposed else i.x(rows, cols)
 
