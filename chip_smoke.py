@@ -25,8 +25,10 @@ it happened; any failed check ends the run with a non-zero exit:
    contributions and bin indices of a real ssq_cwt of the main signal, on 64
    bins and on 128, two bin chunks; K7 at 64 x 65536 db4 L8 and L16, 62
    taps, Haar orthogonal's gain, Battle 23's partial levels, rows of 1, 2
-   and 4 samples, odd batches, rows of 2^22 and a source off 16-byte
-   alignment).
+   and 4 samples, odd batches, rows of 2^22, a source off 16-byte
+   alignment, items of whole rows of 16, 256 and 2048 with a short last
+   one, and the persistent grid at 1, grid - 1 and grid + 1 items and with
+   some blocks taking one item more than others).
 4. main paths, each with the launch counts set to 0 just before it and read
    just after, all through the public entry points (numpy input goes to the
    card by default, tensors are made there):
@@ -107,7 +109,8 @@ it happened; any failed check ends the run with a non-zero exit:
    called by the port); a byte floor for each kernel (the same bytes, or
    for K6 a fifth more, moved by torch copies, or by K4/K5 with no level);
    K3 at a shape with a tail and K6 at 128 bins; K7 at 1, 2, 4 and 8
-   levels and Haar's at 8; fwt and ifwt (K7) at 64 x 65536, and the 1D inverse's route before K7 (the synthesis butterflies:
+   levels and Haar's at 8, on 65536 rows of 256, and its plans (blocks an
+   SM, grid, items a block); fwt and ifwt (K7) at 64 x 65536, and the 1D inverse's route before K7 (the synthesis butterflies:
    the sum of its kernels' times in a profiled call, and wall); ifwt3d db4
    256^3 and ifwt2d_sharded 2048^2 before and after K7, in turns; for context
    also the torch FFT path of the MODWT (cuFFT) and the separable ifwt2d
@@ -408,12 +411,32 @@ def main() -> int:
     ipyramid_case("16x4096 Haar orthogonal L12 (gain 0.5)", (16, 4096), "Haar orthogonal", 12)
     ipyramid_case("256x1024 Battle 23 L8 (partial levels)", (256, 1024), "Battle 23", 8)
     for n_k7 in (1, 2, 4):
-        ipyramid_case(f"5x{n_k7} db4, all its levels (one block a row)", (5, n_k7), "db4", 8)
+        ipyramid_case(f"5x{n_k7} db4, all its levels (one short item of whole rows)", (5, n_k7),
+                      "db4", 8)
     ipyramid_case("7x1024 sym8 L10 (odd batch)", (7, 1024), "sym8", 10)
     ipyramid_case("133x8 db4 L3 (odd batch of short rows)", (133, 8), "db4", 3)
     ipyramid_case("2x4194304 db4 L22 (rows of 2^22)", (2, 1 << 22), "db4", 22)
     ipyramid_case("32x16384 db4 L9 (a source 4 bytes off 16-byte alignment)", (32, 16384),
                   "db4", 9, 1)
+    # items of several whole rows (rows of 16, 256 and 2048), the last one
+    # short where the rows an item do not divide the batch; the persistent
+    # grid at 1 item, grid - 1 and grid + 1 (rows of one tile, one an item);
+    # tiles of rows of 65536 that leave some blocks one item more than others
+    for rows_k7, n_k7 in ((1001, 16), (65537, 256), (37, 2048)):
+        rb_k7 = cuda_pyramid.k7_plan(n_k7, n_k7.bit_length() - 1, 8).rows
+        ipyramid_case(f"{rows_k7}x{n_k7} db4 full depth ({rb_k7} rows an item, a last item of "
+                      f"{rows_k7 % rb_k7})", (rows_k7, n_k7), "db4", n_k7.bit_length() - 1)
+    n_t = cuda_pyramid.K7_TILE
+    lv_t = n_t.bit_length() - 1
+    grid_t = cuda_pyramid.k7_grid(dev, 1 << 20, n_t, lv_t, 8, cuda_pyramid.k7_plan(n_t, lv_t, 8))
+    for rows_k7 in (1, grid_t - 1, grid_t + 1):
+        ipyramid_case(f"{rows_k7}x{n_t} db4 L{lv_t} ({rows_k7} items on a grid of {grid_t})",
+                      (rows_k7, n_t), "db4", lv_t)
+    plan_t = cuda_pyramid.k7_plan(65536, 8, 8)
+    grid_t = cuda_pyramid.k7_grid(dev, 1 << 20, 65536, 8, 8, plan_t)
+    rows_k7 = grid_t // (65536 // plan_t.tile) + 1
+    ipyramid_case(f"{rows_k7}x65536 db4 L8 ({cuda_pyramid.k7_items(rows_k7, 65536, plan_t)} "
+                  f"items on a grid of {grid_t})", (rows_k7, 65536), "db4", 8)
 
     def fwt2d_case(label, shape, wavelet, level):
         fb = jt.get_filter(wavelet)
@@ -1669,6 +1692,27 @@ def main() -> int:
         x, fb_haar.rec_lo, fb_haar.rec_hi, 1.0, 8), device=True)
     print(json.dumps({"time": "K7 by levels, 64x65536 (device ms)", **k7_levels, "card": card}),
           flush=True)
+    # K7 on ifwt3d's rows (65536 of 256, db4 L8: whole rows, 32 an item),
+    # and the plans: a stage set's and a block's bytes, the blocks an SM
+    # holds (the occupancy calculator), the persistent grid, items a block
+    x256 = torch.as_tensor(np.random.default_rng(9).standard_normal((65536, 256)),
+                           dtype=torch.float32, device=dev)
+    print(json.dumps({"time": "K7 on 65536 rows of 256, db4 L8 (ifwt3d's rows)",
+                      "ms": median_ms(lambda: cuda_pyramid.ipyramid_rows(x256, rlo, rhi, 1.0, 8),
+                                      device=True),
+                      "bound_ms": 2 * 4 * x256.numel() / 3.35e12 * 1e3, "card": card}), flush=True)
+    del x256
+    for rows_p, n_p, lv_p in ((64, 65536, done8), (65536, 256, 8)):
+        plan_p = cuda_pyramid.k7_plan(n_p, lv_p, 8)
+        grid_p = cuda_pyramid.k7_grid(dev, rows_p, n_p, lv_p, 8, plan_p)
+        items_p = cuda_pyramid.k7_items(rows_p, n_p, plan_p)
+        print(json.dumps({"plan": f"K7 {rows_p}x{n_p} db4 L{lv_p}", **plan_p._asdict(),
+                          "blocks_per_sm": cuda_pyramid.k7_blocks_per_sm(
+                              torch.cuda.current_device(), n_p, lv_p, 8, plan_p),
+                          "sms": torch.cuda.get_device_properties(0).multi_processor_count,
+                          "grid": grid_p, "items": items_p,
+                          "items_a_block": [items_p // grid_p, -(-items_p // grid_p)]}),
+              flush=True)
     # K3 where its tiled levels leave a tail and K6 on two bin chunks
     for label, shape, fn in (
             ("K3 with a tail: fwt db4 L16 (8 tiled levels, a tail of 8, one launch)",

@@ -133,7 +133,7 @@
 // K7 replaces jwave_tpu/ops/mxu_pyramid.py::fwt_inverse_fused (:159, no
 // pallas_call: XLA matmuls; ifwt routes there at transforms/fwt.py:111-112,
 // and fwt1d_fused's VJP at pallas_pyramid.py:460-470 is its linear
-// transpose): the inverse pyramid of each row in place, output (R, N), any
+// transpose): the inverse pyramid of each row, output (R, N), any
 // power-of-two N, K5's arithmetic with the gain folded into the taps. Per
 // row, for heads h = N >> (L-1), ..., N, on a = y[:h/2], d = y[h/2:h]:
 //   x[2c + q] = sum_t (lo[2t+q] a[(c-t) mod h/2] + hi[2t+q] d[(c-t) mod h/2])
@@ -141,45 +141,57 @@
 // Bound on this card: bytes, as for K3 (64 x 65536 f32 read once and written
 // once: 33.5 MB, 10 us at 3.35 TB/s; ~4M FMAs a sample). JAX's dense head
 // matrix and split matmuls exist for the MXU and are not carried over.
-// Design: one launch, no dependence between blocks. A block owns `tile`
-// output samples of one row (8192, as K3's tiles; its start a multiple of
-// it). Synthesis reads (c - t), to the left, so the block's dependency cone
-// R_l at level l (head h_l) is half of R_{l-1} and at most ceil(M/2) + 5
-// samples more, its ends rounded out to multiples of 4, or the whole head
-// once it would cover it (then read circularly): at 64 x 65536 db4 L8,
-// 4104, 2060, ..., 44 samples of A_8, about 8.3K floats of cones for an
-// 8192-sample tile.
-// The host mirrors the plan (ops/cuda_pyramid.py::k7_plan, k7_cones;
-// ipyramid_rows_tiled_torch runs the same partition on the CPU).
-//  - Every cone (A_L's, then each level's details from the coarsest down) is
-//    staged by bulk copies at its start's offset mod 16 (stage_segment, as
-//    K1 and K3 do), each on its own mbarrier, before any arithmetic, so the
-//    coarse levels start while the finest details still arrive. A cone's
-//    ends are multiples of 4 samples, so that on rows of 16-byte aligned
-//    starts the piece after a wrap is a bulk copy too, not plain loads
-//    (cones rounded to even left the first tile of each row to load most
-//    of every wrapped cone plainly, and were measurably slower).
-//  - The levels run from the coarsest up in shared memory, K5's pair routine
-//    without the transposed store: a thread takes pairs (2c, 2c+1) from the
-//    same a[c - t], d[c - t] with the even and the odd taps; db4's taps sit
-//    in registers. Each level writes the buffer of its parity (the even and
-//    the odd levels' outputs alternate), so no level reads where it writes:
-//    one barrier a level.
-//  - The last level stores its pairs straight to the output row, 8 bytes a
-//    thread, neighbours adjacent.
-//  - Rows of one tile or less run one block a row, every cone its whole
-//    head (N = 2, 4, Battle 23's partial levels, 62-tap banks on short
-//    rows), which is a slice of the row: such a block stages its row by one
-//    bulk copy on one mbarrier, as K3's tail kernel does (per-level cones,
-//    each on its own mbarrier, took about twice as long on rows of 256).
-//    Rows of any length take one launch, since a cone stays about
-//    2(ceil(M/2) + 1) samples however deep the levels go. 59 KB a block at
-//    db4 L8: three blocks an SM, 512 blocks at 64 x 65536.
-// Issuing every bulk copy before any plain load was slower on this card at
-// every tile tried, waiting on every barrier before the first level too,
-// and unrolling the pair loop changed nothing; tiles of 4096 took about as
-// long as 8192. The time is in the levels, not the bytes: chip_smoke.py
-// times K7 at 1, 2, 4 and 8 levels and Haar's one tap pair beside db4.
+// Where the first design's time went (one block a tile of 8192, 512 blocks,
+// three an SM; a throwaway copy stamping %globaltimer and clock64 in each
+// block, PERF.md, section 6): at 64 x 65536 db4 L8 the 396 blocks of the first
+// wave waited 5.9 us for their cones, then spent 9.2 us in the levels with
+// no copy in flight, and the 116 of the second wave, starting at 14 us,
+// repeated both; a level cost ~0.4 us however few its pairs. The design:
+//  - Work items, one wave of persistent blocks. An item is a tile of 4096
+//    output samples of a row longer than that, with its dependency cone, or
+//    4096 / n whole rows of rows of at most that (16 rows of 256, 2 of 2048,
+//    2048 of 2), the last item shorter where they do not divide the batch;
+//    2048 for one level, which has no chain of levels to spread an item's
+//    set-up over. The host launches min(items, SMs x blocks an SM) blocks
+//    (the occupancy calculator's count, cached a plan: four an SM at 48 KB);
+//    block b takes items b, b + grid, ... in that order.
+//  - Cones. Synthesis reads (c - t), to the left, so the cone R_l at level l
+//    (head h_l) is half of R_{l-1} and at most ceil(M/2) + 10 samples more,
+//    its ends rounded out to multiples of 8 (so each level's pairs start and
+//    end on groups of four), or the whole head once it would cover it (then
+//    read circularly): 2056, 1040, ..., 32 samples of A_8 at db4 L8.
+//  - A producer warp, the block's last. Item k's cone tables and every stage
+//    of it (A_L's cone, then each level's details, coarsest first) go into
+//    stage set k & 1 by bulk copies (TMA) at the start's offset mod 16, the
+//    lanes plain-loading what is not 16-byte aligned on both sides, once the
+//    consumers have released item k - 2 there (an "empty" mbarrier); one
+//    "full" mbarrier a set takes the 32 lanes' arrivals and the bytes. So
+//    item k + 1's copies fly while item k computes. A compute thread issuing
+//    them held its block ~3.4 us an item: a bulk copy's issue waits for room
+//    in the memory system.
+//  - 64 compute threads run the levels from the coarsest up in shared
+//    memory, each level writing the buffer of its parity (even, odd), level
+//    1 storing to the output. The coarse levels, those of at most 64 groups
+//    of four pairs at the plan's bounds (levels 5-8 of db4 L8), run in warp
+//    0 alone with __syncwarp; one named barrier (the producer is not in it)
+//    follows each wide level.
+//  - A thread makes four consecutive pairs from windows of a and d read as
+//    float4s (the group's and, for db4, the one before it: two loads of each
+//    for four pairs, where a pair a thread read eight scalars), db4's and
+//    Haar's taps in registers, and writes its 8 outputs as two float4s.
+//    Other banks, heads shorter than 8 and unaligned sources take a pair a
+//    thread.
+//  - Rows of at most the tile: an item's rows lie together, so one bulk copy
+//    stages them, and each level runs over all of its rows at once (the pair
+//    index runs over rows x pairs): on 65536 rows of 256 (ifwt3d's) K7 takes
+//    a fifth of the time of the one-block-a-row design (PERF.md, section 6).
+// Left out, each slower at the main shape in A/B runs in turns on the card
+// (PERF.md, section 6): level 1 through a shared stage and a bulk store (its
+// 16 KB cost a block an SM); a coarse warp running item k + 1's coarse
+// levels while the others ran item k's wide ones (that one warp became the
+// slowest stage); the producer waiting for item k's copies to land before
+// issuing item k + 1's; tighter register caps for more blocks an SM. The
+// tile and the compute threads come from `tools/ab_times.py --k7-plans`.
 #include <cuda_runtime.h>
 
 #include "async_copy.cuh"
@@ -672,184 +684,430 @@ ipyramid_rows_t_kernel(const float* __restrict__ src, float* __restrict__ out,
   }
 }
 
-// ---- K7: the inverse pyramid in place, one block a tile of the output.
-// Mirrored by ops/cuda_pyramid.py (k7_plan, _k7_layout, k7_cones). ----
-constexpr int kK7Threads = 256;
-constexpr int kK7Bars = 32;    // one mbarrier for A_L and one a level: levels < kK7Bars
-constexpr int kK7Meta = 36;    // ints of each table of a block's cones (indices 0 .. 33)
-// shared floats before the stages: the taps, the mbarriers, four tables of ints
-constexpr int kK7Head = 2 * kMaxTaps + 2 * kK7Bars + 4 * kK7Meta;
+// ---- K7: the inverse pyramid in place, persistent blocks over work items.
+// Mirrored by ops/cuda_pyramid.py (k7_plan, _k7_layout, k7_cones,
+// ipyramid_rows_tiled_torch). ----
+constexpr int kK7MaxBlock = 256 + 32;  // at most 256 compute threads, and the producer warp
+constexpr int kK7MaxLevels = 31;
+constexpr int kK7Meta = 36;       // ints of each table (indices 0 .. kK7MaxLevels + 1)
+constexpr int kK7WarpUnits = 64;  // a level of at most this many work units runs in one warp
+// shared floats before the stage sets: the taps, each set's two mbarriers (it
+// is full, it is empty), the stage offsets within a set, and each set's three
+// cone tables
+constexpr int kK7Head = 2 * kMaxTaps + 2 * 2 * 2 + kK7Meta + 2 * 3 * kK7Meta;
 
 // B_{l+1} from B_l: the most samples of the cone one level coarser, on a
-// head of 2 * half (its ends rounded out to multiples of 4 add at most 6)
+// head of 2 * half. Its ends rounded out to multiples of 8 add at most 10
+// to b/2 + mh where R_l's ends are multiples of 8, 13 where R_1 is a tile
+// of 2 or 4 samples.
 __host__ __device__ inline int k7_bound_next(int b, int half, int mh) {
-  return min(half, (b / 2 + mh + 5) & ~3);
+  return min(half, (b / 2 + mh + (b < 8 ? 13 : 10)) & ~7);
 }
 
-// Floats of a K7 block's shared memory: the head; a stage for each level's
-// details D_l over the cone of level l + 1 (bound B_{l+1}), then for A_L
-// over the cone of level L + 1, or, where the tile is the whole row, one
-// stage of the row; the buffers of the outputs of the even and the odd
-// levels 2..L (their largest bound each).
-__host__ __device__ inline int k7_floats(int n, int tile, int levels, int m) {
+// The finest of the coarse levels: levels above the returned lw make at
+// most kK7WarpUnits work units at the plan's bounds (groups of four pairs
+// for the banks whose taps unroll, db4 and Haar, else pairs) and run in
+// warp 0 alone; lw .. 1 run in every compute thread.
+__host__ __device__ inline int k7_wide_levels(int n, int tile, int levels, int m) {
   const int mh = (m + 1) / 2;
-  int b = tile, stages = 0, even = 0, odd = 0;
+  const bool groups = m == 8 || m == 2;
+  int lw = 0;
+  for (int l = 1, b = tile; l <= levels; ++l) {
+    const int pairs = b >> 1;  // at most
+    if ((groups ? pairs / 4 : pairs) > kK7WarpUnits) lw = l;
+    b = n <= tile ? b / 2 : k7_bound_next(b, n >> l, mh);
+  }
+  return lw;
+}
+
+// Float offsets of a K7 block's shared memory. A stage set holds one work
+// item's inputs: where rows are longer than the tile, a stage for each
+// level's details D_l over the cone of level l + 1 (bound B_{l+1}, offsets
+// in the head's table), then one for A_L over the cone of level L + 1; where
+// a row is at most the tile, one stage of tile / n whole rows. Two sets,
+// then the buffers of the even and of the odd levels' outputs (2..L; their
+// largest bound each, or tile >> (l - 1) for whole rows); level 1 stores to
+// the output.
+struct K7Layout {
+  int set;    // floats of a stage set
+  int even;   // the even levels' buffer
+  int odd;    // the odd levels' buffer
+  int floats;
+};
+
+__host__ __device__ inline K7Layout k7_layout(int n, int tile, int levels, int m) {
+  const int mh = (m + 1) / 2;
+  const bool whole = n <= tile;
+  K7Layout L;
+  int b = tile, even = 0, odd = 0, stages = 0;
   for (int l = 1; l <= levels; ++l) {
     if (l >= 2) {
       if (l & 1) odd = max(odd, b);
       else even = max(even, b);
     }
-    b = k7_bound_next(b, n >> l, mh);
+    b = whole ? b / 2 : k7_bound_next(b, n >> l, mh);
     stages += k3_stage_floats(b);
   }
-  stages = tile == n ? k3_stage_floats(n) : stages + k3_stage_floats(b);
-  return kK7Head + stages + round4(even) + round4(odd);
+  L.set = whole ? k3_stage_floats(tile) : stages + k3_stage_floats(b);
+  L.even = kK7Head + 2 * L.set;
+  L.odd = L.even + round4(even);
+  L.floats = L.odd + round4(odd);
+  return L;
 }
 
-// One synthesis level: the output pairs (2c, 2c+1), c = c0 + p for p <
-// npairs, from a[i] and d[i] at i = (c - t - sin) & mask, t < mh (the cone
-// of the coarser level starts at sin; mask is half - 1 where that cone is
-// its whole head, so i wraps, else -1); the even output takes the even
-// taps, the odd one the odd taps (zero past m), the gain folded in. The
-// pair goes to x[2p], x[2p + 1] as one float2. MH > 0 is mh known at compile
-// time (db4: 4), the taps then in registers.
+// One synthesis level over the pairs (2c, 2c+1) of `rows` rows: pair p of
+// row q (p < npairs) reads a and d at i = (off + p - t) & mask, t < mh
+// (mask is half - 1 where a and d are whole heads, read circularly, else
+// -1), and writes x[2p], x[2p + 1]; rows lie as, ds and xs floats apart.
+struct K7Level {
+  const float* a;
+  const float* d;
+  float* x;
+  int as, ds, xs;
+  int rows, lg;  // lg: log2 of npairs for several rows, 30 for one
+  int npairs, off, mask, half;
+};
+
+// Whether a level runs in groups of four pairs: a thread reads a and d as
+// float4s at the group's start and (MH > 1) the float4 before it, mod the
+// head where it wraps, and writes 8 outputs as two float4s.
 template <int MH>
-__device__ __forceinline__ void k7_level(const float* a, const float* d, float* x, int c0,
-                                         int npairs, int sin, int mask, int mh,
-                                         const float* lo, const float* hi) {
-  if constexpr (MH > 0) {
-    float le[MH], lod[MH], he[MH], hod[MH];
+__device__ __forceinline__ bool k7_grouped(const K7Level& v) {
+  if (MH == 0) return false;
+  const uintptr_t al = reinterpret_cast<uintptr_t>(v.a) | reinterpret_cast<uintptr_t>(v.d) |
+                       reinterpret_cast<uintptr_t>(v.x);
+  return (al & 15) == 0 && ((v.as | v.ds | v.xs | v.npairs | v.off) & 3) == 0 &&
+         (v.mask == -1 || v.half >= 4);
+}
+
+// The taps of a known mh in registers: the even and odd synthesis taps of
+// each pair t < MH, read once a block.
+template <int MH>
+struct K7Taps {
+  static constexpr int R = MH > 0 ? MH : 1;
+  float le[R], lod[R], he[R], hod[R];
+  __device__ K7Taps(const float* lo, const float* hi) {
 #pragma unroll
-    for (int t = 0; t < MH; ++t) {
+    for (int t = 0; t < R; ++t)
       le[t] = lo[2 * t], lod[t] = lo[2 * t + 1], he[t] = hi[2 * t], hod[t] = hi[2 * t + 1];
+  }
+};
+
+// The level's outputs, by threads tid, tid + nthr, ...; the gain is folded
+// into the taps. MH > 0 is mh known at compile time (db4: 4, Haar: 1), the
+// taps then in registers (tp). Taps past m are zero.
+template <int MH>
+__device__ __forceinline__ void k7_level(const K7Level& v, int mh, const float* lo,
+                                         const float* hi, const K7Taps<MH>& tp, int tid,
+                                         int nthr) {
+  const float* le = tp.le;
+  const float* lod = tp.lod;
+  const float* he = tp.he;
+  const float* hod = tp.hod;
+  const int total = v.rows * v.npairs;
+  const int pmask = (1 << v.lg) - 1;
+  if (k7_grouped<MH>(v)) {
+    constexpr int W = MH > 1 ? 4 : 0;  // window samples before the group
+    static_assert(MH <= 5, "one float4 of window before the group");
+#pragma unroll 2
+    for (int g = 4 * tid; g < total; g += 4 * nthr) {
+      const int q = g >> v.lg, p = g & pmask;
+      const int i0 = v.off + p;  // a multiple of 4; below 0 only where a and d wrap
+      const float* ar = v.a + q * v.as;
+      const float* dr = v.d + q * v.ds;
+      float av[W + 4], dv[W + 4];
+      if constexpr (W > 0) {
+        const float4 wa = *reinterpret_cast<const float4*>(ar + ((i0 - 4) & v.mask));
+        const float4 wd = *reinterpret_cast<const float4*>(dr + ((i0 - 4) & v.mask));
+        av[0] = wa.x, av[1] = wa.y, av[2] = wa.z, av[3] = wa.w;
+        dv[0] = wd.x, dv[1] = wd.y, dv[2] = wd.z, dv[3] = wd.w;
+      }
+      const float4 ca = *reinterpret_cast<const float4*>(ar + (i0 & v.mask));
+      const float4 cd = *reinterpret_cast<const float4*>(dr + (i0 & v.mask));
+      av[W] = ca.x, av[W + 1] = ca.y, av[W + 2] = ca.z, av[W + 3] = ca.w;
+      dv[W] = cd.x, dv[W + 1] = cd.y, dv[W + 2] = cd.z, dv[W + 3] = cd.w;
+      float o[8];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float x0 = 0.f, x1 = 0.f;
+#pragma unroll
+        for (int t = 0; t < MH; ++t) {
+          x0 = fmaf(he[t], dv[W + j - t], fmaf(le[t], av[W + j - t], x0));
+          x1 = fmaf(hod[t], dv[W + j - t], fmaf(lod[t], av[W + j - t], x1));
+        }
+        o[2 * j] = x0, o[2 * j + 1] = x1;
+      }
+      float4* xr = reinterpret_cast<float4*>(v.x + q * v.xs + 2 * p);
+      xr[0] = make_float4(o[0], o[1], o[2], o[3]);
+      xr[1] = make_float4(o[4], o[5], o[6], o[7]);
     }
-    for (int p = threadIdx.x; p < npairs; p += blockDim.x) {
-      const int c = c0 + p - sin;
-      float x0 = 0.f, x1 = 0.f;
+    return;
+  }
+  for (int idx = tid; idx < total; idx += nthr) {
+    const int q = idx >> v.lg, p = idx & pmask;
+    const int c = v.off + p;
+    const float* ar = v.a + q * v.as;
+    const float* dr = v.d + q * v.ds;
+    float x0 = 0.f, x1 = 0.f;
+    if constexpr (MH > 0) {
 #pragma unroll
       for (int t = 0; t < MH; ++t) {
-        const int i = (c - t) & mask;
-        const float av = a[i], dv = d[i];
+        const int i = (c - t) & v.mask;
+        const float av = ar[i], dv = dr[i];
         x0 = fmaf(he[t], dv, fmaf(le[t], av, x0));
         x1 = fmaf(hod[t], dv, fmaf(lod[t], av, x1));
       }
-      *reinterpret_cast<float2*>(x + 2 * p) = make_float2(x0, x1);
-    }
-  } else {
-    for (int p = threadIdx.x; p < npairs; p += blockDim.x) {
-      const int c = c0 + p - sin;
-      float x0 = 0.f, x1 = 0.f;
+    } else {
       for (int t = 0; t < mh; ++t) {
-        const int i = (c - t) & mask;
-        const float av = a[i], dv = d[i];
+        const int i = (c - t) & v.mask;
+        const float av = ar[i], dv = dr[i];
         x0 = fmaf(hi[2 * t], dv, fmaf(lo[2 * t], av, x0));
         x1 = fmaf(hi[2 * t + 1], dv, fmaf(lo[2 * t + 1], av, x1));
       }
-      *reinterpret_cast<float2*>(x + 2 * p) = make_float2(x0, x1);
     }
+    *reinterpret_cast<float2*>(v.x + q * v.xs + 2 * p) = make_float2(x0, x1);
   }
 }
 
-// K7: one block per (row, tile) of rows of n samples; the block writes
-// out[t0, t0 + tile) of its row from its dependency cone. Level l (head
-// h = n >> (l-1), l = levels .. 1) makes the outputs of its cone R_l =
-// [s_l, s_l + n_l) (unwrapped; mod h) from R_{l+1} of A (the level above's
-// outputs) and of D_l = src[h/2, h); R_1 is the tile. See the header.
+// The producer warp's staging of samples [t0, t0 + cnt) mod n of `row` into
+// dst[0, cnt), as jw::stage_segment cuts it: pass 0, by every lane, loads
+// what is not 16-byte aligned on both sides and returns the bytes left to
+// the bulk copies; pass 1, by one lane, starts one bulk copy on `bar` per
+// aligned piece.
+__device__ uint32_t k7_stage(int pass, float* dst, const float* row, long long t0, int cnt,
+                             int n, uint64_t* bar, int lane) {
+  cnt = (cnt + 3) & ~3;  // whole 16 bytes: no plain-loaded tail where aligned
+  uint32_t bulk_bytes = 0;
+  int o = 0;
+  long long s = t0;
+  while (o < cnt) {
+    const int len = (int)min((long long)(cnt - o), (long long)n - s);
+    const uintptr_t ga = reinterpret_cast<uintptr_t>(row + s);
+    int head = len, body = 0;  // [0, head) plain, [head, head + body) bulk, the rest plain
+    if ((ga & 15) == (jw::smem_addr(dst + o) & 15)) {
+      head = min(len, (int)(((16 - (ga & 15)) & 15) / sizeof(float)));
+      body = (len - head) & ~3;
+    }
+    if (pass == 0) {
+      bulk_bytes += body * sizeof(float);
+      for (int i = lane; i < len - body; i += 32) {
+        const int e = i < head ? i : i + body;
+        dst[o + e] = row[s + e];
+      }
+    } else if (body > 0) {
+      jw::bulk_copy(dst + o + head, row + s + head, body * sizeof(float), bar);
+    }
+    o += len;
+    s = 0;
+  }
+  return bulk_bytes;
+}
+
+// The consumers' barrier: named barrier 1 over the nthr compute threads
+// (the producer warp is not in it).
+__device__ __forceinline__ void k7_sync(int nthr) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(nthr) : "memory");
+}
+
+// K7: a grid of persistent blocks over the work items of rows of n samples;
+// block b takes items b, b + gridDim.x, ... (no atomics: a fixed order).
+// Rows longer than `tile`: an item is (row, tile of `tile` output samples),
+// made from its dependency cone: level l (head h = n >> (l-1), l = levels
+// .. 1) makes the outputs of its cone R_l = [s_l, s_l + n_l) (unwrapped; mod
+// h) from R_{l+1} of A (the level above's outputs) and of D_l = src[h/2, h);
+// R_1 is the tile. Rows of at most `tile`: an item is tile / n whole rows
+// (fewer in the last), every cone its whole head. The last warp (the
+// producer) stages item k into set k & 1 once the consumers have released
+// item k - 2 there; the blockDim.x - 32 threads before it (the consumers)
+// compute. See the header.
 template <int MH>
-__global__ void __launch_bounds__(kK7Threads)
+__global__ void __launch_bounds__(kK7MaxBlock, 2)
 ipyramid_tile_kernel(const float* __restrict__ src, float* __restrict__ out,
-                     const float* __restrict__ taps, int n, int tile, int levels, int m) {
+                     const float* __restrict__ taps, int rows, int n, int tile, int levels,
+                     int m) {
   extern __shared__ __align__(16) float smem[];
   float* lo = smem;
   float* hi = smem + kMaxTaps;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + 2 * kMaxTaps);
-  // the cones: cs[l], cn[l], cf[l] R_l's start, count and whether it is its
-  // whole head (l = 1 .. levels + 1); coff[l] D_l's stage, coff[0] A_L's,
-  // coff[kK7Bars], coff[kK7Bars + 1] the buffers of the even and odd levels
-  int* cs = reinterpret_cast<int*>(smem + 2 * kMaxTaps + 2 * kK7Bars);
-  int* cn = cs + kK7Meta;
-  int* cf = cn + kK7Meta;
-  int* coff = cf + kK7Meta;
-  const int tiles = n / tile;
-  const long long r = blockIdx.x / tiles;
-  const int ti = blockIdx.x - (int)(r * tiles);
-  const float* row = src + r * n;
+  // each set's barriers: it is full (the producer's 32 arrivals and the
+  // bytes), it is empty (the consumers' thread 0)
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + 2 * kMaxTaps);
+  uint64_t* empty = full + 2;
+  int* coff = reinterpret_cast<int*>(full + 4);
+  // per set: cs[l], cn[l], cf[l] R_l's start, count and whether it is its
+  // whole head (l = 1 .. levels + 1)
+  int* tabs = coff + kK7Meta;
+  const K7Layout L = k7_layout(n, tile, levels, m);
+  const int lw = k7_wide_levels(n, tile, levels, m);
   const int mh = (m + 1) / 2;
-  // a tile that is the whole row: every cone is its whole head, a slice of
-  // the row, which is staged once (coff[0])
-  const bool whole = tile == n;
-  if (threadIdx.x == 0) {
-    for (int l = 0; l <= (whole ? 0 : levels); ++l) jw::mbar_init(bars + l);
-    int s = ti * tile, cnt = tile, b = tile, f = kK7Head, even = 0, odd = 0;
-    cs[1] = s, cn[1] = cnt, cf[1] = whole;
-    for (int l = 1; l <= levels; ++l) {
-      if (l >= 2) {
-        if (l & 1) odd = max(odd, b);
-        else even = max(even, b);
-      }
-      // R_{l+1}: the inputs of pairs [s/2, s/2 + cnt/2) of head n >> (l-1)
-      // reach back mh - 1 samples; its ends rounded out to multiples of 4,
-      // so that a cone that wraps has its second piece 16-byte aligned too
-      const int half = n >> l;
-      const int u = s >> 1;
-      const int st = (u - (mh - 1)) & ~3, en = (u + cnt / 2 + 3) & ~3;
-      if (en - st >= half) s = 0, cnt = half;
-      else s = st, cnt = en - st;
-      cs[l + 1] = s, cn[l + 1] = cnt, cf[l + 1] = cnt == half;
-      b = k7_bound_next(b, half, mh);
+  const bool whole = n <= tile;
+  const int rb = whole ? tile / n : 1;  // rows an item
+  const int tiles = whole ? 1 : n / tile;
+  const long long items = whole ? ((long long)rows + rb - 1) / rb : (long long)rows * tiles;
+  auto set_of = [&](int s) { return smem + kK7Head + s * L.set; };
+  auto tab = [&](int s, int k) { return tabs + (3 * s + k) * kK7Meta; };
+  // the stage of A_L (l = 0) or of D_l in set s for row `row`
+  auto stage = [&](int s, int l, const float* row) -> float* {
+    const int half = l ? n >> l : n >> levels;
+    const int* cs = tab(s, 0);
+    const float* g = (l ? row + half : row) + (cs[l ? l + 1 : levels + 1] & (half - 1));
+    return jw::stage_for(reinterpret_cast<unsigned char*>(set_of(s) + coff[l]), g);
+  };
+
+  const int tid = threadIdx.x, nthr = blockDim.x - 32;
+  if (tid == 0) {
+    for (int s = 0; s < 2; ++s) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 32;\n" ::"r"(jw::smem_addr(full + s))
+                   : "memory");
+      jw::mbar_init(empty + s);
+    }
+    int f = 0, b = tile;
+    for (int l = 1; l <= levels && !whole; ++l) {
+      b = k7_bound_next(b, n >> l, mh);
       coff[l] = f;
       f += k3_stage_floats(b);
     }
-    coff[0] = whole ? kK7Head : f;
-    f = whole ? kK7Head + k3_stage_floats(n) : f + k3_stage_floats(b);
-    coff[kK7Bars] = f;
-    coff[kK7Bars + 1] = f + round4(even);
+    coff[0] = whole ? 0 : f;
   }
-  load_taps(taps, m, lo, hi);  // its __syncthreads publishes the barriers and the cones
-  // each cone's samples, by bulk copies at their start's offset mod 16 (one
-  // a wrapped piece, the ragged rest by plain loads), the coarsest first
-  auto stage = [&](int l) -> float* {  // A_L (l = 0) or D_l
-    const int half = l ? n >> l : n >> levels;
-    if (whole)
-      return jw::stage_for(reinterpret_cast<unsigned char*>(smem + coff[0]), row) + (l ? half : 0);
-    const float* g = l ? row + half : row;
-    const int c = l ? l + 1 : levels + 1;
-    return jw::stage_for(reinterpret_cast<unsigned char*>(smem + coff[l]), g + (cs[c] & (half - 1)));
-  };
-  if (whole) {
-    jw::stage_segment(stage(0), row, 0, n, n, bars);
-  } else {
-    for (int k = 0; k <= levels; ++k) {
-      const int l = k ? levels + 1 - k : 0;  // A_L, then D_L .. D_1
-      const int half = l ? n >> l : n >> levels;
-      const int c = l ? l + 1 : levels + 1;
-      jw::stage_segment(stage(l), l ? row + half : row, cs[c] & (half - 1), cn[c], half,
-                        bars + l);
+  load_taps(taps, m, lo, hi);  // its __syncthreads publishes the barriers and the offsets
+
+  if (tid >= nthr) {
+    // the producer warp: item k's cone tables (lane 0) and copies into set
+    // k & 1 once the consumers have released item k - 2 there: the
+    // plain-loaded parts by every lane, one arrival a lane (lane 0's with
+    // the bulk bytes), then the bulk copies, the coarsest first
+    const int lane = tid - nthr;
+    int k = 0;
+    for (long long item = blockIdx.x; item < items; item += gridDim.x, ++k) {
+      const int s = k & 1;
+      if (k >= 2) jw::mbar_wait(empty + s, ((k - 2) >> 1) & 1);
+      const float* row;
+      int* cs = tab(s, 0);
+      int* cn = tab(s, 1);
+      if (whole) {
+        row = src + item * rb * n;
+      } else {
+        row = src + (item / tiles) * (long long)n;
+        if (lane == 0) {
+          int* cf = tab(s, 2);
+          int st0 = (int)(item % tiles) * tile, cnt = tile;
+          cs[1] = st0, cn[1] = cnt, cf[1] = 0;
+          for (int l = 1; l <= levels; ++l) {
+            // R_{l+1}: the inputs of pairs [s/2, s/2 + cnt/2) of head n >> (l-1)
+            // reach back mh - 1 samples; its ends rounded out to multiples of
+            // 8, so that each level's pairs start and end on groups of four
+            const int half = n >> l;
+            const int u = st0 >> 1;
+            const int st = (u - (mh - 1)) & ~7, en = (u + cnt / 2 + 7) & ~7;
+            if (en - st >= half) st0 = 0, cnt = half;
+            else st0 = st, cnt = en - st;
+            cs[l + 1] = st0, cn[l + 1] = cnt, cf[l + 1] = cnt == half;
+          }
+        }
+        __syncwarp();  // the tables; lane 0's arrival publishes them
+      }
+      uint32_t bytes = 0;
+      for (int pass = 0; pass < 2; ++pass) {
+        if (whole) {
+          const int cnt = (int)min((long long)rb, rows - item * rb) * n;
+          bytes += k7_stage(pass, jw::stage_for(reinterpret_cast<unsigned char*>(set_of(s)), row),
+                            row, 0, cnt, cnt, full + s, lane);
+        } else {
+          for (int j = 0; j <= levels; ++j) {
+            const int l = j ? levels + 1 - j : 0;  // A_L, then D_L .. D_1
+            const int half = l ? n >> l : n >> levels;
+            const int c = l ? l + 1 : levels + 1;
+            bytes += k7_stage(pass, stage(s, l, row), l ? row + half : row, cs[c] & (half - 1),
+                              cn[c], half, full + s, lane);
+          }
+        }
+        if (pass == 0) {
+          if (lane == 0) {
+            jw::mbar_expect(full + s, bytes);
+          } else {
+            asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(jw::smem_addr(full + s))
+                         : "memory");
+            break;
+          }
+        }
+      }
     }
+    return;
   }
-  __syncthreads();  // the plain-loaded parts
-  const float* a = stage(0);
-  float* orow = out + r * n;
-  for (int l = levels; l >= 1; --l) {
-    if (l == levels) jw::mbar_wait(bars, 0);
-    if (!whole) jw::mbar_wait(bars + l, 0);
-    const int half = n >> l;
-    float* x = l == 1 ? orow + cs[1] : smem + coff[kK7Bars + (l & 1)];
-    k7_level<MH>(a, stage(l), x, cs[l] >> 1, cn[l] >> 1, cs[l + 1], cf[l + 1] ? half - 1 : -1,
-                 mh, lo, hi);
-    if (l > 1) __syncthreads();
-    a = x;
+  // the consumers; the levels above lw run in warp 0 alone
+  const K7Taps<MH> tp(lo, hi);
+  int k = 0;
+  for (long long item = blockIdx.x; item < items; item += gridDim.x, ++k) {
+    const int s = k & 1;
+    jw::mbar_wait(full + s, (k >> 1) & 1);  // every stage of the item, and its tables
+    const long long r0 = whole ? item * rb : item / tiles;
+    const int nr = whole ? (int)min((long long)rb, rows - r0) : 1;
+    const int* cs = tab(s, 0);
+    const int* cn = tab(s, 1);
+    const int* cf = tab(s, 2);
+    float* dst = out + r0 * n + (whole ? 0 : cs[1]);
+    const float* row = src + r0 * n;
+    float* staged = whole ? jw::stage_for(reinterpret_cast<unsigned char*>(set_of(s)), row)
+                          : nullptr;  // whole rows' stage
+    auto operands = [&](int l) {
+      K7Level v;
+      const int half = n >> l;
+      v.half = half;
+      v.x = l == 1 ? dst : smem + (l & 1 ? L.odd : L.even);
+      if (whole) {
+        v.a = l == levels ? staged : smem + ((l + 1) & 1 ? L.odd : L.even);
+        v.as = l == levels ? n : half;
+        v.d = staged + half;
+        v.ds = n;
+        v.xs = l == 1 ? n : 2 * half;
+        v.rows = nr;
+        v.lg = __ffs(half) - 1;
+        v.npairs = half;
+        v.off = 0;
+        v.mask = half - 1;
+      } else {
+        v.a = l == levels ? stage(s, 0, row) : smem + ((l + 1) & 1 ? L.odd : L.even);
+        v.d = stage(s, l, row);
+        v.as = v.ds = v.xs = 0;
+        v.rows = 1;
+        v.lg = 30;
+        v.npairs = cn[l] >> 1;
+        v.off = (cs[l] >> 1) - cs[l + 1];
+        v.mask = cf[l + 1] ? half - 1 : -1;
+      }
+      return v;
+    };
+    if (lw < levels) {
+      if (tid < 32) {
+        for (int l = levels; l > lw; --l) {
+          k7_level<MH>(operands(l), mh, lo, hi, tp, tid, 32);
+          __syncwarp();
+        }
+      }
+      k7_sync(nthr);
+    }
+    for (int l = lw; l >= 1; --l) {
+      k7_level<MH>(operands(l), mh, lo, hi, tp, tid, nthr);
+      k7_sync(nthr);
+    }
+    // every consumer is past the item: the set, its tables and the buffers
+    // are free
+    if (tid == 0)
+      asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(jw::smem_addr(empty + s))
+                   : "memory");
   }
 }
 
 template <int MH>
 int launch_k7(const float* src, float* out, const float* taps, int rows, int n, int tile,
-              int levels, int m, int threads, cudaStream_t stream) {
-  const int smem = k7_floats(n, tile, levels, m) * (int)sizeof(float);
+              int levels, int m, int threads, int grid, int* blocks_per_sm, cudaStream_t stream) {
+  const int smem = k7_layout(n, tile, levels, m).floats * (int)sizeof(float);
   auto kern = ipyramid_tile_kernel<MH>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  kern<<<(unsigned)rows * (n / tile), threads, smem, stream>>>(src, out, taps, n, tile, levels, m);
+  if (blocks_per_sm != nullptr)
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kern, threads + 32,
+                                                              smem);
+  kern<<<grid, threads + 32, smem, stream>>>(src, out, taps, rows, n, tile, levels, m);
   return (int)cudaGetLastError();
 }
 
@@ -905,18 +1163,24 @@ int jw_pyramid_tail(const void* src, long long src_stride, void* out, long long 
   return (int)cudaGetLastError();
 }
 
-// K7: `levels` synthesis levels (1 .. kK7Bars - 1) of each row of (rows, n),
-// into out, one block a tile of `tile` samples (a power of two dividing n);
-// the gain is folded into the taps; db4's 8 taps unroll at compile time.
+// K7: `levels` synthesis levels (1 .. kK7MaxLevels) of each row of (rows, n),
+// into out, by `grid` persistent blocks of `threads` compute threads (a
+// multiple of 32, at most 256) and a producer warp over the work items (tiles of `tile` samples, a power of two dividing n, or tile / n
+// whole rows where n <= tile); the gain is folded into the taps; db4's 8
+// taps and Haar's 2 unroll at compile time. With `blocks_per_sm` non-null
+// it launches nothing and writes the blocks an SM holds.
 int jw_ipyramid_tile(const void* src, void* out, const void* taps, int rows, int n, int tile,
-                     int levels, int m, int threads, void* stream) {
+                     int levels, int m, int threads, int grid, int* blocks_per_sm,
+                     void* stream) {
   cudaGetLastError();
-  if (levels < 1 || levels >= kK7Bars || (n >> levels) < 1 || tile < 2 || tile > n ||
-      n % tile || threads > kK7Threads || m < 1 || m > kMaxTaps)
+  if (levels < 1 || levels > kK7MaxLevels || (n >> levels) < 1 || tile < 2 ||
+      (tile < n ? n % tile : tile % n) || m < 1 || m > kMaxTaps || threads % 32 ||
+      threads < 32 || threads + 32 > kK7MaxBlock ||
+      (blocks_per_sm == nullptr && grid < 1))
     return (int)cudaErrorInvalidValue;
-  auto fn = m == 8 ? launch_k7<4> : launch_k7<0>;
+  auto fn = m == 8 ? launch_k7<4> : m == 2 ? launch_k7<1> : launch_k7<0>;
   return fn((const float*)src, (float*)out, (const float*)taps, rows, n, tile, levels, m,
-            threads, (cudaStream_t)stream);
+            threads, grid, blocks_per_sm, (cudaStream_t)stream);
 }
 
 int jw_pyramid_rows_t(const void* src, void* out, const void* taps, int rows, int n,

@@ -73,13 +73,19 @@ K5_THREADS = 512
 K5_MAX_ROWS_PER_BLOCK = 8
 K5_ROW_FLOATS = 16384
 K5_PAIRS = 8
-#: K7's plan (``csrc/pyramid.cu`` kK7*): output samples a block owns, at
-#: most 256 threads, one mbarrier a level and one for A_L (so at most 31
-#: levels), the shared floats before the stages, and what a block may use
-K7_TILE = 8192
-K7_THREADS = 256
-K7_BARS = 32
-K7_HEAD = 2 * MAX_TAPS + 2 * K7_BARS + 4 * 36
+#: K7's plan (``csrc/pyramid.cu`` kK7*): output samples a work item (rows
+#: longer than that), or floats of an item's whole rows (rows of at most
+#: that), and the same for one level (no chain of levels to spread an item's
+#: set-up over: smaller items, more blocks an SM); threads a block (64
+#: compute, one producer warp); the most levels; the ints of each cone table;
+#: the shared floats before the two stage sets (taps, each set's two
+#: mbarriers, stage offsets, both sets' cone tables)
+K7_TILE = 4096
+K7_TILE_ONE_LEVEL = 2048
+K7_THREADS = 64 + 32
+K7_MAX_LEVELS = 31
+K7_META = 36
+K7_HEAD = 2 * MAX_TAPS + 8 + 7 * K7_META
 SMEM_LIMIT = 227 * 1024
 
 
@@ -202,68 +208,116 @@ def ipyramid_rows_transposed_torch(y: torch.Tensor, rec_lo, rec_hi, recon_gain: 
 
 
 def k7_cones(n: int, levels: int, m: int, tile: int, t0: int) -> list:
-    """The dependency cones of K7's block that owns output samples
-    [t0, t0 + tile) (``csrc/pyramid.cu`` ipyramid_tile_kernel): entry l - 1
-    is (start, count, whole) of R_l, the outputs of level l (head
-    n >> (l-1)) the block makes, for l = 1 .. levels + 1; R_1 is the tile,
-    R_{levels+1} the part of A_L it reads. The pairs (2c, 2c+1) of R_l read
-    the samples c - t, t < ceil(m/2), of R_{l+1}; its ends are rounded out
-    to multiples of 4 (16 bytes), and a cone that would cover its head is
-    the whole head."""
+    """The dependency cones of K7's work item that owns output samples
+    [t0, t0 + tile) of a row longer than the tile (``csrc/pyramid.cu``
+    ipyramid_tile_kernel): entry l - 1 is (start, count, whole) of R_l, the
+    outputs of level l (head n >> (l-1)) the item makes, for l = 1 ..
+    levels + 1; R_1 is the tile, R_{levels+1} the part of A_L it reads. The
+    pairs (2c, 2c+1) of R_l read the samples c - t, t < ceil(m/2), of
+    R_{l+1}; its ends are rounded out to multiples of 8, so that each
+    level's pairs start and end on groups of four, and a cone that would
+    cover its head is the whole head. A row of at most the tile is one
+    item's whole rows: every cone its whole head."""
+    if tile >= n:
+        return [(0, n >> l, True) for l in range(levels + 1)]
     mh = (m + 1) // 2
     s, cnt = t0, tile
-    out = [(s, cnt, tile == n)]
+    out = [(s, cnt, False)]
     for l in range(1, levels + 1):
         half = n >> l
         u = s >> 1
-        st, en = (u - (mh - 1)) & ~3, (u + cnt // 2 + 3) & ~3
+        st, en = (u - (mh - 1)) & ~7, (u + cnt // 2 + 7) & ~7
         s, cnt = (0, half) if en - st >= half else (st, en - st)
         out.append((s, cnt, cnt == half))
     return out
 
 
+def k7_items(rows: int, n: int, plan: "K7Plan") -> int:
+    """K7's work items: (row, tile) pairs, or groups of ``plan.rows`` whole
+    rows, the last one shorter where they do not divide ``rows``."""
+    if n <= plan.tile:
+        return -(-rows // plan.rows)
+    return rows * (n // plan.tile)
+
+
+def _synthesis_pairs(a, d, c, mh, lo, hi, wrap, c_in):
+    """(x[2c], x[2c+1]) of one synthesis level from a and d (last axis), the
+    pairs c read at i = c - t (``wrap``: mod the head; else inside the
+    ``c_in`` staged samples, or IndexError)."""
+    i = c[None, :] - torch.arange(mh, device=c.device)[:, None]  # (t, pair)
+    i = i % wrap if wrap else i
+    if int(i.min()) < 0 or int(i.max()) >= c_in:
+        raise IndexError("a level reads outside its staged cone")
+    av, dv = a[..., i], d[..., i]  # (..., t, pair)
+    x0 = (av * lo[0::2, None]).sum(-2) + (dv * hi[0::2, None]).sum(-2)
+    x1 = (av * lo[1::2, None]).sum(-2) + (dv * hi[1::2, None]).sum(-2)
+    return torch.stack([x0, x1], dim=-1).flatten(-2)
+
+
 def ipyramid_rows_tiled_torch(y: torch.Tensor, rec_lo, rec_hi, recon_gain: float,
-                              levels: int, plan: "K7Plan") -> torch.Tensor:
-    """:func:`ipyramid_rows_torch` computed as K7's blocks partition it (for
-    the tests: the cone arithmetic has no other CPU check). Each tile of
-    ``plan.tile`` output samples stages its cones (:func:`k7_cones`: A_L
-    and each level's details, mod their heads, each within its bound in
-    ``plan.cone``) and runs the levels from the coarsest up on them alone,
-    a whole-head cone read circularly; an index outside a staged cone
-    raises."""
+                              levels: int, plan: "K7Plan", grid: int | None = None
+                              ) -> torch.Tensor:
+    """:func:`ipyramid_rows_torch` of (R, N) computed as K7 partitions it
+    (for the tests: the cone arithmetic has no other CPU check). ``grid``
+    persistent blocks (default: one an item) take the work items
+    (:func:`k7_items`) in K7's order, block b items b, b + grid, ...: an
+    item of a row longer than ``plan.tile`` stages its cones
+    (:func:`k7_cones`: A_L and each level's details, mod their heads, each
+    within its bound in ``plan.cone``) and runs the levels from the coarsest
+    up on them alone, a whole-head cone read circularly; an item of
+    ``plan.rows`` whole rows (fewer in the last) runs each level over all
+    its rows at once. An index outside a staged cone, or an output written
+    other than once, raises."""
     if levels == 0:
         return y.clone()
-    n, m = y.shape[-1], len(rec_lo)
+    rows, n = y.shape
+    m = len(rec_lo)
     mh = (m + 1) // 2
-    lo = np.zeros(2 * mh)
-    hi = np.zeros(2 * mh)
-    lo[:m], hi[:m] = np.asarray(rec_lo) * recon_gain, np.asarray(rec_hi) * recon_gain
+    lo = torch.zeros(2 * mh, dtype=y.dtype)
+    hi = torch.zeros(2 * mh, dtype=y.dtype)
+    lo[:m] = torch.as_tensor(np.asarray(rec_lo, np.float64) * recon_gain, dtype=y.dtype)
+    hi[:m] = torch.as_tensor(np.asarray(rec_hi, np.float64) * recon_gain, dtype=y.dtype)
+    lo, hi = lo.to(y.device), hi.to(y.device)
     out = torch.empty_like(y)
+    written = torch.zeros((rows, n), dtype=torch.int32)
+    items = k7_items(rows, n, plan)
+    grid = items if grid is None else min(grid, items)
+    tiles = max(n // plan.tile, 1)
+    ar = functools.partial(torch.arange, device=y.device)
+    for b in range(grid):
+        for item in range(b, items, grid):
+            if n <= plan.tile:
+                r0 = item * plan.rows
+                blk = y[r0:r0 + plan.rows]
+                a = blk[:, :n >> levels]
+                for l in range(levels, 0, -1):
+                    half = n >> l
+                    a = _synthesis_pairs(a, blk[:, half:2 * half], ar(half), mh, lo, hi,
+                                         half, half)
+                out[r0:r0 + plan.rows] = a
+                written[r0:r0 + plan.rows] += 1
+                continue
+            r, ti = divmod(item, tiles)
+            cones = k7_cones(n, levels, m, plan.tile, ti * plan.tile)
+            if any(c[1] > bnd for c, bnd in zip(cones[1:], plan.cone)):
+                raise IndexError(f"a cone outgrows its bound: {cones} {plan.cone}")
 
-    def stage(base, half, s, cnt):
-        return y[..., base + (s + torch.arange(cnt, device=y.device)) % half]
+            def stage(base, half, s, cnt):
+                return y[r, base + (s + ar(cnt)) % half]
 
-    for ti in range(n // plan.tile):
-        cones = k7_cones(n, levels, m, plan.tile, ti * plan.tile)
-        if any(c[1] > b for c, b in zip(cones[1:], plan.cone)):
-            raise IndexError(f"a cone outgrows its bound: {cones} {plan.cone}")
-        a = stage(0, n >> levels, *cones[levels][:2])
-        for l in range(levels, 0, -1):
-            half = n >> l
-            s_in, c_in, whole = cones[l]
-            d = stage(half, half, s_in, c_in)
-            s_out, c_out, _ = cones[l - 1]
-            c = s_out // 2 + torch.arange(c_out // 2, device=y.device)
-            x0 = torch.zeros_like(a[..., :c_out // 2])
-            x1 = torch.zeros_like(x0)
-            for t in range(mh):
-                i = (c - t) % half if whole else c - t - s_in
-                if int(i.min()) < 0 or int(i.max()) >= c_in:
-                    raise IndexError(f"level {l} reads outside its staged cone")
-                x0 = x0 + lo[2 * t] * a[..., i] + hi[2 * t] * d[..., i]
-                x1 = x1 + lo[2 * t + 1] * a[..., i] + hi[2 * t + 1] * d[..., i]
-            a = torch.stack([x0, x1], dim=-1).reshape(x0.shape[:-1] + (c_out,))
-        out[..., ti * plan.tile:(ti + 1) * plan.tile] = a
+            a = stage(0, n >> levels, *cones[levels][:2])
+            for l in range(levels, 0, -1):
+                half = n >> l
+                s_in, c_in, whole = cones[l]
+                d = stage(half, half, s_in, c_in)
+                s_out, c_out, _ = cones[l - 1]
+                c = s_out // 2 + ar(c_out // 2)
+                a = _synthesis_pairs(a, d, c if whole else c - s_in, mh, lo, hi,
+                                     half if whole else 0, c_in)
+            out[r, ti * plan.tile:(ti + 1) * plan.tile] = a
+            written[r, ti * plan.tile:(ti + 1) * plan.tile] += 1
+    if not bool((written == 1).all()):
+        raise IndexError("the work items do not cover each output once")
     return out
 
 
@@ -442,24 +496,38 @@ def pyramid_rows(x: torch.Tensor, dec_lo, dec_hi, levels: int,
 
 
 class K7Plan(NamedTuple):
-    """K7's blocks: ``tile`` output samples a block, ``cone`` the bounds
-    B_2 .. B_{L+1} of the cones R_2 .. R_{L+1} of every block
-    (:func:`k7_cones`), and the block's shared bytes."""
+    """K7's plan: ``tile`` output samples an item of a row longer than it,
+    else ``rows`` = tile // n whole rows an item (1 for longer rows);
+    ``cone`` the bounds B_2 .. B_{L+1} of the cones R_2 .. R_{L+1} of every
+    item (:func:`k7_cones`; a whole row's are its heads); the bytes of a
+    stage set and of a block, with ``sets`` stage sets; the ``threads`` of a
+    block, its last warp the producer."""
 
     tile: int
+    rows: int
     cone: tuple
+    set_bytes: int
     smem_bytes: int
+    sets: int
+    threads: int
+
+
+def _k7_bound_next(b: int, half: int, mh: int) -> int:
+    """``csrc/pyramid.cu`` k7_bound_next: B_{l+1} from B_l on a head of 2 half."""
+    return min(half, (b // 2 + mh + (13 if b < 8 else 10)) & ~7)
 
 
 def _k7_layout(n: int, tile: int, levels: int, m: int) -> tuple:
-    """(the bounds B_2 .. B_{L+1}, a K7 block's shared floats), as
-    ``csrc/pyramid.cu`` k7_floats counts them: the head (taps, mbarriers,
-    the cone tables); a stage of round4(B_{l+1}) + 4 floats for each level's
-    details and one for A_L (B_{L+1}), or, where the tile is the whole row,
-    one of round4(n) + 4 for the row; the buffers of the even and of the odd
-    levels' outputs, round4 of the largest B_l of each (l = 2 .. L; level 1
-    stores to the output)."""
+    """(the bounds B_2 .. B_{L+1}, a stage set's floats, a K7 block's shared
+    floats), as ``csrc/pyramid.cu`` k7_layout counts them: the head (taps,
+    both sets' mbarriers, the stage offsets and both sets' cone tables); two
+    stage sets, each a stage of round4(B_{l+1}) + 4 floats for each level's
+    details and one for A_L (B_{L+1}), or, for rows of at most the tile, one
+    of round4(tile) + 4 for its whole rows; the buffers of the even and of
+    the odd levels' outputs, round4 of the largest of each (l = 2 .. L;
+    tile >> (l - 1) for whole rows); level 1 stores to the output."""
     mh = (m + 1) // 2
+    whole = n <= tile
     b, stages, even, odd, bounds = tile, 0, 0, 0, []
     for l in range(1, levels + 1):
         if l >= 2:
@@ -467,54 +535,90 @@ def _k7_layout(n: int, tile: int, levels: int, m: int) -> tuple:
                 odd = max(odd, b)
             else:
                 even = max(even, b)
-        b = min(n >> l, (b // 2 + mh + 5) & ~3)
-        bounds.append(b)
+        b = b // 2 if whole else _k7_bound_next(b, n >> l, mh)
+        bounds.append(n >> l if whole else b)
         stages += _round4(b) + 4
-    stages = _round4(n) + 4 if tile == n else stages + _round4(b) + 4
-    return tuple(bounds), K7_HEAD + stages + _round4(even) + _round4(odd)
+    set_floats = _round4(tile) + 4 if whole else stages + _round4(b) + 4
+    return tuple(bounds), set_floats, K7_HEAD + 2 * set_floats + _round4(even) + _round4(odd)
 
 
 @functools.lru_cache(maxsize=None)
-def k7_plan(n: int, levels: int, m: int, tile: int = K7_TILE) -> K7Plan:
-    """K7's plan for rows of ``n``: ``min(n, tile)`` output samples a block.
-    A cone R_{l+1} holds at most half of R_l and ceil(m/2) + 5 samples
-    (B_{l+1}, a multiple of 4), and at most its head, so the stages of a
-    block sum to about the tile and ``levels`` halos of ceil(m/2) + 5
-    whatever the row length. A row of one tile is staged whole (its cones
-    are its heads)."""
-    t = min(n, tile)
-    cone, floats = _k7_layout(n, t, levels, m)
-    return K7Plan(t, cone, 4 * floats)
+def k7_plan(n: int, levels: int, m: int, tile: int | None = None,
+            threads: int = K7_THREADS) -> K7Plan:
+    """K7's plan for rows of ``n``: items of ``tile`` output samples
+    (``K7_TILE``, ``K7_TILE_ONE_LEVEL`` for one level), or of tile // n
+    whole rows where a row is at most the tile. A cone R_{l+1}
+    holds at most half of R_l and ceil(m/2) + 10 samples (B_{l+1}, a
+    multiple of 8; + 13 from a tile of 2 or 4), and at most its head, so a
+    stage set sums to about the tile and ``levels`` halos of ceil(m/2) + 10
+    whatever the row length."""
+    tile = tile or (K7_TILE_ONE_LEVEL if levels == 1 else K7_TILE)
+    cone, set_floats, floats = _k7_layout(n, tile, levels, m)
+    return K7Plan(tile, tile // n if n <= tile else 1, cone, 4 * set_floats, 4 * floats, 2,
+                  threads)
+
+
+def _k7_fn(lib):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return _fn(lib, "jw_ipyramid_tile", [p, p, p, i, i, i, i, i, i, i, p, p])
+
+
+@functools.lru_cache(maxsize=None)
+def k7_blocks_per_sm(device_index: int, n: int, levels: int, m: int, plan: K7Plan) -> int:
+    """The K7 blocks one SM of the card holds at ``plan``
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), asked once a plan."""
+    lib = cuda_build.library("pyramid")
+    got = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = _k7_fn(lib)(None, None, None, 0, n, plan.tile, levels, m, plan.threads - 32, 0,
+                          ctypes.byref(got), None)
+    cuda_build.check(lib, err, "ipyramid_rows")
+    if got.value < 1:
+        raise JWaveFailure(f"ipyramid_rows - a block of {plan.smem_bytes} shared bytes does not "
+                           "fit an SM")
+    return got.value
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def k7_grid(device, rows: int, n: int, levels: int, m: int, plan: K7Plan) -> int:
+    """K7's persistent blocks: one wave, min(items, SMs x blocks an SM)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return min(k7_items(rows, n, plan),
+               _sm_count(index) * k7_blocks_per_sm(index, n, levels, m, plan))
 
 
 def _k7(y: torch.Tensor, rec_lo, rec_hi, recon_gain: float, levels: int,
         plan: K7Plan | None = None) -> torch.Tensor:
-    """K7 on the card: one launch, one block per tile of each row
-    (:func:`k7_plan`; ``plan`` overrides it). With no level it copies."""
+    """K7 on the card: one launch of one wave of persistent blocks over the
+    work items (:func:`k7_plan`; ``plan`` overrides it). With no level it
+    copies."""
     if y.device.type == "cpu":
         return ipyramid_rows_torch(y, rec_lo, rec_hi, recon_gain, levels)
     _check(y, rec_lo, rec_hi, levels, "ipyramid_rows")
     r, n = y.shape
     if levels == 0:
         return y.clone()
-    if levels >= K7_BARS:
-        raise JWaveFailure(f"ipyramid_rows - {levels} levels exceed the kernel's {K7_BARS - 1}")
+    if levels > K7_MAX_LEVELS:
+        raise JWaveFailure(f"ipyramid_rows - {levels} levels exceed the kernel's {K7_MAX_LEVELS}")
     plan = plan or k7_plan(n, levels, len(rec_lo))
     if plan.smem_bytes > SMEM_LIMIT:
         raise JWaveFailure(f"ipyramid_rows - a block of {plan.smem_bytes} shared bytes exceeds "
                            f"the card's {SMEM_LIMIT}")
-    if r * (n // plan.tile) >= 2**31:
+    if k7_items(r, n, plan) >= 2**31:
         raise JWaveFailure(f"ipyramid_rows - {r} rows of {n} exceed one launch")
     out = torch.empty_like(y)
     if r == 0:
         return out
     lib = cuda_build.library("pyramid")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn = _fn(lib, "jw_ipyramid_tile", [p, p, p, i, i, i, i, i, i, p])
+    m = len(rec_lo)
     taps = _gained_taps(rec_lo, rec_hi, recon_gain, y.device)
-    threads = min(K7_THREADS, max(32, plan.tile // 2))
-    err = fn(y.data_ptr(), out.data_ptr(), taps.data_ptr(), r, n, plan.tile, levels,
-             len(rec_lo), threads, cuda_build.stream_handle(y.device))
+    err = _k7_fn(lib)(y.data_ptr(), out.data_ptr(), taps.data_ptr(), r, n, plan.tile, levels, m,
+                      plan.threads - 32, k7_grid(y.device, r, n, levels, m, plan), None,
+                      cuda_build.stream_handle(y.device))
     cuda_build.check(lib, err, "ipyramid_rows")
     launch_counts["ipyramid_rows"] += 1
     return out

@@ -286,6 +286,59 @@ def test_k7_forced_plans(cuda, shape, wavelet, levels, tile):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape,wavelet,level", [
+    ((65536, 256), "db4", 8),      # ifwt3d's rows: 32 an item, 2048 items
+    ((1000, 16), "db4", 4),        # 512 rows an item: one short item of 488
+    ((37, 2048), "db4", 11),       # 4 an item: a last item of 1
+    ((4097, 16), "Haar", 4),       # a short last item of 1 row
+    ((3, 256), "sym8", 8),         # one short item, the generic taps
+    ((9999, 2), "db4", 1),         # rows of 2: heads shorter than a group of pairs
+    ((7, 4), "Haar orthogonal", 2),
+    ((5, 4096), "Discrete Meyer", 12),  # rows of one tile: one an item
+])
+def test_k7_multi_row_blocks(cuda, shape, wavelet, level):
+    """Rows of at most the tile: tile // n whole rows an item, the last one
+    shorter where they do not divide the batch; one launch."""
+    fb = jt.get_filter(wavelet)
+    y = torch.as_tensor(np.random.default_rng(21).standard_normal(shape), dtype=torch.float32,
+                        device=cuda)
+    done = cuda_pyramid.levels_done(shape[1], fb.transform_wavelength, level)
+    plan = cuda_pyramid.k7_plan(shape[1], done, len(fb.rec_lo))
+    assert shape[1] <= plan.tile and plan.rows == plan.tile // shape[1]
+    before = cuda_pyramid.launch_counts["ipyramid_rows"]
+    x = cuda_pyramid.ipyramid_rows(y, fb.rec_lo, fb.rec_hi, fb.recon_gain, done)
+    torch.cuda.synchronize()
+    ref = cuda_pyramid.ipyramid_rows_torch(y.double(), fb.rec_lo, fb.rec_hi, fb.recon_gain, done)
+    assert bool(torch.isfinite(x).all())
+    assert _rel_err(x, ref) <= F32_BOUND
+    assert cuda_pyramid.launch_counts["ipyramid_rows"] == before + 1
+
+
+@pytest.mark.cuda
+def test_k7_persistent_item_counts(cuda):
+    """The persistent grid at item counts around it: 1 item, grid - 1,
+    grid + 1 (whole rows of one tile, one an item), tiles of 64 x 65536's
+    plan that leave some blocks one item more than others, and a row of 2^22
+    samples (512 items of one row)."""
+    fb = jt.get_filter("db4")
+    n = cuda_pyramid.K7_TILE
+    full = n.bit_length() - 1
+    plan = cuda_pyramid.k7_plan(n, full, 8)
+    grid = cuda_pyramid.k7_grid(cuda, 1 << 20, n, full, 8, plan)
+    big = cuda_pyramid.k7_plan(65536, 8, 8)
+    tiles = 65536 // big.tile
+    big_grid = cuda_pyramid.k7_grid(cuda, 1 << 20, 65536, 8, 8, big)
+    rng = np.random.default_rng(22)
+    for rows, cols, level in ((1, n, full), (grid - 1, n, full), (grid + 1, n, full),
+                              (big_grid // tiles + 1, 65536, 8), (1, 1 << 22, 22)):
+        y = torch.as_tensor(rng.standard_normal((rows, cols)), dtype=torch.float32, device=cuda)
+        x = cuda_pyramid.ipyramid_rows(y, fb.rec_lo, fb.rec_hi, 1.0, level)
+        torch.cuda.synchronize()
+        ref = cuda_pyramid.ipyramid_rows_torch(y.double(), fb.rec_lo, fb.rec_hi, 1.0, level)
+        assert _rel_err(x, ref) <= F32_BOUND, (rows, cols)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("offset", [1, 2, 3])
 def test_k7_source_off_16_byte_alignment(cuda, offset):
     """A source 4, 8 or 12 bytes off: each cone is staged at its start's

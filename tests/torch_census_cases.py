@@ -1312,10 +1312,11 @@ def _ifwt_levels(m, i, x, bank, levels):
 
 
 # K7 (ifwt on the card): levels 0 (no launch) and 1 on rows of 1, 2 and 4
-# samples (one block a row, every cone its whole head); an odd batch; Haar
-# orthogonal's gain at full depth; Battle 23 stopping at its transform
-# wavelength (levels 2 and 6 of 64 samples do 2 and 4); a source off
-# 16-byte alignment
+# samples (several whole rows an item, every cone its whole head); an odd
+# batch; Haar orthogonal's gain at full depth; Battle 23 stopping at its
+# transform wavelength (levels 2 and 6 of 64 samples do 2 and 4); items of
+# whole rows that the batch does not fill (3 rows of 256 at full depth, 1000
+# rows of 16); a source off 16-byte alignment
 for _n in (1, 2, 4):
     case(name=f"card ifwt N{_n} levels 0 and 1", file="card_2", kernel="K7" if _n > 1 else None,
          card_dtypes=HALF, half_tol=CARD_TOL_HALF_LEVELS,
@@ -1323,7 +1324,9 @@ for _n in (1, 2, 4):
                                               (0, 1) if n > 1 else (0,)))
 for _name, _shape, _bank, _levels in (("odd batch", (5, 64), "Daubechies 4", (3,)),
                                       ("Haar orthogonal", (3, 256), "Haar orthogonal", (8,)),
-                                      ("Battle 23 partial levels", (3, 64), "Battle 23", (2, 6))):
+                                      ("Battle 23 partial levels", (3, 64), "Battle 23", (2, 6)),
+                                      ("3x256 full depth", (3, 256), "Daubechies 4", (8,)),
+                                      ("1000x16", (1000, 16), "Daubechies 4", (4,))):
     case(name=f"card ifwt {_name}", file="card_2", kernel="K7", card_dtypes=HALF,
          half_tol=CARD_TOL_HALF_LEVELS,
          port=lambda m, i, s=_shape, b=_bank, lv=_levels: _ifwt_levels(m, i, i.x(*s), b, lv))

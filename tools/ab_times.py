@@ -4,12 +4,13 @@ card: the kernels and their consumers.
     python3 tools/ab_times.py --parent build/parent [--rounds 6] [--reps 25]
                               [--variants parent new] [--calls TEXT ...]
                               [--out build/ab_times.jsonl] [--trace] [--k3-plans]
+                              [--k7-plans]
 
 ``--parent`` is another commit's tree, unpacked (``git archive <commit> |
 tar -x -C build/parent``). Its ``jwave_tpu_torch`` is imported under another
 name beside this tree's, so the two share one process, one CUDA context and
-one card, and whatever slows the host slows both. Each variant's K1, K3, K4
-and K6 are first held against the plain version (1e-5 of max|ref|).
+one card, and whatever slows the host slows both. Each variant's K1, K3, K4,
+K6 and K7 are first held against the plain version (1e-5 of max|ref|).
 
 The calls are the consumers of K1 (K1 alone at 64 x 65536 db4 L5 and at
 ``denoise``'s 8 x 65536 db4 L4, the entry step ``imodwt(modwt(x))`` and its
@@ -18,8 +19,11 @@ gradient, whose backward runs K1 as K2's adjoint, ``modwt_mra`` at 64 x
 2048^2 db4 L6, the gradient of ``ifwt2d`` there, whose backward runs K4 as
 K5's adjoint), K3 and ``fwt`` at 64 x 65536 db4 L8, K6 at 8 x 64 x 65536 on
 64 bins (uniform random indices in [0, 64], 64 dropped) and ``ssq_cwt`` at
-8 x 65536 with 64 scales, and K2 and one K5 pass, which no consumer here
-isolates. ``--variants`` keeps one or both trees (one alone measures
+8 x 65536 with 64 scales, K7 (alone at 64 x 65536 db4 L1, L2, L4 and L8 and
+Haar L8, and on 65536 rows of 256 at full depth, ``ifwt`` db4 L8 64 x 65536, the gradient of ``fwt``
+there, whose backward runs K7 as K3's adjoint, ``ifwt3d`` db4 256^3 through
+the FWT facade's reverse, and ``ifwt2d_sharded`` db4 L6 2048^2 in a one-rank
+NCCL world), and K2 and one K5 pass, which no consumer here isolates. ``--variants`` keeps one or both trees (one alone measures
 one tree in a process of its own: the inputs are made by the plain
 versions, so no other kernel runs there), and ``--calls`` keeps the calls
 whose name contains one of the given texts.
@@ -42,7 +46,12 @@ the host-bound calls kept prints its heaviest host ops and its kernels'
 device time. With ``--k3-plans``, this tree's K3 at 64 x 65536 db4 L8 is
 timed (device) once for each tile of 2048 to 16384 samples and each block of
 128 to 512 threads, after the rounds: the sweep that ``K3_TILE`` and
-``K3_TILE_THREADS`` were chosen from. Needs a CUDA card; exits 2 without one.
+``K3_TILE_THREADS`` were chosen from. With ``--k7-plans``, this tree's K7 at
+64 x 65536 db4 L1, L4 and L8 and on 65536 rows of 256 is timed (device, the
+median of 3) for each tile of 1024 to 8192 samples and 64, 128 and 256
+compute threads, with the blocks an SM and the grid each plan gets: the
+sweep that ``K7_TILE``, ``K7_TILE_ONE_LEVEL`` and ``K7_THREADS`` were chosen
+from. Needs a CUDA card; exits 2 without one.
 """
 from __future__ import annotations
 
@@ -92,6 +101,7 @@ def main() -> int:
     ap.add_argument("--calls", nargs="+", default=[""])
     ap.add_argument("--trace", action="store_true")
     ap.add_argument("--k3-plans", action="store_true")
+    ap.add_argument("--k7-plans", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("ab_times: needs a CUDA card", file=sys.stderr)
@@ -121,20 +131,41 @@ def main() -> int:
         return t.requires_grad_() if grad else t
 
     x, x8, img = dev_t((64, 65536)), dev_t((8, 65536)), dev_t((2048, 2048))
+    x256, vol = dev_t((65536, 256)), dev_t((256, 256, 256))
     xg, img_g = dev_t((64, 65536), True), dev_t((2048, 2048), True)
     w, w_img = dev_t((64, 65536)), dev_t((2048, 2048))
     g0, h0 = new["transforms.modwt"]._modwt_base_filters("db4")
-    fb = new_jt.get_filter("db4")
+    fb, haar = new_jt.get_filter("db4"), new_jt.get_filter("Haar")
     lo, hi = fb.dec_lo, fb.dec_hi
     c32 = new["ops.cuda_modwt"].modwt_cascade_torch(x, g0, h0, 5)
     contrib = torch.complex(dev_t((8, 64, 65536)), dev_t((8, 64, 65536)))
     k_idx = torch.as_tensor(rng.integers(0, 65, (8, 64, 65536)), dtype=torch.int32, device=dev)
     ssq_scales = new_jt.generate_log_scales(1e-5, 1e-2, 64)
 
+    sharded = any(c in "ifwt2d_sharded db4 L6 2048^2" for c in args.calls)
+    if sharded:  # a one-rank NCCL world for the sharded inverse, as chip_smoke.py forms it
+        import os
+        import socket
+
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK="0",
+                          WORLD_SIZE="1")
+        importlib.import_module("jwave_tpu_torch.parallel").initialize_distributed()
+
     def calls(jt, m):
         cm, cp, cr = m["ops.cuda_modwt"], m["ops.cuda_pyramid"], m["ops.cuda_reassign"]
         grad = torch.autograd.grad
         morlet = jt.MorletWavelet(1.0, 1.0)
+        facade = jt.TransformBuilder.create("Fast Wavelet Transform", "db4")
+        extra = {}
+        if sharded:
+            par_m = importlib.import_module(f"{jt.__name__}.parallel")
+            mesh = par_m.make_mesh()
+            img_s = par_m.fwt2d_sharded(img, "db4", mesh, 6, 6)
+            extra["ifwt2d_sharded db4 L6 2048^2"] = (
+                lambda: par_m.ifwt2d_sharded(img_s, "db4", mesh, 6, 6))
         return {
             "K3 64x65536 db4 L8": lambda: cp.pyramid_rows(x, lo, hi, 8),
             "fwt db4 L8 64x65536": lambda: jt.fwt(x, "db4", 8),
@@ -156,13 +187,23 @@ def main() -> int:
             "fwt2d db4 L6 2048^2": lambda: jt.fwt2d(img, "db4", 6, 6),
             "ifwt2d grad db4 L6 2048^2":
                 lambda: grad((jt.ifwt2d(img_g, "db4", 6, 6) * w_img).sum(), img_g),
+            "K7 64x65536 db4 L8": lambda: cp.ipyramid_rows(x, fb.rec_lo, fb.rec_hi, 1.0, 8),
+            **{f"K7 64x65536 db4 L{lv}": (lambda lv=lv: cp.ipyramid_rows(x, fb.rec_lo, fb.rec_hi,
+                                                                        1.0, lv))
+               for lv in (1, 2, 4)},
+            "K7 64x65536 Haar L8": lambda: cp.ipyramid_rows(x, haar.rec_lo, haar.rec_hi, 1.0, 8),
+            "ifwt db4 L8 64x65536": lambda: jt.ifwt(x, "db4", 8),
+            "fwt grad db4 L8 64x65536": lambda: grad((jt.fwt(xg, "db4", 8) * w).sum(), xg),
+            "ifwt3d db4 256^3": lambda: facade.reverse(vol),
+            "K7 65536x256 full depth": lambda: cp.ipyramid_rows(x256, fb.rec_lo, fb.rec_hi, 1.0, 8),
+            **extra,
         }
 
     variants = {"parent": calls(par_jt, par), "new": calls(new_jt, new)}
     variants = {v: {k: f for k, f in t.items() if any(c in k for c in args.calls)}
                 for v, t in variants.items() if v in args.variants}
 
-    # each variant's K1, K3, K4 and K6 against the plain version, in float64
+    # each variant's K1, K3, K4, K6 and K7 against the plain version, in float64
     cm = new["ops.cuda_modwt"]
     cp = new["ops.cuda_pyramid"]
     cr = new["ops.cuda_reassign"]
@@ -170,7 +211,10 @@ def main() -> int:
             "K3 64x65536 db4 L8": cp.pyramid_rows_torch(x.double(), lo, hi, 8),
             "K4 one pass db4 L6 2048^2": cp.pyramid_rows_transposed_torch(img.double(), lo, hi, 6),
             "K6 8x64x65536 K=64": torch.view_as_real(
-                cr.reassign_torch(contrib.to(torch.complex128), k_idx, 64))}
+                cr.reassign_torch(contrib.to(torch.complex128), k_idx, 64)),
+            "K7 64x65536 db4 L8": cp.ipyramid_rows_torch(x.double(), fb.rec_lo, fb.rec_hi, 1.0, 8),
+            "K7 65536x256 full depth": cp.ipyramid_rows_torch(x256.double(), fb.rec_lo,
+                                                              fb.rec_hi, 1.0, 8)}
     for v, table in variants.items():
         for key, ref in refs.items():
             if key not in table:
@@ -260,6 +304,26 @@ def main() -> int:
                 cp.K3_TILE_THREADS = kept
                 print(json.dumps({"k3_plan": plan._asdict(), "threads": threads,
                                   "device_ms": ms, "card": card}), flush=True)
+
+    if args.k7_plans:
+        for label, y, lv in (("64x65536 db4 L1", x, 1), ("64x65536 db4 L4", x, 4),
+                             ("64x65536 db4 L8", x, 8), ("65536x256 db4 L8", x256, 8)):
+            for tile in (1024, 2048, 4096, 8192):
+                for consumers in (64, 128, 256):
+                    plan = cp.k7_plan(y.shape[1], lv, len(fb.rec_lo), tile, consumers + 32)
+                    if plan.smem_bytes > cp.SMEM_LIMIT:
+                        continue
+                    ms = float(np.median([measure(lambda: cp._k7(y, fb.rec_lo, fb.rec_hi, 1.0, lv,
+                                                                 plan))["device"]
+                                          for _ in range(3)]))
+                    print(json.dumps({"k7_plan": label, "tile": tile, "threads": plan.threads,
+                                      "smem_bytes": plan.smem_bytes,
+                                      "blocks_per_sm": cp.k7_blocks_per_sm(
+                                          torch.cuda.current_device(), y.shape[1], lv,
+                                          len(fb.rec_lo), plan),
+                                      "grid": cp.k7_grid(dev, y.shape[0], y.shape[1], lv,
+                                                         len(fb.rec_lo), plan),
+                                      "device_ms": ms, "card": card}), flush=True)
 
     if args.trace:
         from torch.profiler import ProfilerActivity, profile
