@@ -10,15 +10,16 @@ it happened; any failed check ends the run with a non-zero exit:
    JAX package's default) on a fresh import, with no call to it, and that
    ops.butterfly.synthesis_levels (ifwt's cuDNN route where K7 does not
    run; db4 L8, 64 x 65536 f32) then agrees with its float64 run to 1e-5 of
-   max|ref|, and jt.wpt (db4 L6, one conv1d of 64
-   channels of 442 taps) likewise; prints each call's error with the dial at
-   'high' (TF32 allowed) beside it, the error of that conv1d called
-   directly under each of torch's TF32 switches (which one governs cuDNN),
-   and at both dial settings iwpt's conv_transpose1d, dft's matmul and a
-   float32 matmul inside config.dial().
+   max|ref|, and ops.composite.wpt_conv_forward (wpt's cuDNN route where
+   K8 does not run: db4 L6, one conv1d of 64 channels of 442 taps)
+   likewise; prints each call's error with the dial at 'high' (TF32
+   allowed) beside it, the error of that conv1d called directly under each
+   of torch's TF32 switches (which one governs cuDNN), and at both dial
+   settings wpt_conv_inverse's conv_transpose1d, dft's matmul and a float32
+   matmul inside config.dial().
 2. build: compiles csrc/*.cu with nvcc, one compiler per source, all at
    once, and prints the build seconds.
-3. kernels: K1-K7 on the card against their plain torch versions run in
+3. kernels: K1-K9 on the card against their plain torch versions run in
    float64 on the same input, at the main paths' shapes and at edge shapes
    (K3 also where its tiled levels leave a tail, 62 taps or 16 levels, over
    two tiled passes, and with a gain; K6 at the main shape on the
@@ -28,7 +29,12 @@ it happened; any failed check ends the run with a non-zero exit:
    and 4 samples, odd batches, rows of 2^22, a source off 16-byte
    alignment, items of whole rows of 16, 256 and 2048 with a short last
    one, and the persistent grid at 1, grid - 1 and grid + 1 items and with
-   some blocks taking one item more than others).
+   some blocks taking one item more than others; K8 and K9 in both layouts
+   at 64 x 65536 db4 L6, at every chunk of wpt at full depth on 65536 (1024
+   L6 and 16 L4 as whole rows: 105 taps mod 16), rows of 8 at L3, 62 taps
+   at L3, Haar and Haar orthogonal's gain at L6, the generic taps, one
+   level, odd batches around the rows an item, rows of 2^20 and a source
+   off 16-byte alignment).
 4. main paths, each with the launch counts set to 0 just before it and read
    just after, all through the public entry points (numpy input goes to the
    card by default, tensors are made there):
@@ -42,13 +48,14 @@ it happened; any failed check ends the run with a non-zero exit:
       ridge_tube_mask, a tone's ridge and a two-tone round trip at small
       size; the CWT facade's transform_fft and transform, against the
       port's CPU float64 run on a small input.
-   c. gradients through K1-K5 and K7: torch.autograd.grad of (f(x) *
+   c. gradients through K1-K5 and K7-K9: torch.autograd.grad of (f(x) *
       w).sum() for modwt and imodwt (db4 L5, 64 x 65536), fwt and ifwt (db4
       L8, 64 x 65536), fwt2d and ifwt2d (db4 L6, 2048 x 2048) and Haar
       orthogonal ifwt2d (256 x 256), against autograd through the plain
       versions in float64; the backward's launches are read on their own
       (modwt's must launch K2, fwt's K7, ifwt's K3, fwt2d's K5, ifwt2d's
-      K4); hurst_exponent's gradient at 8 x 65536
+      K4; wpt's K9 and iwpt's K8, db4 L6 64 x 65536 and full depth);
+      hurst_exponent's gradient at 8 x 65536
       against the float64 route. The K6 gather against the plain scatter's.
    d. MODWT analysis: modwt_mra (64 x 65536, db4 L5), modwt_2d -> imodwt_2d
       (2048 x 2048, L5), modwt_mra_2d (1024 x 1024, L3), the scale
@@ -64,8 +71,10 @@ it happened; any failed check ends the run with a non-zero exit:
       superlet, ewt -> iewt, vmd, matching_pursuit, analytic_signal; their
       identities, and each against the port's float64 CPU run at a small size.
    h. the rest of the discrete family at bench.py's shapes: wpt -> iwpt (db4
-      L6, 64 x 65536: fused, level by level, interleaved; two rows against
-      tests/oracle.py) and the WPT facade's 2D forward on a 2048^2 image;
+      L6, 64 x 65536: fused and interleaved, K8 and K9 once each; level by
+      level, no kernel; two rows against tests/oracle.py), at full depth
+      (K8 and K9 once a fused chunk: three each), the WPT facade's 2D
+      forward and reverse on a 2048^2 image and 3D on 256^3 (L4);
       best_basis (8 x 65536, max level 6) and best_basis_2d (512^2, L4),
       their nodes equal to the port's float64 CPU run's; the Ancient
       Egyptian FWT (db4, 64 x 100000: one K3 launch per chunk) through the
@@ -75,8 +84,8 @@ it happened; any failed check ends the run with a non-zero exit:
       denoise_dtcwt (512^2, L4); the variants: the in-place FWT (K3 once,
       the input's storage), the streaming MODWT (db4 L5, 2^20 samples in
       chunks of 65536: K1 once a chunk), a pooled MODWT round trip (K1, K2),
-      CompressorMagnitude on the WPT'd image. WPT, lifting and DTCWT launch
-      no kernel of this package.
+      CompressorMagnitude on the WPT'd image. Best bases, lifting and DTCWT
+      launch no kernel of this package.
    i. scattering at bench.py's shapes: scattering1d (8 x 65536 f32, J=8,
       Q=8) and scattering2d (256^2 f32, J=3, L=8), spectral form on cuFFT,
       K1-K7 launched 0 times; each order against the card's float64 run
@@ -96,7 +105,8 @@ it happened; any failed check ends the run with a non-zero exit:
       single-device function (1e-5 of max|ref|), its float64 run against
       the single device's (1e-10) and against its own f32 run, and by its
       identity; every output's local block on the card; K3 in the 2D/3D
-      FWTs and the halo FWT's tail, K7 in their inverses, K6 in
+      FWTs and the halo FWT's tail, K7 in their inverses, K8 in the 2D/3D
+      WPTs, K9 in their inverses, K6 in
       ssq_scale_sharded, K1 and K2 in the batch-sharded round trip and the
       2D MODWT. Then every example's
       main() on the card (jwave_tpu_torch.examples).
@@ -112,7 +122,11 @@ it happened; any failed check ends the run with a non-zero exit:
    levels and Haar's at 8, on 65536 rows of 256, and its plans (blocks an
    SM, grid, items a block); fwt and ifwt (K7) at 64 x 65536, and the 1D inverse's route before K7 (the synthesis butterflies:
    the sum of its kernels' times in a profiled call, and wall); ifwt3d db4
-   256^3 and ifwt2d_sharded 2048^2 before and after K7, in turns; for context
+   256^3 and ifwt2d_sharded 2048^2 before and after K7, in turns; K8 and
+   K9 beside the conv form they replace (its conv1d on the extended input,
+   its conv_transpose1d and fold), and wpt, iwpt, the WPT facade 2D 2048^2
+   and 3D 256^3 L4 and wpt2d/iwpt2d_sharded before (the conv form) and
+   after (K8, K9), in turns; for context
    also the torch FFT path of the MODWT (cuFFT) and the separable ifwt2d
    path, which are not kernels of this package; the entry step's gradient,
    fwt2d's gradient (backward K5 x2), ifwt2d's gradient (backward K4 x2),
@@ -143,16 +157,18 @@ it happened; any failed check ends the run with a non-zero exit:
    other side of a tie (pursuit picks, a best-basis tree: printed as a
    near-tie), dtypes as the CPU's in the same input dtype, every output
    tensor on the card; and the card-only cases at the kernels' eligibility
-   edges (K1-K7 through modwt, fwt, ifwt, fwt2d, ifwt2d and ssq_cwt: levels 0, 1
+   edges (K1-K9 through modwt, fwt, ifwt, fwt2d, ifwt2d, ssq_cwt, wpt and
+   iwpt: levels 0, 1
    and split level groups, lengths off the tile, batches of 1 and odd, N =
    1, 2, 4, sources off 16-byte alignment, transposed and non-square
    images, Haar orthogonal's gain, bins outside [0, K)) in float32, bf16
    and f16 where JAX takes them. One line a card-only case with its
    launches; one line for the phase: cases, runs, mismatches, near-ties,
-   K1-K7 launches, seconds. Any mismatch fails the run.
+   K1-K9 launches, seconds. Any mismatch fails the run.
 
 The second line from the end is a JSON object listing each kernel with its
-launches on its paths (4a-4b and 4j), on the main path (4a) and in 4j, its error, its time beside
+launches on its paths (4a-4b, 4h for K8/K9, and 4j), on its main path (4a;
+K8/K9: 4h's full-depth WPT) and in 4j, its error, its time beside
 its plain version's, the library call's, its byte floor and its bound
 (bytes over 3.35 TB/s or FLOPs over 67 TFLOP/s, the larger), and its
 backward route with that route's error; the last line is
@@ -191,7 +207,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "tests"))
     import jwave_tpu_torch as jt
     import oracle
-    from jwave_tpu_torch.ops import cuda_build, cuda_modwt, cuda_pyramid, cuda_reassign
+    from jwave_tpu_torch.ops import cuda_build, cuda_modwt, cuda_pyramid, cuda_reassign, cuda_wpt
     from jwave_tpu_torch.ops.butterfly import synthesis_levels
     from jwave_tpu_torch.transforms import ndim
     from jwave_tpu_torch.transforms.modwt import _modwt_base_filters
@@ -234,20 +250,24 @@ def main() -> int:
                       "cudnn_conv_fp32_precision_outside": conv_switch}), flush=True)
     require(err_highest <= F32_BOUND,
             f"synthesis_levels with the default dial: {err_highest} > {F32_BOUND}")
-    # The same for wpt db4 L6 (one conv1d of 64 channels of 442 taps, which
-    # cuDNN may run on the tensor cores), and that conv1d called directly
-    # under each of torch's switches: which one governs cuDNN's float32
-    # convolutions on this torch
+    # The same for WPT's conv form db4 L6 (one conv1d of 64 channels of 442
+    # taps, which cuDNN may run on the tensor cores; wpt itself runs K8 on a
+    # CUDA f32 tensor), and that conv1d called directly under each of
+    # torch's switches: which one governs cuDNN's float32 convolutions on
+    # this torch
+    from jwave_tpu_torch.ops.composite import _bank, wpt_conv_forward, wpt_conv_inverse
     fbp = jt.get_filter("db4")
-    ref_w = jt.wpt(y_tf.double(), "db4", 6)
-    err_w = float((jt.wpt(y_tf, "db4", 6).double() - ref_w).abs().max() / ref_w.abs().max())
+
+    def conv_wpt(y):
+        return wpt_conv_forward(y, fbp.dec_lo, fbp.dec_hi, 6)
+
+    ref_w = conv_wpt(y_tf.double())
+    err_w = float((conv_wpt(y_tf).double() - ref_w).abs().max() / ref_w.abs().max())
     jt.config.set_conv_precision("high")
     try:
-        err_w_high = float((jt.wpt(y_tf, "db4", 6).double() - ref_w).abs().max()
-                           / ref_w.abs().max())
+        err_w_high = float((conv_wpt(y_tf).double() - ref_w).abs().max() / ref_w.abs().max())
     finally:
         jt.config.set_conv_precision("highest")
-    from jwave_tpu_torch.ops.composite import _bank
     wq = _bank(fbp.dec_lo, fbp.dec_hi, 6, 65536, y_tf)
     ext = torch.cat([y_tf, y_tf[:, :wq.shape[-1] - 1]], dim=-1)[:, None]
     ref_q = torch.nn.functional.conv1d(ext.double(), wq.double(), stride=64)
@@ -271,10 +291,11 @@ def main() -> int:
                 switches[f"cudnn.conv.fp32_precision={prec} (allow_tf32 opposite)"] = conv_err()
     finally:
         cudnn_b.allow_tf32 = saved_tf32           # sets conv and rnn back together
-    # iwpt's conv_transpose1d (64 input channels), dft's complex matmul and a
-    # float32 matmul inside the dial, each with the dial at 'highest' and at
-    # 'high': where cuDNN or cuBLAS take TF32 when allowed, 'high' shows it
-    yc_w = jt.wpt(y_tf, "db4", 6)
+    # the conv form's inverse, a conv_transpose1d (64 input channels), dft's
+    # complex matmul and a float32 matmul inside the dial, each with the dial
+    # at 'highest' and at 'high': where cuDNN or cuBLAS take TF32 when
+    # allowed, 'high' shows it
+    yc_w = conv_wpt(y_tf)
     z_d = torch.complex(y_tf[:8, :2048], y_tf[8:16, :2048])
     a_m, b_m = y_tf.reshape(4, 1024, 1024)[0], y_tf.reshape(4, 1024, 1024)[1]
 
@@ -282,8 +303,9 @@ def main() -> int:
         with jt.config.dial():
             return a @ b
 
-    probes = {"iwpt db4 L6 (conv_transpose1d)": (lambda: jt.iwpt(yc_w, "db4", 6),
-                                                lambda: jt.iwpt(yc_w.double(), "db4", 6)),
+    probes = {"wpt_conv_inverse db4 L6 (conv_transpose1d)": (
+                  lambda: wpt_conv_inverse(yc_w, fbp.rec_lo, fbp.rec_hi, 6),
+                  lambda: wpt_conv_inverse(yc_w.double(), fbp.rec_lo, fbp.rec_hi, 6)),
               "dft 8x2048 complex64 (matmul)": (lambda: torch.view_as_real(jt.transforms.dft(z_d)),
                                                 lambda: torch.view_as_real(
                                                     jt.transforms.dft(z_d.to(torch.complex128)))),
@@ -300,17 +322,18 @@ def main() -> int:
             finally:
                 jt.config.set_conv_precision("highest")
         dial_errs[label] = {"highest": errs[0], "high": errs[1]}
-    print(json.dumps({"check": "wpt db4 L6 64x65536 f32 against float64, the dial untouched",
+    print(json.dumps({"check": "wpt_conv_forward (wpt's conv form) db4 L6 64x65536 f32 "
+                               "against float64, the dial untouched",
                       "rel": err_w, "bound": F32_BOUND, "rel_with_dial_high": err_w_high,
                       "its conv1d (64 x 442 taps, stride 64) under torch's switches": switches,
                       "other sites, dial highest / high": dial_errs}), flush=True)
-    require(err_w <= F32_BOUND, f"wpt with the default dial: {err_w} > {F32_BOUND}")
+    require(err_w <= F32_BOUND, f"wpt's conv form with the default dial: {err_w} > {F32_BOUND}")
     require(all(e["highest"] <= F32_BOUND for e in dial_errs.values()),
             f"a site with the default dial is not true float32: {dial_errs}")
     del y_tf, ref_tf, ref_w, ext, ref_q, yc_w, z_d, a_m, b_m
 
     # ---- 2. build ------------------------------------------------------
-    names = ("modwt", "pyramid", "reassign")
+    names = ("modwt", "pyramid", "reassign", "wpt")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(cuda_build.library, names))
@@ -437,6 +460,48 @@ def main() -> int:
     rows_k7 = grid_t // (65536 // plan_t.tile) + 1
     ipyramid_case(f"{rows_k7}x65536 db4 L8 ({cuda_pyramid.k7_items(rows_k7, 65536, plan_t)} "
                   f"items on a grid of {grid_t})", (rows_k7, 65536), "db4", 8)
+
+    def wpt_case(label, shape, wavelet, levels, offset=0):
+        """K8 and K9 (the bank's synthesis pair and recon_gain) in both
+        layouts against their plain versions in float64 on the same input,
+        one launch each; (K8's, K9's) max |err| in the subband layout."""
+        fb = jt.get_filter(wavelet)
+        x_w = torch.empty(shape[0] * shape[1] + offset, device=dev)[offset:].view(shape)
+        x_w.copy_(signal(shape))
+        errs = []
+        for inter in (False, True):
+            lay = "interleaved" if inter else "subband"
+            before = dict(cuda_wpt.launch_counts)
+            y_w = cuda_wpt.wpt_rows(x_w, fb.dec_lo, fb.dec_hi, levels, interleaved=inter)
+            z_w = cuda_wpt.iwpt_rows(x_w, fb.rec_lo, fb.rec_hi, levels, fb.recon_gain, inter)
+            torch.cuda.synchronize()
+            require(cuda_wpt.launch_counts == {k: v + 1 for k, v in before.items()},
+                    f"K8/K9 {label} {lay}: not one launch each: {cuda_wpt.launch_counts}")
+            errs.append((
+                compare(f"K8 {label} {lay}", y_w, cuda_wpt.wpt_analysis_torch(
+                    x_w.double(), fb.dec_lo, fb.dec_hi, levels, 1.0, inter), F32_BOUND),
+                compare(f"K9 {label} {lay}", z_w, cuda_wpt.wpt_synthesis_torch(
+                    x_w.double(), fb.rec_lo, fb.rec_hi, levels, fb.recon_gain, inter),
+                    F32_BOUND)))
+        return errs[0]
+
+    errors["K8"], errors["K9"] = wpt_case("64x65536 db4 L6", (64, 65536), "db4", 6)
+    for label, shape, wavelet, levels, offset in (
+            ("64x1024 db4 L6 (whole rows, 4 an item: wpt's second chunk at full depth)",
+             (64, 1024), "db4", 6, 0),
+            ("256x16 db4 L4 (whole rows, 256 an item: 105 taps mod 16, the third chunk)",
+             (256, 16), "db4", 4, 0),
+            ("133x8 db4 L3 (rows of 8)", (133, 8), "db4", 3, 0),
+            ("64x65536 Discrete Meyer L3 (62 taps)", (64, 65536), "Discrete Meyer", 3, 0),
+            ("16x65536 Haar L6 (no halo)", (16, 65536), "Haar", 6, 0),
+            ("16x4096 Haar orthogonal L6 (gain 0.5 a level)", (16, 4096), "Haar orthogonal", 6, 0),
+            ("9x16384 sym8 L4 (the generic taps)", (9, 16384), "sym8", 4, 0),
+            ("133x4096 db4 L1 (one level)", (133, 4096), "db4", 1, 0),
+            ("257x512 db4 L6 (8 rows an item: a last item of 1)", (257, 512), "db4", 6, 0),
+            ("3x1048576 db4 L6 (rows of 2^20: 256 items a row)", (3, 1 << 20), "db4", 6, 0),
+            ("8x16384 db4 L6 (a source 4 bytes off 16-byte alignment)", (8, 16384), "db4", 6,
+             1)):
+        wpt_case(label, shape, wavelet, levels, offset)
 
     def fwt2d_case(label, shape, wavelet, level):
         fb = jt.get_filter(wavelet)
@@ -759,6 +824,15 @@ def main() -> int:
     backward["K5"] = ("K4 x2 with the synthesis filters, gain recon_gain", grad_case(
         "ifwt2d db4 L6 2048x2048", lambda a: jt.ifwt2d(a, "db4", 6, 6),
         lambda a: k5x2_plain(a, fb4, 6), img, ("K4",)))
+    backward["K8"] = ("K9 iwpt_rows with the analysis filters, gain 1", grad_case(
+        "wpt db4 L6 64x65536", lambda a: jt.wpt(a, "db4", 6),
+        lambda a: cuda_wpt.wpt_analysis_torch(a, fb4.dec_lo, fb4.dec_hi, 6), x64, ("K9",)))
+    backward["K9"] = ("K8 wpt_rows with the synthesis filters, gain recon_gain", grad_case(
+        "iwpt db4 L6 64x65536", lambda a: jt.iwpt(a, "db4", 6),
+        lambda a: cuda_wpt.wpt_synthesis_torch(a, fb4.rec_lo, fb4.rec_hi, 6, fb4.recon_gain),
+        x64, ("K8",)))
+    grad_case("wpt db4 full depth 64x65536 (K9 once a fused chunk; plain: the conv form)",
+              lambda a: jt.wpt(a, "db4"), lambda a: jt.wpt(a, "db4"), x64, ("K9",))
     fbh = jt.get_filter("Haar orthogonal")
     grad_case("ifwt2d Haar orthogonal 256x256 (gain 0.5)",
               lambda a: jt.ifwt2d(a, "Haar orthogonal"), lambda a: k5x2_plain(a, fbh, 8),
@@ -1018,14 +1092,17 @@ def main() -> int:
     fb4 = jt.get_filter("db4")
     xp_np = np.random.default_rng(26).standard_normal((64, 65536)).astype(np.float32)
     xp = torch.as_tensor(xp_np, device=dev)
-    wpt_modes = {"fused": {}, "level by level": {"fused": False},
-                 "interleaved": {"layout": "interleaved"}}
-    for mode, kw in wpt_modes.items():
+    wpt_modes = {"fused": ({}, 1), "level by level": ({"fused": False}, 0),
+                 "interleaved": ({"layout": "interleaved"}, 1)}
+    for mode, (kw, k89) in wpt_modes.items():
         def wpt_round(kw=kw):
             y = jt.wpt(xp, "db4", 6, **kw)
             return y, jt.iwpt(y, "db4", 6, **kw)
 
-        yw, backw = no_kernel(f"wpt -> iwpt db4 L6 64x65536 ({mode})", wpt_round)
+        name = f"wpt -> iwpt db4 L6 64x65536 ({mode})"
+        yw, backw = path(name, wpt_round, ("K8", "K9")) if k89 else no_kernel(name, wpt_round)
+        counts = read_counts()
+        require(counts["K8"] == k89 and counts["K9"] == k89, f"{name}: {counts}")
         finite(yw, (64, 65536), f"wpt {mode}")
         compare(f"iwpt(wpt(x)) db4 L6 64x65536 ({mode})", backw, xp, F32_BOUND)
         sub = jt.wpt_interleaved_to_subband(yw, 6) if mode == "interleaved" else yw
@@ -1035,14 +1112,45 @@ def main() -> int:
                           "max_abs_err": err, "rel": err / np.abs(want_w).max()}), flush=True)
         require(err <= F32_BOUND * np.abs(want_w).max(), f"wpt {mode} against the oracle")
     del yw, backw, sub
+
+    def wpt_full():
+        y = jt.wpt(xp, "db4")
+        return y, jt.iwpt(y, "db4")
+
+    # the WPT path's counts: K8 and K9 once a fused chunk, (65536, 6),
+    # (1024, 6) and (16, 4) at full depth
+    yw, backw = path("wpt -> iwpt db4 full depth 64x65536 (chunks L6, L6, L4)", wpt_full,
+                     ("K8", "K9"))
+    wpt_launches = read_counts()
+    require(wpt_launches["K8"] == 3 and wpt_launches["K9"] == 3,
+            f"wpt -> iwpt at full depth: {wpt_launches}")
+    launches["K8"] = main_launches["K8"] = wpt_launches["K8"]
+    launches["K9"] = main_launches["K9"] = wpt_launches["K9"]
+    compare("iwpt(wpt(x)) db4 full depth 64x65536", backw, xp, F32_BOUND)
+    compare("wpt db4 full depth 64x65536 f32 against float64 (the conv form)", yw,
+            jt.wpt(xp.double(), "db4"), F32_BOUND)
+    del yw, backw
     wpt_t = jt.TransformBuilder.create("Wavelet Packet Transform", "db4")
-    img_w = no_kernel("WPT facade forward_2d -> reverse_2d 2048x2048 db4 (full depth)",
-                      lambda: wpt_t.forward(img))             # numpy -> "cuda" by default
-    img_wb = wpt_t.reverse(img_w)
+    img_w = path("WPT facade forward_2d 2048x2048 db4 (full depth)",
+                 lambda: wpt_t.forward(img), ("K8",))  # numpy -> "cuda" by default
+    img_wb = path("WPT facade reverse_2d 2048x2048 db4 (full depth)",
+                  lambda: wpt_t.reverse(img_w), ("K9",))
     finite(img_w, (2048, 2048), "WPT facade 2D")
+    compare("WPT facade 2D 2048x2048 f32 against float64", img_w,
+            wpt_t.forward(torch.as_tensor(img, dtype=torch.float64, device=dev)), F32_BOUND)
     compare("WPT facade 2D round trip 2048x2048", img_wb, torch.as_tensor(img, device=dev),
             F32_BOUND)
     del img_wb
+    vol_w = torch.as_tensor(np.random.default_rng(34).standard_normal((256, 256, 256)),
+                            dtype=torch.float32, device=dev)
+    vol_c = path("WPT facade forward_3d 256^3 db4 L4 (wpt3d)",
+                 lambda: wpt_t.forward(vol_w, 4, 4, 4), ("K8",))
+    vol_b = path("WPT facade reverse_3d 256^3 db4 L4 (iwpt3d)",
+                 lambda: wpt_t.reverse(vol_c, 4, 4, 4), ("K9",))
+    compare("WPT facade 3D 256^3 L4 f32 against float64", vol_c,
+            wpt_t.forward(vol_w.double(), 4, 4, 4), F32_BOUND)
+    compare("WPT facade 3D round trip 256^3 L4", vol_b, vol_w, F32_BOUND)
+    del vol_w, vol_c, vol_b
 
     tb_ = np.arange(65536)
     bb_np = (np.sin(2 * np.pi * tb_ / 37.0) + np.sign(np.sin(2 * np.pi * tb_ / 4096.0))
@@ -1319,7 +1427,7 @@ def main() -> int:
     fwt_f = jt.TransformBuilder.create("Fast Wavelet Transform", "db4")
     wpt_f = jt.TransformBuilder.create("Wavelet Packet Transform", "db4")
     fft_m = jt.ConvolutionMethod.FFT
-    sharded_launches = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6", "K7"), 0)
+    sharded_launches = dict.fromkeys(read_counts(), 0)
     # label -> (sharded call, single-device call) on f32, timed in phase 5; the
     # inputs of the inverses (the forwards' outputs) stay on the card for it
     sharded_calls = {}
@@ -1370,10 +1478,11 @@ def main() -> int:
             need=("K7",))
     sharded("wpt2d_sharded db4 L6 2048^2",
             lambda dt: par.wpt2d_sharded(img_(dt), "db4", mesh, 6, 6),
-            lambda dt: wpt_f.forward(img_(dt), 6, 6))
+            lambda dt: wpt_f.forward(img_(dt), 6, 6), need=("K8",))
     sharded("iwpt2d_sharded db4 L6 2048^2",
             lambda dt: par.iwpt2d_sharded(wpt2_out[dt], "db4", mesh, 6, 6),
-            lambda dt: wpt_f.reverse(wpt2_out[dt].full_tensor(), 6, 6), ident=img_)
+            lambda dt: wpt_f.reverse(wpt2_out[dt].full_tensor(), 6, 6), ident=img_,
+            need=("K9",))
     sharded("fwt2d_tile_sharded db4 L6 2048^2 on a (1, 1) mesh, gather_pyramid_2d",
             lambda dt: par.gather_pyramid_2d(par.fwt2d_tile_sharded(img_(dt), "db4", mesh2, 6, 6),
                                              "db4", 6, 6, 1, 1),
@@ -1388,10 +1497,11 @@ def main() -> int:
     wpt3_out = {dt: par.wpt3d_sharded(vol_(dt), "db4", mesh, 4, 4, 4) for dt in sharded_in}
     sharded("wpt3d_sharded db4 L4 256^3",
             lambda dt: par.wpt3d_sharded(vol_(dt), "db4", mesh, 4, 4, 4),
-            lambda dt: wpt_f.forward(vol_(dt), 4, 4, 4))
+            lambda dt: wpt_f.forward(vol_(dt), 4, 4, 4), need=("K8",))
     sharded("iwpt3d_sharded db4 L4 256^3",
             lambda dt: par.iwpt3d_sharded(wpt3_out[dt], "db4", mesh, 4, 4, 4),
-            lambda dt: wpt_f.reverse(wpt3_out[dt].full_tensor(), 4, 4, 4), ident=vol_)
+            lambda dt: wpt_f.reverse(wpt3_out[dt].full_tensor(), 4, 4, 4), ident=vol_,
+            need=("K9",))
     sharded("batch_sharded(modwt -> imodwt) db4 L5 64x65536",
             lambda dt: par.batch_sharded(lambda b: jt.imodwt(jt.modwt(b, "db4", 5), "db4"),
                                          mesh)(xb_(dt)),
@@ -1629,6 +1739,38 @@ def main() -> int:
                           lambda: cuda_pyramid.ipyramid_rows_torch(y8, rlo, rhi, 1.0, done8))
     del op_k7
     torch.cuda.empty_cache()
+    # K8 and K9 at db4 L6 64x65536: kernel, plain version, and the conv form
+    # they replace: one conv1d of 64 output channels of 442 taps, stride 64,
+    # on the circularly extended input (K8), one conv_transpose1d and its
+    # fold (K9), both inside the dial; each checked against the plain
+    # version first
+    w_k8 = _bank(lo, hi, 6, 65536, x)
+    x_k8 = torch.cat([x, x[:, :w_k8.shape[-1] - 1]], dim=-1)[:, None].contiguous()
+    y6 = cuda_wpt.wpt_rows(x, lo, hi, 6)
+
+    def conv_k8():
+        with jt.config.dial():
+            return conv1d(x_k8, w_k8, stride=64)
+
+    library["K8"] = lambda: conv_k8().reshape(64, 65536)
+    library["K9"] = lambda: wpt_conv_inverse(y6, rlo, rhi, 6)
+    compare("library call for K8 against its plain version", library["K8"](),
+            cuda_wpt.wpt_analysis_torch(x.double(), lo, hi, 6), F32_BOUND)
+    compare("library call for K9 against its plain version", library["K9"](),
+            cuda_wpt.wpt_synthesis_torch(y6.double(), rlo, rhi, 6), F32_BOUND)
+    timing["K8"] = turns(lambda: cuda_wpt.wpt_rows(x, lo, hi, 6),
+                         lambda: cuda_wpt.wpt_analysis_torch(x, lo, hi, 6), conv_k8)
+    timing["K9"] = turns(lambda: cuda_wpt.iwpt_rows(y6, rlo, rhi, 6),
+                         lambda: cuda_wpt.wpt_synthesis_torch(y6, rlo, rhi, 6), library["K9"])
+    timing["wpt"] = pair(lambda: jt.wpt(x, "db4", 6),
+                         lambda: cuda_wpt.wpt_analysis_torch(x, lo, hi, 6))
+    timing["iwpt"] = pair(lambda: jt.iwpt(y6, "db4", 6),
+                          lambda: cuda_wpt.wpt_synthesis_torch(y6, rlo, rhi, 6))
+    for name_p, plan_p in (("K8", cuda_wpt.wpt_plan(65536, 6, 8)),
+                           ("K9", cuda_wpt.wpt_plan(65536, 6, 8, True))):
+        print(json.dumps({"plan": f"{name_p} 64x65536 db4 L6", **plan_p._asdict(),
+                          "items": cuda_wpt.wpt_items(64, 65536, plan_p)}), flush=True)
+    del x_k8
     shapes = {"K1": ("modwt db4 L5 64x65536", 64 * 65536, "Msamples_per_s"),
               "K2": ("imodwt db4 L5 64x65536", 64 * 65536, "Msamples_per_s"),
               "K1+K2": ("modwt+imodwt db4 L5 64x65536 (entry step)", 64 * 65536, "Msamples_per_s"),
@@ -1643,6 +1785,11 @@ def main() -> int:
               "ifwt2d": ("ifwt2d db4 L6 2048x2048 (K5 x2)", 2048 * 2048, "Mpix_per_s"),
               "K6": ("reassign 8x64x65536 K=64 (ssq_cwt's block)", 8 * 64 * 65536,
                      "Mcoeff_per_s"),
+              "K8": ("wpt_rows db4 L6 64x65536", 64 * 65536, "Msamples_per_s"),
+              "K9": ("iwpt_rows db4 L6 64x65536", 64 * 65536, "Msamples_per_s"),
+              "wpt": ("wpt db4 L6 64x65536 through jt.wpt (K8)", 64 * 65536, "Msamples_per_s"),
+              "iwpt": ("iwpt db4 L6 64x65536 through jt.iwpt (K9)", 64 * 65536,
+                       "Msamples_per_s"),
               "ssq_cwt": ("ssq_cwt 8x65536 f32, 64 scales (K6 route; plain = scatter route)",
                           8 * 64 * 65536, "Mcoeff_per_s")}
     fft = jt.ConvolutionMethod.FFT
@@ -1682,7 +1829,7 @@ def main() -> int:
         if k:
             floors[k] = ms
         print(json.dumps({"time": label, "shape": shape, "ms": ms, "card": card}), flush=True)
-    floors["K7"] = floors["K3"]  # the same rows in and out
+    floors["K7"] = floors["K8"] = floors["K9"] = floors["K3"]  # the same rows in and out
     # where K7's time goes: 1, 2, 4 and 8 levels of db4 (one launch each, the
     # same bytes but for the coarser cones), and Haar's one tap pair at 8
     fb_haar = jt.get_filter("Haar")
@@ -1779,6 +1926,45 @@ def main() -> int:
                           "before_wall_ms": median_ms(old_fn, 10),
                           "after_wall_ms": median_ms(fn, 10), "card": card}), flush=True)
     del vol_c
+    # the WPT consumers before (the conv form: ops.composite's route for
+    # every tensor before K8/K9) and after (K8, K9), in turns, device time
+    # (the spin) and wall
+    from jwave_tpu_torch.ops import composite as jt_composite
+
+    def conv_route(fn):
+        def run():
+            saved = jt_composite._on_kernel
+            jt_composite._on_kernel = lambda t: False
+            try:
+                return fn()
+            finally:
+                jt_composite._on_kernel = saved
+        return run
+
+    vol_w3 = full(wpt3_out[torch.float32])
+    img_w2 = full(wpt2_out[torch.float32])
+    for label, fn in (("wpt db4 L6 64x65536", lambda: jt.wpt(x, "db4", 6)),
+                      ("iwpt db4 L6 64x65536", lambda: jt.iwpt(y6, "db4", 6)),
+                      ("wpt db4 full depth 64x65536 (3 fused chunks)", lambda: jt.wpt(x, "db4")),
+                      ("WPT facade 2D forward 2048^2 db4 full depth", lambda: wpt_f.forward(ximg)),
+                      ("WPT facade 2D reverse 2048^2 db4 L6", lambda: wpt_f.reverse(img_w2, 6, 6)),
+                      ("WPT facade 3D forward 256^3 db4 L4 (wpt3d)",
+                       lambda: wpt_f.forward(vol_w3, 4, 4, 4)),
+                      ("WPT facade 3D reverse 256^3 db4 L4 (iwpt3d)",
+                       lambda: wpt_f.reverse(vol_w3, 4, 4, 4)),
+                      ("wpt2d_sharded db4 L6 2048^2 (one rank)",
+                       lambda: par.wpt2d_sharded(ximg, "db4", mesh, 6, 6)),
+                      ("iwpt2d_sharded db4 L6 2048^2 (one rank)",
+                       lambda: par.iwpt2d_sharded(wpt2_out[torch.float32], "db4", mesh, 6, 6))):
+        old_fn = conv_route(fn)
+        compare(f"{label}: after against before", full(fn()), full(old_fn()), F32_BOUND)
+        b1, a1 = median_ms(old_fn, 10, device=True), median_ms(fn, 10, device=True)
+        a2, b2 = median_ms(fn, 10, device=True), median_ms(old_fn, 10, device=True)
+        print(json.dumps({"time": f"{label}, before (the conv form) and after (K8, K9)",
+                          "before_ms": (b1 + b2) / 2, "after_ms": (a1 + a2) / 2,
+                          "before_wall_ms": median_ms(old_fn, 10),
+                          "after_wall_ms": median_ms(fn, 10), "card": card}), flush=True)
+    del vol_w3, img_w2, y6
     sep_ms = median_ms(lambda: ndim.reverse_2d(lambda v, lvl: jt.ifwt(v, "db4", lvl), ximg, 6, 6))
     dense_ms = median_ms(lambda: cuda_reassign.reassign_dense_torch(contrib, k_idx, 64))
     for label, shape, ms in (
@@ -1960,12 +2146,12 @@ def main() -> int:
     # The least time the card could take for each kernel's work at the timed
     # shape: the larger of the bytes it must move (each input read once, each
     # output written once) over 3.35 TB/s and its FLOPs over the 67 TFLOP/s
-    # float32 rate (H100 SXM data sheet, at 700 W). All seven are bound by
+    # float32 rate (H100 SXM data sheet, at 700 W). All nine are bound by
     # bytes. K1/K2: 64x65536 in, 64x6x65536 out (or the reverse), 2M FMAs
     # per sample and level; K3 and K7: 64x65536 in and out, ~2N*M FMAs a row;
     # K4/K5 one pass: 2048^2 in and out, the same FMAs per row; K6: the
     # complex64 contributions and int32 bins in, the complex64 plane out, 2
-    # adds each.
+    # adds each; K8/K9 db4 L6: 64x65536 in and out, M FMAs a sample and level.
     hbm, f32_rate = 3.35e12, 67e12
     b, n_s, lv, m8 = 64, 65536, 5, 8
     work = {"K1": (4 * b * n_s * (lv + 2), 2 * 2 * m8 * b * n_s * lv),
@@ -1975,7 +2161,9 @@ def main() -> int:
             "K5": (2 * 4 * 2048 * 2048, 2 * 2 * 2048 * m8 * 2048),
             "K6": (contrib.numel() * (8 + 4) + 8 * 64 * contrib.shape[-1] * 8,
                    2 * contrib.numel()),
-            "K7": (2 * 4 * b * n_s, 2 * 2 * n_s * m8 * b)}
+            "K7": (2 * 4 * b * n_s, 2 * 2 * n_s * m8 * b),
+            "K8": (2 * 4 * b * n_s, 2 * m8 * 6 * b * n_s),
+            "K9": (2 * 4 * b * n_s, 2 * m8 * 6 * b * n_s)}
     bounds = {}
     for k, (nbytes, flops) in work.items():
         t_bytes, t_ops = nbytes / hbm * 1e3, flops / f32_rate * 1e3
@@ -1991,6 +2179,9 @@ def main() -> int:
         ("K6 reassign", "reassign.cu", "jwave_tpu/ops/pallas_reassign.py:29"),
         # no pallas_call: the counterpart of the XLA/MXU fused inverse pyramid
         ("K7 ipyramid_rows", "pyramid.cu", "jwave_tpu/ops/mxu_pyramid.py:159"),
+        # no pallas_call: the counterparts of the MXU tile form of the fused WPT
+        ("K8 wpt_rows", "wpt.cu", "jwave_tpu/ops/mxu_wpt.py:87"),
+        ("K9 iwpt_rows", "wpt.cu", "jwave_tpu/ops/mxu_wpt.py:125"),
     ]
     kernels = []
     for (name, src, replaces) in table:
@@ -2022,6 +2213,7 @@ BENCH_KERNELS = {
     "K4": ("fwt2d_db4_L6_2048", "fwt2d_db4_L6_2048_bf16dial"),
     "K6": ("ssq_cwt_64scales_8x64K",),
     "K7": ("pallas_smoke",),
+    "K8": ("wpt_db4_L6",),
 }
 #: the sweep's lines: its three sections, then the card's rows
 SWEEP_KEYS = ("modwt_sweep_us", "wpt_sweep", "cwt_sweep", "fwt1d_db4_L8_conv_us",

@@ -26,7 +26,7 @@ Each row records, beside ``bench.py``'s throughput key:
 - ``host_syncs``: the host's waits for the stream in one warm call, counted
   by torch's sync debug mode. Above 0, the spin cannot keep the host ahead,
   and ``ms`` includes the host's gaps (``device_ms_includes_host_waits``);
-- ``launches``: launches of K1-K7 in one warm call;
+- ``launches``: launches of K1-K9 in one warm call;
 - ``err``: max |error| of the float32 call against the same call in float64
   on the same device, relative to max |ref| (for several outputs, the
   largest), beside its ``bound``.
@@ -59,6 +59,7 @@ import jwave_tpu_torch as jt
 
 from . import ops
 from .ops import cuda_build
+from .ops.composite import wpt_conv_forward
 from .filters import get_filter
 from .transforms.fwt import _butterfly_levels, fwt
 from .transforms.lifting import lifting_fwt
@@ -118,12 +119,12 @@ def _card_name(dev: torch.device) -> str:
 
 
 def _build(dev: torch.device):
-    """Compile K1-K7 (one nvcc per source, all at once) before any row, and
+    """Compile K1-K9 (one nvcc per source, all at once) before any row, and
     print the seconds on their own line; a failure is printed and left to
     the rows that need the kernels."""
     if dev.type != "cuda":
         return
-    names = ("modwt", "pyramid", "reassign")
+    names = ("modwt", "pyramid", "reassign", "wpt")
     t0 = time.perf_counter()
     try:
         with ThreadPoolExecutor(len(names)) as pool:
@@ -360,6 +361,7 @@ def main(shapes=None, device="cuda", card_rows: bool | None = None,
         lambda v: forward_3d(lambda a, level: fwt(a, "Daubechies 4", level), v, 4, 4, 4),
         run.tensor((vs, vs, vs)), throughput=("Mvox_per_s", vs**3))
 
+    # WPT (K8 on the card)
     row("wpt_db4_L6", lambda a: jt.wpt(a, "Daubechies 4", 6), x,
         throughput=("Msamples_per_s", batch * n))
 
@@ -628,9 +630,9 @@ def sweep(shapes=None, device="cuda"):
     fb4 = get_filter("Daubechies 4")
     print(json.dumps({"fwt1d_db4_L8_conv_us": us(lambda a: _butterfly_levels(a, fb4, 8), x)}),
           flush=True)
-    # the port's wpt is the convolution form on every device
-    print(json.dumps({"wpt_db4_L6_conv_us": us(lambda a: jt.wpt(a, "Daubechies 4", 6), x)}),
-          flush=True)
+    # wpt's route where K8 does not run: the composite convolution
+    print(json.dumps({"wpt_db4_L6_conv_us": us(
+        lambda a: wpt_conv_forward(a, fb4.dec_lo, fb4.dec_hi, 6), x)}), flush=True)
     old = jt.config.conv_precision()
     for dial in ("default", "high", "highest"):
         jt.config.set_conv_precision(dial)

@@ -1,7 +1,7 @@
 """Torch primitives (butterfly, circular convolutions) and the hand-written
-CUDA kernels K1-K7 with their plain versions. Importing this package builds
+CUDA kernels K1-K9 with their plain versions. Importing this package builds
 no kernel."""
-from . import cuda_modwt, cuda_pyramid, cuda_reassign
+from . import cuda_modwt, cuda_pyramid, cuda_reassign, cuda_wpt
 from .butterfly import butterfly_forward, butterfly_reverse, ensure_float
 from .circular import (
     circular_conv,
@@ -21,16 +21,18 @@ __all__ = [
 
 def reset_launch_counts():
     """Set every kernel's launch count to 0."""
-    for mod in (cuda_modwt, cuda_pyramid, cuda_reassign):
+    for mod in (cuda_modwt, cuda_pyramid, cuda_reassign, cuda_wpt):
         mod.reset_launch_counts()
 
 
 def launch_counts() -> dict:
-    """Launches of K1-K7 since the last :func:`reset_launch_counts`."""
+    """Launches of K1-K9 since the last :func:`reset_launch_counts`."""
     return {"K1": cuda_modwt.launch_counts["modwt_cascade"],
             "K2": cuda_modwt.launch_counts["imodwt_cascade"],
             "K3": cuda_pyramid.launch_counts["pyramid_rows"],
             "K4": cuda_pyramid.launch_counts["pyramid_rows_transposed"],
             "K5": cuda_pyramid.launch_counts["ipyramid_rows_transposed"],
             "K6": cuda_reassign.launch_counts["reassign"],
-            "K7": cuda_pyramid.launch_counts["ipyramid_rows"]}
+            "K7": cuda_pyramid.launch_counts["ipyramid_rows"],
+            "K8": cuda_wpt.launch_counts["wpt_rows"],
+            "K9": cuda_wpt.launch_counts["iwpt_rows"]}

@@ -17,6 +17,13 @@ and stride 2^L, then the full linear result folded modulo N.
 
 Packet ordering matches the reference: the level-1 choice is the most
 significant bit of the output block index.
+
+Routing: on a CUDA float32 tensor :func:`wpt_fused_forward` and
+:func:`wpt_fused_inverse` run the hand kernels K8 and K9
+(``ops.cuda_wpt.wpt_rows``, ``iwpt_rows``: the level cascade in shared
+memory, the interleaved layout stored and read in place). The conv form
+(:func:`wpt_conv_forward`, :func:`wpt_conv_inverse`) runs everywhere else:
+the CPU, float64, bf16 and f16.
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import config
+from . import cuda_wpt
 from .butterfly import ensure_float
 
 
@@ -74,7 +82,55 @@ def _bank(lo, hi, levels: int, n: int, like: torch.Tensor) -> torch.Tensor:
     return _device_bank(*as_bytes, levels, n, like.dtype, like.device)
 
 
-def wpt_fused_forward(x: torch.Tensor, dec_lo, dec_hi, levels: int) -> torch.Tensor:
+def _on_kernel(x: torch.Tensor) -> bool:
+    return x.device.type == "cuda" and x.dtype == torch.float32
+
+
+def _to_interleaved(y: torch.Tensor, levels: int) -> torch.Tensor:
+    """Subband-major (..., N) coefficients in the interleaved layout:
+    position i of subband s at i * 2^L + s."""
+    n = y.shape[-1]
+    s = 1 << levels
+    return y.reshape(-1, s, n // s).transpose(1, 2).reshape(y.shape)
+
+
+def _to_subband(y: torch.Tensor, levels: int) -> torch.Tensor:
+    """Inverse of :func:`_to_interleaved`."""
+    n = y.shape[-1]
+    s = 1 << levels
+    return y.reshape(-1, n // s, s).transpose(1, 2).reshape(y.shape)
+
+
+def wpt_fused_forward(x: torch.Tensor, dec_lo, dec_hi, levels: int,
+                      interleaved: bool = False) -> torch.Tensor:
+    """L levels of WPT on the last axis of (..., N), subband-major or
+    ``interleaved``: K8 on a CUDA float32 tensor, else the conv form."""
+    x = ensure_float(x)
+    n = x.shape[-1]
+    if _on_kernel(x):
+        flat = x.reshape(-1, n).contiguous()
+        return cuda_wpt.wpt_rows(flat, dec_lo, dec_hi, levels,
+                                 interleaved=interleaved).reshape(x.shape)
+    out = wpt_conv_forward(x, dec_lo, dec_hi, levels)
+    return _to_interleaved(out, levels) if interleaved else out
+
+
+def wpt_fused_inverse(y: torch.Tensor, rec_lo, rec_hi, levels: int, recon_gain: float = 1.0,
+                      interleaved: bool = False) -> torch.Tensor:
+    """Adjoint of :func:`wpt_fused_forward` with the synthesis pair, times
+    ``recon_gain ** levels``, reading either layout: K9 on a CUDA float32
+    tensor, else the conv form."""
+    y = ensure_float(y)
+    n = y.shape[-1]
+    if _on_kernel(y):
+        flat = y.reshape(-1, n).contiguous()
+        return cuda_wpt.iwpt_rows(flat, rec_lo, rec_hi, levels, recon_gain,
+                                  interleaved).reshape(y.shape)
+    return wpt_conv_inverse(_to_subband(y, levels) if interleaved else y, rec_lo, rec_hi, levels,
+                            recon_gain)
+
+
+def wpt_conv_forward(x: torch.Tensor, dec_lo, dec_hi, levels: int) -> torch.Tensor:
     """L levels of WPT in one strided circular conv. x: (..., N)."""
     x = ensure_float(x)
     n = x.shape[-1]
@@ -86,9 +142,9 @@ def wpt_fused_forward(x: torch.Tensor, dec_lo, dec_hi, levels: int) -> torch.Ten
     return out.reshape(x.shape)
 
 
-def wpt_fused_inverse(y: torch.Tensor, rec_lo, rec_hi, levels: int,
-                      recon_gain: float = 1.0) -> torch.Tensor:
-    """Adjoint of :func:`wpt_fused_forward` (synthesis bank, transposed conv)."""
+def wpt_conv_inverse(y: torch.Tensor, rec_lo, rec_hi, levels: int,
+                     recon_gain: float = 1.0) -> torch.Tensor:
+    """Adjoint of :func:`wpt_conv_forward` (synthesis bank, transposed conv)."""
     y = ensure_float(y)
     n = y.shape[-1]
     stride = 1 << levels

@@ -6,8 +6,10 @@ applied to all ``g = N/h`` packets of length ``h``, so the packet axis is a
 reshape into a leading batch dimension; up to 6 consecutive levels are fused
 into ONE strided circular convolution with a composite (noble-identity)
 filter bank (``ops.composite``), which reads the input once per chunk of
-levels instead of once per level. No kernel of this package runs here: the
-convolutions are cuDNN's, under ``config.dial``.
+levels instead of once per level. On a CUDA float32 tensor a fused chunk is
+one launch of K8 (K9 for the inverse), the cascade in shared memory
+(``ops.cuda_wpt``); elsewhere it is one cuDNN convolution under
+``config.dial``. Chunks of one level run the torch butterfly.
 
 Best basis (Coifman-Wickerhauser) sits on top: the full packet tree, an
 additive cost per node summed in float64 on the host, and the bottom-up
@@ -96,8 +98,9 @@ def wpt(x, wavelet, level: int | None = None, fused: bool = True,
 
     ``layout='subband'`` (default) returns the reference's subband-major
     order; ``layout='interleaved'`` the JAX package's tile layout (lane
-    ``p*S+s`` of tile j = position ``j*P+p`` of subband s), the subband
-    result permuted by :func:`wpt_subband_to_interleaved`. ``fused=False``
+    ``p*S+s`` of tile j = position ``j*P+p`` of subband s), what
+    :func:`wpt_subband_to_interleaved` makes of the subband result, stored
+    so by the fused chunk itself. ``fused=False``
     runs one butterfly per level. A float input keeps its dtype (bf16
     stays bf16); integers become torch's default float at the first level.
     """
@@ -105,21 +108,24 @@ def wpt(x, wavelet, level: int | None = None, fused: bool = True,
     x = as_tensor(x)
     n = x.shape[-1]
     level = _check(x, level, layout, "wpt")
-    if layout == "interleaved":
+    # interleaved: one fused chunk of `level` levels, which stores the layout
+    # itself; one level (the butterfly) is permuted after
+    inter = layout == "interleaved"
+    if inter:
         _interleaved_ok(n, level, fb, fused, "wpt")
     lead = x.shape[:-1]
     for h, c in _chunk_schedule(n, level, fb):
         g = n // h
         packets = x.reshape(lead + (g, h))
         if fused and c > 1:
-            packets = wpt_fused_forward(packets, fb.dec_lo, fb.dec_hi, c)
+            packets = wpt_fused_forward(packets, fb.dec_lo, fb.dec_hi, c, interleaved=inter)
         else:
             for l in range(c):
                 hh = h >> l
                 sub = packets.reshape(lead + (n // hh, hh))
                 packets = butterfly_forward(sub, fb.dec_lo, fb.dec_hi)
         x = packets.reshape(lead + (n,))
-    if layout == "interleaved":
+    if inter and level == 1:
         return wpt_subband_to_interleaved(x, level)
     return x
 
@@ -129,20 +135,24 @@ def iwpt(y, wavelet, level: int | None = None, fused: bool = True,
     """Inverse WPT along the last axis (WaveletPacketTransform.java:141-189).
 
     ``layout='interleaved'`` takes the layout ``wpt(..., layout=
-    'interleaved')`` gives, permuted back to subbands first."""
+    'interleaved')`` gives: the fused chunk reads it directly (one level is
+    permuted back to subbands first)."""
     fb = get_filter(wavelet)
     y = as_tensor(y)
     n = y.shape[-1]
     level = _check(y, level, layout, "iwpt")
-    if layout == "interleaved":
+    inter = layout == "interleaved"
+    if inter:
         _interleaved_ok(n, level, fb, fused, "iwpt")
-        y = wpt_interleaved_to_subband(y, level)
+        if level == 1:
+            y = wpt_interleaved_to_subband(y, level)
     lead = y.shape[:-1]
     for h, c in reversed(_chunk_schedule(n, level, fb)):
         g = n // h
         packets = y.reshape(lead + (g, h))
         if fused and c > 1:
-            packets = wpt_fused_inverse(packets, fb.rec_lo, fb.rec_hi, c, fb.recon_gain)
+            packets = wpt_fused_inverse(packets, fb.rec_lo, fb.rec_hi, c, fb.recon_gain,
+                                        interleaved=inter)
         else:
             for l in range(c - 1, -1, -1):
                 hh = h >> l

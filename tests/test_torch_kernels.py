@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernels K1-K7 of jwave_tpu_torch.
+"""The hand-written CUDA kernels K1-K9 of jwave_tpu_torch.
 
 Tests marked ``cuda`` build and launch the kernels and hold them against
 their plain torch versions (run in float64 on the same input); they need a
@@ -8,7 +8,8 @@ CUDA card and skip without one. Run them on the card with
 
 The other tests check, on any machine, what surrounds the kernels: the
 level grouping of K1/K2, K3's tile plan and its tiling run in plain torch
-(K7's are in tests/test_torch_ipyramid.py),
+(K7's are in tests/test_torch_ipyramid.py, K8's and K9's in
+tests/test_torch_wpt_kernel.py),
 the row blocking of K4/K5, K6's shared bytes, the build's error on a
 missing compiler, that CPU tensors take the plain versions, and (where JAX
 is installed) the plain versions of K5/K6 and K6's gradient against the
@@ -21,7 +22,8 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
 import jwave_tpu_torch as jt  # noqa: E402
-from jwave_tpu_torch.ops import cuda_build, cuda_modwt, cuda_pyramid, cuda_reassign  # noqa: E402
+from jwave_tpu_torch.ops import cuda_build, cuda_modwt, cuda_pyramid, cuda_reassign, \
+    cuda_wpt  # noqa: E402
 from jwave_tpu_torch.ops.butterfly import synthesis_levels  # noqa: E402
 from jwave_tpu_torch.transforms.modwt import _modwt_base_filters  # noqa: E402
 
@@ -670,6 +672,7 @@ def test_wpt_on_the_card_matches_float64(cuda, mode):
           "interleaved": {"layout": "interleaved"}}[mode]
     cuda_pyramid.reset_launch_counts()
     cuda_modwt.reset_launch_counts()
+    cuda_wpt.reset_launch_counts()
     y = jt.wpt(x, "db4", 6, **kw)
     back = jt.iwpt(y, "db4", 6, **kw)
     torch.cuda.synchronize()
@@ -678,6 +681,148 @@ def test_wpt_on_the_card_matches_float64(cuda, mode):
     assert _rel_err(back, x) <= F32_BOUND
     assert not any(cuda_pyramid.launch_counts.values())
     assert not any(cuda_modwt.launch_counts.values())
+    fused = int(mode != "level by level")  # one K8 and one K9 launch a fused chunk
+    assert cuda_wpt.launch_counts == {"wpt_rows": fused, "iwpt_rows": fused}
+
+
+#: (shape, bank, levels): the main shape; every chunk of wpt at full depth
+#: on 65536 (65536 L6 tiled, 1024 L6 and 16 L4 whole rows); packets
+#: shorter than the cone (16 at L4: 105 taps mod 16; 8 at L3); 62 taps
+#: (L3); Haar (no halo at L6) and Haar orthogonal (gain 0.5 a level); the
+#: generic taps (sym8, db2); one level (c = 1); rows of 2; row counts around
+#: the item grouping (a short last item); a long row of 2^20; banks of odd
+#: length outside the builder (Battle 23, CDF 9/7)
+WPT_CASES = [
+    ((64, 65536), "db4", 6), ((64, 1024), "db4", 6), ((256, 16), "db4", 4),
+    ((3, 8), "db4", 3), ((5, 4096), "Discrete Meyer", 3), ((5, 65536), "Discrete Meyer", 3),
+    ((4, 8192), "Haar", 6), ((4, 8192), "Haar orthogonal", 6), ((7, 2048), "sym8", 5),
+    ((9, 16384), "sym8", 4), ((1000, 16), "db2", 4), ((133, 4096), "db4", 1),
+    ((9999, 2), "Haar", 1), ((257, 512), "db4", 6), ((3, 1 << 20), "db4", 6),
+    ((3, 4096), "Battle 23", 4), ((5, 65536), "CDF 9/7", 6),  # odd banks
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("interleaved", [False, True])
+@pytest.mark.parametrize("shape,wavelet,levels", WPT_CASES, ids=lambda v: str(v))
+def test_wpt_kernels_match_plain(cuda, shape, wavelet, levels, interleaved):
+    """K8 and K9 (with the bank's synthesis pair and recon_gain) against
+    their plain versions in float64 on the same input; one launch each."""
+    fb = jt.get_filter(wavelet)
+    x = torch.as_tensor(np.random.default_rng(23).standard_normal(shape), dtype=torch.float32,
+                        device=cuda)
+    before = dict(cuda_wpt.launch_counts)
+    torch.full(shape, float("nan"), device=cuda)  # an element left unstored shows
+    y = cuda_wpt.wpt_rows(x, fb.dec_lo, fb.dec_hi, levels, interleaved=interleaved)
+    z = cuda_wpt.iwpt_rows(x, fb.rec_lo, fb.rec_hi, levels, fb.recon_gain, interleaved)
+    torch.cuda.synchronize()
+    ref_y = cuda_wpt.wpt_analysis_torch(x.double(), fb.dec_lo, fb.dec_hi, levels, 1.0, interleaved)
+    ref_z = cuda_wpt.wpt_synthesis_torch(x.double(), fb.rec_lo, fb.rec_hi, levels, fb.recon_gain,
+                                         interleaved)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(z).all())
+    assert _rel_err(y, ref_y) <= F32_BOUND
+    assert _rel_err(z, ref_z) <= F32_BOUND
+    assert cuda_wpt.launch_counts == {"wpt_rows": before["wpt_rows"] + 1,
+                                      "iwpt_rows": before["iwpt_rows"] + 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,wavelet,levels,tile", [
+    ((6, 8192), "db4", 6, 512),        # 8 positions a subband: 16 items a row
+    ((6, 4096), "db4", 3, 64),         # cones that wrap, 64 items a row
+    ((6, 2048), "Discrete Meyer", 2, 32),
+    ((6, 4096), "Haar", 5, 256), ((6, 65536), "db4", 6, 16384),
+    ((6, 1024), "sym8", 4, 2048),      # whole rows, two an item
+])
+def test_wpt_kernels_forced_plans(cuda, shape, wavelet, levels, tile):
+    """Plans that :func:`wpt_plan` does not choose at these sizes, both
+    layouts."""
+    fb = jt.get_filter(wavelet)
+    x = torch.as_tensor(np.random.default_rng(24).standard_normal(shape), dtype=torch.float32,
+                        device=cuda)
+    m = len(fb.dec_lo)
+    for inter in (False, True):
+        y = cuda_wpt._k8(x, fb.dec_lo, fb.dec_hi, levels, 1.0, inter,
+                         cuda_wpt.wpt_plan(shape[1], levels, m, False, tile))
+        z = cuda_wpt._k9(x, fb.rec_lo, fb.rec_hi, levels, 0.5, inter,
+                         cuda_wpt.wpt_plan(shape[1], levels, m, True, tile))
+        torch.cuda.synchronize()
+        ref_y = cuda_wpt.wpt_analysis_torch(x.double(), fb.dec_lo, fb.dec_hi, levels, 1.0, inter)
+        ref_z = cuda_wpt.wpt_synthesis_torch(x.double(), fb.rec_lo, fb.rec_hi, levels, 0.5, inter)
+        assert _rel_err(y, ref_y) <= F32_BOUND, inter
+        assert _rel_err(z, ref_z) <= F32_BOUND, inter
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("shape,levels", [((8, 16384), 6), ((40, 256), 5)])
+def test_wpt_kernels_source_off_16_byte_alignment(cuda, offset, shape, levels):
+    """Sources 4, 8 or 12 bytes off (tiled rows and whole rows): staged by
+    plain loads."""
+    fb = jt.get_filter("db4")
+    x = torch.empty(shape[0] * shape[1] + offset, dtype=torch.float32,
+                    device=cuda)[offset:].view(shape)
+    x.copy_(torch.as_tensor(np.random.default_rng(25).standard_normal(shape)))
+    for inter in (False, True):
+        y = cuda_wpt.wpt_rows(x, fb.dec_lo, fb.dec_hi, levels, interleaved=inter)
+        z = cuda_wpt.iwpt_rows(x, fb.rec_lo, fb.rec_hi, levels, 1.0, inter)
+        torch.cuda.synchronize()
+        assert _rel_err(y, cuda_wpt.wpt_analysis_torch(x.double(), fb.dec_lo, fb.dec_hi, levels,
+                                                       1.0, inter)) <= F32_BOUND
+        assert _rel_err(z, cuda_wpt.wpt_synthesis_torch(x.double(), fb.rec_lo, fb.rec_hi, levels,
+                                                        1.0, inter)) <= F32_BOUND
+
+
+@pytest.mark.cuda
+def test_wpt_paths_route_through_k8_k9(cuda):
+    """wpt and iwpt at full depth on 65536 (chunks L6, L6, L4: three K8 and
+    three K9 launches), the WPT facade in 1D, 2D and 3D, and the layouts:
+    each against float64 through the same calls."""
+    rng = np.random.default_rng(26)
+    x = torch.as_tensor(rng.standard_normal((4, 65536)), dtype=torch.float32, device=cuda)
+    img = torch.as_tensor(rng.standard_normal((256, 256)), dtype=torch.float32, device=cuda)
+    vol = torch.as_tensor(rng.standard_normal((32, 32, 32)), dtype=torch.float32, device=cuda)
+    t = jt.TransformBuilder.create("Wavelet Packet Transform", "db4", device="cuda")
+    calls = {
+        "wpt full depth": (lambda a: jt.wpt(a, "db4"), x, (3, 0)),
+        "iwpt full depth": (lambda a: jt.iwpt(a, "db4"), x, (0, 3)),
+        "wpt interleaved L6": (lambda a: jt.wpt(a, "db4", 6, layout="interleaved"), x, (1, 0)),
+        "iwpt interleaved L6": (lambda a: jt.iwpt(a, "db4", 6, layout="interleaved"), x, (0, 1)),
+        "facade 1D forward": (lambda a: t.get_basic_transform().forward(a), x, (3, 0)),
+        "facade 2D forward": (lambda a: t.forward(a), img, (4, 0)),
+        "facade 2D reverse": (lambda a: t.reverse(a), img, (0, 4)),
+        "facade 3D reverse": (lambda a: t.reverse(a), vol, (0, 3)),
+    }
+    for label, (fn, a, (k8, k9)) in calls.items():
+        cuda_wpt.reset_launch_counts()
+        got = fn(a)
+        torch.cuda.synchronize()
+        assert cuda_wpt.launch_counts == {"wpt_rows": k8, "iwpt_rows": k9}, label
+        assert _rel_err(got, fn(a.double())) <= F32_BOUND, label
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op,wavelet,shape,level", [
+    ("wpt", "db4", (4, 65536), None), ("iwpt", "db4", (4, 65536), None),
+    ("wpt", "Haar orthogonal", (8, 4096), 6), ("iwpt", "Haar orthogonal", (8, 4096), 6),
+    ("wpt", "Discrete Meyer", (4, 4096), 3), ("iwpt", "sym8", (4, 2048), 5),
+])
+def test_wpt_gradients_launch_the_adjoint_kernel(cuda, op, wavelet, shape, level):
+    """wpt's backward launches K9 and iwpt's K8, against autograd of the
+    plain versions in float64 (the same calls on CPU tensors); 1e-5 of
+    max|ref|."""
+    rng = np.random.default_rng(27)
+    fn = (lambda a: getattr(jt, op)(a, wavelet, level))
+    x = torch.tensor(rng.standard_normal(shape))
+    w = torch.tensor(rng.standard_normal(shape))
+    xc, wc = x.to(cuda, torch.float32).requires_grad_(), w.to(cuda, torch.float32)
+    loss = (fn(xc) * wc).sum()
+    cuda_wpt.reset_launch_counts()
+    (g,) = torch.autograd.grad(loss, xc)
+    torch.cuda.synchronize()
+    back = "iwpt_rows" if op == "wpt" else "wpt_rows"
+    assert cuda_wpt.launch_counts[back] >= 1 and g.dtype == torch.float32
+    assert _rel_err(g.cpu(), _grad_of(fn, x, w)) <= F32_BOUND
 
 
 @pytest.mark.cuda
@@ -1016,11 +1161,12 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
     assert not list(tmp_path.glob("*.so"))
 
 
-@pytest.mark.parametrize("which", ["K1", "K2", "K3", "K4", "K5", "K6", "K7"])
+@pytest.mark.parametrize("which", ["K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9"])
 def test_cpu_tensors_take_the_plain_version(which, rng):
     cuda_modwt.reset_launch_counts()
     cuda_pyramid.reset_launch_counts()
     cuda_reassign.reset_launch_counts()
+    cuda_wpt.reset_launch_counts()
     g0, h0 = _modwt_base_filters("db4")
     fb = jt.get_filter("db4")
     x = torch.tensor(rng.standard_normal((4, 256)), dtype=torch.float32)
@@ -1042,6 +1188,12 @@ def test_cpu_tensors_take_the_plain_version(which, rng):
     elif which == "K7":
         got, want = (cuda_pyramid.ipyramid_rows(x, fb.rec_lo, fb.rec_hi, 1.0, 4),
                      cuda_pyramid.ipyramid_rows_torch(x, fb.rec_lo, fb.rec_hi, 1.0, 4))
+    elif which == "K8":
+        got, want = (cuda_wpt.wpt_rows(x, fb.dec_lo, fb.dec_hi, 4),
+                     cuda_wpt.wpt_analysis_torch(x, fb.dec_lo, fb.dec_hi, 4))
+    elif which == "K9":
+        got, want = (cuda_wpt.iwpt_rows(x, fb.rec_lo, fb.rec_hi, 4, 1.0),
+                     cuda_wpt.wpt_synthesis_torch(x, fb.rec_lo, fb.rec_hi, 4, 1.0))
     else:
         c = torch.complex(x, x.flip(-1))
         k = torch.tensor(rng.integers(-1, 6, (4, 256)), dtype=torch.int32)
@@ -1050,3 +1202,4 @@ def test_cpu_tensors_take_the_plain_version(which, rng):
     assert not any(cuda_modwt.launch_counts.values())
     assert not any(cuda_pyramid.launch_counts.values())
     assert not any(cuda_reassign.launch_counts.values())
+    assert not any(cuda_wpt.launch_counts.values())

@@ -1334,6 +1334,38 @@ case(name="card ifwt unaligned source", file="card_2", kernel="K7",
      port=lambda m, i: _ifwt_levels(m, i, _unaligned(i, 3, 64), "Symlet 8", (6,)))
 
 
+def _wpt_round(m, i, x, bank, level, layout="subband"):
+    y = i.jit(lambda v: m.wpt(v, bank, level, layout=layout))(x)
+    return {"wpt": y, "iwpt": i.jit(lambda v: m.iwpt(v, bank, level, layout=layout))(y)}
+
+
+# K8 and K9 (wpt and iwpt on the card): whole rows shorter than the cone (16
+# samples at L4: 105 taps mod 16), full depth (chunks (512, 6) and (8, 3)),
+# 62 taps (chunks of 3 levels), Haar orthogonal's gain, a source off 16-byte
+# alignment, the interleaved layout (JAX's tile path: its dial on), odd
+# batches; one level stays on the butterflies (no launch)
+for _name, _shape, _bank, _level in (("5x16 L4 (105 taps mod 16)", (5, 16), "Daubechies 4", 4),
+                                     ("3x512 full depth", (3, 512), "Daubechies 4", None),
+                                     ("62 taps 3x256 full depth", (3, 256), "Discrete Meyer",
+                                      None),
+                                     ("Haar orthogonal 3x256 L6", (3, 256), "Haar orthogonal", 6)):
+    case(name=f"card wpt {_name}", file="card_1", kernel="K8",
+         port=lambda m, i, s=_shape, b=_bank, lv=_level: _wpt_round(m, i, i.x(*s), b, lv))
+case(name="card wpt unaligned source", file="card_1", kernel="K8",
+     port=lambda m, i: _wpt_round(m, i, _unaligned(i, 3, 256), "Daubechies 4", 6))
+case(name="card wpt interleaved 2x256 L3", file="card_1", kernel="K8",
+     port=lambda m, i: _with_dial(m, i, "on", lambda: _wpt_round(
+         m, i, i.x(2, 256), "Daubechies 2", 3, "interleaved")))
+case(name="card wpt one level (the butterfly)", file="card_1",
+     port=lambda m, i: _wpt_round(m, i, i.x(3, 64), "Daubechies 4", 1))
+for _name, _shape, _bank, _level in (("1001x16 L4 (odd batch of whole rows)", (1001, 16),
+                                      "Daubechies 4", 4),
+                                     ("3x4096 Haar L6", (3, 4096), "Haar", 6)):
+    case(name=f"card iwpt {_name}", file="card_1", kernel="K9",
+         port=lambda m, i, s=_shape, b=_bank, lv=_level:
+         i.jit(lambda v: m.iwpt(v, b, lv))(i.x(*s)))
+
+
 def _image(i, rows, cols, transposed):
     return i.x(cols, rows).T if transposed else i.x(rows, cols)
 

@@ -4,13 +4,13 @@ card: the kernels and their consumers.
     python3 tools/ab_times.py --parent build/parent [--rounds 6] [--reps 25]
                               [--variants parent new] [--calls TEXT ...]
                               [--out build/ab_times.jsonl] [--trace] [--k3-plans]
-                              [--k7-plans]
+                              [--k7-plans] [--wpt-plans]
 
 ``--parent`` is another commit's tree, unpacked (``git archive <commit> |
 tar -x -C build/parent``). Its ``jwave_tpu_torch`` is imported under another
 name beside this tree's, so the two share one process, one CUDA context and
 one card, and whatever slows the host slows both. Each variant's K1, K3, K4,
-K6 and K7 are first held against the plain version (1e-5 of max|ref|).
+K6, K7, K8 and K9 are first held against the plain version (1e-5 of max|ref|).
 
 The calls are the consumers of K1 (K1 alone at 64 x 65536 db4 L5 and at
 ``denoise``'s 8 x 65536 db4 L4, the entry step ``imodwt(modwt(x))`` and its
@@ -23,7 +23,14 @@ K5's adjoint), K3 and ``fwt`` at 64 x 65536 db4 L8, K6 at 8 x 64 x 65536 on
 Haar L8, and on 65536 rows of 256 at full depth, ``ifwt`` db4 L8 64 x 65536, the gradient of ``fwt``
 there, whose backward runs K7 as K3's adjoint, ``ifwt3d`` db4 256^3 through
 the FWT facade's reverse, and ``ifwt2d_sharded`` db4 L6 2048^2 in a one-rank
-NCCL world), and K2 and one K5 pass, which no consumer here isolates. ``--variants`` keeps one or both trees (one alone measures
+NCCL world), K8 and K9 (db4 L6 64 x 65536; a tree without them, as PR 13's,
+runs the same function by its route, the conv form of ``ops.composite``)
+and their consumers (``wpt`` and ``iwpt`` at L6 and full depth, the WPT
+facade's 2D forward at 2048^2 and its 3D forward and reverse at 256^3 L4,
+``wpt2d_sharded`` L6 2048^2 in the one-rank world), and K2 and one K5 pass,
+which no consumer here isolates. The registers of each K8/K9 build
+(``-Xptxas -v``) and their plans' shared bytes are printed first.
+``--variants`` keeps one or both trees (one alone measures
 one tree in a process of its own: the inputs are made by the plain
 versions, so no other kernel runs there), and ``--calls`` keeps the calls
 whose name contains one of the given texts.
@@ -51,7 +58,11 @@ timed (device) once for each tile of 2048 to 16384 samples and each block of
 median of 3) for each tile of 1024 to 8192 samples and 64, 128 and 256
 compute threads, with the blocks an SM and the grid each plan gets: the
 sweep that ``K7_TILE``, ``K7_TILE_ONE_LEVEL`` and ``K7_THREADS`` were chosen
-from. Needs a CUDA card; exits 2 without one.
+from. With ``--wpt-plans``, this tree's K8 and K9 at 64 x 65536 db4 L6 and on
+4096 rows of 1024 (whole rows) are timed (device, the median of 3) for
+tiles of 1024 to 16384 samples and 128 and 256 threads: the sweep that
+``WPT_TILE`` and ``WPT_THREADS`` were chosen from. Needs a CUDA card; exits 2
+without one.
 """
 from __future__ import annotations
 
@@ -61,6 +72,7 @@ import importlib.util
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -86,7 +98,11 @@ def _load(name: str, package_dir: Path):
 def _modules(name: str):
     sub = {k: importlib.import_module(f"{name}.{k}") for k in
            ("ops.cuda_build", "ops.cuda_modwt", "ops.cuda_pyramid", "ops.cuda_reassign",
-            "transforms.modwt")}
+            "ops.composite", "transforms.modwt")}
+    try:
+        sub["ops.cuda_wpt"] = importlib.import_module(f"{name}.ops.cuda_wpt")
+    except ModuleNotFoundError:  # a tree from before K8/K9
+        sub["ops.cuda_wpt"] = None
     return sys.modules[name], sub
 
 
@@ -102,6 +118,7 @@ def main() -> int:
     ap.add_argument("--trace", action="store_true")
     ap.add_argument("--k3-plans", action="store_true")
     ap.add_argument("--k7-plans", action="store_true")
+    ap.add_argument("--wpt-plans", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("ab_times: needs a CUDA card", file=sys.stderr)
@@ -118,10 +135,28 @@ def main() -> int:
     new_jt, new = _modules("jwave_tpu_torch")
     par_jt, par = _modules("jwave_tpu_torch_parent")
     trees = [new, par] if "parent" in args.variants else [new]
-    with ThreadPoolExecutor(6) as ex:
+    with ThreadPoolExecutor(8) as ex:
         for j in [ex.submit(m["ops.cuda_build"].library, k) for m in trees
-                  for k in ("modwt", "pyramid", "reassign")]:
+                  for k in ("modwt", "pyramid", "reassign", "wpt")
+                  if (m["ops.cuda_build"].CSRC / f"{k}.cu").exists()]:
             j.result()
+    for label, m in zip(("new", "parent"), trees):
+        cw = m["ops.cuda_wpt"]
+        if cw is None:
+            continue
+        cb = m["ops.cuda_build"]
+        if "wpt" not in cb.BUILD_LOG:  # built by an earlier process: build again for the report
+            (ROOT / "build").mkdir(exist_ok=True)
+            kept, cb.BUILD_DIR = cb.BUILD_DIR, Path(tempfile.mkdtemp(dir=ROOT / "build"))
+            cb._LIBS.pop("wpt", None)
+            cb.library("wpt")
+            cb.BUILD_DIR = kept
+        log = cb.BUILD_LOG["wpt"][1]
+        regs = [ln.strip() for ln in log.splitlines()
+                if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+        plans = {f"{k} 64x65536 db4 L6": cw.wpt_plan(65536, 6, 8, k == "K9")._asdict()
+                 for k in ("K8", "K9")}
+        print(json.dumps({"wpt_build": label, "ptxas": regs, "plans": plans}), flush=True)
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
@@ -142,7 +177,8 @@ def main() -> int:
     k_idx = torch.as_tensor(rng.integers(0, 65, (8, 64, 65536)), dtype=torch.int32, device=dev)
     ssq_scales = new_jt.generate_log_scales(1e-5, 1e-2, 64)
 
-    sharded = any(c in "ifwt2d_sharded db4 L6 2048^2" for c in args.calls)
+    sharded = any(c in lab for c in args.calls
+                  for lab in ("ifwt2d_sharded db4 L6 2048^2", "wpt2d_sharded db4 L6 2048^2"))
     if sharded:  # a one-rank NCCL world for the sharded inverse, as chip_smoke.py forms it
         import os
         import socket
@@ -166,6 +202,25 @@ def main() -> int:
             img_s = par_m.fwt2d_sharded(img, "db4", mesh, 6, 6)
             extra["ifwt2d_sharded db4 L6 2048^2"] = (
                 lambda: par_m.ifwt2d_sharded(img_s, "db4", mesh, 6, 6))
+            extra["wpt2d_sharded db4 L6 2048^2"] = (
+                lambda: par_m.wpt2d_sharded(img, "db4", mesh, 6, 6))
+        cw, comp = m["ops.cuda_wpt"], m["ops.composite"]
+        wpt_f = jt.TransformBuilder.create("Wavelet Packet Transform", "db4")
+        if cw is not None:
+            extra["K8 64x65536 db4 L6"] = lambda: cw.wpt_rows(x, lo, hi, 6)
+            extra["K9 64x65536 db4 L6"] = lambda: cw.iwpt_rows(x, fb.rec_lo, fb.rec_hi, 6)
+        else:  # the same functions by this tree's route: the conv form
+            extra["K8 64x65536 db4 L6"] = lambda: comp.wpt_fused_forward(x, lo, hi, 6)
+            extra["K9 64x65536 db4 L6"] = lambda: comp.wpt_fused_inverse(x, fb.rec_lo,
+                                                                        fb.rec_hi, 6)
+        extra.update({
+            "wpt db4 L6 64x65536": lambda: jt.wpt(x, "db4", 6),
+            "iwpt db4 L6 64x65536": lambda: jt.iwpt(x, "db4", 6),
+            "wpt db4 full depth 64x65536": lambda: jt.wpt(x, "db4"),
+            "WPT facade 2D forward db4 2048^2": lambda: wpt_f.forward(img),
+            "WPT facade 3D forward db4 L4 256^3": lambda: wpt_f.forward(vol, 4, 4, 4),
+            "iwpt3d db4 L4 256^3 (WPT facade 3D reverse)": lambda: wpt_f.reverse(vol, 4, 4, 4),
+        })
         return {
             "K3 64x65536 db4 L8": lambda: cp.pyramid_rows(x, lo, hi, 8),
             "fwt db4 L8 64x65536": lambda: jt.fwt(x, "db4", 8),
@@ -214,7 +269,10 @@ def main() -> int:
                 cr.reassign_torch(contrib.to(torch.complex128), k_idx, 64)),
             "K7 64x65536 db4 L8": cp.ipyramid_rows_torch(x.double(), fb.rec_lo, fb.rec_hi, 1.0, 8),
             "K7 65536x256 full depth": cp.ipyramid_rows_torch(x256.double(), fb.rec_lo,
-                                                              fb.rec_hi, 1.0, 8)}
+                                                              fb.rec_hi, 1.0, 8),
+            "K8 64x65536 db4 L6": new["ops.cuda_wpt"].wpt_analysis_torch(x.double(), lo, hi, 6),
+            "K9 64x65536 db4 L6": new["ops.cuda_wpt"].wpt_synthesis_torch(x.double(), fb.rec_lo,
+                                                                         fb.rec_hi, 6)}
     for v, table in variants.items():
         for key, ref in refs.items():
             if key not in table:
@@ -324,6 +382,23 @@ def main() -> int:
                                       "grid": cp.k7_grid(dev, y.shape[0], y.shape[1], lv,
                                                          len(fb.rec_lo), plan),
                                       "device_ms": ms, "card": card}), flush=True)
+
+    if args.wpt_plans:
+        cw = new["ops.cuda_wpt"]
+        x1024 = x.reshape(4096, 1024)
+        for label, y, lv in (("64x65536 db4 L6", x, 6), ("4096x1024 db4 L6", x1024, 6)):
+            for tile in (1024, 2048, 4096, 8192, 16384):
+                for threads in (128, 256):
+                    for key, fn in (("K8", cw._k8), ("K9", cw._k9)):
+                        plan = cw.wpt_plan(y.shape[1], lv, 8, key == "K9", tile, threads)
+                        if plan.smem_bytes > cw.SMEM_LIMIT:
+                            continue
+                        ms = float(np.median([measure(
+                            lambda: fn(y, lo, hi, lv, 1.0, False, plan))["device"]
+                            for _ in range(3)]))
+                        print(json.dumps({"wpt_plan": f"{key} {label}", **plan._asdict(),
+                                          "items": cw.wpt_items(y.shape[0], y.shape[1], plan),
+                                          "device_ms": ms, "card": card}), flush=True)
 
     if args.trace:
         from torch.profiler import ProfilerActivity, profile
