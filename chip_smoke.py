@@ -33,8 +33,10 @@ it happened; any failed check ends the run with a non-zero exit:
    at 64 x 65536 db4 L6, at every chunk of wpt at full depth on 65536 (1024
    L6 and 16 L4 as whole rows: 105 taps mod 16), rows of 8 at L3, 62 taps
    at L3, Haar and Haar orthogonal's gain at L6, the generic taps, one
-   level, odd batches around the rows an item, rows of 2^20 and a source
-   off 16-byte alignment).
+   level, odd batches around the rows an item, rows of 2^20, a source off
+   16-byte alignment, and their persistent grid: whole-row items at grid -
+   1, grid and grid + 1 items of each kernel's grid, tiled items on grids
+   forced to items - 1, items and items + 1, forced grids of 1 and 2).
 4. main paths, each with the launch counts set to 0 just before it and read
    just after, all through the public entry points (numpy input goes to the
    card by default, tensors are made there):
@@ -124,9 +126,13 @@ it happened; any failed check ends the run with a non-zero exit:
    the sum of its kernels' times in a profiled call, and wall); ifwt3d db4
    256^3 and ifwt2d_sharded 2048^2 before and after K7, in turns; K8 and
    K9 beside the conv form they replace (its conv1d on the extended input,
-   its conv_transpose1d and fold), and wpt, iwpt, the WPT facade 2D 2048^2
-   and 3D 256^3 L4 and wpt2d/iwpt2d_sharded before (the conv form) and
-   after (K8, K9), in turns; for context
+   its conv_transpose1d and fold), their plans at 64 x 65536 db4 L6 and at
+   wpt's whole-row chunks (4096 x 1024 L6, 262144 x 16 L4: the persistent
+   grid, blocks an SM, shared bytes, registers and spills from -Xptxas -v,
+   which must show none, and the time), and wpt, iwpt, the WPT facade 2D
+   2048^2 and 3D 256^3 L4 and wpt2d/iwpt2d_sharded before (the conv form)
+   and after (K8, K9), in turns, each beside the first design's time (FIRST_DESIGN_MS); for
+   context
    also the torch FFT path of the MODWT (cuFFT) and the separable ifwt2d
    path, which are not kernels of this package; the entry step's gradient,
    fwt2d's gradient (backward K5 x2), ifwt2d's gradient (backward K4 x2),
@@ -178,6 +184,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -193,9 +200,45 @@ BF16_BOUND = 1e-2  # bf16 storage rounds each stored value to 2^-9 relative
 REPS = 25
 
 
+#: device ms of K8, K9 and their consumers in their first design (one work
+#: item a block), for the lines of phase 5 (PERF.md, section 6: its final
+#: run on "NVIDIA H100 80GB HBM3, 700.00 W"; the whole-row chunks, K8/K9 at
+#: 4096 x 1024 L6 and 262144 x 16 L4: its tree timed beside the present
+#: one by tools/ab_times.py on the same card)
+FIRST_DESIGN_MS = {"K8 64x65536": 0.03854, "K9 64x65536": 0.04186, "K8 4096x1024": 0.03580,
+           "K9 4096x1024": 0.03129, "K8 262144x16": 0.04440, "K9 262144x16": 0.03898,
+           "wpt db4 L6 64x65536": 0.03862, "iwpt db4 L6 64x65536": 0.04198,
+           "wpt db4 full depth 64x65536": 0.1100,
+           "WPT facade 2D forward 2048^2 db4 full depth": 0.2269,
+           "WPT facade 2D reverse 2048^2 db4 L6": 0.1303,
+           "WPT facade 3D forward 256^3 db4 L4": 0.6654,
+           "WPT facade 3D reverse 256^3 db4 L4": 0.6284,
+           "wpt2d_sharded db4 L6 2048^2": 0.1574, "iwpt2d_sharded db4 L6 2048^2": 0.1480}
+
+
 def require(ok, msg):
     if not ok:
         raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def wpt_ptxas(log: str) -> dict:
+    """Registers and spill bytes of each K8/K9 instance in ``nvcc -Xptxas -v``
+    output: {"K8 db4": {...}, "K8 Haar": ..., "K8 generic": ..., "K9 ...": ...}."""
+    names = {"analysis_kernelILi8": "K8 db4", "analysis_kernelILi2": "K8 Haar",
+             "analysis_kernelILi0": "K8 generic", "synthesis_kernelILi4": "K9 db4",
+             "synthesis_kernelILi1": "K9 Haar", "synthesis_kernelILi0": "K9 generic"}
+    out, cur = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            cur = next((v for k, v in names.items() if k in line), None)
+            if cur:
+                out[cur] = {"registers": None, "spill_stores": 0, "spill_loads": 0}
+        elif cur and "spill stores" in line:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            out[cur]["spill_stores"], out[cur]["spill_loads"] = int(m[1]), int(m[2])
+        elif cur and "registers" in line:
+            out[cur]["registers"] = int(re.search(r"Used (\d+) registers", line)[1])
+    return out
 
 
 def main() -> int:
@@ -502,6 +545,41 @@ def main() -> int:
             ("8x16384 db4 L6 (a source 4 bytes off 16-byte alignment)", (8, 16384), "db4", 6,
              1)):
         wpt_case(label, shape, wavelet, levels, offset)
+
+    def wpt_grid_case(label, shape, levels, grid=None):
+        """K8 and K9 (db4) in both layouts on ``grid`` persistent blocks
+        (default: wpt_grid's one wave) against their plain versions."""
+        fb = jt.get_filter("db4")
+        x_w = signal(shape)
+        for inter in (False, True):
+            lay = "interleaved" if inter else "subband"
+            y_w = cuda_wpt._k8(x_w, fb.dec_lo, fb.dec_hi, levels, 1.0, inter, None, grid)
+            z_w = cuda_wpt._k9(x_w, fb.rec_lo, fb.rec_hi, levels, fb.recon_gain, inter, None, grid)
+            torch.cuda.synchronize()
+            compare(f"K8 {label} {lay}", y_w, cuda_wpt.wpt_analysis_torch(
+                x_w.double(), fb.dec_lo, fb.dec_hi, levels, 1.0, inter), F32_BOUND)
+            compare(f"K9 {label} {lay}", z_w, cuda_wpt.wpt_synthesis_torch(
+                x_w.double(), fb.rec_lo, fb.rec_hi, levels, fb.recon_gain, inter), F32_BOUND)
+
+    # the persistent grid, min(items, SMs x blocks an SM): whole-row items
+    # (rows of 1024, 4 an item, the last of 3) at grid - 1, grid and grid + 1
+    # items of each kernel's grid; tiled items (24 rows of 65536, 16 items a
+    # row) on grids forced to items - 1, items and items + 1; forced grids of
+    # 1 and 2 on tiled and on whole-row items (1001 rows of 16, 256 an item)
+    plan_w = cuda_wpt.wpt_plan(1024, 6, 8)
+    for grid_w in sorted({cuda_wpt.wpt_grid(dev, 1 << 20, 1024, 6, 8, inverse_w, plan_w)
+                          for inverse_w in (False, True)}):
+        for items_w in (grid_w - 1, grid_w, grid_w + 1):
+            rows_w = items_w * plan_w.rows - 1
+            wpt_grid_case(f"{rows_w}x1024 db4 L6 ({items_w} items of whole rows, a grid of "
+                          f"{grid_w})", (rows_w, 1024), 6)
+    items_t = cuda_wpt.wpt_items(24, 65536, cuda_wpt.wpt_plan(65536, 6, 8))
+    for grid_w in (items_t - 1, items_t, items_t + 1, 1, 2):
+        wpt_grid_case(f"24x65536 db4 L6 ({items_t} items on a forced grid of {grid_w})",
+                      (24, 65536), 6, grid_w)
+    for grid_w in (1, 2):
+        wpt_grid_case(f"1001x16 db4 L4 (4 items of whole rows on a forced grid of {grid_w})",
+                      (1001, 16), 4, grid_w)
 
     def fwt2d_case(label, shape, wavelet, level):
         fb = jt.get_filter(wavelet)
@@ -1766,10 +1844,35 @@ def main() -> int:
                          lambda: cuda_wpt.wpt_analysis_torch(x, lo, hi, 6))
     timing["iwpt"] = pair(lambda: jt.iwpt(y6, "db4", 6),
                           lambda: cuda_wpt.wpt_synthesis_torch(y6, rlo, rhi, 6))
-    for name_p, plan_p in (("K8", cuda_wpt.wpt_plan(65536, 6, 8)),
-                           ("K9", cuda_wpt.wpt_plan(65536, 6, 8, True))):
-        print(json.dumps({"plan": f"{name_p} 64x65536 db4 L6", **plan_p._asdict(),
-                          "items": cuda_wpt.wpt_items(64, 65536, plan_p)}), flush=True)
+    for k in ("K8", "K9"):
+        print(json.dumps({"time": f"{k} db4 L6 64x65536", "ms": timing[k][0],
+                          "first_design_ms": FIRST_DESIGN_MS[f"{k} 64x65536"], "card": card}),
+              flush=True)
+    # K8's and K9's plans at the main shape and at wpt's full-depth chunks
+    # that are whole rows: a stage set's, the buffer's and a block's bytes,
+    # the blocks an SM holds (the occupancy calculator), the persistent grid,
+    # items a block, registers and spills (-Xptxas -v), and the time
+    ptx = wpt_ptxas(cuda_build.BUILD_LOG.get("wpt", (0.0, ""))[1])
+    print(json.dumps({"ptxas": "wpt.cu", **ptx}), flush=True)
+    require(all(v["spill_stores"] == 0 and v["spill_loads"] == 0 for v in ptx.values()),
+            f"K8/K9 spill: {ptx}")
+    for rows_p, n_p, lv_p in ((64, 65536, 6), (4096, 1024, 6), (262144, 16, 4)):
+        x_p = x.reshape(rows_p, n_p)
+        for name_p, inverse_p, fn_p in (("K8", False, cuda_wpt._k8), ("K9", True, cuda_wpt._k9)):
+            plan_p = cuda_wpt.wpt_plan(n_p, lv_p, 8, inverse_p)
+            grid_p = cuda_wpt.wpt_grid(dev, rows_p, n_p, lv_p, 8, inverse_p, plan_p)
+            items_p = cuda_wpt.wpt_items(rows_p, n_p, plan_p)
+            print(json.dumps({
+                "plan": f"{name_p} {rows_p}x{n_p} db4 L{lv_p}", **plan_p._asdict(),
+                "blocks_per_sm": cuda_wpt.wpt_blocks_per_sm(torch.cuda.current_device(), n_p,
+                                                            lv_p, 8, inverse_p, plan_p),
+                "sms": torch.cuda.get_device_properties(0).multi_processor_count,
+                "grid": grid_p, "items": items_p,
+                "items_a_block": [items_p // grid_p, -(-items_p // grid_p)],
+                "ptxas": ptx.get(f"{name_p} db4"),
+                "ms": median_ms(lambda: fn_p(x_p, lo, hi, lv_p), device=True),
+                "first_design_ms": FIRST_DESIGN_MS[f"{name_p} {rows_p}x{n_p}"],
+                "card": card}), flush=True)
     del x_k8
     shapes = {"K1": ("modwt db4 L5 64x65536", 64 * 65536, "Msamples_per_s"),
               "K2": ("imodwt db4 L5 64x65536", 64 * 65536, "Msamples_per_s"),
@@ -1962,6 +2065,7 @@ def main() -> int:
         a2, b2 = median_ms(fn, 10, device=True), median_ms(old_fn, 10, device=True)
         print(json.dumps({"time": f"{label}, before (the conv form) and after (K8, K9)",
                           "before_ms": (b1 + b2) / 2, "after_ms": (a1 + a2) / 2,
+                          "first_design_ms": FIRST_DESIGN_MS[label.split(" (")[0]],
                           "before_wall_ms": median_ms(old_fn, 10),
                           "after_wall_ms": median_ms(fn, 10), "card": card}), flush=True)
     del vol_w3, img_w2, y6

@@ -2,8 +2,8 @@
 (``csrc/wpt.cu``), with plain versions.
 
 Replaces, with no ``pallas_call`` behind either,
-``jwave_tpu/ops/mxu_wpt.py`` ``wpt_fused_forward_mxu`` (K8) and
-``wpt_fused_inverse_mxu`` (K9), the tile matmuls that
+``jwave_tpu/ops/mxu_wpt.py`` ``wpt_fused_forward_mxu`` (``:87``, K8) and
+``wpt_fused_inverse_mxu`` (``:125``, K9), the tile matmuls that
 ``jwave_tpu/ops/composite.py`` routes its fused WPT to on the TPU. On rows
 (R, h), with S = 2^c and ``bank = composite_filters(lo, hi, c)``, K8 is
 
@@ -17,6 +17,25 @@ the host (the float64 product, then float32) that scales every level's
 outputs, so K9 with the synthesis pair and ``recon_gain`` is
 ``wpt_fused_inverse``.
 
+Bound on an H100: bytes (64 x 65536 f32 read and written once: 10 us at
+3.35 TB/s), beside ~10 us of the levels' shared-memory traffic and 7 us of
+FMAs at the float32 rate. The first design ran one item a block: its staging,
+levels and stores one after another, in two waves (a ``%globaltimer``
+probe: 4-5.5 us of copies, then 7-13 us of levels an item). The design now
+(``csrc/wpt.cu``'s header has the detail and the variants left out,
+each with its measured time): one wave of persistent blocks,
+:func:`wpt_grid` = min(items, SMs x the occupancy calculator's blocks an
+SM), over work items of ``WPT_TILE`` output samples with their window (K8)
+or dependency cones (K9), or tile // h whole rows; a producer warp stages
+item k + 1 into the second of two stage sets while ``WPT_THREADS`` - 32
+compute threads run item k's levels in shared memory (the set, then one
+level buffer, in turns: three buffers, four blocks an SM); the taps go by
+value as a kernel parameter. The levels are bound by instruction throughput
+(~1.4 us a level a block), not by shared-memory banks. Left out: another
+read order, two-phase packets, staggered stores (no bank conflict, no
+gain or slower), two groups a pass (96 registers), warps owning subtrees
+(a race in tiled items), 256 compute threads, tiles of 2048 (slower).
+
 The wrappers launch the kernels for CUDA float32 tensors and take the plain
 versions only for tensors on the CPU. Each goes through a
 ``torch.autograd.Function`` whose backward is the other kernel with the same
@@ -26,9 +45,9 @@ level with the same filters, as for K3 and K7 (``ops/cuda_pyramid.py``).
 Beside the plain cascade (:func:`wpt_analysis_torch`,
 :func:`wpt_synthesis_torch`), :func:`wpt_analysis_tiled_torch` and
 :func:`wpt_synthesis_tiled_torch` compute the same as the kernels partition
-it (windows, cones, whole-row items) for the tests; the conv form
-(``ops/composite.py`` ``wpt_conv_forward``, ``wpt_conv_inverse``) is the
-one-library-call comparison.
+it (windows, cones, whole-row items, taken in the kernels' persistent order)
+for the tests; the conv form (``ops/composite.py`` ``wpt_conv_forward``,
+``wpt_conv_inverse``) is the one-library-call comparison.
 """
 from __future__ import annotations
 
@@ -45,18 +64,26 @@ from . import cuda_build
 #: launches of each kernel since the last :func:`reset_launch_counts`
 launch_counts = {"wpt_rows": 0, "iwpt_rows": 0}
 
-#: ``csrc/wpt.cu``: the most taps and levels, the block's threads, output
-#: samples a work item (rows longer than it; else tile // h whole rows an
-#: item), the ints of each cone table, the floats past a tiled K8 buffer
-#: that a group's reads reach, and the shared floats before the buffers
+#: ``csrc/wpt.cu``: the most taps and levels, a block's threads (the compute
+#: threads, at most 256, and the producer warp), output samples a work item
+#: (rows longer than it; else tile // h whole rows an item), the ints of each
+#: cone table, the floats past a tiled K8 buffer that a group's reads reach,
+#: and the shared floats before the stage sets (each set's two mbarriers and
+#: three cone tables)
 MAX_TAPS = 64
 MAX_LEVELS = 12
-WPT_THREADS = 256
+WPT_THREADS = 128 + 32
 WPT_TILE = 4096
 META = 16
 SLACK = 16
-HEAD = 2 * MAX_TAPS + 4 + 3 * META
+HEAD = 2 * 2 * 2 + 2 * 3 * META
 SMEM_LIMIT = 227 * 1024
+#: an SM's shared memory, what the card keeps of it for each block, and the
+#: blocks an SM that the default plans are sized for (tools/ab_times.py
+#: --wpt-plans): three window-sized buffers a block, four blocks an SM
+SM_SMEM = 228 * 1024
+BLOCK_RESERVED = 1024
+WPT_BLOCKS_PER_SM = 4
 
 
 def reset_launch_counts():
@@ -156,11 +183,16 @@ def wpt_synthesis_torch(y: torch.Tensor, lo, hi, levels: int, gain: float = 1.0,
 class WptPlan(NamedTuple):
     """A launch of K8 or K9: ``tile`` output samples an item of a row longer
     than it, else ``rows`` = tile // h whole rows an item (1 for longer
-    rows); the block's shared bytes and threads."""
+    rows); the bytes of a stage set and of the level buffer, of a block with
+    ``sets`` stage sets; the ``threads`` of a block, its last warp the
+    producer."""
 
     tile: int
     rows: int
+    set_bytes: int
+    buf_bytes: int
     smem_bytes: int
+    sets: int
     threads: int
 
 
@@ -195,34 +227,32 @@ def k9_cones(h: int, levels: int, m: int, tile: int, t0: int) -> list:
 
 
 def wpt_layout(h: int, tile: int, levels: int, m: int, inverse: bool) -> tuple:
-    """(buffer 0, buffer 1) floats of a K8 (or, ``inverse``, K9) block, as
-    ``csrc/wpt.cu`` k8_layout / k9_layout count them: for whole rows the tile
-    and a rounded run; for K8's tiled items the window and each level's 2^l
-    packets at a stride of round4(k8_count), the even levels in buffer 0,
-    the odd in buffer 1, with ``SLACK`` behind each; for K9's the S staged
-    cones in buffer 0, level l's 2^(l-1) cones in buffer (levels - l + 1) % 2
-    (level 1 stores to the output), and the interleaved raw run in buffer 1."""
+    """(a stage set, the level buffer) floats of a K8 (or, ``inverse``, K9)
+    block, as ``csrc/wpt.cu`` k8_layout / k9_layout count them; a block
+    holds ``HEAD``, two sets and the buffer, and level l reads the set (l
+    odd) or the buffer and writes the other, the set being released only
+    after the item's last level. Whole rows: the tile and a rounded run
+    each. K8's tiled items: in a set the window and the even levels' 2^l
+    packets, in the buffer the odd levels', each at a stride of
+    round4(k8_count), with ``SLACK`` behind. K9's: either holds the S
+    staged cones (or the interleaved raw run), their transpose, and each
+    level's 2^(l-1) cones (l >= 2; level 1 stores to the output)."""
     if h <= tile:
         return tile + 4, tile + 4
     if not inverse:
-        b0, b1 = _round4(k8_count(tile, levels, m, 0)), 0
+        st, bf = _round4(k8_count(tile, levels, m, 0)), 0
         for l in range(1, levels + 1):
             f = (1 << l) * _round4(k8_count(tile, levels, m, l))
             if l & 1:
-                b1 = max(b1, f)
+                bf = max(bf, f)
             else:
-                b0 = max(b0, f)
-        return b0 + SLACK, b1 + SLACK
+                st = max(st, f)
+        return st + SLACK, bf + SLACK
     cones = k9_cones(h, levels, m, tile, 0)
-    b0 = b1 = 0
-    for l in range(2, levels + 1):
-        f = (1 << (l - 1)) * _round4(cones[l - 1][1])
-        if (levels - l) & 1:
-            b0 = max(b0, f)
-        else:
-            b1 = max(b1, f)
+    f = max([(1 << (l - 1)) * _round4(cones[l - 1][1]) for l in range(2, levels + 1)], default=0)
     cnt = cones[levels][1]
-    return max(b0, (1 << levels) * _round4(cnt)), max(b1, _round4(cnt << levels) + 4)
+    f = max(f, (1 << levels) * _round4(cnt), _round4(cnt << levels) + 4)
+    return f, f
 
 
 @functools.lru_cache(maxsize=None)
@@ -230,10 +260,12 @@ def wpt_plan(h: int, levels: int, m: int, inverse: bool = False, tile: int | Non
              threads: int = WPT_THREADS) -> WptPlan:
     """The plan of K8 (K9 with ``inverse``) on rows of ``h``: items of
     ``WPT_TILE`` output samples (at least 8 positions of each of the 2^levels
-    subbands) or tile // h whole rows."""
+    subbands) or tile // h whole rows; blocks of ``threads`` (the compute
+    threads and the producer warp) holding two stage sets and a buffer."""
     tile = tile or max(WPT_TILE, 8 << levels)
-    b0, b1 = wpt_layout(h, tile, levels, m, inverse)
-    return WptPlan(tile, tile // h if h <= tile else 1, 4 * (HEAD + b0 + b1), threads)
+    st, bf = wpt_layout(h, tile, levels, m, inverse)
+    return WptPlan(tile, tile // h if h <= tile else 1, 4 * st, 4 * bf,
+                   4 * (HEAD + 2 * st + bf), 2, threads)
 
 
 def wpt_items(rows: int, h: int, plan: WptPlan) -> int:
@@ -244,55 +276,96 @@ def wpt_items(rows: int, h: int, plan: WptPlan) -> int:
     return rows * (h // plan.tile)
 
 
+def _persistent_order(rows: int, h: int, plan: WptPlan, grid: int | None) -> list:
+    """The work items in the kernels' order: ``grid`` persistent blocks
+    (default: one an item), block b taking items b, b + grid, ...."""
+    items = wpt_items(rows, h, plan)
+    grid = items if grid is None else min(grid, items)
+    return [item for b in range(grid) for item in range(b, items, grid)]
+
+
+def _covered_once(written: torch.Tensor):
+    if not bool((written == 1).all()):
+        raise IndexError("the work items do not cover each output once")
+
+
 def wpt_analysis_tiled_torch(x: torch.Tensor, lo, hi, levels: int, plan: WptPlan,
-                             gain: float = 1.0, interleaved: bool = False) -> torch.Tensor:
+                             gain: float = 1.0, interleaved: bool = False,
+                             grid: int | None = None) -> torch.Tensor:
     """:func:`wpt_analysis_torch` computed as K8 partitions it (for the tests:
-    the window arithmetic has no other CPU check). An item of a row longer
-    than ``plan.tile`` stages the window x[(j tile + k) mod h], k <
-    k8_count(0), and runs the levels on it unwrapped, level l keeping
-    :func:`k8_count` outputs of each packet; an item of ``plan.rows`` whole
-    rows runs the levels circularly within its packets. An index outside the
-    staged window raises."""
+    the window and item arithmetic has no other CPU check), the items taken
+    in the kernel's persistent order by ``grid`` blocks (default: one an
+    item). An item of a row longer than ``plan.tile`` stages the window
+    x[(j tile + k) mod h], k < k8_count(0), and runs the levels on it
+    unwrapped, level l keeping :func:`k8_count` outputs of each packet; an
+    item of ``plan.rows`` whole rows (fewer in the last) runs the levels
+    circularly within its packets. An index outside the staged window, or
+    an output written other than once, raises."""
     r, h = x.shape
     m = len(lo)
+    order = _persistent_order(r, h, plan, grid)
     if h <= plan.tile:
-        parts = [wpt_analysis_torch(x[r0:r0 + plan.rows], lo, hi, levels, gain, interleaved)
-                 for r0 in range(0, r, plan.rows)]
-        return torch.cat(parts) if parts else x.clone()
+        out = torch.empty_like(x)
+        written = torch.zeros((r, h), dtype=torch.int32)
+        for item in order:
+            rows = slice(item * plan.rows, (item + 1) * plan.rows)
+            out[rows] = wpt_analysis_torch(x[rows], lo, hi, levels, gain, interleaved)
+            written[rows] += 1
+        _covered_once(written)
+        return out
     lo_g, hi_g = _gained(lo, gain), _gained(hi, gain)
     tiles = h // plan.tile
+    p = plan.tile >> levels
     k = torch.arange(k8_count(plan.tile, levels, m, 0), device=x.device)
     starts = plan.tile * torch.arange(tiles, device=x.device)
     cur = x[:, (starts[:, None] + k) % h][:, :, None, :]  # (R, tiles, 1, window)
     for l in range(1, levels + 1):
         cur = _analysis_level(cur, lo_g, hi_g, k8_count(plan.tile, levels, m, l), None)
-    # (R, tiles, S, P): item j holds positions j P .. j P + P - 1 of every subband
-    return _unpack(cur.permute(0, 2, 1, 3).reshape(r, 1 << levels, h >> levels), interleaved)
+    # (R, tiles, S, P): item (row, j) holds positions j P .. j P + P - 1 of every subband
+    sub = torch.empty((r, 1 << levels, h >> levels), dtype=x.dtype, device=x.device)
+    written = torch.zeros(sub.shape, dtype=torch.int32)
+    for item in order:
+        row, j = divmod(item, tiles)
+        sub[row, :, j * p:(j + 1) * p] = cur[row, j]
+        written[row, :, j * p:(j + 1) * p] += 1
+    _covered_once(written)
+    return _unpack(sub, interleaved)
 
 
 def wpt_synthesis_tiled_torch(y: torch.Tensor, lo, hi, levels: int, plan: WptPlan,
-                              gain: float = 1.0, interleaved: bool = False) -> torch.Tensor:
+                              gain: float = 1.0, interleaved: bool = False,
+                              grid: int | None = None) -> torch.Tensor:
     """:func:`wpt_synthesis_torch` computed as K9 partitions it (for the
-    tests: the cone arithmetic has no other CPU check). An item of a row
-    longer than ``plan.tile`` stages the cone R_{levels+1} of every subband
-    (:func:`k9_cones`, mod the subband's length, each within the block's
-    buffer bounds) and runs the levels from the coarsest on its cones alone,
-    a whole-packet cone read circularly; an item of ``plan.rows`` whole rows
-    runs each level over all its rows' packets. An index outside a staged
-    cone raises."""
+    tests: the cone and item arithmetic has no other CPU check), the items
+    taken in the kernel's persistent order by ``grid`` blocks (default: one
+    an item). An item of a row longer than ``plan.tile`` stages the cone
+    R_{levels+1} of every subband (:func:`k9_cones`, mod the subband's
+    length, each within the block's buffer bounds) and runs the levels from
+    the coarsest on its cones alone, a whole-packet cone read circularly; an
+    item of ``plan.rows`` whole rows (fewer in the last) runs each level
+    over all its rows' packets. An index outside a staged cone, or an output
+    written other than once, raises."""
     r, h = y.shape
     m = len(lo)
+    order = _persistent_order(r, h, plan, grid)
+    out = torch.empty_like(y)
+    written = torch.zeros((r, h), dtype=torch.int32)
     if h <= plan.tile:
-        parts = [wpt_synthesis_torch(y[r0:r0 + plan.rows], lo, hi, levels, gain, interleaved)
-                 for r0 in range(0, r, plan.rows)]
-        return torch.cat(parts) if parts else y.clone()
+        for item in order:
+            rows = slice(item * plan.rows, (item + 1) * plan.rows)
+            out[rows] = wpt_synthesis_torch(y[rows], lo, hi, levels, gain, interleaved)
+            written[rows] += 1
+        _covered_once(written)
+        return out
     lo_g, hi_g = _gained(lo, gain), _gained(hi, gain)
     sub = _packets(y, levels, interleaved)  # (R, S, h/S)
     hc = h >> levels
+    tiles = h // plan.tile
     bounds = k9_cones(h, levels, m, plan.tile, 0)
-    out = torch.empty_like(y)
     ar = functools.partial(torch.arange, device=y.device)
-    for j in range(h // plan.tile):
+    made = {}  # tile j -> its outputs of every row, made at the first item that needs them
+
+    def tile_of(j):
         cones = k9_cones(h, levels, m, plan.tile, j * plan.tile)
         if [c[1] for c in cones] != [c[1] for c in bounds]:
             raise IndexError(f"a cone outgrows the block's buffers: {cones} {bounds}")
@@ -303,7 +376,16 @@ def wpt_synthesis_tiled_torch(y: torch.Tensor, lo, hi, levels: int, plan: WptPla
             s_out, n_out, _ = cones[l - 1]
             c = s_out // 2 + ar(n_out // 2)
             cur = _synthesis_level(cur, lo_g, hi_g, c, (h >> l) if whole else None, s_in)
-        out[:, j * plan.tile:(j + 1) * plan.tile] = cur[:, 0]
+        return cur[:, 0]
+
+    for item in order:
+        row, j = divmod(item, tiles)
+        if j not in made:
+            made[j] = tile_of(j)
+        cols = slice(j * plan.tile, (j + 1) * plan.tile)
+        out[row, cols] = made[j][row]
+        written[row, cols] += 1
+    _covered_once(written)
     return out
 
 
@@ -327,14 +409,58 @@ def _check(x: torch.Tensor, lo, hi, levels: int, what: str):
         raise JWaveFailure(f"{what} - filters must have equal length in [1, {MAX_TAPS}]")
 
 
-def _launch(symbol: str, key: str, x: torch.Tensor, lo, hi, levels: int, gain: float,
-            interleaved: bool, plan: WptPlan | None) -> torch.Tensor:
-    """One launch of K8 or K9 on the card (``plan`` overrides
-    :func:`wpt_plan`)."""
+def _fn(lib, symbol: str):
+    fn = getattr(lib, symbol)
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+_SYMBOLS = {False: ("jw_wpt_analysis", "wpt_rows"), True: ("jw_wpt_synthesis", "iwpt_rows")}
+
+
+@functools.lru_cache(maxsize=None)
+def wpt_blocks_per_sm(device_index: int, h: int, levels: int, m: int, inverse: bool,
+                      plan: WptPlan) -> int:
+    """The K8 (K9) blocks one SM of the card holds at ``plan``
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), asked once a plan."""
+    symbol, key = _SYMBOLS[inverse]
+    lib = cuda_build.library("wpt")
+    got = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = _fn(lib, symbol)(None, None, None, 1, h, plan.tile, levels, m, 0, plan.threads - 32,
+                               0, ctypes.byref(got), None)
+    cuda_build.check(lib, err, key)
+    if got.value < 1:
+        raise JWaveFailure(f"{key} - a block of {plan.smem_bytes} shared bytes does not fit an SM")
+    return got.value
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def wpt_grid(device, rows: int, h: int, levels: int, m: int, inverse: bool,
+             plan: WptPlan) -> int:
+    """K8's (K9's) persistent blocks: one wave, min(items, SMs x blocks an SM)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return min(wpt_items(rows, h, plan),
+               _sm_count(index) * wpt_blocks_per_sm(index, h, levels, m, inverse, plan))
+
+
+def _launch(x: torch.Tensor, lo, hi, levels: int, gain: float, interleaved: bool,
+            inverse: bool, plan: WptPlan | None, grid: int | None) -> torch.Tensor:
+    """One launch of K8 (K9 with ``inverse``) on the card: one wave of
+    persistent blocks over the work items (``plan`` overrides
+    :func:`wpt_plan`, ``grid`` :func:`wpt_grid`)."""
+    symbol, key = _SYMBOLS[inverse]
     _check(x, lo, hi, levels, key)
     r, h = x.shape
     m = len(lo)
-    plan = plan or wpt_plan(h, levels, m, key == "iwpt_rows")
+    plan = plan or wpt_plan(h, levels, m, inverse)
     if plan.smem_bytes > SMEM_LIMIT:
         raise JWaveFailure(f"{key} - a block of {plan.smem_bytes} shared bytes exceeds the "
                            f"card's {SMEM_LIMIT}")
@@ -344,32 +470,30 @@ def _launch(symbol: str, key: str, x: torch.Tensor, lo, hi, levels: int, gain: f
     if r == 0:
         return out
     lib = cuda_build.library("wpt")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn = getattr(lib, symbol)
-    if fn.argtypes is None:
-        fn.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
-        fn.restype = ctypes.c_int
-    taps = cuda_build.device_taps(np.asarray(lo, np.float64) * gain,
-                                  np.asarray(hi, np.float64) * gain, x.device)
-    err = fn(x.data_ptr(), out.data_ptr(), taps.data_ptr(), r, h, plan.tile, levels, m,
-             int(interleaved), plan.threads, cuda_build.stream_handle(x.device))
+    # the taps go by value, as a kernel parameter: host floats [lo | hi]
+    taps = (np.concatenate([np.asarray(lo, np.float64), np.asarray(hi, np.float64)])
+            * gain).astype(np.float32)
+    grid = grid or wpt_grid(x.device, r, h, levels, m, inverse, plan)
+    err = _fn(lib, symbol)(x.data_ptr(), out.data_ptr(), taps.ctypes.data_as(ctypes.c_void_p), r,
+                           h, plan.tile, levels, m, int(interleaved), plan.threads - 32, grid,
+                           None, cuda_build.stream_handle(x.device))
     cuda_build.check(lib, err, key)
     launch_counts[key] += 1
     return out
 
 
 def _k8(x: torch.Tensor, lo, hi, levels: int, gain: float = 1.0, interleaved: bool = False,
-        plan: WptPlan | None = None) -> torch.Tensor:
+        plan: WptPlan | None = None, grid: int | None = None) -> torch.Tensor:
     if x.device.type == "cpu":
         return wpt_analysis_torch(x, lo, hi, levels, gain, interleaved)
-    return _launch("jw_wpt_analysis", "wpt_rows", x, lo, hi, levels, gain, interleaved, plan)
+    return _launch(x, lo, hi, levels, gain, interleaved, False, plan, grid)
 
 
 def _k9(y: torch.Tensor, lo, hi, levels: int, gain: float = 1.0, interleaved: bool = False,
-        plan: WptPlan | None = None) -> torch.Tensor:
+        plan: WptPlan | None = None, grid: int | None = None) -> torch.Tensor:
     if y.device.type == "cpu":
         return wpt_synthesis_torch(y, lo, hi, levels, gain, interleaved)
-    return _launch("jw_wpt_synthesis", "iwpt_rows", y, lo, hi, levels, gain, interleaved, plan)
+    return _launch(y, lo, hi, levels, gain, interleaved, True, plan, grid)
 
 
 class _WptRows(torch.autograd.Function):

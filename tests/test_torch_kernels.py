@@ -754,6 +754,35 @@ def test_wpt_kernels_forced_plans(cuda, shape, wavelet, levels, tile):
 
 
 @pytest.mark.cuda
+def test_wpt_kernels_persistent_grid(cuda):
+    """K8 and K9's one wave of persistent blocks at the edges of its grid,
+    both layouts: whole-row items (rows of 1024, 4 an item, the last of 3) at
+    grid - 1, grid and grid + 1 items; tiled items (rows of 65536, 16 a row)
+    on grids forced to items - 1, items and items + 1; forced grids of 1 and
+    2 on tiled and on whole-row items (rows of 16, 256 an item)."""
+    fb = jt.get_filter("db4")
+    rng = np.random.default_rng(28)
+    whole = cuda_wpt.wpt_plan(1024, 6, 8)
+    grids = {cuda_wpt.wpt_grid(cuda, 1 << 20, 1024, 6, 8, inv, whole) for inv in (False, True)}
+    cases = [((g * whole.rows - 1 + 4 * d, 1024), 6, None) for g in grids for d in (-1, 0, 1)]
+    items = cuda_wpt.wpt_items(24, 65536, cuda_wpt.wpt_plan(65536, 6, 8))
+    cases += [((24, 65536), 6, g) for g in (items - 1, items, items + 1, 1, 2)]
+    cases += [((1001, 16), 4, g) for g in (1, 2)]
+    for shape, levels, grid in cases:
+        x = torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32, device=cuda)
+        for inter in (False, True):
+            y = cuda_wpt._k8(x, fb.dec_lo, fb.dec_hi, levels, 1.0, inter, None, grid)
+            z = cuda_wpt._k9(x, fb.rec_lo, fb.rec_hi, levels, fb.recon_gain, inter, None, grid)
+            torch.cuda.synchronize()
+            ref_y = cuda_wpt.wpt_analysis_torch(x.double(), fb.dec_lo, fb.dec_hi, levels, 1.0,
+                                                inter)
+            ref_z = cuda_wpt.wpt_synthesis_torch(x.double(), fb.rec_lo, fb.rec_hi, levels,
+                                                 fb.recon_gain, inter)
+            assert _rel_err(y, ref_y) <= F32_BOUND, (shape, grid, inter)
+            assert _rel_err(z, ref_z) <= F32_BOUND, (shape, grid, inter)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("offset", [1, 2, 3])
 @pytest.mark.parametrize("shape,levels", [((8, 16384), 6), ((40, 256), 5)])
 def test_wpt_kernels_source_off_16_byte_alignment(cuda, offset, shape, levels):

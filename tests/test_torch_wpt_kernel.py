@@ -67,14 +67,14 @@ def _to_interleaved(a, c):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_fused(bank, h, c):
-    """JAX's fused forward and inverse (rec pair, recon_gain) of one input,
-    once a case."""
+def _jax_fused(bank, h, c, rows=2):
+    """JAX's fused forward and inverse (rec pair, recon_gain) of one input
+    of ``rows`` rows, once a case."""
     fb = jw.get_filter(bank)
     both = jax.jit(lambda v: (
         jw_composite.wpt_fused_forward(v, fb.dec_lo, fb.dec_hi, c),
         jw_composite.wpt_fused_inverse(v, fb.rec_lo, fb.rec_hi, c, fb.recon_gain)))
-    fwd, inv = both(jnp.asarray(_input((2, h))))
+    fwd, inv = both(jnp.asarray(_input((rows, h))))
     return np.asarray(fwd), np.asarray(inv)
 
 
@@ -213,32 +213,144 @@ def test_wpt_iwpt_through_the_kernels_match_jax(kernel_route, bank, level, layou
 
 
 def test_wpt_plan():
-    """The plans worked out by hand from ``csrc/wpt.cu``'s layouts. db4 L6 on
-    rows of 65536: items of 4096 samples, 64 positions a subband; K8's window
-    4096 + 7 * 63 = 4537 floats (4540), levels 1-6 keep 2265, 1129, 561, 277,
-    135, 64 a packet, the largest level of each parity 2 * 2268 = 4536 and
-    4540, each with 16 floats of slack; K9's cones 2056, 1032, 520, 264, 136
-    and 72 (the staged 64 x 72 = 4608, the raw interleaved run 4612), the
-    even levels' 32 x 136 = 4352, 8 x 520, 2 x 2056, the odd 16 x 264, 4 x
-    1032. Rows of at most the tile: tile // h whole rows an item."""
+    """The plans worked out by hand from ``csrc/wpt.cu``'s layouts: a head of
+    2 x 2 mbarriers (8 floats) and 2 x 3 cone tables of 16 ints (104 floats;
+    the taps go as a kernel parameter), two stage sets and one level buffer,
+    level l reading the
+    set (l odd) or the buffer and writing the other; 128 compute threads and
+    the producer warp (160). db4 L6 on rows of 65536: items of 4096 samples,
+    64 positions a subband; K8's window 4096 + 7 * 63 = 4537 floats (4540),
+    levels 1-6 keep 2265, 1129, 561, 277, 135, 64 a packet: a set holds the
+    window and the even levels (4 x 1132 = 4528, 16 x 280 = 4480, 64 x 64 =
+    4096), 4540 + 16 of slack = 4556 floats, the buffer the odd (2 x 2268 =
+    4536, 8 x 564, 32 x 136), 4536 + 16 = 4552: 4 x (104 + 2 x 4556 + 4552)
+    = 55,072 bytes. K9's cones 2056, 1032, 520, 264, 136 and 72: levels 2-6
+    make 2 x 2056 = 4112, 4 x 1032 = 4128, 8 x 520 = 4160, 16 x 264 = 4224
+    and 32 x 136 = 4352, the staged cones 64 x 72 = 4608 and the raw
+    interleaved run 4612, so a set and the buffer hold 4612 each: 4 x (104 +
+    3 x 4612) = 55,760 bytes. Four blocks an SM: 4 x (55,072 + 1024) =
+    224,384 and 4 x (55,760 + 1024) = 227,136 of the SM's 233,472. Rows of
+    at most the tile: tile // h whole rows an item, 4100 floats a set and
+    the buffer (4 x (104 + 3 x 4100) = 49,616 bytes)."""
     assert [cuda_wpt.k8_count(4096, 6, 8, l) for l in range(7)] == [
         4537, 2265, 1129, 561, 277, 135, 64]
     assert [c[1] for c in cuda_wpt.k9_cones(65536, 6, 8, 4096, 0)] == [
         4096, 2056, 1032, 520, 264, 136, 72]
-    assert cuda_wpt.wpt_plan(65536, 6, 8) == (4096, 1, 4 * (180 + 4556 + 4552), 256)
-    assert cuda_wpt.wpt_plan(65536, 6, 8, True) == (4096, 1, 4 * (180 + 4608 + 4612), 256)
-    assert cuda_wpt.wpt_plan(1024, 6, 8) == (4096, 4, 4 * (180 + 2 * 4100), 256)
-    assert cuda_wpt.wpt_plan(16, 4, 8, True) == (4096, 256, 4 * (180 + 2 * 4100), 256)
+    assert cuda_wpt.HEAD == 104 and cuda_wpt.WPT_THREADS == 160
+    assert cuda_wpt.wpt_plan(65536, 6, 8) == (4096, 1, 4 * 4556, 4 * 4552, 55072, 2, 160)
+    assert cuda_wpt.wpt_plan(65536, 6, 8, True) == (4096, 1, 4 * 4612, 4 * 4612, 55760, 2, 160)
+    assert cuda_wpt.wpt_plan(1024, 6, 8) == (4096, 4, 4 * 4100, 4 * 4100, 49616, 2, 160)
+    assert cuda_wpt.wpt_plan(16, 4, 8, True) == (4096, 256, 4 * 4100, 4 * 4100, 49616, 2, 160)
+    # tiles of 2048, 256 compute threads: the window 2048 + 441 = 2489
+    # (2492), level 1's 2 x 1244 floats
+    assert cuda_wpt.wpt_plan(65536, 6, 8, False, 2048, 288) == (
+        2048, 1, 4 * (2492 + 16), 4 * (2 * 1244 + 16), 4 * (104 + 2 * 2508 + 2504), 2, 288)
+    for plan in (cuda_wpt.wpt_plan(65536, 6, 8), cuda_wpt.wpt_plan(65536, 6, 8, True)):
+        assert 4 * (plan.smem_bytes + cuda_wpt.BLOCK_RESERVED) <= cuda_wpt.SM_SMEM
     assert cuda_wpt.wpt_items(64, 65536, cuda_wpt.wpt_plan(65536, 6, 8)) == 1024
+    assert cuda_wpt.wpt_items(4096, 1024, cuda_wpt.wpt_plan(1024, 6, 8)) == 1024
     assert cuda_wpt.wpt_items(1000, 16, cuda_wpt.wpt_plan(16, 4, 8)) == 4
-    # 62 taps at c = 3 and the whole plan fits a block at every bank's widest
-    for bank in ("Daubechies 4", "Discrete Meyer", "Symlet 8", "Haar"):
+
+
+def test_wpt_plan_fits_every_row_length_and_filter():
+    """Every plan of K8 and K9 (power-of-two rows of 2 to 2^20, 1 to 6
+    levels where the composite bank stays within the tap cap, db4, Haar,
+    Symlet 8 and the 62-tap Discrete Meyer) fits a block and leaves room
+    for the blocks an SM the plans are sized for; its items are whole rows
+    up to the tile and tiles of P >= 8 positions of every subband past it."""
+    for bank in ("Daubechies 4", "Haar", "Symlet 8", "Discrete Meyer"):
         m = len(jt.get_filter(bank).dec_lo)
-        for c in range(1, 7):
-            if (m - 1) * ((1 << c) - 1) + 1 <= FUSE_MAX_TAPS:
+        for lg in range(1, 21):
+            h = 1 << lg
+            for c in range(1, min(6, lg) + 1):
+                if (m - 1) * ((1 << c) - 1) + 1 > FUSE_MAX_TAPS:
+                    continue
                 for inverse in (False, True):
-                    assert cuda_wpt.wpt_plan(1 << 20, c, m, inverse).smem_bytes <= \
-                        cuda_wpt.SMEM_LIMIT
+                    plan = cuda_wpt.wpt_plan(h, c, m, inverse)
+                    assert plan.smem_bytes <= cuda_wpt.SMEM_LIMIT, (bank, h, c, inverse)
+                    per_sm = cuda_wpt.WPT_BLOCKS_PER_SM * (plan.smem_bytes
+                                                           + cuda_wpt.BLOCK_RESERVED)
+                    assert per_sm <= cuda_wpt.SM_SMEM, (bank, h, c, inverse, plan)
+                    assert plan.smem_bytes == 4 * cuda_wpt.HEAD + 2 * plan.set_bytes + \
+                        plan.buf_bytes
+                    if h <= plan.tile:
+                        assert plan.rows == plan.tile // h
+                    else:
+                        assert plan.rows == 1 and plan.tile >> c >= 8
+                        assert cuda_wpt.wpt_items(3, h, plan) == 3 * h // plan.tile
+
+
+#: (bank, h, c, tile, grid): rows of 2 cut into more items than blocks, some
+#: blocks taking one item more than others, and forced grids of 1 and 2
+ORDER = [("Daubechies 4", 4096, 5, 256, 5),    # 32 items over 5 blocks: 7 or 6 each
+         ("Daubechies 4", 4096, 3, 1024, 3),   # 8 items over 3 blocks: 3 or 2 each
+         ("Discrete Meyer", 512, 3, 64, 2),    # 62 taps: cones that cover their packets
+         ("Haar orthogonal", 1024, 6, 512, 1),
+         ("Symlet 8", 2048, 5, 256, 7)]        # 16 items over 7 blocks
+
+
+@pytest.mark.parametrize("layout", ["subband", "interleaved"])
+@pytest.mark.parametrize("bank,h,c,tile,grid", ORDER, ids=lambda v: str(v))
+def test_k8_k9_persistent_order(bank, h, c, tile, grid, layout, monkeypatch):
+    """K8's and K9's tiled items taken by ``grid`` persistent blocks, block b
+    items b, b + grid, ...; against JAX's fused forward and inverse. An item
+    count that leaves an item out raises."""
+    fb = jt.get_filter(bank)
+    m = len(fb.dec_lo)
+    inter = layout == "interleaved"
+    want_y, want_x = _jax_fused(bank, h, c)
+    x = _input((2, h))
+    if inter:
+        want_y = _to_interleaved(want_y, c)
+    xt = torch.tensor(x)
+    y_in = torch.tensor(_to_interleaved(x, c) if inter else x)
+    p8, p9 = cuda_wpt.wpt_plan(h, c, m, False, tile), cuda_wpt.wpt_plan(h, c, m, True, tile)
+    items = cuda_wpt.wpt_items(2, h, p8)
+    assert items == 2 * h // tile > grid and items == cuda_wpt.wpt_items(2, h, p9)
+    got_y = cuda_wpt.wpt_analysis_tiled_torch(xt, fb.dec_lo, fb.dec_hi, c, p8, 1.0, inter, grid)
+    got_x = cuda_wpt.wpt_synthesis_tiled_torch(y_in, fb.rec_lo, fb.rec_hi, c, p9, fb.recon_gain,
+                                               inter, grid)
+    assert _err(got_y, want_y) <= TOL and _err(got_x, want_x) <= TOL
+    monkeypatch.setattr(cuda_wpt, "wpt_items", lambda rows, h_, plan: items - 1)
+    with pytest.raises(IndexError, match="once"):
+        cuda_wpt.wpt_analysis_tiled_torch(xt, fb.dec_lo, fb.dec_hi, c, p8, 1.0, inter, grid)
+    with pytest.raises(IndexError, match="once"):
+        cuda_wpt.wpt_synthesis_tiled_torch(y_in, fb.rec_lo, fb.rec_hi, c, p9, fb.recon_gain,
+                                           inter, grid)
+
+
+#: (bank, h, c): rows that K8 and K9 take several to an item
+MULTI = [("Daubechies 4", 16, 4), ("Haar", 8, 3), ("Discrete Meyer", 16, 3),
+         ("Symlet 8", 64, 5), ("Daubechies 4", 512, 6), ("Haar orthogonal", 1024, 6)]
+
+
+@pytest.mark.parametrize("layout", ["subband", "interleaved"])
+@pytest.mark.parametrize("bank,h,c", MULTI, ids=lambda v: str(v))
+def test_k8_k9_multi_row_items(bank, h, c, layout):
+    """Items of several whole rows of a batch of 3: 2 rows an item (an item
+    of 2 and a short one of 1), 4 (one short item) and the default tile's
+    4096 // h, each taken by 1 block, by 2 and by one block an item; against
+    JAX's fused forward and inverse."""
+    fb = jt.get_filter(bank)
+    m = len(fb.dec_lo)
+    inter = layout == "interleaved"
+    want_y, want_x = _jax_fused(bank, h, c, 3)
+    x = _input((3, h))
+    if inter:
+        want_y = _to_interleaved(want_y, c)
+    xt = torch.tensor(x)
+    y_in = torch.tensor(_to_interleaved(x, c) if inter else x)
+    for tile in (2 * h, 4 * h, None):
+        p8, p9 = cuda_wpt.wpt_plan(h, c, m, False, tile), cuda_wpt.wpt_plan(h, c, m, True, tile)
+        assert p8.rows == p9.rows == p8.tile // h
+        assert cuda_wpt.wpt_items(3, h, p8) == -(-3 // p8.rows)
+        for grid in (1, 2, None):
+            got_y = cuda_wpt.wpt_analysis_tiled_torch(xt, fb.dec_lo, fb.dec_hi, c, p8, 1.0, inter,
+                                                      grid)
+            got_x = cuda_wpt.wpt_synthesis_tiled_torch(y_in, fb.rec_lo, fb.rec_hi, c, p9,
+                                                       fb.recon_gain, inter, grid)
+            assert _err(got_y, want_y) <= TOL, (tile, grid)
+            assert _err(got_x, want_x) <= TOL, (tile, grid)
 
 
 def test_k9_cones_wrap_and_cover():

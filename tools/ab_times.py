@@ -23,13 +23,16 @@ K5's adjoint), K3 and ``fwt`` at 64 x 65536 db4 L8, K6 at 8 x 64 x 65536 on
 Haar L8, and on 65536 rows of 256 at full depth, ``ifwt`` db4 L8 64 x 65536, the gradient of ``fwt``
 there, whose backward runs K7 as K3's adjoint, ``ifwt3d`` db4 256^3 through
 the FWT facade's reverse, and ``ifwt2d_sharded`` db4 L6 2048^2 in a one-rank
-NCCL world), K8 and K9 (db4 L6 64 x 65536; a tree without them, as PR 13's,
-runs the same function by its route, the conv form of ``ops.composite``)
-and their consumers (``wpt`` and ``iwpt`` at L6 and full depth, the WPT
-facade's 2D forward at 2048^2 and its 3D forward and reverse at 256^3 L4,
-``wpt2d_sharded`` L6 2048^2 in the one-rank world), and K2 and one K5 pass,
-which no consumer here isolates. The registers of each K8/K9 build
-(``-Xptxas -v``) and their plans' shared bytes are printed first.
+NCCL world), K8 and K9 (db4 L6 64 x 65536, and the chunks of ``wpt`` at
+full depth on 65536 that are whole rows: 4096 rows of 1024 at L6, 262144
+of 16 at L4; a tree without them runs the same function by
+its route, the conv form of ``ops.composite``) and their consumers
+(``wpt`` and ``iwpt`` at L6 and full depth, the WPT facade's 2D forward
+and reverse at 2048^2 and its 3D forward and reverse at 256^3 L4,
+``wpt2d_sharded`` and ``iwpt2d_sharded`` L6 2048^2 in the one-rank
+world), and K2 and one K5 pass, which no consumer here isolates. The
+registers and spills of each K8/K9 build (``-Xptxas -v``) and their plans
+are printed first.
 ``--variants`` keeps one or both trees (one alone measures
 one tree in a process of its own: the inputs are made by the plain
 versions, so no other kernel runs there), and ``--calls`` keeps the calls
@@ -58,11 +61,13 @@ timed (device) once for each tile of 2048 to 16384 samples and each block of
 median of 3) for each tile of 1024 to 8192 samples and 64, 128 and 256
 compute threads, with the blocks an SM and the grid each plan gets: the
 sweep that ``K7_TILE``, ``K7_TILE_ONE_LEVEL`` and ``K7_THREADS`` were chosen
-from. With ``--wpt-plans``, this tree's K8 and K9 at 64 x 65536 db4 L6 and on
-4096 rows of 1024 (whole rows) are timed (device, the median of 3) for
-tiles of 1024 to 16384 samples and 128 and 256 threads: the sweep that
-``WPT_TILE`` and ``WPT_THREADS`` were chosen from. Needs a CUDA card; exits 2
-without one.
+from. With ``--wpt-plans``, this tree's K8 and K9 at 64 x 65536 db4 L6, on
+4096 rows of 1024 at L6 and on 262144 rows of 16 at L4 (whole rows) are
+timed (device, the median of 3) for tiles of 2048 to 8192 samples, 128 and
+256 compute threads and grids of 3, 4 and 5 blocks an SM (where the
+occupancy calculator allows them), with each plan's items a block: the
+sweep that ``WPT_TILE``, ``WPT_THREADS`` and ``WPT_BLOCKS_PER_SM`` were
+chosen from. Needs a CUDA card; exits 2 without one.
 """
 from __future__ import annotations
 
@@ -167,6 +172,7 @@ def main() -> int:
 
     x, x8, img = dev_t((64, 65536)), dev_t((8, 65536)), dev_t((2048, 2048))
     x256, vol = dev_t((65536, 256)), dev_t((256, 256, 256))
+    x1024, x16 = x.reshape(4096, 1024), x.reshape(262144, 16)
     xg, img_g = dev_t((64, 65536), True), dev_t((2048, 2048), True)
     w, w_img = dev_t((64, 65536)), dev_t((2048, 2048))
     g0, h0 = new["transforms.modwt"]._modwt_base_filters("db4")
@@ -178,7 +184,8 @@ def main() -> int:
     ssq_scales = new_jt.generate_log_scales(1e-5, 1e-2, 64)
 
     sharded = any(c in lab for c in args.calls
-                  for lab in ("ifwt2d_sharded db4 L6 2048^2", "wpt2d_sharded db4 L6 2048^2"))
+                  for lab in ("ifwt2d_sharded db4 L6 2048^2", "wpt2d_sharded db4 L6 2048^2",
+                              "iwpt2d_sharded db4 L6 2048^2"))
     if sharded:  # a one-rank NCCL world for the sharded inverse, as chip_smoke.py forms it
         import os
         import socket
@@ -204,20 +211,27 @@ def main() -> int:
                 lambda: par_m.ifwt2d_sharded(img_s, "db4", mesh, 6, 6))
             extra["wpt2d_sharded db4 L6 2048^2"] = (
                 lambda: par_m.wpt2d_sharded(img, "db4", mesh, 6, 6))
+            img_w = par_m.wpt2d_sharded(img, "db4", mesh, 6, 6)
+            extra["iwpt2d_sharded db4 L6 2048^2"] = (
+                lambda: par_m.iwpt2d_sharded(img_w, "db4", mesh, 6, 6))
         cw, comp = m["ops.cuda_wpt"], m["ops.composite"]
         wpt_f = jt.TransformBuilder.create("Wavelet Packet Transform", "db4")
-        if cw is not None:
-            extra["K8 64x65536 db4 L6"] = lambda: cw.wpt_rows(x, lo, hi, 6)
-            extra["K9 64x65536 db4 L6"] = lambda: cw.iwpt_rows(x, fb.rec_lo, fb.rec_hi, 6)
-        else:  # the same functions by this tree's route: the conv form
-            extra["K8 64x65536 db4 L6"] = lambda: comp.wpt_fused_forward(x, lo, hi, 6)
-            extra["K9 64x65536 db4 L6"] = lambda: comp.wpt_fused_inverse(x, fb.rec_lo,
-                                                                        fb.rec_hi, 6)
+        for label, y, lv in (("64x65536 db4 L6", x, 6), ("4096x1024 db4 L6", x1024, 6),
+                             ("262144x16 db4 L4", x16, 4)):
+            if cw is not None:
+                extra[f"K8 {label}"] = lambda y=y, lv=lv: cw.wpt_rows(y, lo, hi, lv)
+                extra[f"K9 {label}"] = lambda y=y, lv=lv: cw.iwpt_rows(y, fb.rec_lo, fb.rec_hi, lv)
+            else:  # the same functions by this tree's route: the conv form
+                extra[f"K8 {label}"] = lambda y=y, lv=lv: comp.wpt_fused_forward(y, lo, hi, lv)
+                extra[f"K9 {label}"] = lambda y=y, lv=lv: comp.wpt_fused_inverse(
+                    y, fb.rec_lo, fb.rec_hi, lv)
         extra.update({
             "wpt db4 L6 64x65536": lambda: jt.wpt(x, "db4", 6),
             "iwpt db4 L6 64x65536": lambda: jt.iwpt(x, "db4", 6),
             "wpt db4 full depth 64x65536": lambda: jt.wpt(x, "db4"),
+            "iwpt db4 full depth 64x65536": lambda: jt.iwpt(x, "db4"),
             "WPT facade 2D forward db4 2048^2": lambda: wpt_f.forward(img),
+            "WPT facade 2D reverse db4 L6 2048^2": lambda: wpt_f.reverse(img, 6, 6),
             "WPT facade 3D forward db4 L4 256^3": lambda: wpt_f.forward(vol, 4, 4, 4),
             "iwpt3d db4 L4 256^3 (WPT facade 3D reverse)": lambda: wpt_f.reverse(vol, 4, 4, 4),
         })
@@ -385,20 +399,31 @@ def main() -> int:
 
     if args.wpt_plans:
         cw = new["ops.cuda_wpt"]
-        x1024 = x.reshape(4096, 1024)
-        for label, y, lv in (("64x65536 db4 L6", x, 6), ("4096x1024 db4 L6", x1024, 6)):
-            for tile in (1024, 2048, 4096, 8192, 16384):
-                for threads in (128, 256):
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        for label, y, lv in (("64x65536 db4 L6", x, 6), ("4096x1024 db4 L6", x1024, 6),
+                             ("262144x16 db4 L4", x16, 4)):
+            for tile in (2048, 4096, 8192):
+                for consumers in (128, 256):
                     for key, fn in (("K8", cw._k8), ("K9", cw._k9)):
-                        plan = cw.wpt_plan(y.shape[1], lv, 8, key == "K9", tile, threads)
+                        inverse = key == "K9"
+                        plan = cw.wpt_plan(y.shape[1], lv, 8, inverse, tile, consumers + 32)
                         if plan.smem_bytes > cw.SMEM_LIMIT:
                             continue
-                        ms = float(np.median([measure(
-                            lambda: fn(y, lo, hi, lv, 1.0, False, plan))["device"]
-                            for _ in range(3)]))
-                        print(json.dumps({"wpt_plan": f"{key} {label}", **plan._asdict(),
-                                          "items": cw.wpt_items(y.shape[0], y.shape[1], plan),
-                                          "device_ms": ms, "card": card}), flush=True)
+                        fits = cw.wpt_blocks_per_sm(torch.cuda.current_device(), y.shape[1], lv,
+                                                    8, inverse, plan)
+                        items = cw.wpt_items(y.shape[0], y.shape[1], plan)
+                        for per_sm in (3, 4, 5):
+                            if per_sm > fits:
+                                continue
+                            grid = min(items, sms * per_sm)
+                            ms = float(np.median([measure(
+                                lambda: fn(y, lo, hi, lv, 1.0, False, plan, grid))["device"]
+                                for _ in range(3)]))
+                            print(json.dumps({"wpt_plan": f"{key} {label}", **plan._asdict(),
+                                              "blocks_per_sm": per_sm, "fits_per_sm": fits,
+                                              "grid": grid, "items": items,
+                                              "items_per_block": items / grid,
+                                              "device_ms": ms, "card": card}), flush=True)
 
     if args.trace:
         from torch.profiler import ProfilerActivity, profile
