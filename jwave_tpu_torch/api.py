@@ -47,6 +47,7 @@ from .transforms.modwt import (
 from .transforms.wpt import iwpt, wpt
 from .utils.host import as_tensor
 from .utils.numerics import exponent_of_two
+from .utils.profiling import spanned
 
 
 class BasicTransform:
@@ -370,6 +371,7 @@ class Transform:
     def get_wavelet(self):
         return self._basic.get_wavelet()
 
+    @spanned("Transform.forward")
     def forward(self, data, *levels):
         """1D/2D/3D forward dispatch (Transform.java:81-388)."""
         data = self._basic._in(data)
@@ -383,6 +385,7 @@ class Transform:
             return self._basic.forward_3d(data, lp, lq, lr)
         raise JWaveFailure(f"Transform.forward - unsupported rank {data.dim()}")
 
+    @spanned("Transform.reverse")
     def reverse(self, data, *levels):
         """1D/2D/3D inverse dispatch."""
         data = self._basic._in(data)

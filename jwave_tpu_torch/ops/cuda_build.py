@@ -20,6 +20,7 @@ import time
 from pathlib import Path
 
 from ..exceptions import JWaveError
+from ..utils.profiling import count, count_upload
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -46,10 +47,13 @@ def _nvcc() -> str:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded kernel library built from ``csrc/<name>.cu``."""
+    """The loaded kernel library built from ``csrc/<name>.cu``. The first
+    load in a process counts its seconds (hash, ``nvcc`` where it ran,
+    dlopen) as ``library.<name>.load_s``."""
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
+    t_load = time.perf_counter()
     src = CSRC / f"{name}.cu"
     # the shared headers count too, so editing one rebuilds every source
     text = src.read_bytes() + b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
@@ -73,6 +77,7 @@ def library(name: str) -> ctypes.CDLL:
     lib.jw_error_string.argtypes = [ctypes.c_int]
     lib.jw_error_string.restype = ctypes.c_char_p
     _LIBS[name] = lib
+    count(f"library.{name}.load_s", time.perf_counter() - t_load)
     return lib
 
 
@@ -89,7 +94,8 @@ def stream_handle(device) -> ctypes.c_void_p:
 
 
 def device_taps(f1, f2, device):
-    """The filters [f1 | f2] as a float32 tensor on ``device``, made once."""
+    """The filters [f1 | f2] as a float32 tensor on ``device``, made once
+    (an upload, counted, on the first call for a key)."""
     import numpy as np
     import torch
 
@@ -97,5 +103,5 @@ def device_taps(f1, f2, device):
     key = (taps.tobytes(), len(f1), str(device))
     t = _TAPS.get(key)
     if t is None:
-        t = _TAPS[key] = torch.as_tensor(taps, dtype=torch.float32, device=device)
+        t = _TAPS[key] = count_upload(torch.as_tensor(taps, dtype=torch.float32, device=device))
     return t

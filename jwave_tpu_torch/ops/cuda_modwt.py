@@ -41,6 +41,7 @@ import functools
 import torch
 
 from ..exceptions import JWaveFailure
+from ..utils.profiling import span
 from . import cuda_build
 
 #: launches of each kernel since the last :func:`reset_launch_counts`
@@ -229,22 +230,23 @@ def _k1(x: torch.Tensor, g0, h0, level: int) -> torch.Tensor:
     out = torch.empty((b, level + 1, n), dtype=x.dtype, device=x.device)
     if b == 0 or n == 0:
         return out
-    lib = cuda_build.library("modwt")
-    fn = _entry(lib, "jw_modwt_fwd", x.dtype)
-    taps = cuda_build.device_taps(g0, h0, x.device)
-    stream = cuda_build.stream_handle(x.device)
-    groups = level_groups(n, m, level)
-    scratch = [torch.empty((b, n), dtype=torch.float32, device=x.device)
-               for _ in range(min(len(groups) - 1, 2))]
-    src, src_f32 = x, 0
-    for gi, (j0, j1, staged) in enumerate(groups):
-        vnext = scratch[gi % 2] if j1 < level else None
-        err = fn(src.data_ptr(), src_f32, out.data_ptr(),
-                 vnext.data_ptr() if vnext is not None else None, taps.data_ptr(),
-                 b, n, m, level, j0, j1, TILE, int(staged), stream)
-        cuda_build.check(lib, err, "modwt_cascade")
-        launch_counts["modwt_cascade"] += 1
-        src, src_f32 = vnext, 1
+    with span("launch.K1", rows=b, n=n, levels=level):
+        lib = cuda_build.library("modwt")
+        fn = _entry(lib, "jw_modwt_fwd", x.dtype)
+        taps = cuda_build.device_taps(g0, h0, x.device)
+        stream = cuda_build.stream_handle(x.device)
+        groups = level_groups(n, m, level)
+        scratch = [torch.empty((b, n), dtype=torch.float32, device=x.device)
+                   for _ in range(min(len(groups) - 1, 2))]
+        src, src_f32 = x, 0
+        for gi, (j0, j1, staged) in enumerate(groups):
+            vnext = scratch[gi % 2] if j1 < level else None
+            err = fn(src.data_ptr(), src_f32, out.data_ptr(),
+                     vnext.data_ptr() if vnext is not None else None, taps.data_ptr(),
+                     b, n, m, level, j0, j1, TILE, int(staged), stream)
+            cuda_build.check(lib, err, "modwt_cascade")
+            launch_counts["modwt_cascade"] += 1
+            src, src_f32 = vnext, 1
     return out
 
 
@@ -259,24 +261,26 @@ def _k2(coeffs: torch.Tensor, g0, h0) -> torch.Tensor:
     out = torch.empty((b, n), dtype=coeffs.dtype, device=coeffs.device)
     if b == 0 or n == 0:
         return out
-    lib = cuda_build.library("modwt")
-    fn = _entry(lib, "jw_imodwt", coeffs.dtype)
-    taps = cuda_build.device_taps(g0, h0, coeffs.device)
-    stream = cuda_build.stream_handle(coeffs.device)
-    groups = inverse_level_groups(n, m, level)[::-1]
-    scratch = [torch.empty((b, n), dtype=torch.float32, device=coeffs.device)
-               for _ in range(min(len(groups) - 1, 2))]
-    # V_J is row `level` of the coefficients; later groups read f32 scratch
-    vsrc_ptr, vsrc_f32, vstride = coeffs.data_ptr() + level * n * coeffs.element_size(), 0, jp1 * n
-    for gi, (j0, j1, staged) in enumerate(groups):
-        vnext = scratch[gi % 2] if j0 > 1 else None
-        err = fn(coeffs.data_ptr(), vsrc_ptr, vsrc_f32, vstride, out.data_ptr(),
-                 vnext.data_ptr() if vnext is not None else None, taps.data_ptr(),
-                 b, n, m, level, j0, j1, TILE, int(staged), stream)
-        cuda_build.check(lib, err, "imodwt_cascade")
-        launch_counts["imodwt_cascade"] += 1
-        if vnext is not None:
-            vsrc_ptr, vsrc_f32, vstride = vnext.data_ptr(), 1, n
+    with span("launch.K2", rows=b, n=n, levels=level):
+        lib = cuda_build.library("modwt")
+        fn = _entry(lib, "jw_imodwt", coeffs.dtype)
+        taps = cuda_build.device_taps(g0, h0, coeffs.device)
+        stream = cuda_build.stream_handle(coeffs.device)
+        groups = inverse_level_groups(n, m, level)[::-1]
+        scratch = [torch.empty((b, n), dtype=torch.float32, device=coeffs.device)
+                   for _ in range(min(len(groups) - 1, 2))]
+        # V_J is row `level` of the coefficients; later groups read f32 scratch
+        vsrc_ptr, vsrc_f32, vstride = (coeffs.data_ptr() + level * n * coeffs.element_size(), 0,
+                                       jp1 * n)
+        for gi, (j0, j1, staged) in enumerate(groups):
+            vnext = scratch[gi % 2] if j0 > 1 else None
+            err = fn(coeffs.data_ptr(), vsrc_ptr, vsrc_f32, vstride, out.data_ptr(),
+                     vnext.data_ptr() if vnext is not None else None, taps.data_ptr(),
+                     b, n, m, level, j0, j1, TILE, int(staged), stream)
+            cuda_build.check(lib, err, "imodwt_cascade")
+            launch_counts["imodwt_cascade"] += 1
+            if vnext is not None:
+                vsrc_ptr, vsrc_f32, vstride = vnext.data_ptr(), 1, n
     return out
 
 

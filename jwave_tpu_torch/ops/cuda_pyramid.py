@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from ..exceptions import JWaveFailure
+from ..utils.profiling import span
 from . import cuda_build
 
 #: launches of each kernel since the last :func:`reset_launch_counts`
@@ -440,40 +441,42 @@ def _k3(x: torch.Tensor, dec_lo, dec_hi, levels: int, plan: K3Plan | None = None
     out = torch.empty_like(x)
     if r == 0:
         return out
-    lib = cuda_build.library("pyramid")
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    tile_fn = _fn(lib, "jw_pyramid_tile", [p, ll, p, ll, p, ll, p, i, i, i, i, i, p, i, i, p])
-    tail_fn = _fn(lib, "jw_pyramid_tail", [p, ll, p, ll, p, i, i, i, i, i, p])
-    taps = _gained_taps(dec_lo, dec_hi, gain, x.device)
-    stream = cuda_build.stream_handle(x.device)
-    m = len(dec_lo)
-    src, head, left = x, n, levels
-    while left > 0 and (plan is not None or head > K3_TAIL_HEAD):
-        pl = plan or k3_plan(head, left, m)
-        plan = None
-        if pl.levels == 0:
-            break
-        if r * (head // pl.tile) >= 2**31:
-            raise JWaveFailure(f"pyramid_rows - {r} rows of {head} exceed one launch")
-        done = pl.levels + pl.tail_levels
-        dst = out if pl.levels == left else torch.empty(
-            (r, head >> pl.levels), dtype=torch.float32, device=x.device)
-        counters = _k3_counters(x.device, stream.value or 0, r).data_ptr() if pl.tail_levels else None
-        err = tile_fn(src.data_ptr(), src.shape[1], out.data_ptr(), n, dst.data_ptr(),
-                      dst.shape[1], taps.data_ptr(), r, head, pl.tile, pl.levels,
-                      pl.tail_levels, counters, m, K3_TILE_THREADS, stream)
-        cuda_build.check(lib, err, "pyramid_rows")
-        launch_counts["pyramid_rows"] += 1
-        src, head, left = dst, head >> pl.levels, left - done
-    if left > 0 or levels == 0:
-        if left > 0 and head > K3_TAIL_MAX_HEAD:
-            raise JWaveFailure(f"pyramid_rows - a head of {head} with {m} taps exceeds one "
-                               "block's shared memory")
-        threads = min(K3_TAIL_THREADS, max(32, head // 2))
-        err = tail_fn(src.data_ptr(), src.shape[1], out.data_ptr(), n, taps.data_ptr(), r, head,
-                      left, m, threads, stream)
-        cuda_build.check(lib, err, "pyramid_rows")
-        launch_counts["pyramid_rows"] += 1
+    with span("launch.K3", rows=r, n=n, levels=levels):
+        lib = cuda_build.library("pyramid")
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        tile_fn = _fn(lib, "jw_pyramid_tile", [p, ll, p, ll, p, ll, p, i, i, i, i, i, p, i, i, p])
+        tail_fn = _fn(lib, "jw_pyramid_tail", [p, ll, p, ll, p, i, i, i, i, i, p])
+        taps = _gained_taps(dec_lo, dec_hi, gain, x.device)
+        stream = cuda_build.stream_handle(x.device)
+        m = len(dec_lo)
+        src, head, left = x, n, levels
+        while left > 0 and (plan is not None or head > K3_TAIL_HEAD):
+            pl = plan or k3_plan(head, left, m)
+            plan = None
+            if pl.levels == 0:
+                break
+            if r * (head // pl.tile) >= 2**31:
+                raise JWaveFailure(f"pyramid_rows - {r} rows of {head} exceed one launch")
+            done = pl.levels + pl.tail_levels
+            dst = out if pl.levels == left else torch.empty(
+                (r, head >> pl.levels), dtype=torch.float32, device=x.device)
+            counters = (_k3_counters(x.device, stream.value or 0, r).data_ptr()
+                        if pl.tail_levels else None)
+            err = tile_fn(src.data_ptr(), src.shape[1], out.data_ptr(), n, dst.data_ptr(),
+                          dst.shape[1], taps.data_ptr(), r, head, pl.tile, pl.levels,
+                          pl.tail_levels, counters, m, K3_TILE_THREADS, stream)
+            cuda_build.check(lib, err, "pyramid_rows")
+            launch_counts["pyramid_rows"] += 1
+            src, head, left = dst, head >> pl.levels, left - done
+        if left > 0 or levels == 0:
+            if left > 0 and head > K3_TAIL_MAX_HEAD:
+                raise JWaveFailure(f"pyramid_rows - a head of {head} with {m} taps exceeds one "
+                                   "block's shared memory")
+            threads = min(K3_TAIL_THREADS, max(32, head // 2))
+            err = tail_fn(src.data_ptr(), src.shape[1], out.data_ptr(), n, taps.data_ptr(), r,
+                          head, left, m, threads, stream)
+            cuda_build.check(lib, err, "pyramid_rows")
+            launch_counts["pyramid_rows"] += 1
     return out
 
 
@@ -613,14 +616,15 @@ def _k7(y: torch.Tensor, rec_lo, rec_hi, recon_gain: float, levels: int,
     out = torch.empty_like(y)
     if r == 0:
         return out
-    lib = cuda_build.library("pyramid")
-    m = len(rec_lo)
-    taps = _gained_taps(rec_lo, rec_hi, recon_gain, y.device)
-    err = _k7_fn(lib)(y.data_ptr(), out.data_ptr(), taps.data_ptr(), r, n, plan.tile, levels, m,
-                      plan.threads - 32, k7_grid(y.device, r, n, levels, m, plan), None,
-                      cuda_build.stream_handle(y.device))
-    cuda_build.check(lib, err, "ipyramid_rows")
-    launch_counts["ipyramid_rows"] += 1
+    with span("launch.K7", rows=r, n=n, levels=levels):
+        lib = cuda_build.library("pyramid")
+        m = len(rec_lo)
+        taps = _gained_taps(rec_lo, rec_hi, recon_gain, y.device)
+        err = _k7_fn(lib)(y.data_ptr(), out.data_ptr(), taps.data_ptr(), r, n, plan.tile, levels,
+                          m, plan.threads - 32, k7_grid(y.device, r, n, levels, m, plan), None,
+                          cuda_build.stream_handle(y.device))
+        cuda_build.check(lib, err, "ipyramid_rows")
+        launch_counts["ipyramid_rows"] += 1
     return out
 
 
@@ -668,14 +672,15 @@ def _k4(x: torch.Tensor, dec_lo, dec_hi, levels: int, gain: float) -> torch.Tens
     out = torch.empty((n, r), dtype=x.dtype, device=x.device)
     if r == 0:
         return out
-    lib = cuda_build.library("pyramid")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn = _fn(lib, "jw_pyramid_rows_t", [p, p, p, i, i, i, i, i, ctypes.c_float, i, p])
-    taps = cuda_build.device_taps(dec_lo, dec_hi, x.device)
-    err = fn(x.data_ptr(), out.data_ptr(), taps.data_ptr(), r, n, levels, len(dec_lo), rb,
-             float(gain), K4_THREADS, cuda_build.stream_handle(x.device))
-    cuda_build.check(lib, err, "pyramid_rows_transposed")
-    launch_counts["pyramid_rows_transposed"] += 1
+    with span("launch.K4", rows=r, n=n, levels=levels):
+        lib = cuda_build.library("pyramid")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn = _fn(lib, "jw_pyramid_rows_t", [p, p, p, i, i, i, i, i, ctypes.c_float, i, p])
+        taps = cuda_build.device_taps(dec_lo, dec_hi, x.device)
+        err = fn(x.data_ptr(), out.data_ptr(), taps.data_ptr(), r, n, levels, len(dec_lo), rb,
+                 float(gain), K4_THREADS, cuda_build.stream_handle(x.device))
+        cuda_build.check(lib, err, "pyramid_rows_transposed")
+        launch_counts["pyramid_rows_transposed"] += 1
     return out
 
 
@@ -727,14 +732,15 @@ def _k5(y: torch.Tensor, rec_lo, rec_hi, recon_gain: float, levels: int) -> torc
     out = torch.empty((n, r), dtype=y.dtype, device=y.device)
     if r == 0:
         return out
-    lib = cuda_build.library("pyramid")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn = _fn(lib, "jw_ipyramid_rows_t", [p, p, p, i, i, i, i, i, ctypes.c_float, i, p])
-    taps = cuda_build.device_taps(rec_lo, rec_hi, y.device)
-    err = fn(y.data_ptr(), out.data_ptr(), taps.data_ptr(), r, n, levels, len(rec_lo), rb,
-             float(recon_gain), K5_THREADS, cuda_build.stream_handle(y.device))
-    cuda_build.check(lib, err, "ipyramid_rows_transposed")
-    launch_counts["ipyramid_rows_transposed"] += 1
+    with span("launch.K5", rows=r, n=n, levels=levels):
+        lib = cuda_build.library("pyramid")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn = _fn(lib, "jw_ipyramid_rows_t", [p, p, p, i, i, i, i, i, ctypes.c_float, i, p])
+        taps = cuda_build.device_taps(rec_lo, rec_hi, y.device)
+        err = fn(y.data_ptr(), out.data_ptr(), taps.data_ptr(), r, n, levels, len(rec_lo), rb,
+                 float(recon_gain), K5_THREADS, cuda_build.stream_handle(y.device))
+        cuda_build.check(lib, err, "ipyramid_rows_transposed")
+        launch_counts["ipyramid_rows_transposed"] += 1
     return out
 
 

@@ -21,6 +21,7 @@ import ctypes
 import torch
 
 from ..exceptions import JWaveFailure
+from ..utils.profiling import span
 from . import cuda_build
 
 #: launches of the kernel since the last :func:`reset_launch_counts`
@@ -113,16 +114,17 @@ def _launch(contrib: torch.Tensor, k_idx: torch.Tensor, n_bins: int) -> torch.Te
         return out.zero_().reshape(lead + (n_bins, n))
     if g * -(-n // K6_TILE) >= 2**31:
         raise JWaveFailure(f"reassign - {g} x {n} columns exceed one launch")
-    lib = cuda_build.library("reassign")
-    fn = lib.jw_reassign
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, i, i, i, i, p]
-        fn.restype = ctypes.c_int
-    err = fn(c.data_ptr(), k.data_ptr(), out.data_ptr(), g, s, n, n_bins,
-             cuda_build.stream_handle(c.device))
-    cuda_build.check(lib, err, "reassign")
-    launch_counts["reassign"] += 1
+    with span("launch.K6", rows=g, n=n, bins=n_bins):
+        lib = cuda_build.library("reassign")
+        fn = lib.jw_reassign
+        if fn.argtypes is None:
+            p, i = ctypes.c_void_p, ctypes.c_int
+            fn.argtypes = [p, p, p, i, i, i, i, p]
+            fn.restype = ctypes.c_int
+        err = fn(c.data_ptr(), k.data_ptr(), out.data_ptr(), g, s, n, n_bins,
+                 cuda_build.stream_handle(c.device))
+        cuda_build.check(lib, err, "reassign")
+        launch_counts["reassign"] += 1
     return out.reshape(lead + (n_bins, n))
 
 

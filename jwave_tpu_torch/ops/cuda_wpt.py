@@ -59,6 +59,7 @@ import numpy as np
 import torch
 
 from ..exceptions import JWaveFailure
+from ..utils.profiling import span
 from . import cuda_build
 
 #: launches of each kernel since the last :func:`reset_launch_counts`
@@ -469,16 +470,17 @@ def _launch(x: torch.Tensor, lo, hi, levels: int, gain: float, interleaved: bool
     out = torch.empty_like(x)
     if r == 0:
         return out
-    lib = cuda_build.library("wpt")
-    # the taps go by value, as a kernel parameter: host floats [lo | hi]
-    taps = (np.concatenate([np.asarray(lo, np.float64), np.asarray(hi, np.float64)])
-            * gain).astype(np.float32)
-    grid = grid or wpt_grid(x.device, r, h, levels, m, inverse, plan)
-    err = _fn(lib, symbol)(x.data_ptr(), out.data_ptr(), taps.ctypes.data_as(ctypes.c_void_p), r,
-                           h, plan.tile, levels, m, int(interleaved), plan.threads - 32, grid,
-                           None, cuda_build.stream_handle(x.device))
-    cuda_build.check(lib, err, key)
-    launch_counts[key] += 1
+    with span("launch.K9" if inverse else "launch.K8", rows=r, n=h, levels=levels):
+        lib = cuda_build.library("wpt")
+        # the taps go by value, as a kernel parameter: host floats [lo | hi]
+        taps = (np.concatenate([np.asarray(lo, np.float64), np.asarray(hi, np.float64)])
+                * gain).astype(np.float32)
+        grid = grid or wpt_grid(x.device, r, h, levels, m, inverse, plan)
+        err = _fn(lib, symbol)(x.data_ptr(), out.data_ptr(), taps.ctypes.data_as(ctypes.c_void_p),
+                               r, h, plan.tile, levels, m, int(interleaved), plan.threads - 32,
+                               grid, None, cuda_build.stream_handle(x.device))
+        cuda_build.check(lib, err, key)
+        launch_counts[key] += 1
     return out
 
 

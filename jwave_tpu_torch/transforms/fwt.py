@@ -22,6 +22,7 @@ from ..ops import cuda_pyramid
 from ..ops.butterfly import butterfly_forward, ensure_float, synthesis_levels
 from ..utils.host import as_tensor
 from ..utils.numerics import exponent_of_two, is_power_of_two
+from ..utils.profiling import spanned
 from .ndim import forward_2d, reverse_2d
 
 
@@ -42,6 +43,7 @@ def _on_kernel(x: torch.Tensor) -> bool:
     return x.device.type == "cuda" and x.dtype == torch.float32
 
 
+@spanned("fwt")
 def fwt(x, wavelet, level: int | None = None):
     """Forward FWT along the last axis (length 2^p), batched over the rest.
     ``level`` defaults to the maximum (FastWaveletTransform.java:71-101)."""
@@ -76,6 +78,7 @@ def _butterfly_levels(x: torch.Tensor, fb, level: int) -> torch.Tensor:
     return x
 
 
+@spanned("ifwt")
 def ifwt(y, wavelet, level: int | None = None):
     """Inverse FWT along the last axis (FastWaveletTransform.java:119-153)."""
     fb = get_filter(wavelet)

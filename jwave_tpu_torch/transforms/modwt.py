@@ -46,6 +46,7 @@ from ..ops.circular import (
 )
 from ..utils.host import as_tensor
 from ..utils.numerics import exponent_of_two, is_power_of_two
+from ..utils.profiling import span, spanned
 
 #: maximum supported decomposition level (MODWTTransform.java:111)
 MAX_DECOMPOSITION_LEVEL = 13
@@ -164,6 +165,7 @@ def _use_cascade(x: torch.Tensor, method: ConvolutionMethod, who: str) -> bool:
     return method is ConvolutionMethod.AUTO and fits and x.device.type == "cuda"
 
 
+@spanned("modwt")
 def modwt(
     x,
     wavelet,
@@ -201,7 +203,8 @@ def modwt(
     _validate_level(n, level, "modwt")
 
     if _use_cascade(x, method, "modwt"):
-        g0, h0 = _modwt_base_filters(wavelet)
+        with span("taps"):
+            g0, h0 = _modwt_base_filters(wavelet)
         lead = x.shape[:-1]
         flat = x.reshape(-1, n).contiguous()
         return cuda_modwt.modwt_cascade(flat, g0, h0, level).reshape(lead + (level + 1, n))
@@ -224,6 +227,7 @@ def modwt(
     return torch.cat([torch.stack(rows, dim=-2), tail], dim=-2)
 
 
+@spanned("imodwt")
 def imodwt(
     coeffs,
     wavelet,
@@ -240,7 +244,8 @@ def imodwt(
         raise JWaveFailure("imodwt - need at least level 1 (2 rows)")
 
     if _use_cascade(coeffs, method, "imodwt"):
-        g0, h0 = _modwt_base_filters(wavelet)
+        with span("taps"):
+            g0, h0 = _modwt_base_filters(wavelet)
         lead = coeffs.shape[:-2]
         flat = coeffs.reshape(-1, level + 1, n).contiguous()
         return cuda_modwt.imodwt_cascade(flat, g0, h0).reshape(lead + (n,))

@@ -10,41 +10,60 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import span
+
+
+def _contiguous(t: torch.Tensor) -> torch.Tensor:
+    """A transposing copy that brings the next axis last."""
+    with span("ndim.transpose"):
+        return t.contiguous()
+
 
 def forward_2d(fn1d, mat, level_rows: int | None = None, level_cols: int | None = None):
     """2D separable forward: rows (last axis) then columns. ``fn1d(x, level)``
     transforms the last axis; ``level_cols`` bounds the transform along each
-    row, ``level_rows`` the one along each column."""
-    y = fn1d(mat, level_cols)
-    y = fn1d(y.transpose(-1, -2).contiguous(), level_rows)
-    return y.transpose(-1, -2).contiguous()
+    row, ``level_rows`` the one along each column. Each axis pass, its
+    transposing copies included, is one ``ndim.pass`` span."""
+    with span("ndim.pass", axis=-1):
+        y = fn1d(mat, level_cols)
+    with span("ndim.pass", axis=-2):
+        y = fn1d(_contiguous(y.transpose(-1, -2)), level_rows)
+        return _contiguous(y.transpose(-1, -2))
 
 
 def reverse_2d(fn1d_rev, mat, level_rows: int | None = None, level_cols: int | None = None):
     """2D separable inverse (BasicTransform.java:412-474)."""
-    y = fn1d_rev(mat, level_cols)
-    y = fn1d_rev(y.transpose(-1, -2).contiguous(), level_rows)
-    return y.transpose(-1, -2).contiguous()
+    with span("ndim.pass", axis=-1):
+        y = fn1d_rev(mat, level_cols)
+    with span("ndim.pass", axis=-2):
+        y = fn1d_rev(_contiguous(y.transpose(-1, -2)), level_rows)
+        return _contiguous(y.transpose(-1, -2))
 
 
 def forward_3d(fn1d, spc, level_p: int | None = None, level_q: int | None = None,
                level_r: int | None = None):
     """3D separable forward over the last three axes: rows, columns, pillars."""
-    y = fn1d(spc, level_r)
-    y = fn1d(y.transpose(-1, -2).contiguous(), level_q)
+    with span("ndim.pass", axis=-1):
+        y = fn1d(spc, level_r)
+    with span("ndim.pass", axis=-2):
+        y = fn1d(_contiguous(y.transpose(-1, -2)), level_q)
     y = y.transpose(-1, -2)
-    y = fn1d(torch.movedim(y, -3, -1).contiguous(), level_p)
-    return torch.movedim(y, -1, -3).contiguous()
+    with span("ndim.pass", axis=-3):
+        y = fn1d(_contiguous(torch.movedim(y, -3, -1)), level_p)
+        return _contiguous(torch.movedim(y, -1, -3))
 
 
 def reverse_3d(fn1d_rev, spc, level_p: int | None = None, level_q: int | None = None,
                level_r: int | None = None):
     """3D separable inverse."""
-    y = fn1d_rev(spc, level_r)
-    y = fn1d_rev(y.transpose(-1, -2).contiguous(), level_q)
+    with span("ndim.pass", axis=-1):
+        y = fn1d_rev(spc, level_r)
+    with span("ndim.pass", axis=-2):
+        y = fn1d_rev(_contiguous(y.transpose(-1, -2)), level_q)
     y = y.transpose(-1, -2)
-    y = fn1d_rev(torch.movedim(y, -3, -1).contiguous(), level_p)
-    return torch.movedim(y, -1, -3).contiguous()
+    with span("ndim.pass", axis=-3):
+        y = fn1d_rev(_contiguous(torch.movedim(y, -3, -1)), level_p)
+        return _contiguous(torch.movedim(y, -1, -3))
 
 
 def interleave(z: torch.Tensor) -> torch.Tensor:

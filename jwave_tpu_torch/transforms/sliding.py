@@ -33,6 +33,7 @@ from ..exceptions import JWaveFailure
 from ..filters import get_filter
 from ..ops.butterfly import ensure_float
 from ..utils.host import as_tensor, copy_to_device
+from ..utils.profiling import count_upload, span
 from .modwt import MAX_DECOMPOSITION_LEVEL, _modwt_base_filters, _validate_level
 
 
@@ -91,7 +92,8 @@ def _filter_pair(wavelet, like: torch.Tensor) -> torch.Tensor:
     out[t] = sum_m f[m] ext[need + t - m*stride] = sum_m' f[M-1-m'] ext[t + m'*stride]."""
     g0, h0 = _modwt_base_filters(wavelet)
     w = np.stack([h0[::-1], g0[::-1]])[:, None, :]
-    return torch.as_tensor(np.ascontiguousarray(w), dtype=like.dtype, device=like.device)
+    return count_upload(torch.as_tensor(np.ascontiguousarray(w), dtype=like.dtype,
+                                        device=like.device))
 
 
 def sliding_modwt_update(state: SlidingState, samples, wavelet, level: int) -> SlidingState:
@@ -100,33 +102,38 @@ def sliding_modwt_update(state: SlidingState, samples, wavelet, level: int) -> S
     The oldest S columns fall out and S new coefficient columns are computed
     causally in O(S * M * J) work, independent of the window length.
     """
-    samples = ensure_float(as_tensor(samples, state.window.device))
-    s = samples.shape[-1]
-    wlen = state.window.shape[-1]
-    if s < 1:
-        return state
-    lead = samples.shape[:-1]
-    weight = _filter_pair(wavelet, samples)
-    v = samples.reshape(-1, 1, s)
-    new_hist = []
-    rows = []
-    for j in range(level):
-        need = state.hist[j].shape[-1]
-        ext = torch.cat([state.hist[j].reshape(-1, 1, need), v], dim=-1)  # (B, 1, need + S)
-        with config.dial():
-            wv = F.conv1d(ext, weight, dilation=1 << j)  # (B, 2, S): W_{j+1}, V_{j+1}
-        rows.append(wv[:, 0])
-        new_hist.append(ext[:, 0, ext.shape[-1] - need:].reshape(lead + (need,)))
-        v = wv[:, 1:]
-    rows.append(v[:, 0])
-    cols = torch.stack(rows, dim=-2).reshape(lead + (level + 1, s))
-    if s >= wlen:
-        coeffs = cols[..., -wlen:]
-        window = samples[..., -wlen:]
-    else:
-        coeffs = torch.cat([state.coeffs[..., s:], cols], dim=-1)
-        window = torch.cat([state.window[..., s:], samples], dim=-1)
-    return SlidingState(hist=tuple(new_hist), coeffs=coeffs, window=window)
+    with span("sliding.update"):
+        with span("sliding.upload"):
+            samples = ensure_float(as_tensor(samples, state.window.device))
+        s = samples.shape[-1]
+        wlen = state.window.shape[-1]
+        if s < 1:
+            return state
+        lead = samples.shape[:-1]
+        with span("sliding.taps"):
+            weight = _filter_pair(wavelet, samples)
+        v = samples.reshape(-1, 1, s)
+        new_hist = []
+        rows = []
+        for j in range(level):
+            with span("sliding.level", j=j):
+                need = state.hist[j].shape[-1]
+                ext = torch.cat([state.hist[j].reshape(-1, 1, need), v], dim=-1)  # (B, 1, need + S)
+                with config.dial():
+                    wv = F.conv1d(ext, weight, dilation=1 << j)  # (B, 2, S): W_{j+1}, V_{j+1}
+                rows.append(wv[:, 0])
+                new_hist.append(ext[:, 0, ext.shape[-1] - need:].reshape(lead + (need,)))
+                v = wv[:, 1:]
+        with span("sliding.assemble"):
+            rows.append(v[:, 0])
+            cols = torch.stack(rows, dim=-2).reshape(lead + (level + 1, s))
+            if s >= wlen:
+                coeffs = cols[..., -wlen:]
+                window = samples[..., -wlen:]
+            else:
+                coeffs = torch.cat([state.coeffs[..., s:], cols], dim=-1)
+                window = torch.cat([state.window[..., s:], samples], dim=-1)
+        return SlidingState(hist=tuple(new_hist), coeffs=coeffs, window=window)
 
 
 class SlidingMODWT:

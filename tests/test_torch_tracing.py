@@ -1,0 +1,218 @@
+"""The port's spans and counters (``jwave_tpu_torch.utils.profiling``) on the
+CPU: off, a span is one shared null context that reads no clock and enters
+no profiler event; under torch.profiler the facade, the transforms, the
+ndim passes and the sliding update record their spans on the Chrome trace's
+clock, with request numbers, parents and the roots' counter changes, and
+``profiling.trace`` writes them into its Chrome trace.
+
+Tests marked ``cuda`` need a card and skip without one. Run them there with
+
+    python -m pytest tests/test_torch_tracing.py -m cuda --noconftest -o addopts=''
+"""
+import json
+import types
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+import jwave_tpu_torch as jt  # noqa: E402
+from jwave_tpu_torch.utils import host, profiling  # noqa: E402
+
+#: Kineto rounds a trace's base time down to a multiple of this many seconds
+TRIMONTH_NS = 7_889_238 * 10**9
+
+
+@pytest.fixture(autouse=True)
+def clean():
+    profiling.reset_spans()
+    yield
+    profiling.reset_spans()
+
+
+def _profile():
+    return torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU])
+
+
+def _boom(*args, **kwargs):
+    raise AssertionError("called with no profiler recording")
+
+
+def test_off_a_span_is_one_shared_object_that_reads_no_clock(monkeypatch):
+    monkeypatch.setattr(torch.profiler, "record_function", _boom)
+    monkeypatch.setattr(profiling, "time", types.SimpleNamespace(time_ns=_boom))
+    a = profiling.span("sliding.update")
+    assert a is profiling.span("launch.K1", rows=4, n=8, levels=2)
+    with a:
+        with profiling.span("inner"):
+            pass
+    st = jt.sliding_modwt_init(torch.randn(2, 64), "db4", 3)
+    jt.sliding_modwt_update(st, torch.randn(2, 8), "db4", 3)
+    jt.Transform(jt.FastWaveletTransform("db4")).forward(torch.randn(4, 8, 16), 1, 1, 1)
+    jt.modwt(torch.randn(2, 40), "db4", 2)
+    assert profiling.spans() == []
+
+
+def _sliding_spans(level=4):
+    st = jt.sliding_modwt_init(torch.randn(3, 128), "db4", level)
+    with _profile():
+        jt.sliding_modwt_update(st, torch.randn(3, 16), "db4", level)
+    return profiling.spans()
+
+
+def test_a_sliding_update_records_its_upload_taps_levels_and_assembly():
+    level = 4
+    spans = _sliding_spans(level)
+    root = [s for s in spans if s.parent is None]
+    assert [s.name for s in root] == ["sliding.update"]
+    assert {s.request for s in spans} == {root[0].request}
+    kids = [s for s in spans if s is not root[0]]
+    assert [s.name for s in kids] == (["sliding.upload", "sliding.taps"]
+                                      + ["sliding.level"] * level + ["sliding.assemble"])
+    assert all(s.parent == "sliding.update" for s in kids)
+    assert [s.args["j"] for s in kids if s.name == "sliding.level"] == list(range(level))
+    for s in kids:  # inside the update, one after another
+        assert root[0].start_ns <= s.start_ns <= s.end_ns <= root[0].end_ns
+    assert all(a.end_ns <= b.start_ns for a, b in zip(kids, kids[1:]))
+
+
+def test_the_chrome_trace_holds_each_span_on_the_same_clock(tmp_path):
+    level = 4
+    st = jt.sliding_modwt_init(torch.randn(3, 128), "db4", level)
+    with profiling.trace(str(tmp_path)):
+        jt.sliding_modwt_update(st, torch.randn(3, 16), "db4", level)
+    spans = profiling.spans()
+    data = json.loads((tmp_path / "trace.json").read_text())
+    events = data["traceEvents"]
+    marks = [e for e in events if str(e.get("name", "")).startswith("jw.")]
+    assert all(e["cat"] == "user_annotation" for e in marks)
+    assert sorted(e["name"] for e in marks) == sorted("jw." + s.name for s in spans)
+    base = spans[0].start_ns // TRIMONTH_NS * TRIMONTH_NS  # Kineto's rule
+    assert data.get("baseTimeNanoseconds", base) == base
+    # the clock: each level's conv1d, as torch's profiler stamped it, lies
+    # inside that level's span converted by the rule
+    convs = sorted((e for e in events if e.get("name") == "aten::conv1d"),
+                   key=lambda e: float(e["ts"]))
+    levels = [s for s in spans if s.name == "sliding.level"]
+    assert len(convs) == len(levels) == level
+    for s, e in zip(levels, convs):
+        a, b = (s.start_ns - base) / 1e3, (s.end_ns - base) / 1e3
+        assert a - 50.0 <= float(e["ts"]) and float(e["ts"]) + float(e["dur"]) <= b + 50.0, s
+
+
+def test_a_3d_facade_forward_records_three_axis_passes():
+    tr = jt.Transform(jt.FastWaveletTransform("db4"))
+    x = torch.randn(8, 16, 32)
+    with _profile():
+        y = tr.forward(x, 2, 2, 2)
+    torch.testing.assert_close(y, tr.get_basic_transform().forward_3d(x, 2, 2, 2))
+    spans = profiling.spans()
+    root = [s for s in spans if s.parent is None]
+    assert [s.name for s in root] == ["Transform.forward"]
+    passes = [s for s in spans if s.name == "ndim.pass"]
+    assert [s.args["axis"] for s in passes] == [-1, -2, -3]
+    assert all(s.parent == "Transform.forward" for s in passes)
+    assert [s.parent for s in spans if s.name == "fwt"] == ["ndim.pass"] * 3
+    assert [s.parent for s in spans if s.name == "ndim.transpose"] == ["ndim.pass"] * 3
+    assert not [s for s in spans if s.name == "taps"]  # the FWT's taps are made in its launch
+    with _profile():
+        tr.reverse(y, 2, 2, 2)
+    names = [s.name for s in profiling.spans() if s.parent is None]
+    assert names == ["Transform.forward", "Transform.reverse"]
+    assert len({s.request for s in profiling.spans() if s.parent is None}) == 2
+
+
+def test_each_root_takes_a_new_request_and_carries_its_counter_changes():
+    with _profile():
+        with profiling.span("outer", k=1):
+            profiling.count("test.things", 2)
+            with profiling.span("inner"):
+                profiling.count("test.things")
+        jt.modwt(torch.randn(2, 40), "db4", 2)
+    spans = profiling.spans()
+    assert [(s.name, s.parent) for s in spans] == [("inner", "outer"), ("outer", None),
+                                                   ("modwt", None)]
+    inner, outer, modwt = spans
+    assert inner.request == outer.request != modwt.request
+    assert outer.args == {"k": 1} and outer.counts == {"test.things": 3}
+    assert inner.counts == {} and modwt.counts == {}
+
+
+def test_counts_hold_every_kernels_launches_beside_the_counters():
+    profiling.reset_counts()
+    got = profiling.counts()
+    assert {f"launch.K{k}" for k in range(1, 10)} <= set(got)
+    assert got["upload.calls"] == got["upload.bytes"] == 0
+    assert all(v == 0 for v in got.values())
+    profiling.count("test.things", 5)
+    assert profiling.counts()["test.things"] == 5
+    profiling.reset_counts()
+    assert profiling.counts()["test.things"] == 0
+
+
+def test_copies_to_the_cpu_are_no_uploads():
+    profiling.reset_counts()
+    host.as_tensor(np.ones(8, np.float32), device="cpu")
+    host.copy_to_device(np.ones(8, np.float32), device="cpu")
+    st = jt.sliding_modwt_init(torch.randn(2, 64), "db4", 2)
+    jt.sliding_modwt_update(st, torch.randn(2, 8), "db4", 2)
+    got = profiling.counts()
+    assert got["upload.calls"] == 0 and got["upload.bytes"] == 0
+
+
+def test_the_span_buffer_drops_and_counts_past_its_cap(monkeypatch):
+    monkeypatch.setattr(profiling, "SPAN_CAP", 3)
+    profiling.reset_counts()
+    with _profile():
+        for _ in range(5):
+            with profiling.span("x"):
+                pass
+    assert len(profiling.spans()) == 3
+    assert profiling.counts()["spans.dropped"] == 2
+    assert len(profiling.spans()) == 3  # reading leaves them
+    profiling.reset_spans()
+    assert profiling.spans() == []
+
+
+# --------------------------------------------------------------------------
+# on the card
+# --------------------------------------------------------------------------
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the uploads and kernel launches happen only there")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_a_sliding_update_from_the_host_uploads_twice(card):
+    st = jt.sliding_modwt_init(torch.randn(8, 512, device=card), "db4", 5)
+    chunk = np.random.default_rng(0).standard_normal((8, 64)).astype(np.float32)
+    jt.sliding_modwt_update(st, chunk, "db4", 5)  # warm
+    with _profile():
+        jt.sliding_modwt_update(st, chunk, "db4", 5)
+    (root,) = [s for s in profiling.spans() if s.parent is None]
+    assert root.name == "sliding.update"
+    assert root.counts["upload.calls"] == 2  # the samples and the filter pair
+    assert root.counts["upload.bytes"] == chunk.nbytes + 2 * 8 * 4
+
+
+@pytest.mark.cuda
+def test_the_volume_path_launches_k3_and_k7_inside_their_spans(card):
+    tr = jt.Transform(jt.FastWaveletTransform("db4"))
+    v = torch.randn(64, 64, 64, device=card)
+    tr.reverse(tr.forward(v, 6, 6, 6), 6, 6, 6)  # warm: the library loaded
+    with _profile():
+        tr.reverse(tr.forward(v, 6, 6, 6), 6, 6, 6)
+    spans = profiling.spans()
+    k3 = [s for s in spans if s.name == "launch.K3"]
+    k7 = [s for s in spans if s.name == "launch.K7"]
+    assert [s.parent for s in k3] == ["fwt"] * 3 and [s.parent for s in k7] == ["ifwt"] * 3
+    assert all(s.args["rows"] == 64 * 64 and s.args["n"] == 64 for s in k3 + k7)
+    fwd, rev = [s for s in spans if s.parent is None]
+    assert fwd.counts["launch.K3"] == 3 and rev.counts["launch.K7"] == 3
+    assert "upload.calls" not in fwd.counts  # the taps are on the card already
+    assert "library.pyramid.load_s" in profiling.counts()
