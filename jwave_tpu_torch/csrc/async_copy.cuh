@@ -2,8 +2,8 @@
 // (cp.async.bulk): global -> shared copies that complete on an mbarrier in
 // shared memory (K1, K2 in modwt.cu; K3, K4, K5 in pyramid.cu; K6 in
 // reassign.cu), and shared -> global stores that complete in bulk groups of
-// the issuing thread (K1, K3, K6); and the segment staging and tile stores
-// built on them that K1, K2 and K3 share.
+// the issuing thread (K1, K2, K3, K6); and the segment staging and tile
+// stores built on them that K1, K2 and K3 share.
 //
 // A bulk copy needs its global and shared addresses 16-byte aligned and a
 // size that is a multiple of 16 bytes; the callers copy what falls outside
@@ -121,6 +121,30 @@ __device__ void stage_segment(T* dst, const T* row, long long t0, int cnt, int n
       s = 0;
     }
     if (pass == 0 && threadIdx.x == 0) jw::mbar_expect(bar, bulk_bytes);
+  }
+}
+
+// Stage the contiguous run src[0, cnt) into dst[0, cnt), dst from
+// stage_for(base, src), which agrees with src mod 16. Thread 0 announces
+// the bulk bytes on `bar` and copies the 16-byte aligned body in one bulk
+// copy, rounded up to whole 16 bytes where src[0, avail) holds them; every
+// thread loads the ragged head (and a tail the rounding could not take)
+// plainly, which the caller's __syncthreads() publishes.
+template <typename T>
+__device__ void stage_run(T* dst, const T* src, int cnt, long long avail, uint64_t* bar) {
+  constexpr int kVec = 16 / sizeof(T);
+  const uintptr_t ga = reinterpret_cast<uintptr_t>(src);
+  const int head = min(cnt, (int)(((16 - (ga & 15)) & 15) / sizeof(T)));
+  int body = (cnt - head + kVec - 1) / kVec * kVec;
+  if (head + body > avail) body = (cnt - head) / kVec * kVec;
+  const int tail = min(cnt, head + body);  // plain from here to cnt
+  if (threadIdx.x == 0) {
+    jw::mbar_expect(bar, body * sizeof(T));
+    if (body > 0) jw::bulk_copy(dst + head, src + head, body * sizeof(T), bar);
+  }
+  for (int i = threadIdx.x; i < head + cnt - tail; i += blockDim.x) {
+    const int e = i < head ? i : tail + i - head;
+    dst[e] = src[e];
   }
 }
 

@@ -69,8 +69,37 @@
 // behind one another's copies. Blocks that loop over tiles and load the
 // next tile's segment while the later levels compute were slower in a
 // trial, for K1 as for K2 (one 121 KB block an SM: too few warps).
+//
+// Short rows (n <= WHOLE_ROW_MAX = 2048, ops/cuda_modwt.py rows_per_block;
+// the template argument kRows): tiles of a row shorter than a tile plus its
+// halo stage the row several times over (281 samples for 64 outputs at db4
+// L5) and launch a block per 64 outputs. There a block keeps whole rows
+// instead, as the Pallas kernel keeps its row in VMEM: max(1, 1024 / n)
+// consecutive rows, one contiguous run of the input (K1: rows x n; K2: rows
+// x (J+1) x n) staged by one bulk copy, every level in shared memory
+// reading V_{j-1} (and W_j) circularly within its row at (t -+ k gap) mod n,
+// and one contiguous run of the output leaving by one bulk store. No halo,
+// no level groups, no scratch rows: one launch at any level up to 13 (a row
+// of 2048 at level 13 takes 137 KB in f32). The outputs of all the block's
+// rows spread over its threads; a thread takes kR outputs along a cycle of
+// t -> t + gap mod n (there are gcd(n, gap) of n / gcd), kShortR or 1 where
+// the cycles are shorter, and a sample's index advances by gap mod n with a
+// conditional subtract, so the taps and their order are the tiled path's.
+// At the batch cell's lengths (64..2048, 2^24 samples a request) K1 + K2
+// take 0.54-0.62 ms against a bound of 0.28 (the tiles took 0.46-6.7;
+// PERF.md section 5). Tried and lost: blocks of 2048 samples (3 an SM,
+// against 6 at 1024); 256 threads a block; a bulk store of each level's
+// rows as the level ends and a barrier per level for K2's copies (small
+// copies, single threads loading ragged edges); a straight-indexed path for
+// items whose window does not wrap (more code, 5% slower); for K1 on one row
+// a block, W rotating through two stages as in the tiles (faster at 2048,
+// slower at 724-1024, spilled registers). What still bounds them: at n >=
+// 1448 one row fills a block (53-74 KB, 3-4 an SM), and K1 there is slower
+// than its tiles were.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+
+#include <type_traits>
 
 #include "async_copy.cuh"
 
@@ -79,6 +108,7 @@ namespace {
 constexpr int kMaxTaps = 64;
 constexpr int kThreads = 128;
 constexpr int kR = 9;  // outputs per thread and level, spaced by the gap
+constexpr int kShortR = 4;  // the same on whole rows whose cycles are shorter than kR
 
 __device__ __forceinline__ float load_f(const float* p, long long i) { return p[i]; }
 __device__ __forceinline__ float load_f(const __nv_bfloat16* p, long long i) {
@@ -166,6 +196,32 @@ __host__ __device__ inline InvLayout inv_layout(int tl, int m, int j0, int j1, i
   L.f1 = off;
   if (j1 > j0) off += round16(flen * (int)sizeof(float));
   L.bytes = off;
+  return L;
+}
+
+// Whole rows, rpb of them a block (mirrored by ops/cuda_modwt.py::
+// whole_row_smem_bytes): the head, the input stage (rpb rows of in_len
+// samples, and 16 bytes for its offset mod 16 in device memory), f32 V
+// buffers of rpb * n samples (two; one for two levels, none for one) and
+// the output stage (rpb rows of out_len, and 16 bytes). K1 reads V_0
+// (in_len = n) and writes W_1..W_J, V_J (out_len = (J+1) n); K2 the reverse.
+struct RowLayout {
+  int in, f0, f1, out;  // byte offsets
+  int bytes;
+};
+
+__host__ __device__ inline RowLayout row_layout(int rpb, int n, int levels, int in_len, int es_in,
+                                                int out_len, int es_out) {
+  RowLayout L;
+  L.in = kHeadBytes;
+  int off = L.in + round16(rpb * in_len * es_in) + 16;
+  const int fbytes = round16(rpb * n * (int)sizeof(float));
+  L.f0 = off;
+  if (levels > 1) off += fbytes;
+  L.f1 = off;
+  if (levels > 2) off += fbytes;
+  L.out = off;
+  L.bytes = off + round16(rpb * out_len * es_out) + 16;
   return L;
 }
 
@@ -281,6 +337,243 @@ __device__ void cascade_level(const TX* x, const TY* y, T1* o1, T2* o2, int o2_l
     cascade_level_m<0, kInv>(x, y, o1, o2, o2_lo, valid, gap, m, a, b);
 }
 
+// One cascade level on whole rows in shared memory, circularly: row i of x
+// (y, o1, o2) starts at element i * sx (sy, s1, s2), and output t of a row
+// reads the samples at (t - shift + k * gap) mod n, k < m:
+//   K2 (kInv, shift 0):  o1[t] = sum_k a[k] x[.] + b[k] y[.]
+//   K1 (shift (m-1) gap mod n, taps reversed):
+//                        o1[t] = sum_k a[k] x[.],  o2[t] = sum_k b[k] x[.]
+// t -> t + gap mod n splits a row into gcd(n, gap) cycles of n / gcd
+// outputs. A thread takes KR outputs in a row along a cycle, so that the
+// KR + M - 1 samples it reads serve all of them from registers; KR = kShortR
+// where a cycle is shorter than kR, 1 where it is shorter than that. A
+// sample's index advances by gap mod n, and
+// one conditional subtract keeps it in the row: no halo, no division in the
+// loop over the taps. The taps and their order are cascade_level_m's.
+template <int MT, int KR, bool kInv, typename TX, typename TY, typename T1, typename T2>
+__device__ void row_level_m(const TX* x, int sx, const TY* y, int sy, T1* o1, int s1, T2* o2,
+                            int s2, int rows, int n, int gap, int shift, int m, const float* a,
+                            const float* b) {
+  const int step = gap % n;
+  const int cyc = min(gap, n & -n);  // gcd(n, gap): both are multiples of it, gap a power of 2
+  const int lg_cyc = __ffs(cyc) - 1;
+  const int len = n >> lg_cyc;  // outputs a cycle
+  const int per_row = KR == 1 ? n : ((len + KR - 1) / KR) << lg_cyc;  // items a row
+  const int jump = KR * step % n;  // from one item of a cycle to its next
+  const float inv_n = 1.f / n;
+  // item w of row `row`, for w = threadIdx.x, + blockDim.x, ... over the rows
+  const int drow = blockDim.x / per_row, dw = blockDim.x - drow * per_row;
+  int row = threadIdx.x / per_row, w = threadIdx.x - row * per_row;
+  for (;; row += drow, w += dw) {
+    if (w >= per_row) {
+      w -= per_row;
+      ++row;
+    }
+    if (row >= rows) break;
+    // the first output: item w is place i0 of cycle w mod cyc, at
+    // (w mod cyc + (i0 / KR) * jump) mod n, reduced by a float reciprocal
+    // (exact: the sum stays below 2^24 for rows a block can hold)
+    const int i0 = KR == 1 ? 0 : (w >> lg_cyc) * KR;
+    int t = w;
+    if constexpr (KR > 1) {
+      t = (w & (cyc - 1)) + (w >> lg_cyc) * jump;
+      t -= n * __float2int_rz(__int2float_rn(t) * inv_n);
+      if (t < 0) t += n;
+      if (t >= n) t -= n;
+    }
+    int p = t - shift;
+    if (p < 0) p += n;
+    const TX* xr = x + row * sx;
+    const TY* yr = kInv ? y + row * sy : nullptr;
+    constexpr int kW = MT > 0 ? KR + MT - 1 : KR;  // samples held in registers
+    float acc[KR], acc2[KR], wx[kW], wy[kW];
+#pragma unroll
+    for (int r = 0; r < KR; ++r) acc[r] = acc2[r] = 0.f;
+#pragma unroll
+    for (int q = 0; q < kW; ++q) {
+      wx[q] = ld_s(xr, p);
+      if constexpr (kInv) wy[q] = ld_s(yr, p);
+      p += step;
+      if (p >= n) p -= n;
+    }
+    if constexpr (MT > 0) {
+#pragma unroll
+      for (int k = 0; k < MT; ++k) {
+        const float ak = a[k], bk = b[k];
+#pragma unroll
+        for (int r = 0; r < KR; ++r) {
+          if constexpr (kInv) {
+            acc[r] = fmaf(bk, wy[r + k], fmaf(ak, wx[r + k], acc[r]));
+          } else {
+            acc[r] = fmaf(ak, wx[r + k], acc[r]);
+            acc2[r] = fmaf(bk, wx[r + k], acc2[r]);
+          }
+        }
+      }
+    } else {
+      for (int k = 0; k < m; ++k) {
+        const float ak = a[k], bk = b[k];
+#pragma unroll
+        for (int r = 0; r < KR; ++r) {
+          if constexpr (kInv) {
+            acc[r] = fmaf(bk, wy[r], fmaf(ak, wx[r], acc[r]));
+          } else {
+            acc[r] = fmaf(ak, wx[r], acc[r]);
+            acc2[r] = fmaf(bk, wx[r], acc2[r]);
+          }
+        }
+        if (k + 1 < m) {
+#pragma unroll
+          for (int r = 0; r < KR - 1; ++r) {
+            wx[r] = wx[r + 1];
+            if constexpr (kInv) wy[r] = wy[r + 1];
+          }
+          wx[KR - 1] = ld_s(xr, p);
+          if constexpr (kInv) wy[KR - 1] = ld_s(yr, p);
+          p += step;
+          if (p >= n) p -= n;
+        }
+      }
+    }
+    T1* o1r = o1 + row * s1;
+    T2* o2r = kInv ? nullptr : o2 + row * s2;
+#pragma unroll
+    for (int r = 0; r < KR; ++r) {
+      if (KR == 1 || i0 + r < len) {
+        store_f(o1r, t, acc[r]);
+        if constexpr (!kInv) store_f(o2r, t, acc2[r]);
+      }
+      t += step;
+      if (t >= n) t -= n;
+    }
+  }
+}
+
+template <bool kInv, typename TX, typename TY, typename T1, typename T2>
+__device__ void row_level(const TX* x, int sx, const TY* y, int sy, T1* o1, int s1, T2* o2,
+                          int s2, int rows, int n, int gap, int shift, int m, const float* a,
+                          const float* b) {
+  const int len = n / min(gap, n & -n);  // outputs a cycle
+  const bool unrolled = m == kUnrolledTaps;
+  if (len >= kR && unrolled)
+    row_level_m<kUnrolledTaps, kR, kInv>(x, sx, y, sy, o1, s1, o2, s2, rows, n, gap, shift, m,
+                                         a, b);
+  else if (len >= kR)
+    row_level_m<0, kR, kInv>(x, sx, y, sy, o1, s1, o2, s2, rows, n, gap, shift, m, a, b);
+  else if (len >= kShortR && unrolled)
+    row_level_m<kUnrolledTaps, kShortR, kInv>(x, sx, y, sy, o1, s1, o2, s2, rows, n, gap,
+                                              shift, m, a, b);
+  else if (len >= kShortR)
+    row_level_m<0, kShortR, kInv>(x, sx, y, sy, o1, s1, o2, s2, rows, n, gap, shift, m, a, b);
+  else if (unrolled)
+    row_level_m<kUnrolledTaps, 1, kInv>(x, sx, y, sy, o1, s1, o2, s2, rows, n, gap, shift, m,
+                                        a, b);
+  else
+    row_level_m<0, 1, kInv>(x, sx, y, sy, o1, s1, o2, s2, rows, n, gap, shift, m, a, b);
+}
+
+// K1 on whole rows, rpb a block: rows blockIdx.x * rpb on. One bulk copy
+// stages their V_0; every level runs in shared memory; W_j and V_J go into
+// a stage laid out as the rows' part of `out` (rows x (levels+1) x n),
+// which leaves by one bulk store.
+template <typename Tin, typename Tout>
+__device__ __forceinline__ void fwd_rows(const Tin* src, Tout* out, const float* g,
+                                         const float* h, unsigned char* base, int rows, int rpb,
+                                         int n, int m, int levels) {
+  const long long row0 = (long long)blockIdx.x * rpb;
+  const int nr = (int)min((long long)rpb, (long long)rows - row0);
+  const int so = (levels + 1) * n;  // one row of the output
+  const RowLayout L = row_layout(rpb, n, levels, n, sizeof(Tin), so, sizeof(Tout));
+  uint64_t* bar = reinterpret_cast<uint64_t*>(base + kTapBytes);
+  float* f0 = reinterpret_cast<float*>(base + L.f0);  // V_j of odd j < levels
+  float* f1 = reinterpret_cast<float*>(base + L.f1);  // V_j of even j < levels
+  const float* none = nullptr;
+  const Tin* x = src + row0 * n;
+  Tout* o = out + row0 * so;
+  if (threadIdx.x == 0) jw::mbar_init(bar);
+  __syncthreads();  // the taps and the barrier
+  Tin* xs = stage_for(base + L.in, x);
+  jw::stage_run(xs, x, nr * n, ((long long)rows - row0) * n, bar);
+  Tout* os = stage_for(base + L.out, o);
+  __syncthreads();  // the plain-loaded edges
+  jw::mbar_wait(bar, 0);
+  for (int j = 1; j <= levels; ++j) {
+    const int gap = 1 << (j - 1);
+    const int shift = (int)((long long)(m - 1) * gap % n);
+    const float* fin = (j & 1) ? f1 : f0;  // V_{j-1} for j > 1
+    float* fout = (j & 1) ? f0 : f1;
+    Tout* w = os + (j - 1) * n;
+    if (j == levels) {
+      Tout* v = os + levels * n;
+      if (j == 1)
+        row_level<false>(static_cast<const Tin*>(xs), n, none, 0, v, so, w, so, nr, n, gap,
+                         shift, m, g, h);
+      else
+        row_level<false>(fin, n, none, 0, v, so, w, so, nr, n, gap, shift, m, g, h);
+      jw::fence_async_smem();
+    } else if (j == 1) {
+      row_level<false>(static_cast<const Tin*>(xs), n, none, 0, fout, n, w, so, nr, n, gap,
+                       shift, m, g, h);
+    } else {
+      row_level<false>(fin, n, none, 0, fout, n, w, so, nr, n, gap, shift, m, g, h);
+    }
+    __syncthreads();
+  }
+  store_segment(o, static_cast<const Tout*>(os), nr * so);
+  if (threadIdx.x == 0) {
+    jw::bulk_commit();
+    jw::bulk_wait_read<0>();  // the stage outlives the store
+  }
+}
+
+// K2 on whole rows, rpb a block: one bulk copy stages the rows'
+// coefficients (rows x (levels+1) x n, V_J from its row `levels`), every
+// level runs in shared memory, and V_0 leaves by one bulk store.
+template <typename Tc>
+__device__ __forceinline__ void inv_rows(const Tc* coeffs, Tc* out, const float* g,
+                                         const float* h, unsigned char* base, int rows, int rpb,
+                                         int n, int m, int levels) {
+  const long long row0 = (long long)blockIdx.x * rpb;
+  const int nr = (int)min((long long)rpb, (long long)rows - row0);
+  const int so = (levels + 1) * n;  // one row of the coefficients
+  const RowLayout L = row_layout(rpb, n, levels, so, sizeof(Tc), n, sizeof(Tc));
+  uint64_t* bar = reinterpret_cast<uint64_t*>(base + kTapBytes);
+  float* f0 = reinterpret_cast<float*>(base + L.f0);  // V_{j-1} where levels - j is even
+  float* f1 = reinterpret_cast<float*>(base + L.f1);
+  float* none = nullptr;
+  const Tc* c = coeffs + row0 * so;
+  Tc* o = out + row0 * n;
+  if (threadIdx.x == 0) jw::mbar_init(bar);
+  __syncthreads();  // the taps and the barrier
+  Tc* cs = stage_for(base + L.in, c);
+  jw::stage_run(cs, c, nr * so, ((long long)rows - row0) * so, bar);
+  Tc* os = stage_for(base + L.out, o);
+  __syncthreads();  // the plain-loaded edges
+  jw::mbar_wait(bar, 0);
+  for (int j = levels; j >= 1; --j) {
+    const int gap = 1 << (j - 1);
+    const Tc* w = cs + (j - 1) * n;
+    const float* fin = ((levels - j) & 1) ? f0 : f1;  // V_j for j < levels
+    float* fout = ((levels - j) & 1) ? f1 : f0;
+    const Tc* v = cs + levels * n;
+    if (j == levels && j == 1)
+      row_level<true>(v, so, w, so, os, n, none, 0, nr, n, gap, 0, m, g, h);
+    else if (j == levels)
+      row_level<true>(v, so, w, so, fout, n, none, 0, nr, n, gap, 0, m, g, h);
+    else if (j > 1)
+      row_level<true>(fin, n, w, so, fout, n, none, 0, nr, n, gap, 0, m, g, h);
+    else
+      row_level<true>(fin, n, w, so, os, n, none, 0, nr, n, gap, 0, m, g, h);
+    if (j == 1) jw::fence_async_smem();
+    __syncthreads();
+  }
+  store_segment(o, static_cast<const Tc*>(os), nr * n);
+  if (threadIdx.x == 0) {
+    jw::bulk_commit();
+    jw::bulk_wait_read<0>();  // the stage outlives the store
+  }
+}
+
 // K1's level j on x valid on [0, valid): V_j into v (all outputs), the tile
 // of W_j (its last tl outputs) into the stage w.
 template <typename TX, typename TV, typename TW>
@@ -293,22 +586,26 @@ __device__ __forceinline__ void fwd_level(const TX* x, TV* v, TW* w, int tl, int
 // Forward levels j0..j1 of one (row, tile). `src` holds V_{j0-1} as rows of
 // n samples; W_j goes to row j-1 of `out` (rows x (levels+1) x n); V_{j1}
 // goes to row `levels` of `out` when j1 == levels, else to `vnext` (rows x n).
-template <typename Tin, typename Tout>
+template <typename Tin, typename Tout, bool kRows>
 __global__ void __launch_bounds__(kThreads)
 modwt_fwd_kernel(const Tin* __restrict__ src, Tout* __restrict__ out,
                  float* __restrict__ vnext, const float* __restrict__ taps,
                  int n, int m, int levels, int j0, int j1, int tile, int tiles,
-                 int staged) {
+                 int staged, int rows, int rpb) {
   extern __shared__ __align__(16) float smem[];
   float* g = smem;  // the taps reversed
   float* h = smem + kMaxTaps;
-  const long long row = blockIdx.x / tiles;
-  const long long t0 = (long long)(blockIdx.x % tiles) * tile;
-  const int tl = (int)min((long long)tile, (long long)n - t0);
   for (int i = threadIdx.x; i < m; i += blockDim.x) {
     g[i] = taps[m - 1 - i];
     h[i] = taps[2 * m - 1 - i];
   }
+  if constexpr (kRows) {  // whole rows, rpb a block, every level in one launch
+    fwd_rows(src, out, g, h, reinterpret_cast<unsigned char*>(smem), rows, rpb, n, m, levels);
+    return;
+  }
+  const long long row = blockIdx.x / tiles;
+  const long long t0 = (long long)(blockIdx.x % tiles) * tile;
+  const int tl = (int)min((long long)tile, (long long)n - t0);
   const Tin* x = src + row * n;
   Tout* orow = out + row * (long long)(levels + 1) * n;
   float* vrow = vnext ? vnext + row * n : nullptr;
@@ -409,18 +706,22 @@ __device__ void store_tile(TO* dst, const float* src, int tl) {
 // Inverse levels j1 down to j0 of one (row, tile). V_{j1} comes from `vsrc`
 // (row stride `vstride`); W_j from row j-1 of `coeffs` (rows x (levels+1) x n).
 // V_{j0-1} goes to `out` (rows x n) when j0 == 1, else to `vnext` (rows x n).
-template <typename Tc, typename Tv>
+template <typename Tc, typename Tv, bool kRows>
 __global__ void __launch_bounds__(kThreads)
 modwt_inv_kernel(const Tc* __restrict__ coeffs, const Tv* __restrict__ vsrc,
                  long long vstride, Tc* __restrict__ out, float* __restrict__ vnext,
                  const float* __restrict__ taps, int n, int m, int levels, int j0,
-                 int j1, int tile, int tiles, int staged) {
+                 int j1, int tile, int tiles, int staged, int rows, int rpb) {
   extern __shared__ __align__(16) float smem[];
   float* g = smem;
   float* h = smem + kMaxTaps;
   for (int i = threadIdx.x; i < m; i += blockDim.x) {
     g[i] = taps[i];
     h[i] = taps[m + i];
+  }
+  if constexpr (kRows) {  // whole rows, rpb a block, every level in one launch
+    inv_rows(coeffs, out, g, h, reinterpret_cast<unsigned char*>(smem), rows, rpb, n, m, levels);
+    return;
   }
   __syncthreads();
 
@@ -487,37 +788,61 @@ modwt_inv_kernel(const Tc* __restrict__ coeffs, const Tv* __restrict__ vsrc,
   else store_tile(vnext + row * n + t0, static_cast<const float*>(cur), tl);
 }
 
+// rpb > 0: whole rows, rpb a block (levels 1..levels, from `src` into
+// `out`); else the (row, tile) blocks of levels j0..j1.
 template <typename Tin, typename Tout>
 int launch_fwd(const void* src, void* out, void* vnext, const void* taps, int rows, int n,
-               int m, int levels, int j0, int j1, int tile, int staged, void* stream) {
+               int m, int levels, int j0, int j1, int tile, int staged, int rpb, void* stream) {
   cudaGetLastError();
   const int tiles = (n + tile - 1) / tile;
-  const int smem = staged ? fwd_layout(tile < n ? tile : n, m, j0, j1, sizeof(Tin), sizeof(Tout),
-                                       j1 == levels ? sizeof(Tout) : sizeof(float)).bytes
-                          : kTapBytes;
-  auto kern = modwt_fwd_kernel<Tin, Tout>;
+  int smem = kTapBytes;
+  unsigned blocks = (unsigned)rows * tiles;
+  if (rpb > 0) {
+    smem = row_layout(rpb, n, levels, n, sizeof(Tin), (levels + 1) * n, sizeof(Tout)).bytes;
+    blocks = (unsigned)((rows + rpb - 1) / rpb);
+  } else if (staged) {
+    smem = fwd_layout(tile < n ? tile : n, m, j0, j1, sizeof(Tin), sizeof(Tout),
+                      j1 == levels ? sizeof(Tout) : sizeof(float)).bytes;
+  }
+  auto kern = modwt_fwd_kernel<Tin, Tout, false>;
+  if (rpb > 0) {  // whole rows read the input itself, in its storage type
+    if constexpr (!std::is_same_v<Tin, Tout>) return (int)cudaErrorInvalidValue;
+    else kern = modwt_fwd_kernel<Tin, Tout, true>;
+  }
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  kern<<<(unsigned)rows * tiles, kThreads, smem, (cudaStream_t)stream>>>(
+  kern<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
       (const Tin*)src, (Tout*)out, (float*)vnext, (const float*)taps, n, m, levels, j0, j1,
-      tile, tiles, staged);
+      tile, tiles, staged, rows, rpb);
   return (int)cudaGetLastError();
 }
 
+// rpb > 0: whole rows, rpb a block (levels..1, V_J from `coeffs`); else the
+// (row, tile) blocks of levels j1..j0.
 template <typename Tc, typename Tv>
 int launch_inv(const void* coeffs, const void* vsrc, long long vstride, void* out,
                void* vnext, const void* taps, int rows, int n, int m, int levels, int j0,
-               int j1, int tile, int staged, void* stream) {
+               int j1, int tile, int staged, int rpb, void* stream) {
   cudaGetLastError();
   const int tiles = (n + tile - 1) / tile;
-  const int smem = staged ? inv_layout(tile < n ? tile : n, m, j0, j1, sizeof(Tv), sizeof(Tc)).bytes
-                          : kTapBytes;
-  auto kern = modwt_inv_kernel<Tc, Tv>;
+  int smem = kTapBytes;
+  unsigned blocks = (unsigned)rows * tiles;
+  if (rpb > 0) {
+    smem = row_layout(rpb, n, levels, (levels + 1) * n, sizeof(Tc), n, sizeof(Tc)).bytes;
+    blocks = (unsigned)((rows + rpb - 1) / rpb);
+  } else if (staged) {
+    smem = inv_layout(tile < n ? tile : n, m, j0, j1, sizeof(Tv), sizeof(Tc)).bytes;
+  }
+  auto kern = modwt_inv_kernel<Tc, Tv, false>;
+  if (rpb > 0) {  // whole rows read V_J from the coefficients
+    if constexpr (!std::is_same_v<Tc, Tv>) return (int)cudaErrorInvalidValue;
+    else kern = modwt_inv_kernel<Tc, Tv, true>;
+  }
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  kern<<<(unsigned)rows * tiles, kThreads, smem, (cudaStream_t)stream>>>(
+  kern<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
       (const Tc*)coeffs, (const Tv*)vsrc, vstride, (Tc*)out, (float*)vnext,
-      (const float*)taps, n, m, levels, j0, j1, tile, tiles, staged);
+      (const float*)taps, n, m, levels, j0, j1, tile, tiles, staged, rows, rpb);
   return (int)cudaGetLastError();
 }
 
@@ -527,46 +852,48 @@ extern "C" {
 
 const char* jw_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// Forward levels j0..j1. `src` is f32 (the input, or a scratch row from an
-// earlier group) for the f32 entry; for the bf16 entry it is bf16 storage
-// unless src_f32 is set (a scratch row). Returns a cudaError_t.
+// Forward levels j0..j1, or all levels on whole rows, rpb a block (rpb >
+// 0). `src` is f32 (the input, or a scratch row from an earlier group) for
+// the f32 entry; for the bf16 entry it is bf16 storage unless src_f32 is set
+// (a scratch row). Returns a cudaError_t.
 int jw_modwt_fwd_f32(const void* src, int src_f32, void* out, void* vnext, const void* taps,
                      int rows, int n, int m, int levels, int j0, int j1, int tile,
-                     int staged, void* stream) {
+                     int staged, int rpb, void* stream) {
   (void)src_f32;
   return launch_fwd<float, float>(src, out, vnext, taps, rows, n, m, levels, j0, j1, tile,
-                                  staged, stream);
+                                  staged, rpb, stream);
 }
 
 int jw_modwt_fwd_bf16(const void* src, int src_f32, void* out, void* vnext, const void* taps,
                       int rows, int n, int m, int levels, int j0, int j1, int tile,
-                      int staged, void* stream) {
+                      int staged, int rpb, void* stream) {
   if (src_f32)
     return launch_fwd<float, __nv_bfloat16>(src, out, vnext, taps, rows, n, m, levels, j0,
-                                            j1, tile, staged, stream);
+                                            j1, tile, staged, rpb, stream);
   return launch_fwd<__nv_bfloat16, __nv_bfloat16>(src, out, vnext, taps, rows, n, m, levels,
-                                                  j0, j1, tile, staged, stream);
+                                                  j0, j1, tile, staged, rpb, stream);
 }
 
-// Inverse levels j1 down to j0. `vsrc` holds V_{j1}: row `levels` of the
+// Inverse levels j1 down to j0, or all levels on whole rows, rpb a block
+// (rpb > 0, V_J from `coeffs`). `vsrc` holds V_{j1}: row `levels` of the
 // coefficients (storage type, vsrc_f32 = 0) or an f32 scratch row.
 int jw_imodwt_f32(const void* coeffs, const void* vsrc, int vsrc_f32, long long vstride,
                   void* out, void* vnext, const void* taps, int rows, int n, int m,
-                  int levels, int j0, int j1, int tile, int staged, void* stream) {
+                  int levels, int j0, int j1, int tile, int staged, int rpb, void* stream) {
   (void)vsrc_f32;
   return launch_inv<float, float>(coeffs, vsrc, vstride, out, vnext, taps, rows, n, m,
-                                  levels, j0, j1, tile, staged, stream);
+                                  levels, j0, j1, tile, staged, rpb, stream);
 }
 
 int jw_imodwt_bf16(const void* coeffs, const void* vsrc, int vsrc_f32, long long vstride,
                    void* out, void* vnext, const void* taps, int rows, int n, int m,
-                   int levels, int j0, int j1, int tile, int staged, void* stream) {
+                   int levels, int j0, int j1, int tile, int staged, int rpb, void* stream) {
   if (vsrc_f32)
     return launch_inv<__nv_bfloat16, float>(coeffs, vsrc, vstride, out, vnext, taps, rows,
-                                            n, m, levels, j0, j1, tile, staged, stream);
+                                            n, m, levels, j0, j1, tile, staged, rpb, stream);
   return launch_inv<__nv_bfloat16, __nv_bfloat16>(coeffs, vsrc, vstride, out, vnext, taps,
                                                    rows, n, m, levels, j0, j1, tile, staged,
-                                                   stream);
+                                                   rpb, stream);
 }
 
 }  // extern "C"

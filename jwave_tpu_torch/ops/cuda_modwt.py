@@ -14,9 +14,14 @@ CUDA tensor and take the plain versions only for a tensor on the CPU. The
 plain versions are public so that tests and ``chip_smoke.py`` can call them
 by name.
 
-Plans. Both kernels tile time by ``TILE`` outputs and split the levels
-into groups that pass V through f32 scratch rows, each group's staged
-block within ``SMEM_BYTES``, a third of an SM. K1 stages a group's V
+Plans. A row of at most ``WHOLE_ROW_MAX`` samples runs whole
+(:func:`rows_per_block`): a block holds ``ROW_SAMPLES // n`` rows (at least
+one) in shared memory, reads each level circularly within its rows, and
+runs every level in one launch, with no halo and no scratch row
+(:func:`whole_row_smem_bytes`). Longer rows take the tiles: both kernels
+tile time by ``TILE`` outputs and split the levels into groups that pass V
+through f32 scratch rows, each group's staged block within
+``SMEM_BYTES``, a third of an SM. K1 stages a group's V
 segment (the tile and its halo, :func:`segment_length`), two f32 V buffers
 and the shared stages its W rows and V leave from (:func:`k1_smem_bytes`,
 :func:`level_groups`). K2 prefetches the V segment and every W segment of
@@ -41,11 +46,14 @@ import functools
 import torch
 
 from ..exceptions import JWaveFailure
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 from . import cuda_build
 
 #: launches of each kernel since the last :func:`reset_launch_counts`
 launch_counts = {"modwt_cascade": 0, "imodwt_cascade": 0}
+# the launches that take whole rows, listed (at 0) from the start
+count("K1.whole_row_launches", 0)
+count("K2.whole_row_launches", 0)
 
 MAX_TAPS = 64
 #: outputs of one row per block
@@ -53,6 +61,13 @@ TILE = 2048
 #: shared bytes a staged K1 or K2 block may use: a third of an SM's 228 KB
 #: less the 1 KB the card reserves per block, so that three blocks share an SM
 SMEM_BYTES = 233472 // 3 - 1024
+#: shared bytes one block may have on the card (227 KB)
+BLOCK_SMEM_MAX = 232448
+#: the longest row that K1 and K2 keep whole in a block; longer rows take
+#: the tiles
+WHOLE_ROW_MAX = TILE
+#: samples of whole rows a block takes: max(1, ROW_SAMPLES // n) rows
+ROW_SAMPLES = 1024
 #: the shared head of a staged block (``csrc/modwt.cu`` kHeadBytes): the
 #: taps and 16 mbarriers
 _HEAD_BYTES = 2 * MAX_TAPS * 4 + 16 * 8
@@ -190,6 +205,31 @@ def inverse_level_groups(n: int, m: int, level: int) -> tuple[tuple[int, int, bo
     return tuple(_groups(level, lambda j0, j1: k2_smem_bytes(tl, m, j0, j1) <= SMEM_BYTES))
 
 
+def whole_row_smem_bytes(rows: int, n: int, level: int, itemsize: int = 4) -> int:
+    """Shared bytes of a whole-row K1 or K2 block of ``rows`` rows
+    (``csrc/modwt.cu`` row_layout), the same for both: the head; the input
+    stage and 16 bytes for its offset mod 16 (K1: V_0, ``n`` samples a row;
+    K2: the coefficients, ``(level + 1) n``); f32 V buffers of ``rows * n``
+    samples, two (one at level 2, none at level 1); the output stage and 16
+    bytes (K1: ``(level + 1) n`` a row; K2: ``n``). Each is rounded up to 16
+    bytes. No halo: the filter length changes nothing."""
+    return (_HEAD_BYTES + _r16(rows * n * itemsize) + 16 + min(level - 1, 2) * _r16(4 * rows * n)
+            + _r16(rows * (level + 1) * n * itemsize) + 16)
+
+
+@functools.lru_cache(maxsize=256)
+def rows_per_block(n: int, level: int, itemsize: int = 4) -> int:
+    """The whole-row plan of K1 and K2: rows a block, or 0 where the rows
+    take the tiles (:func:`level_groups`). A row of at most
+    ``WHOLE_ROW_MAX`` samples whose block fits ``BLOCK_SMEM_MAX`` runs
+    whole, ``ROW_SAMPLES // n`` rows a block (at least one): a block of
+    several rows stays within ``SMEM_BYTES`` (68 bytes a sample at most, f32
+    at level 13). Cached: the wrappers ask on every call."""
+    if n > WHOLE_ROW_MAX or whole_row_smem_bytes(1, n, level, itemsize) > BLOCK_SMEM_MAX:
+        return 0
+    return max(1, ROW_SAMPLES // n)
+
+
 def _check_cuda(t: torch.Tensor, ndim: int, what: str):
     if t.device.type != "cuda":
         raise JWaveFailure(f"{what} - tensor on {t.device}; the kernel runs on CUDA tensors")
@@ -213,9 +253,9 @@ def _entry(lib, name, dtype):
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         if name == "jw_modwt_fwd":
-            fn.argtypes = [p, i, p, p, p, i, i, i, i, i, i, i, i, p]
+            fn.argtypes = [p, i, p, p, p, i, i, i, i, i, i, i, i, i, p]
         else:
-            fn.argtypes = [p, p, i, ctypes.c_longlong, p, p, p, i, i, i, i, i, i, i, i, p]
+            fn.argtypes = [p, p, i, ctypes.c_longlong, p, p, p, i, i, i, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -230,11 +270,19 @@ def _k1(x: torch.Tensor, g0, h0, level: int) -> torch.Tensor:
     out = torch.empty((b, level + 1, n), dtype=x.dtype, device=x.device)
     if b == 0 or n == 0:
         return out
-    with span("launch.K1", rows=b, n=n, levels=level):
+    rpb = min(rows_per_block(n, level, x.element_size()), b)
+    with span("launch.K1", rows=b, n=n, levels=level, rows_per_block=rpb):
         lib = cuda_build.library("modwt")
         fn = _entry(lib, "jw_modwt_fwd", x.dtype)
         taps = cuda_build.device_taps(g0, h0, x.device)
         stream = cuda_build.stream_handle(x.device)
+        if rpb:
+            err = fn(x.data_ptr(), 0, out.data_ptr(), None, taps.data_ptr(), b, n, m, level, 1,
+                     level, TILE, 1, rpb, stream)
+            cuda_build.check(lib, err, "modwt_cascade")
+            launch_counts["modwt_cascade"] += 1
+            count("K1.whole_row_launches")
+            return out
         groups = level_groups(n, m, level)
         scratch = [torch.empty((b, n), dtype=torch.float32, device=x.device)
                    for _ in range(min(len(groups) - 1, 2))]
@@ -243,7 +291,7 @@ def _k1(x: torch.Tensor, g0, h0, level: int) -> torch.Tensor:
             vnext = scratch[gi % 2] if j1 < level else None
             err = fn(src.data_ptr(), src_f32, out.data_ptr(),
                      vnext.data_ptr() if vnext is not None else None, taps.data_ptr(),
-                     b, n, m, level, j0, j1, TILE, int(staged), stream)
+                     b, n, m, level, j0, j1, TILE, int(staged), 0, stream)
             cuda_build.check(lib, err, "modwt_cascade")
             launch_counts["modwt_cascade"] += 1
             src, src_f32 = vnext, 1
@@ -261,22 +309,30 @@ def _k2(coeffs: torch.Tensor, g0, h0) -> torch.Tensor:
     out = torch.empty((b, n), dtype=coeffs.dtype, device=coeffs.device)
     if b == 0 or n == 0:
         return out
-    with span("launch.K2", rows=b, n=n, levels=level):
+    rpb = min(rows_per_block(n, level, coeffs.element_size()), b)
+    with span("launch.K2", rows=b, n=n, levels=level, rows_per_block=rpb):
         lib = cuda_build.library("modwt")
         fn = _entry(lib, "jw_imodwt", coeffs.dtype)
         taps = cuda_build.device_taps(g0, h0, coeffs.device)
         stream = cuda_build.stream_handle(coeffs.device)
-        groups = inverse_level_groups(n, m, level)[::-1]
-        scratch = [torch.empty((b, n), dtype=torch.float32, device=coeffs.device)
-                   for _ in range(min(len(groups) - 1, 2))]
         # V_J is row `level` of the coefficients; later groups read f32 scratch
         vsrc_ptr, vsrc_f32, vstride = (coeffs.data_ptr() + level * n * coeffs.element_size(), 0,
                                        jp1 * n)
+        if rpb:
+            err = fn(coeffs.data_ptr(), vsrc_ptr, vsrc_f32, vstride, out.data_ptr(), None,
+                     taps.data_ptr(), b, n, m, level, 1, level, TILE, 1, rpb, stream)
+            cuda_build.check(lib, err, "imodwt_cascade")
+            launch_counts["imodwt_cascade"] += 1
+            count("K2.whole_row_launches")
+            return out
+        groups = inverse_level_groups(n, m, level)[::-1]
+        scratch = [torch.empty((b, n), dtype=torch.float32, device=coeffs.device)
+                   for _ in range(min(len(groups) - 1, 2))]
         for gi, (j0, j1, staged) in enumerate(groups):
             vnext = scratch[gi % 2] if j0 > 1 else None
             err = fn(coeffs.data_ptr(), vsrc_ptr, vsrc_f32, vstride, out.data_ptr(),
                      vnext.data_ptr() if vnext is not None else None, taps.data_ptr(),
-                     b, n, m, level, j0, j1, TILE, int(staged), stream)
+                     b, n, m, level, j0, j1, TILE, int(staged), 0, stream)
             cuda_build.check(lib, err, "imodwt_cascade")
             launch_counts["imodwt_cascade"] += 1
             if vnext is not None:

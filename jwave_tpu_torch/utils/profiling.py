@@ -164,8 +164,9 @@ def counts() -> dict:
     """The counters with the launch counts of K1-K9 as ``launch.K1`` ...:
     ``upload.calls``/``upload.bytes`` (host-to-device copies the port makes
     from host memory), ``library.<name>.load_s`` (a kernel library's first
-    load in the process: hash, ``nvcc`` if it ran, dlopen) and
-    ``spans.dropped``."""
+    load in the process: hash, ``nvcc`` if it ran, dlopen),
+    ``K1.whole_row_launches``/``K2.whole_row_launches`` (the launches of K1
+    and K2 that keep whole rows in a block) and ``spans.dropped``."""
     out = dict(_COUNTS)
     out.update((f"launch.{k}", v) for k, v in _launch_counts().items())
     return out

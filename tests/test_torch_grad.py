@@ -19,7 +19,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
-import jax  # noqa: E402
+jax = pytest.importorskip("jax")  # the card's machine has none: the file skips there
 import jax.numpy as jnp  # noqa: E402
 
 import jwave_tpu as jw  # noqa: E402
@@ -211,7 +211,8 @@ def test_fwt2d_ifwt2d_grads_match_jax(wavelet, shape, levels, rng):
     assert_close(k5, want, 1e-12, "K5 x2 grad")
 
 
-@pytest.mark.parametrize("wavelet,n,level", [("db4", 300, 4), ("Haar", 128, 6), ("sym8", 777, 3)])
+@pytest.mark.parametrize("wavelet,n,level", [("db4", 300, 4), ("Haar", 128, 6), ("sym8", 777, 3),
+                                             ("db4", 181, 5)])
 def test_modwt_imodwt_grads_match_jax(wavelet, n, level, rng):
     g0, h0 = _modwt_base_filters(wavelet)
     x = rng.standard_normal((2, n))

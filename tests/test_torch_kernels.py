@@ -7,7 +7,7 @@ CUDA card and skip without one. Run them on the card with
     python -m pytest tests/test_torch_kernels.py -m cuda --noconftest -o addopts=''
 
 The other tests check, on any machine, what surrounds the kernels: the
-level grouping of K1/K2, K3's tile plan and its tiling run in plain torch
+whole-row plan and the level grouping of K1/K2, K3's tile plan and its tiling run in plain torch
 (K7's are in tests/test_torch_ipyramid.py, K8's and K9's in
 tests/test_torch_wpt_kernel.py),
 the row blocking of K4/K5, K6's shared bytes, the build's error on a
@@ -25,6 +25,7 @@ import jwave_tpu_torch as jt  # noqa: E402
 from jwave_tpu_torch.ops import cuda_build, cuda_modwt, cuda_pyramid, cuda_reassign, \
     cuda_wpt  # noqa: E402
 from jwave_tpu_torch.ops.butterfly import synthesis_levels  # noqa: E402
+from jwave_tpu_torch.utils import profiling  # noqa: E402
 from jwave_tpu_torch.transforms.modwt import _modwt_base_filters  # noqa: E402
 
 F32_BOUND = 1e-5   # f32 storage, f32 accumulation in another order than the plain version
@@ -43,6 +44,35 @@ def _rel_err(got, ref):
     return float((got.double() - ref).abs().max() / ref.abs().max())
 
 
+# K1/K2 on whole rows (cuda_modwt.rows_per_block): every level in one launch
+_WHOLE_ROWS = [
+    ((1024, 64), "db4", 5, torch.float32),           # 16 rows a block
+    ((512, 90), "db4", 5, torch.float32),            # 11 rows a block, N % 4 != 0
+    ((256, 181), "db4", 5, torch.float32),           # odd N: one cycle a level
+    ((24, 1448), "db4", 5, torch.float32),           # one row a block
+    ((16, 2048), "db4", 5, torch.float32),           # the longest whole row
+    ((1024, 64), "db4", 5, torch.bfloat16),
+    ((512, 90), "db4", 5, torch.bfloat16),
+    ((256, 181), "db4", 5, torch.bfloat16),
+    ((24, 1448), "db4", 5, torch.bfloat16),
+    ((16, 2048), "db4", 5, torch.bfloat16),
+    ((1000, 90), "db4", 5, torch.float32),           # a ragged last block of 10 rows
+    ((64, 64), "Haar", 13, torch.float32),           # gaps up to 64 N: one output a thread
+    ((100, 100), "Discrete Meyer", 6, torch.float32),  # m = 62, gap 32 > N / 4
+    ((33, 1001), "sym8", 7, torch.bfloat16),         # one row a block, 33 blocks
+]
+
+
+def _k1_k2_launches(shape, m, level, dtype):
+    """K1's and K2's launches for one call: one on whole rows, else one a
+    level group; and whether the rows run whole."""
+    whole = cuda_modwt.rows_per_block(shape[1], level, torch.finfo(dtype).bits // 8) > 0
+    if whole:
+        return 1, 1, whole
+    return (len(cuda_modwt.level_groups(shape[1], m, level)),
+            len(cuda_modwt.inverse_level_groups(shape[1], m, level)), whole)
+
+
 # --------------------------------------------------------------------------
 # on the card
 # --------------------------------------------------------------------------
@@ -56,13 +86,15 @@ def _rel_err(got, ref):
     ((2, 20000), "Discrete Meyer", 10, torch.float32),
     ((64, 65536), "db4", 5, torch.bfloat16),
     ((3, 5000), "db4", 6, torch.float32),            # a ragged last tile whose segment wraps
-    ((2, 100), "Discrete Meyer", 6, torch.float32),  # halo 3843 > N: 40 pieces a segment
+    ((2, 100), "Discrete Meyer", 6, torch.float32),  # whole rows: (M-1) gap = 19.5 N
     ((2, 100), "Discrete Meyer", 6, torch.bfloat16),
     ((3, 4099), "db4", 4, torch.float32),            # unaligned N: plain-loaded piece edges
     ((8, 777), "db4", 9, torch.bfloat16),
     ((5, 1001), "sym8", 7, torch.bfloat16),
     ((4, 8192), "Haar", 13, torch.bfloat16),         # five K2 groups over f32 scratch
     ((2, 65536), "db4", 13, torch.float32),          # K2 groups staged and unstaged
+    ((2, 3000), "Discrete Meyer", 6, torch.float32),  # tiles: halo 3843 > N wraps
+    *_WHOLE_ROWS,
 ])
 def test_k1_k2_match_plain(cuda, shape, wavelet, level, dtype):
     g0, h0 = _modwt_base_filters(wavelet)
@@ -70,32 +102,39 @@ def test_k1_k2_match_plain(cuda, shape, wavelet, level, dtype):
                         device=cuda)
     bound = F32_BOUND if dtype == torch.float32 else BF16_BOUND
     before = dict(cuda_modwt.launch_counts)
+    whole_before = profiling.counts()
     c = cuda_modwt.modwt_cascade(x, g0, h0, level)
     back = cuda_modwt.imodwt_cascade(c, g0, h0)
     torch.cuda.synchronize()
     assert c.dtype == dtype and back.dtype == dtype
     assert _rel_err(c, cuda_modwt.modwt_cascade_torch(x.double(), g0, h0, level)) <= bound
     assert _rel_err(back, cuda_modwt.imodwt_cascade_torch(c.double(), g0, h0)) <= bound
-    assert cuda_modwt.launch_counts["modwt_cascade"] > before["modwt_cascade"]
-    assert cuda_modwt.launch_counts["imodwt_cascade"] > before["imodwt_cascade"]
+    k1, k2, whole = _k1_k2_launches(shape, len(g0), level, dtype)
+    assert cuda_modwt.launch_counts["modwt_cascade"] == before["modwt_cascade"] + k1
+    assert cuda_modwt.launch_counts["imodwt_cascade"] == before["imodwt_cascade"] + k2
+    for k in ("K1", "K2"):
+        key = f"{k}.whole_row_launches"
+        assert profiling.counts()[key] == whole_before[key] + whole
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,wavelet,level,dtype", [
     ((64, 65536), "db4", 5, torch.float32),
     ((3, 4099), "db4", 4, torch.float32),            # N % 4 != 0: rows off 16-byte alignment
-    ((8, 777), "db4", 9, torch.bfloat16),            # N % 8 != 0 in bf16
-    ((2, 100), "Discrete Meyer", 6, torch.float32),  # a halo longer than N
+    ((8, 777), "db4", 9, torch.bfloat16),            # whole rows, N % 8 != 0 in bf16
+    ((2, 100), "Discrete Meyer", 6, torch.float32),  # whole rows: taps reach 19.5 N away
     ((3, 5000), "db4", 6, torch.float32),            # a ragged last tile
     ((4, 8192), "Haar", 13, torch.float32),          # three groups over f32 scratch
     ((4, 8192), "Haar", 13, torch.bfloat16),         # the same, bf16 rows from f32 scratch
     ((2, 65536), "db4", 13, torch.float32),          # staged groups, then unstaged levels
+    ((2, 3000), "Discrete Meyer", 6, torch.float32),  # tiles: a halo longer than N
+    *_WHOLE_ROWS,
 ])
 def test_k1_matches_plain(cuda, shape, wavelet, level, dtype):
-    """K1 alone, one launch per level group, against its plain version in
-    float64. The output's memory held NaN before (the caching allocator
-    hands the freed block to the wrapper), so an element left unstored
-    shows."""
+    """K1 alone, one launch on whole rows or one per level group, against
+    its plain version in float64. The output's memory held NaN before (the
+    caching allocator hands the freed block to the wrapper), so an element
+    left unstored shows."""
     g0, h0 = _modwt_base_filters(wavelet)
     x = torch.as_tensor(np.random.default_rng(10).standard_normal(shape), dtype=dtype,
                         device=cuda)
@@ -106,8 +145,8 @@ def test_k1_matches_plain(cuda, shape, wavelet, level, dtype):
     assert c.dtype == dtype and bool(torch.isfinite(c).all())
     bound = F32_BOUND if dtype == torch.float32 else BF16_BOUND
     assert _rel_err(c, cuda_modwt.modwt_cascade_torch(x.double(), g0, h0, level)) <= bound
-    groups = cuda_modwt.level_groups(shape[1], len(g0), level)
-    assert cuda_modwt.launch_counts["modwt_cascade"] == before + len(groups)
+    k1, _, _ = _k1_k2_launches(shape, len(g0), level, dtype)
+    assert cuda_modwt.launch_counts["modwt_cascade"] == before + k1
 
 
 @pytest.mark.cuda
@@ -483,7 +522,9 @@ def _routes(op, wavelet, shape, levels):
 @pytest.mark.cuda
 @pytest.mark.parametrize("op,wavelet,shape,levels", [
     ("modwt", "db4", (8, 4096), 5), ("modwt", "Haar", (4, 8192), 13),
-    ("imodwt", "db4", (8, 6, 4096), 5), ("fwt", "db4", (8, 65536), 8),
+    ("imodwt", "db4", (8, 6, 4096), 5),
+    ("fwt", "db4", (8, 65536), 8),
+    ("modwt", "db4", (512, 181), 5), ("imodwt", "db4", (512, 6, 181), 5),  # whole rows
     ("fwt", "Battle 23", (8, 1024), 10), ("ifwt", "db4", (8, 65536), 8),
     ("ifwt", "Haar orthogonal", (8, 4096), 12), ("ifwt", "Battle 23", (8, 1024), 10),
     ("fwt2d", "db4", (256, 1024), (3, 5)),
@@ -897,8 +938,8 @@ def test_in_place_fwt_reuses_storage_on_the_card(cuda):
     (20000, 62, 10, [(1, 5, True), (6, 6, True), (7, 7, True), (8, 8, True), (9, 9, False),
                      (10, 10, False)],
      [(1, 4, True), (5, 6, True), (7, 7, True), (8, 8, False), (9, 9, False), (10, 10, False)]),
-    (256, 62, 5, [(1, 5, True)], [(1, 5, True)]),
-    (777, 8, 9, [(1, 9, True)], [(1, 8, True), (9, 9, True)]),
+    (2896, 62, 5, [(1, 5, True)], [(1, 4, True), (5, 5, True)]),
+    (2896, 8, 9, [(1, 8, True), (9, 9, True)], [(1, 5, True), (6, 8, True), (9, 9, True)]),
     (65536, 8, 13, [(1, 8, True), (9, 9, True), (10, 10, True), (11, 11, True),
                     (12, 12, False), (13, 13, False)],
      [(1, 5, True), (6, 8, True), (9, 9, True), (10, 10, True), (11, 11, False),
@@ -927,6 +968,67 @@ def test_level_groups(n, m, level, k1, k2):
             assert smem(tl, m, j0, j1, *bf16) < f32
             length = cuda_modwt.segment_length(tl, m, j0, j1)
             assert length == tl + (m - 1) * ((1 << j1) - (1 << (j0 - 1)))
+
+
+@pytest.mark.parametrize("rows,n,level,itemsize,want", [
+    (32, 64, 5, 4, 74400),     # the batch cell's n = 64, f32
+    (32, 64, 5, 2, 45728),     # the same in bf16
+    (22, 90, 5, 4, 71952),     # 1980 samples a block
+    (1, 2048, 13, 4, 139936),  # one row at level 13
+    (1, 100, 1, 4, 1872),      # one level: no V buffer
+    (3, 7, 2, 2, 944),         # two levels: one V buffer; every buffer rounded up
+])
+def test_whole_row_smem_bytes(rows, n, level, itemsize, want):
+    """A whole-row K1 or K2 block's shared bytes (``csrc/modwt.cu``
+    row_layout), worked out by hand: 640 bytes of taps and mbarriers; the
+    input stage and 16 bytes; min(level - 1, 2) f32 V buffers of rows * n
+    samples; the output stage and 16 bytes; each rounded up to 16 bytes.
+    K1 stages rows of n and writes rows of (level + 1) n, K2 the reverse,
+    so both take the same. At 32 x 64, level 5, f32: 640 + (8192 + 16) +
+    2 x 8192 + (32 x 6 x 64 x 4 + 16) = 74400; in bf16 640 + 4112 + 16384 +
+    24592 = 45728. At 3 x 7, level 2, bf16: 640 + (42 -> 48, + 16) +
+    (84 -> 96) + (126 -> 128, + 16) = 944."""
+    assert cuda_modwt.whole_row_smem_bytes(rows, n, level, itemsize) == want
+
+
+@pytest.mark.parametrize("n,level,itemsize,want", [
+    (64, 5, 4, 16), (90, 5, 4, 11), (181, 5, 4, 5), (362, 5, 4, 2), (724, 5, 4, 1),
+    (1448, 5, 4, 1), (2048, 5, 4, 1), (64, 5, 2, 16), (1448, 5, 2, 1),
+    (64, 13, 4, 16),   # 70304 bytes: still three blocks an SM
+    (2048, 13, 4, 1),  # 139936 bytes: one block an SM
+    (2049, 5, 4, 0), (2049, 5, 2, 0), (65536, 5, 4, 0),  # longer than WHOLE_ROW_MAX: tiles
+])
+def test_rows_per_block(n, level, itemsize, want):
+    """The whole-row plan: ROW_SAMPLES // n rows a block (at least one); 0
+    (the tiles) past WHOLE_ROW_MAX."""
+    assert cuda_modwt.rows_per_block(n, level, itemsize) == want
+
+
+@pytest.mark.parametrize("m", [8, 62])
+@pytest.mark.parametrize("itemsize", [4, 2])
+def test_whole_row_threshold(m, itemsize):
+    """Rows of up to WHOLE_ROW_MAX (2048) samples run whole at every level
+    1..13, in f32 and bf16, whatever the filter length: with no halo, m
+    changes no byte of the block (the taps take a fixed 512 bytes). A row
+    one sample longer takes the tiles, whose plan does depend on m. Every
+    plan fits the card; a block of several rows leaves three an SM."""
+    assert cuda_modwt.WHOLE_ROW_MAX == 2048 and cuda_modwt.ROW_SAMPLES == 1024
+    for level in range(1, 14):
+        assert cuda_modwt.rows_per_block(2048, level, itemsize) == 1
+        assert cuda_modwt.whole_row_smem_bytes(1, 2048, level, itemsize) \
+            <= cuda_modwt.BLOCK_SMEM_MAX
+        assert cuda_modwt.rows_per_block(2049, level, itemsize) == 0
+        groups = cuda_modwt.level_groups(2049, m, level)
+        levels = [j for j0, j1, _ in groups for j in range(j0, j1 + 1)]
+        assert levels == list(range(1, level + 1))
+        for n in range(1, 2049, 37):
+            rows = cuda_modwt.rows_per_block(n, level, itemsize)
+            smem = cuda_modwt.whole_row_smem_bytes(rows, n, level, itemsize)
+            assert 1 <= rows <= max(1, cuda_modwt.ROW_SAMPLES // n)
+            assert smem <= cuda_modwt.BLOCK_SMEM_MAX
+            assert rows == 1 or 3 * (smem + 1024) <= 228 * 1024
+    # the tiled plan differs with m where the halo outgrows a block
+    assert cuda_modwt.level_groups(2049, 8, 13) != cuda_modwt.level_groups(2049, 62, 13)
 
 
 @pytest.mark.parametrize("tl,m,j0,j1,itemsize_x,itemsize_out,itemsize_v,want", [
