@@ -93,7 +93,11 @@ def k6_smem_bytes(n_bins: int) -> int:
             + K6_STAGES * 8)
 
 
-def _launch(contrib: torch.Tensor, k_idx: torch.Tensor, n_bins: int) -> torch.Tensor:
+def _launch(contrib: torch.Tensor, k_idx: torch.Tensor, n_bins: int,
+            out: torch.Tensor | None = None) -> torch.Tensor:
+    """The kernel's plane of ``contrib`` and ``k_idx``, written into ``out``
+    ((..., n_bins, N) complex64, contiguous, on the same card) where given,
+    else into a new tensor."""
     if contrib.device.type != "cuda":
         raise JWaveFailure(f"reassign - tensor on {contrib.device}; "
                            "the kernel runs on CUDA tensors")
@@ -107,11 +111,16 @@ def _launch(contrib: torch.Tensor, k_idx: torch.Tensor, n_bins: int) -> torch.Te
         raise JWaveFailure(f"reassign - n_bins {n_bins} out of range")
     lead, c, k = _flat(contrib.resolve_conj().contiguous(), k_idx.to(torch.int32).contiguous())
     g, s, n = c.shape
-    out = torch.empty((g, n_bins, n), dtype=torch.complex64, device=c.device)
+    if out is None:
+        out = torch.empty(lead + (n_bins, n), dtype=torch.complex64, device=c.device)
+    elif (out.shape != lead + (n_bins, n) or out.dtype != torch.complex64
+          or out.device != c.device or not out.is_contiguous()):
+        raise JWaveFailure(f"reassign - out must be a contiguous complex64 tensor of shape "
+                           f"{tuple(lead + (n_bins, n))} on {c.device}")
     if g * n == 0:
-        return out.reshape(lead + (n_bins, n))
+        return out
     if s == 0:
-        return out.zero_().reshape(lead + (n_bins, n))
+        return out.zero_()
     if g * -(-n // K6_TILE) >= 2**31:
         raise JWaveFailure(f"reassign - {g} x {n} columns exceed one launch")
     with span("launch.K6", rows=g, n=n, bins=n_bins):
@@ -125,7 +134,7 @@ def _launch(contrib: torch.Tensor, k_idx: torch.Tensor, n_bins: int) -> torch.Te
                  cuda_build.stream_handle(c.device))
         cuda_build.check(lib, err, "reassign")
         launch_counts["reassign"] += 1
-    return out.reshape(lead + (n_bins, n))
+    return out
 
 
 class _Reassign(torch.autograd.Function):
@@ -149,13 +158,22 @@ class _Reassign(torch.autograd.Function):
         return torch.where(valid, g, torch.zeros((), dtype=g.dtype, device=g.device)), None, None
 
 
-def reassign(contrib: torch.Tensor, k_idx: torch.Tensor, n_bins: int) -> torch.Tensor:
+def reassign(contrib: torch.Tensor, k_idx: torch.Tensor, n_bins: int,
+             out: torch.Tensor | None = None) -> torch.Tensor:
     """K6: (..., S, N) complex64 contributions and integer bin indices ->
     (..., n_bins, N) complex64 squeezed plane. Computes in float32, as the
-    TPU kernel does: 64-bit input raises rather than being cut silently."""
+    TPU kernel does: 64-bit input raises rather than being cut silently.
+
+    With ``out`` (contiguous, of the plane's shape and dtype) the plane is
+    written there: by the kernel itself on a card, by a copy on the CPU or
+    where a gradient is recorded."""
     if contrib.dtype in (torch.complex128, torch.float64):
         raise JWaveFailure(
             "reassign_pallas - the Pallas kernel computes in float32; use "
             "reassign='dense' or 'scatter' for 64-bit inputs"
         )
-    return _Reassign.apply(contrib, k_idx, n_bins)
+    if out is None:
+        return _Reassign.apply(contrib, k_idx, n_bins)
+    if contrib.device.type == "cpu" or (torch.is_grad_enabled() and contrib.requires_grad):
+        return out.copy_(_Reassign.apply(contrib, k_idx, n_bins))
+    return _launch(contrib, k_idx, n_bins, out)

@@ -9,15 +9,20 @@ per-scale correlation kernels over the wavelet's effective support.
 
 The host builds each filter bank in float64 on the signal's device and casts
 it to the signal's complex dtype before the product: a float32 signal gives
-complex64 coefficients, a float64 signal complex128.
+complex64 coefficients, a float64 signal complex128. The bank and the other
+constants of a call (scales, and for ``ssq_cwt`` its bin grid and weights)
+stay on the device in a small LRU cache (:func:`_device_constants`), so a
+warm call builds nothing on the host and uploads nothing.
 """
 from __future__ import annotations
 
 import inspect
 import math
 import warnings
+from collections import OrderedDict
 from dataclasses import dataclass
 from enum import Enum
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -27,6 +32,7 @@ from ..ops.butterfly import ensure_fft_float
 from ..ops.circular import _conv_valid_bank
 from ..utils.host import as_tensor, host_array
 from ..utils.numerics import next_power_of_two
+from ..utils.profiling import count, count_upload, span, spanned
 from .fft import fft as _fft_any, ifft as _ifft_any
 
 
@@ -152,9 +158,64 @@ def _scaled_bank(wav: ContinuousWavelet, scales: np.ndarray, omega: np.ndarray,
                  device) -> tuple[torch.Tensor, torch.Tensor]:
     """(S, P) ``psi_hat_scaled`` of every scale, in float64 on ``device``, and
     the omega axis there."""
-    om = torch.as_tensor(omega, dtype=torch.float64, device=device)
-    a = torch.as_tensor(scales, dtype=torch.float64, device=device)[:, None]
+    om = count_upload(torch.as_tensor(omega, dtype=torch.float64, device=device))
+    a = count_upload(torch.as_tensor(scales, dtype=torch.float64, device=device))[:, None]
     return wav.psi_hat_scaled(om[None, :], a), om
+
+
+#: the device constants of recent calls, least recently used first
+_CONSTANTS: OrderedDict = OrderedDict()
+#: entries kept: an ``ssq_cwt`` entry at 2^20 samples and 64 scales holds a
+#: 1 GiB bank, and a caller rarely alternates between more grids than this
+CONSTANTS_MAX = 4
+
+
+def _wavelet_key(wav: ContinuousWavelet) -> tuple:
+    """A hashable key of a wavelet by value: its class and every attribute
+    (Morlet's ``fb`` and ``fc``, Paul's ``m``, ...), arrays by their bytes, so
+    that two wavelets share constants only where every parameter agrees."""
+    def coerce(v):
+        if isinstance(v, (bool, int, float, complex, str)):
+            return v
+        if isinstance(v, (np.ndarray, np.generic)):
+            a = np.asarray(v)
+            return ("nd", a.dtype.str, a.shape, a.tobytes())
+        return repr(v)
+
+    return (type(wav).__name__,) + tuple(sorted((k, coerce(v)) for k, v in vars(wav).items()))
+
+
+def _device_constants(kind: str, key: tuple, build):
+    """The constants of ``key`` from the cache, or ``build()`` on a miss (which
+    counts ``<kind>.constant_builds``); at most :data:`CONSTANTS_MAX` entries,
+    the least recently used dropped first. Span ``<kind>.constants`` with
+    ``hit`` 0 or 1. ``key`` holds everything the constants depend on."""
+    hit = _CONSTANTS.get(key)
+    with span(f"{kind}.constants", hit=int(hit is not None)):
+        if hit is not None:
+            _CONSTANTS.move_to_end(key)
+            return hit
+        value = _CONSTANTS[key] = build()
+        count(f"{kind}.constant_builds")
+        while len(_CONSTANTS) > CONSTANTS_MAX:
+            _CONSTANTS.popitem(last=False)
+        return value
+
+
+class _CWTConstants(NamedTuple):
+    bank: torch.Tensor  # (S, P) conj(psi_hat_scaled), the spectrum's complex dtype
+    scales: torch.Tensor  # (S,) float64
+
+
+def _cwt_constants(wav: ContinuousWavelet, scales: np.ndarray, padded: int, fs: float,
+                   cdtype: torch.dtype, device) -> _CWTConstants:
+    def build():
+        bank, _ = _scaled_bank(wav, scales, _omega_axis(padded, fs), device)
+        return _CWTConstants(torch.conj(bank).to(cdtype),
+                             count_upload(torch.as_tensor(scales, device=device)))
+
+    key = ("cwt", _wavelet_key(wav), scales.tobytes(), padded, fs, cdtype, torch.device(device))
+    return _device_constants("cwt", key, build)
 
 
 def _time_axis(n: int, fs: float, like: torch.Tensor) -> torch.Tensor:
@@ -167,6 +228,7 @@ def _signal(signal) -> torch.Tensor:
     return ensure_fft_float(as_tensor(signal))
 
 
+@spanned("cwt")
 def cwt(
     signal,
     scales,
@@ -182,18 +244,18 @@ def cwt(
     signal = _signal(signal)
     n = signal.shape[-1]
     padded_len = next_power_of_two(n)
+    cdtype = torch.promote_types(signal.dtype, torch.complex64)  # the spectrum's
     if scales.size == 0:  # no FFT of an empty batch: (..., 0, N) in the usual dtype
-        cdtype = torch.promote_types(signal.dtype, torch.complex64)
         res = torch.empty(signal.shape[:-1] + (0, n), dtype=cdtype, device=signal.device)
         return CWTResult(res, torch.as_tensor(scales, device=signal.device),
                          _time_axis(n, sampling_rate, res), float(sampling_rate), wav.name)
-    sig_fft = _fft_any(pad_signal(signal, padded_len, padding))  # (..., P)
     # conj(F[psi_a])(w) = conj(sqrt(a) * psi_hat(a*w)) per scale
-    bank, _ = _scaled_bank(wav, scales, _omega_axis(padded_len, sampling_rate), signal.device)
-    w_hat = torch.conj(bank).to(sig_fft.dtype)  # (S, P)
-    res = _ifft_any(sig_fft[..., None, :] * w_hat)[..., :n]  # (..., S, N)
-    return CWTResult(res, torch.as_tensor(scales, device=signal.device),
-                     _time_axis(n, sampling_rate, res), float(sampling_rate), wav.name)
+    consts = _cwt_constants(wav, scales, padded_len, float(sampling_rate), cdtype,
+                            signal.device)
+    sig_fft = _fft_any(pad_signal(signal, padded_len, padding))  # (..., P)
+    res = _ifft_any(sig_fft[..., None, :] * consts.bank)[..., :n]  # (..., S, N)
+    return CWTResult(res, consts.scales.clone(), _time_axis(n, sampling_rate, res),
+                     float(sampling_rate), wav.name)
 
 
 def cwt_direct(

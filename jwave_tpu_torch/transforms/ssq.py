@@ -12,6 +12,10 @@ JAX package's ``transforms/ssq.py`` in PyTorch:
 - The reassignment into log-spaced frequency bins is the K6 kernel
   (``ops/cuda_reassign.py``) on a card; see :func:`_squeeze_plane` for the
   routes.
+- The working set is bounded: rows of the leading axes run in chunks whose
+  peak (:func:`_row_bytes`) fits :data:`CHUNK_SHARE` of the device's memory,
+  each writing its slice of one output. The bank, grids and weights stay on
+  the device between calls (``cwt._device_constants``).
 
 Reconstruction (``issq_cwt``) uses the one-integral formula
 ``x(b) = 2 Re[ (1/C) sum_k Tx(f_k, b) ]`` with the wavelet constant
@@ -26,7 +30,9 @@ meaningful when the wavelet suppresses negative frequencies.
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -36,11 +42,23 @@ from ..exceptions import JWaveFailure
 from ..ops import cuda_reassign
 from ..utils.host import host_array
 from ..utils.numerics import next_power_of_two
-from .cwt import PaddingType, _omega_axis, _resolve_wavelet_by_name, _scaled_bank, _signal, \
-    _time_axis, pad_signal
+from ..utils.profiling import count, count_upload, span, spanned
+from .cwt import PaddingType, _device_constants, _omega_axis, _resolve_wavelet_by_name, \
+    _scaled_bank, _signal, _time_axis, _wavelet_key, pad_signal
 from .fft import fft as _fft_any, ifft as _ifft_any
 
 REASSIGN_ROUTES = ("auto", "dense", "scatter", "pallas")
+
+#: the share of the device's total memory that one chunk of ``ssq_cwt``'s
+#: rows may take at its peak (:func:`_row_bytes`). The output, (..., K, N)
+#: complex, is allocated once beside the chunks, and for a call that fills
+#: the card it is the largest tensor (17.2 GB at 32 x 2^20 samples and 64
+#: bins); a caller that pipelines its calls holds up to four such outputs at
+#: once (the one being written, the previous one and two it keeps), 69 GB of
+#: an 80 GB card, so a chunk keeps to an eighth. It is a share of the total
+#: and never of the momentary free memory, so that a call's chunks do not
+#: depend on what else happens to be allocated.
+CHUNK_SHARE = 0.125
 
 
 @dataclass
@@ -106,34 +124,53 @@ def one_integral_constant(wavelet: ContinuousWavelet) -> complex:
     return c
 
 
-def _bin_index(f_inst: torch.Tensor, freqs_np: np.ndarray) -> torch.Tensor:
-    """Nearest-bin index (in log-frequency distance) for positive ``f_inst``,
-    int32. Log-uniform grids use the closed-form affine map; other increasing
-    grids a search against the geometric midpoints between neighbouring bins.
-    Both round half to even and search on the left side, as the JAX package
-    does. The caller masks non-positive frequencies first."""
+def _log_uniform(freqs_np: np.ndarray):
+    """(ln f_0, d ln f) of a log-uniform grid; None for any other grid."""
     log_f = np.log(freqs_np)
     diffs = np.diff(log_f)
     if np.allclose(diffs, diffs[0], rtol=1e-9, atol=0.0):
-        dlf = (log_f[-1] - log_f[0]) / (freqs_np.shape[0] - 1)
-        return torch.round((torch.log(f_inst) - log_f[0]) / dlf).to(torch.int32)
-    # K+1 edges (outer edges extrapolate the end spacings) so indices keep
-    # the affine path's out-of-range convention: -1 below the grid, K above
-    edges = np.exp(np.concatenate([
+        return log_f[0], (log_f[-1] - log_f[0]) / (freqs_np.shape[0] - 1)
+    return None
+
+
+def _bin_edges(freqs_np: np.ndarray) -> np.ndarray:
+    """K+1 edges of an increasing grid: the geometric midpoints between
+    neighbouring bins, the outer two extrapolating the end spacings, so that
+    indices keep the affine path's out-of-range convention (-1 below the
+    grid, K above)."""
+    log_f = np.log(freqs_np)
+    diffs = np.diff(log_f)
+    return np.exp(np.concatenate([
         [log_f[0] - diffs[0] / 2.0],
         (log_f[:-1] + log_f[1:]) / 2.0,
         [log_f[-1] + diffs[-1] / 2.0],
     ]))
-    e = torch.as_tensor(edges, dtype=f_inst.dtype, device=f_inst.device)
-    return (torch.searchsorted(e, f_inst.contiguous()) - 1).to(torch.int32)
 
 
-def _reassign_inputs(W, dW, wgt, freqs_np: np.ndarray, gamma_abs, out_of_range: str):
+def _bin_index(f_inst: torch.Tensor, freqs_np: np.ndarray, edges=None) -> torch.Tensor:
+    """Nearest-bin index (in log-frequency distance) for positive ``f_inst``,
+    int32. Log-uniform grids use the closed-form affine map; other increasing
+    grids a search against :func:`_bin_edges` (``edges``, a tensor of them
+    in ``f_inst``'s dtype on its device, where the caller holds one). Both
+    round half to even and search on the left side, as the JAX package
+    does. The caller masks non-positive frequencies first."""
+    affine = _log_uniform(freqs_np)
+    if affine is not None:
+        log_f0, dlf = affine
+        return torch.round((torch.log(f_inst) - log_f0) / dlf).to(torch.int32)
+    if edges is None:
+        edges = torch.as_tensor(_bin_edges(freqs_np), dtype=f_inst.dtype, device=f_inst.device)
+    return (torch.searchsorted(edges, f_inst.contiguous()) - 1).to(torch.int32)
+
+
+def _reassign_inputs(W, dW, wgt, freqs_np: np.ndarray, gamma_abs, out_of_range: str,
+                     edges=None):
     """Phase transform and bin index of a (..., S, N) coefficient block:
     the contributions ``W * wgt`` and their bin indices, n_bins where a
     coefficient is not reassigned. ``wgt`` is the per-scale measure
     ``a^{-1/2} dln(a)`` (shape (S,), an array or a tensor); ``gamma_abs``
-    the absolute |W| threshold (broadcastable)."""
+    the absolute |W| threshold (broadcastable); ``edges`` as in
+    :func:`_bin_index`."""
     if out_of_range not in ("clip", "drop"):
         raise JWaveFailure(f"ssq_cwt - out_of_range must be 'clip' or 'drop', got {out_of_range!r}")
     n_bins = freqs_np.shape[0]
@@ -144,12 +181,35 @@ def _reassign_inputs(W, dW, wgt, freqs_np: np.ndarray, gamma_abs, out_of_range: 
         keep = keep & (f_inst > 0)
     contrib = W * torch.as_tensor(wgt, dtype=W.real.dtype, device=W.device)[:, None]
     safe_f = torch.where(keep & (f_inst > 0), f_inst, float(freqs_np[0]))
-    k_idx = _bin_index(safe_f, freqs_np)
+    k_idx = _bin_index(safe_f, freqs_np, edges)
     if out_of_range == "clip":
         k_idx = torch.where(keep, k_idx.clamp(0, n_bins - 1), n_bins)
     else:
         k_idx = torch.where(keep & (k_idx >= 0) & (k_idx < n_bins), k_idx, n_bins)
     return contrib, k_idx
+
+
+def _route(reassign: str, device: torch.device, cdtype: torch.dtype) -> str:
+    """The reassignment route of ``reassign`` for coefficients of complex
+    dtype ``cdtype`` on ``device``: "auto" is K6 ("pallas") on a CUDA
+    complex64 block, the scatter form otherwise."""
+    if reassign not in REASSIGN_ROUTES:
+        raise JWaveFailure(
+            f"ssq_cwt - reassign must be 'auto', 'dense', 'scatter' or 'pallas', got {reassign!r}"
+        )
+    if reassign == "auto":
+        return "pallas" if device.type == "cuda" and cdtype == torch.complex64 else "scatter"
+    return reassign
+
+
+def _reassign(contrib, k_idx, n_bins: int, route: str, out=None):
+    """The (..., K, N) plane of the contributions by ``route`` (resolved by
+    :func:`_route`), written into ``out`` where given."""
+    if route == "pallas":
+        return cuda_reassign.reassign(contrib.to(torch.complex64), k_idx, n_bins, out=out)
+    plain = cuda_reassign.reassign_dense_torch if route == "dense" else cuda_reassign.reassign_torch
+    tx = plain(contrib, k_idx, n_bins)
+    return tx if out is None else out.copy_(tx)
 
 
 def _squeeze_plane(W, dW, wgt, freqs_np: np.ndarray, gamma_abs, out_of_range: str,
@@ -164,20 +224,9 @@ def _squeeze_plane(W, dW, wgt, freqs_np: np.ndarray, gamma_abs, out_of_range: st
     "scatter" (one ``scatter_add_``) or "dense" (a masked sum per bin row;
     no (K, S, N) mask is built).
     """
-    if reassign not in REASSIGN_ROUTES:
-        raise JWaveFailure(
-            f"ssq_cwt - reassign must be 'auto', 'dense', 'scatter' or 'pallas', got {reassign!r}"
-        )
+    route = _route(reassign, W.device, W.dtype)
     contrib, k_idx = _reassign_inputs(W, dW, wgt, freqs_np, gamma_abs, out_of_range)
-    n_bins = freqs_np.shape[0]
-    if reassign == "auto":
-        on_kernel = contrib.is_cuda and contrib.dtype == torch.complex64
-        reassign = "pallas" if on_kernel else "scatter"
-    if reassign == "pallas":
-        return cuda_reassign.reassign(contrib.to(torch.complex64), k_idx, n_bins)
-    if reassign == "dense":
-        return cuda_reassign.reassign_dense_torch(contrib, k_idx, n_bins)
-    return cuda_reassign.reassign_torch(contrib, k_idx, n_bins)
+    return _reassign(contrib, k_idx, freqs_np.shape[0], route)
 
 
 def _default_bins(scales_np: np.ndarray, fc: float, frequencies) -> np.ndarray:
@@ -195,22 +244,87 @@ def _default_bins(scales_np: np.ndarray, fc: float, frequencies) -> np.ndarray:
     return freqs_np
 
 
+def _stacked_bank(wav: ContinuousWavelet, scales_np: np.ndarray, padded: int, fs: float,
+                  cdtype: torch.dtype, device) -> torch.Tensor:
+    """(2S, P) ``[conj(psi_hat_a), i w conj(psi_hat_a)]``, built in float64 and
+    cast to the spectrum's complex dtype ``cdtype``."""
+    bank, omega = _scaled_bank(wav, scales_np, _omega_axis(padded, fs), device)
+    w_hat = torch.conj(bank)  # (S, P)
+    return torch.cat([w_hat, w_hat * (1j * omega)[None, :]], dim=0).to(cdtype)
+
+
 def _cwt_and_derivative(signal: torch.Tensor, scales_np: np.ndarray, wav: ContinuousWavelet,
-                        fs: float, padding: PaddingType):
+                        fs: float, padding: PaddingType, stacked: torch.Tensor | None = None):
     """W and dW/db (each (..., S, N)) from one product with the stacked bank
-    ``[conj(psi_hat_a), i w conj(psi_hat_a)]`` and one inverse FFT. The bank
-    is built in float64 and cast to the signal spectrum's complex dtype."""
+    (:func:`_stacked_bank`, built here unless given) and one inverse FFT."""
     n = signal.shape[-1]
     n_scales = scales_np.shape[0]
     padded_len = next_power_of_two(n)
     sig_fft = _fft_any(pad_signal(signal, padded_len, padding))  # (..., P)
-    bank, omega = _scaled_bank(wav, scales_np, _omega_axis(padded_len, fs), signal.device)
-    w_hat = torch.conj(bank)  # (S, P)
-    stacked = torch.cat([w_hat, w_hat * (1j * omega)[None, :]], dim=0).to(sig_fft.dtype)
+    if stacked is None:
+        stacked = _stacked_bank(wav, scales_np, padded_len, fs, sig_fft.dtype, signal.device)
     out = _ifft_any(sig_fft[..., None, :] * stacked)[..., :n]  # (..., 2S, N)
     return out[..., :n_scales, :], out[..., n_scales:, :]
 
 
+class _SSQConstants(NamedTuple):
+    stacked: torch.Tensor  # (2S, P) from _stacked_bank, the spectrum's complex dtype
+    scales: torch.Tensor  # (S,) float64
+    freqs: torch.Tensor  # (K,) float64, Hz
+    wgt: torch.Tensor  # (S,) a^{-1/2} dln(a), in the real dtype
+    edges: torch.Tensor | None  # (K+1,) bin edges where the grid is not log-uniform
+
+
+def _ssq_constants(wav: ContinuousWavelet, scales_np: np.ndarray, freqs_np: np.ndarray,
+                   padded: int, fs: float, cdtype: torch.dtype, device) -> _SSQConstants:
+    rdtype = torch.float64 if cdtype == torch.complex128 else torch.float32
+
+    def build():
+        def up(a, dtype=None):
+            return count_upload(torch.as_tensor(a, dtype=dtype, device=device))
+
+        edges = None if _log_uniform(freqs_np) is not None else up(_bin_edges(freqs_np), rdtype)
+        return _SSQConstants(_stacked_bank(wav, scales_np, padded, fs, cdtype, device),
+                             up(scales_np), up(freqs_np),
+                             up(scales_np ** -0.5 * _log_measure(scales_np)).to(rdtype), edges)
+
+    key = ("ssq", _wavelet_key(wav), scales_np.tobytes(), freqs_np.tobytes(), padded, fs,
+           cdtype, torch.device(device))
+    return _device_constants("ssq", key, build)
+
+
+def _row_bytes(n_scales: int, padded: int, n: int, n_bins: int, itemsize: int) -> int:
+    """Bytes that one row of the leading axes takes at the peak of a chunk,
+    for a real dtype of ``itemsize`` bytes: while the inverse FFT runs, the
+    spectrum, the product with the stacked bank, its transform and cuFFT's
+    work area (three (2S, P) complex planes); or while the phase transform
+    runs, W and dW with at most eight real (S, N) temporaries and a plain
+    route's (K, N) plane and its copy."""
+    c = 2 * itemsize
+    fft = c * padded + 3 * 2 * n_scales * padded * c
+    squeeze = 2 * n_scales * padded * c + 8 * n_scales * n * itemsize + 2 * n_bins * n * c
+    return max(fft, squeeze)
+
+
+def _memory_budget(device: torch.device) -> int:
+    """Bytes a chunk may take: :data:`CHUNK_SHARE` of the device's total
+    memory (the host's on the CPU)."""
+    if device.type == "cuda":
+        total = torch.cuda.get_device_properties(device).total_memory
+    else:
+        total = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+    return int(CHUNK_SHARE * total)
+
+
+def _chunk_rows(rows: int, row_bytes: int, budget: int) -> int:
+    """Rows a chunk: as many as ``budget`` holds (one at least), spread
+    evenly over the fewest chunks that take all ``rows``."""
+    most = max(1, budget // row_bytes)
+    chunks = max(1, -(-rows // most))
+    return max(1, -(-rows // chunks))
+
+
+@spanned("ssq_cwt")
 def ssq_cwt(
     signal,
     scales,
@@ -245,6 +359,10 @@ def ssq_cwt(
     Returns an :class:`SSQResult`; ``sum_k Tx[k, b]`` over bins equals the
     weighted scale sum ``sum_j W(a_j, b) a_j^{-1/2} dln(a_j)`` of the kept
     coefficients, which is what :func:`issq_cwt` inverts.
+
+    Signals of the leading axes run in chunks of rows whose working set
+    fits :data:`CHUNK_SHARE` of the device's memory; the result does not
+    depend on the chunks (the threshold is per signal).
     """
     wav = get_continuous_wavelet(wavelet)
     if not wav.is_analytic:
@@ -259,24 +377,47 @@ def ssq_cwt(
     fs = float(sampling_rate)
     signal = _signal(signal)
     freqs_np = _default_bins(scales_np, wav.center_frequency, frequencies)
-
-    # host constants go to the device before any work is queued: a copy from
-    # pageable host memory waits for the stream, and mid-call it would idle
-    # the card while the host queues the rest
+    n = signal.shape[-1]
+    padded = next_power_of_two(n)
+    cdtype = torch.promote_types(signal.dtype, torch.complex64)  # the spectrum's
     dev = signal.device
-    freqs_t = torch.as_tensor(freqs_np, device=dev)
-    scales_t = torch.as_tensor(scales_np, device=dev)
-    wgt = torch.as_tensor(scales_np ** -0.5 * _log_measure(scales_np), device=dev)
-    W, dW = _cwt_and_derivative(signal, scales_np, wav, fs, padding)
-    if gamma is None:
-        mag2 = W.real ** 2 + W.imag ** 2
-        eps = torch.finfo(W.real.dtype).eps
-        gamma_abs = 10.0 * math.sqrt(eps) * torch.sqrt(torch.amax(mag2, dim=(-2, -1), keepdim=True))
-    else:
-        gamma_abs = torch.as_tensor(gamma, dtype=W.real.dtype, device=W.device)
+    route = _route(reassign, dev, cdtype)
+    # built once and kept on the device: a copy from pageable host memory
+    # waits for the stream, and mid-call it would idle the card
+    consts = _ssq_constants(wav, scales_np, freqs_np, padded, fs, cdtype, dev)
+    n_bins = freqs_np.shape[0]
 
-    tx = _squeeze_plane(W, dW, wgt, freqs_np, gamma_abs, out_of_range, reassign)
-    return SSQResult(tx, freqs_t, scales_t, _time_axis(signal.shape[-1], fs, tx), fs, wav.name)
+    def squeeze(x, out=None):
+        with span("ssq.chunk", rows=math.prod(x.shape[:-1]), n=n, scales=scales_np.shape[0]):
+            count("ssq.chunks")
+            with span("ssq.cwt"):
+                W, dW = _cwt_and_derivative(x, scales_np, wav, fs, padding, consts.stacked)
+            with span("ssq.phase"):
+                if gamma is None:
+                    mag2 = W.real ** 2 + W.imag ** 2
+                    eps = torch.finfo(W.real.dtype).eps
+                    gamma_abs = 10.0 * math.sqrt(eps) * torch.sqrt(
+                        torch.amax(mag2, dim=(-2, -1), keepdim=True))
+                else:
+                    gamma_abs = torch.as_tensor(gamma, dtype=W.real.dtype, device=W.device)
+                contrib, k_idx = _reassign_inputs(W, dW, consts.wgt, freqs_np, gamma_abs,
+                                                  out_of_range, consts.edges)
+            return _reassign(contrib, k_idx, n_bins, route, out)
+
+    rows = math.prod(signal.shape[:-1])
+    per_chunk = _chunk_rows(rows, _row_bytes(scales_np.shape[0], padded, n, n_bins,
+                                             signal.element_size()), _memory_budget(dev))
+    if per_chunk >= rows:
+        tx = squeeze(signal)
+    else:
+        flat = signal.reshape(rows, n)
+        out = torch.empty((rows, n_bins, n), dtype=torch.complex64 if route == "pallas" else cdtype,
+                          device=dev)
+        for r0 in range(0, rows, per_chunk):
+            squeeze(flat[r0:r0 + per_chunk], out[r0:r0 + per_chunk])
+        tx = out.reshape(signal.shape[:-1] + (n_bins, n))
+    return SSQResult(tx, consts.freqs.clone(), consts.scales.clone(), _time_axis(n, fs, tx), fs,
+                     wav.name)
 
 
 def _ridge_dp(energy: torch.Tensor, penalty: float) -> torch.Tensor:

@@ -166,7 +166,9 @@ def counts() -> dict:
     from host memory), ``library.<name>.load_s`` (a kernel library's first
     load in the process: hash, ``nvcc`` if it ran, dlopen),
     ``K1.whole_row_launches``/``K2.whole_row_launches`` (the launches of K1
-    and K2 that keep whole rows in a block) and ``spans.dropped``."""
+    and K2 that keep whole rows in a block), ``ssq.chunks`` (the chunks of
+    rows ``ssq_cwt`` ran), ``ssq.constant_builds``/``cwt.constant_builds``
+    (device constants built on a cache miss) and ``spans.dropped``."""
     out = dict(_COUNTS)
     out.update((f"launch.{k}", v) for k, v in _launch_counts().items())
     return out

@@ -9,6 +9,7 @@ Tests marked ``cuda`` need a card and skip without one. Run them there with
 
     python -m pytest tests/test_torch_tracing.py -m cuda --noconftest -o addopts=''
 """
+import importlib
 import json
 import types
 
@@ -23,6 +24,9 @@ from jwave_tpu_torch.utils import host, profiling  # noqa: E402
 
 #: Kineto rounds a trace's base time down to a multiple of this many seconds
 TRIMONTH_NS = 7_889_238 * 10**9
+# the modules (the package's names ``cwt`` and ``ssq`` are the functions)
+tcwt = importlib.import_module("jwave_tpu_torch.transforms.cwt")
+tssq = importlib.import_module("jwave_tpu_torch.transforms.ssq")
 
 
 @pytest.fixture(autouse=True)
@@ -177,6 +181,57 @@ def test_the_span_buffer_drops_and_counts_past_its_cap(monkeypatch):
 
 
 # --------------------------------------------------------------------------
+def _ssq_spans(monkeypatch, rows=5, device="cpu"):
+    """Two ssq_cwt calls, cold then warm, in chunks of two rows."""
+    tcwt._CONSTANTS.clear()
+    x = torch.randn(rows, 512, device=device)
+    scales = jt.generate_log_scales(4.0, 64.0, 8)
+    row = tssq._row_bytes(8, 512, 512, 8, 4)
+    monkeypatch.setattr(tssq, "_memory_budget", lambda dev: 2 * row)
+    with _profile():
+        jt.ssq_cwt(x, scales, "morlet", 1.0)
+        jt.ssq_cwt(x, scales, "morlet", 1.0)
+    tcwt._CONSTANTS.clear()
+    return profiling.spans()
+
+
+def test_ssq_cwt_records_its_constants_and_each_chunks_transform_and_phase(monkeypatch):
+    spans = _ssq_spans(monkeypatch)
+    roots = [s for s in spans if s.parent is None]
+    assert [s.name for s in roots] == ["ssq_cwt", "ssq_cwt"]
+    for root, hit in zip(roots, (0, 1)):
+        mine = [s for s in spans if s.request == root.request and s is not root]
+        top = [s for s in mine if s.parent == "ssq_cwt"]
+        assert [s.name for s in top] == ["ssq.constants"] + ["ssq.chunk"] * 3
+        assert top[0].args == {"hit": hit}
+        chunks = top[1:]
+        assert [c.args for c in chunks] == [{"rows": 2, "n": 512, "scales": 8}] * 2 + [
+            {"rows": 1, "n": 512, "scales": 8}]
+        inner = [s for s in mine if s.parent == "ssq.chunk"]
+        assert [s.name for s in inner] == ["ssq.cwt", "ssq.phase"] * 3
+        for chunk, (cwt_span, phase) in zip(chunks, zip(inner[::2], inner[1::2])):
+            assert chunk.start_ns <= cwt_span.start_ns <= cwt_span.end_ns <= phase.start_ns
+            assert phase.end_ns <= chunk.end_ns
+        for s in mine:
+            assert root.start_ns <= s.start_ns <= s.end_ns <= root.end_ns
+        assert root.counts["ssq.chunks"] == 3
+        assert root.counts.get("ssq.constant_builds", 0) == 1 - hit
+
+
+def test_cwt_records_its_root_and_constants():
+    tcwt._CONSTANTS.clear()
+    x = torch.randn(2, 256)
+    with _profile():
+        jt.cwt(x, [4.0, 8.0], "morlet", 1.0)
+        jt.cwt(x, [4.0, 8.0], "morlet", 1.0)
+    tcwt._CONSTANTS.clear()
+    spans = profiling.spans()
+    assert [(s.name, s.parent) for s in spans] == [
+        ("cwt.constants", "cwt"), ("cwt", None)] * 2
+    assert [s.args for s in spans if s.name == "cwt.constants"] == [{"hit": 0}, {"hit": 1}]
+    assert [s.counts.get("cwt.constant_builds", 0) for s in spans if s.parent is None] == [1, 0]
+
+
 # on the card
 # --------------------------------------------------------------------------
 
@@ -216,3 +271,14 @@ def test_the_volume_path_launches_k3_and_k7_inside_their_spans(card):
     assert fwd.counts["launch.K3"] == 3 and rev.counts["launch.K7"] == 3
     assert "upload.calls" not in fwd.counts  # the taps are on the card already
     assert "library.pyramid.load_s" in profiling.counts()
+
+
+@pytest.mark.cuda
+def test_ssq_cwt_launches_k6_inside_each_chunk_and_uploads_once(card, monkeypatch):
+    spans = _ssq_spans(monkeypatch, device=card)
+    k6 = [s for s in spans if s.name == "launch.K6"]
+    assert [s.parent for s in k6] == ["ssq.chunk"] * 6
+    assert [s.args["rows"] for s in k6] == [2, 2, 1] * 2
+    cold, warm = [s for s in spans if s.parent is None]
+    assert cold.counts["launch.K6"] == warm.counts["launch.K6"] == 3
+    assert cold.counts["upload.calls"] > 0 and "upload.calls" not in warm.counts
