@@ -24,7 +24,9 @@ it happened; any failed check ends the run with a non-zero exit:
    (K3 also where its tiled levels leave a tail, 62 taps or 16 levels, over
    two tiled passes, and with a gain; K6 at the main shape on the
    contributions and bin indices of a real ssq_cwt of the main signal, on 64
-   bins and on 128, two bin chunks; K7 at 64 x 65536 db4 L8 and L16, 62
+   bins and on 128, two bin chunks, and K6's fused form on the same W and dW
+   against it (the same bins, so the same plane), and the peak kernel
+   against torch.amax bit for bit there and on its first 65535 columns; K7 at 64 x 65536 db4 L8 and L16, 62
    taps, Haar orthogonal's gain, Battle 23's partial levels, rows of 1, 2
    and 4 samples, odd batches, rows of 2^22, a source off 16-byte
    alignment, items of whole rows of 16, 256 and 2048 with a short last
@@ -120,7 +122,11 @@ it happened; any failed check ends the run with a non-zero exit:
    or a K4/K5 pass, scatter_add_; checked against the plain version first, never
    called by the port); a byte floor for each kernel (the same bytes, or
    for K6 a fifth more, moved by torch copies, or by K4/K5 with no level);
-   K3 at a shape with a tail and K6 at 128 bins; K7 at 1, 2, 4 and 8
+   K3 at a shape with a tail and K6 at 128 bins; K6's fused form and the
+   peak kernel at 8 x 64 x 65536 and at 2 x 64 x 2^20 (the ssq cell's
+   chunk; the peak kernel held to torch.amax bit for bit at each first),
+   beside their bounds, their plain versions in turns and the eager path
+   they replace; K7 at 1, 2, 4 and 8
    levels and Haar's at 8, on 65536 rows of 256, and its plans (blocks an
    SM, grid, items a block); fwt and ifwt (K7) at 64 x 65536, and the 1D inverse's route before K7 (the synthesis butterflies:
    the sum of its kernels' times in a profiled call, and wall); ifwt3d db4
@@ -174,7 +180,9 @@ it happened; any failed check ends the run with a non-zero exit:
 
 The second line from the end is a JSON object listing each kernel with its
 launches on its paths (4a-4b, 4h for K8/K9, and 4j), on its main path (4a;
-K8/K9: 4h's full-depth WPT) and in 4j, its error, its time beside
+K8/K9: 4h's full-depth WPT; K6's fused form, K6.fused, and the peak
+kernel, K6.peak: 4b, the continuous path) and in 4j (K6's row counts the
+unfused form's launches alone), its error, its time beside
 its plain version's, the library call's, its byte floor and its bound
 (bytes over 3.35 TB/s or FLOPs over 67 TFLOP/s, the larger), and its
 backward route with that route's error; the last line is
@@ -254,8 +262,8 @@ def main() -> int:
     from jwave_tpu_torch.ops.butterfly import synthesis_levels
     from jwave_tpu_torch.transforms import ndim
     from jwave_tpu_torch.transforms.modwt import _modwt_base_filters
-    from jwave_tpu_torch.transforms.ssq import _cwt_and_derivative, _default_bins, \
-        _log_measure, _reassign_inputs
+    from jwave_tpu_torch.transforms.ssq import _bin_grid, _cwt_and_derivative, _default_bins, \
+        _default_gamma, _log_measure, _reassign_inputs
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
@@ -675,11 +683,41 @@ def main() -> int:
     contrib, k_idx = _reassign_inputs(W, dW, wgt, bins, gamma, "clip")
     bins128 = np.exp(np.linspace(np.log(bins[0]), np.log(bins[-1]), 128))
     _, k_idx128 = _reassign_inputs(W, dW, wgt, bins128, gamma, "clip")
+    # K6's fused form on the same block (W and dW in, the phase transform and
+    # the bin index inside, after the peak kernel): its bins are the eager
+    # path's, so its plane is the unfused kernel's on these indices
+    tx_fused = cuda_reassign.squeeze(W, dW, torch.as_tensor(wgt, device=dev), None,
+                                     _bin_grid(bins, None, dev), "clip")
+
+    # the peak kernel: each row's max |W|^2, to the bit torch.amax's
+    def peak_case(label, w):
+        got = cuda_reassign.row_peaks(w)
+        ref = torch.amax(w.real ** 2 + w.imag ** 2, dim=(-2, -1)).reshape(-1)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(got.view(torch.int32), ref.view(torch.int32)))
+        err = float((got - ref).abs().max())
+        print(json.dumps({"check": f"peak kernel {label} against torch.amax, bit for bit",
+                          "bitwise_equal": same, "max_abs_err": err}), flush=True)
+        require(same, f"peak kernel {label}: {got.tolist()[:4]} against {ref.tolist()[:4]}")
+        return err
+
+    errors["K6.peak"] = max(peak_case("8x64x65536", W),
+                            peak_case("8x64x65535 (an odd last column, a strided view)",
+                                      W[..., :65535]))
     del W, dW, mag2
     require(contrib.dtype == torch.complex64 and k_idx.dtype == torch.int32,
             f"ssq block {contrib.dtype} {k_idx.dtype}")
     errors["K6"], tx_main = reassign_case("8x64x65536 K=64 (indices of ssq_cwt)",
                                           contrib, k_idx, 64)
+    moved = float((tx_fused - tx_main).abs().double().sum()) / float(
+        2 * torch.where(k_idx < 64, contrib.abs(), 0).double().sum())
+    print(json.dumps({"check": "K6 fused 8x64x65536 K=64 against K6 on the eager indices",
+                      "bitwise_equal": bool(torch.equal(torch.view_as_real(tx_fused),
+                                                        torch.view_as_real(tx_main))),
+                      "moved_share": moved, "bound": 1e-5}), flush=True)
+    require(moved <= 1e-5, f"K6's fused form moved {moved} of the kept weight")
+    errors["K6.fused"] = float((tx_fused - tx_main).abs().max())
+    del tx_fused
     kept = torch.where(k_idx < 64, contrib, 0).sum(dim=-2)
     compare("K6 column sums = kept weighted scale sums (clip)",
             torch.view_as_real(tx_main.sum(dim=-2)), torch.view_as_real(kept), F32_BOUND)
@@ -788,8 +826,15 @@ def main() -> int:
     print(json.dumps({"main_path": "continuous (ssq_cwt, issq_cwt, ridges, CWT facade)",
                       "launches": launches_ssq}), flush=True)
     require(launches_ssq["K6"] >= 1, f"K6 was not launched on the continuous path: {launches_ssq}")
+    # every ssq_cwt here is complex64 on the card with no gradient: K6's
+    # fused form, after the peak kernel where gamma is the default
+    require(launches_ssq["K6.fused"] == launches_ssq["K6"] and launches_ssq["K6.peak"] >= 1,
+            f"the continuous path did not take K6's fused form and the peak kernel: "
+            f"{launches_ssq}")
     main_launches = dict(launches)  # phase 4a's counts: K6 is 0 there
     launches["K6"] = launches_ssq["K6"]
+    for k in ("K6.fused", "K6.peak"):  # their main path is this phase's
+        launches[k] = main_launches[k] = launches_ssq[k]
 
     require(res.Tx.is_cuda and res.Tx.dtype == torch.complex64
             and tuple(res.Tx.shape) == (8, 64, 65536) and bool(torch.isfinite(res.Tx).all()),
@@ -1888,12 +1933,16 @@ def main() -> int:
               "ifwt2d": ("ifwt2d db4 L6 2048x2048 (K5 x2)", 2048 * 2048, "Mpix_per_s"),
               "K6": ("reassign 8x64x65536 K=64 (ssq_cwt's block)", 8 * 64 * 65536,
                      "Mcoeff_per_s"),
+              "K6.fused": ("K6's fused form 8x64x65536 K=64 (W, dW in; plain = squeeze_torch)",
+                           8 * 64 * 65536, "Mcoeff_per_s"),
+              "K6.peak": ("peak kernel 8x64x65536 (plain = torch.amax)", 8 * 64 * 65536,
+                          "Mcoeff_per_s"),
               "K8": ("wpt_rows db4 L6 64x65536", 64 * 65536, "Msamples_per_s"),
               "K9": ("iwpt_rows db4 L6 64x65536", 64 * 65536, "Msamples_per_s"),
               "wpt": ("wpt db4 L6 64x65536 through jt.wpt (K8)", 64 * 65536, "Msamples_per_s"),
               "iwpt": ("iwpt db4 L6 64x65536 through jt.iwpt (K9)", 64 * 65536,
                        "Msamples_per_s"),
-              "ssq_cwt": ("ssq_cwt 8x65536 f32, 64 scales (K6 route; plain = scatter route)",
+              "ssq_cwt": ("ssq_cwt 8x65536 f32, 64 scales (K6's fused form; plain = scatter route)",
                           8 * 64 * 65536, "Mcoeff_per_s")}
     fft = jt.ConvolutionMethod.FFT
     fft_ms = median_ms(lambda: jt.imodwt(jt.modwt(x, "Daubechies 4", 5, method=fft),
@@ -1971,6 +2020,53 @@ def main() -> int:
              "8x64x65536 K=128", lambda: cuda_reassign.reassign(contrib, k_idx128, 128))):
         print(json.dumps({"time": label, "shape": shape, "ms": median_ms(fn, device=True),
                           "wall_ms": median_ms(fn), "card": card}), flush=True)
+    # K6's fused form and the peak kernel (the default threshold) at ssq_cwt's
+    # 8 x 65536 block and at the ssq cell's chunk, 2 rows of 2^20: device ms
+    # beside their bounds (W and dW read once and the plane written once; W
+    # read once), their plain versions (squeeze_torch, the eager phase
+    # transform then the scatter; torch.amax), in turns, and the eager phase
+    # transform, bin index and unfused K6 that they replace. The peak kernel
+    # is held to torch.amax bit for bit at each shape first. The kernels
+    # line takes the 8 x 65536 block's times.
+    wgt_f = torch.as_tensor(wgt, dtype=torch.float32, device=dev)
+    grid_f = _bin_grid(bins, None, dev)
+    fused_bounds = {}
+    for rows_f, n_f in ((8, 65536), (2, 2**20)):
+        xf = torch.as_tensor(np.random.default_rng(10).standard_normal((rows_f, n_f)),
+                             dtype=torch.float32, device=dev)
+        wf, dwf = _cwt_and_derivative(xf, ssq_scales, morlet, ssq_fs, jt.PaddingType.SYMMETRIC)
+        shape_f = f"{rows_f}x64x{n_f}"
+        peak_case(shape_f, wf)
+        thr_f = cuda_reassign.row_threshold(wf, None)
+        g_f = _default_gamma(wf)
+        coeffs = rows_f * 64 * n_f
+
+        def eager_f(wf=wf, dwf=dwf, g_f=g_f):
+            return cuda_reassign.reassign(*_reassign_inputs(wf, dwf, wgt_f, bins, g_f, "clip"), 64)
+
+        row = {"shape": f"{shape_f} K=64", "card": card}
+        for label, kernel, plain, nbytes in (
+                ("fused", lambda: cuda_reassign.squeeze(wf, dwf, wgt_f, thr_f, grid_f, "clip"),
+                 lambda: cuda_reassign.squeeze_torch(wf, dwf, wgt_f, g_f, bins, "clip"),
+                 (16 + 8) * coeffs),
+                ("peak", lambda: cuda_reassign.row_peaks(wf),
+                 lambda: torch.amax(wf.real ** 2 + wf.imag ** 2, dim=(-2, -1)), 8 * coeffs)):
+            p1, k1 = median_ms(plain, device=True), median_ms(kernel, device=True)
+            k2, p2 = median_ms(kernel, device=True), median_ms(plain, device=True)
+            ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+            bound_ms = nbytes / 3.35e12 * 1e3
+            row.update({f"{label}_ms": ms, f"{label}_plain_ms": plain_ms,
+                        f"{label}_bound_ms": bound_ms, f"{label}_share": bound_ms / ms})
+            if rows_f == 8:
+                key = "K6." + label
+                timing[key] = (ms, plain_ms, None, median_ms(kernel))
+                fused_bounds[key] = (bound_ms, "bytes")
+        row["fused_with_peak_ms"] = median_ms(
+            lambda: cuda_reassign.squeeze(wf, dwf, wgt_f, None, grid_f, "clip"), device=True)
+        row["eager_then_unfused_ms"] = median_ms(eager_f, device=True)
+        print(json.dumps({"time": "K6 fused form and peak kernel", **row}), flush=True)
+        del xf, wf, dwf, thr_f, g_f
+        torch.cuda.empty_cache()
     # The 1D inverse's route before K7 (ifwt, the facade's reverse and K3's
     # backward ran it): the synthesis butterflies. Each level uploads its
     # taps by a copy that waits for the stream, so the host cannot enqueue
@@ -2272,6 +2368,10 @@ def main() -> int:
     for k, (nbytes, flops) in work.items():
         t_bytes, t_ops = nbytes / hbm * 1e3, flops / f32_rate * 1e3
         bounds[k] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+    bounds.update(fused_bounds)  # K6's fused form and the peak kernel, at 8x64x65536
+    # they record no gradient: ssq_cwt takes the unfused K6 where one is recorded
+    for k in ("K6.fused", "K6.peak"):
+        backward[k] = ("none: records no gradient (the unfused K6 takes a recorded one)", None)
 
     csrc = "jwave_tpu_torch/csrc/"
     table = [
@@ -2281,6 +2381,11 @@ def main() -> int:
         ("K4 pyramid_rows_transposed", "pyramid.cu", "jwave_tpu/ops/pallas_pyramid.py:141"),
         ("K5 ipyramid_rows_transposed", "pyramid.cu", "jwave_tpu/ops/pallas_pyramid.py:538"),
         ("K6 reassign", "reassign.cu", "jwave_tpu/ops/pallas_reassign.py:29"),
+        # the XLA-fused phase transform and bin index that feed _reassign_kernel
+        ("K6.fused reassign_kernel<Phase> (W and dW in)", "reassign.cu",
+         "jwave_tpu/transforms/ssq.py:162-200"),
+        # the default threshold's max |W|^2, an XLA reduction on the TPU
+        ("K6.peak ssq_peak_kernel", "reassign.cu", "jwave_tpu/transforms/ssq.py:327"),
         # no pallas_call: the counterpart of the XLA/MXU fused inverse pyramid
         ("K7 ipyramid_rows", "pyramid.cu", "jwave_tpu/ops/mxu_pyramid.py:159"),
         # no pallas_call: the counterparts of the MXU tile form of the fused WPT
@@ -2290,10 +2395,14 @@ def main() -> int:
     kernels = []
     for (name, src, replaces) in table:
         k = name.split()[0]
+        # K6's own row counts the unfused form's launches; K6.fused the fused form's
+        fused = launches["K6.fused"], sharded_launches["K6.fused"]
+        own = (launches[k] - fused[0], sharded_launches[k] - fused[1]) if k == "K6" else (
+            launches[k], sharded_launches[k])
         kernels.append({"name": name, "route": "cuda", "source": csrc + src, "replaces": replaces,
-                        "launches": launches[k], "max_abs_err": errors[k],
+                        "launches": own[0], "max_abs_err": errors[k],
                         "main_path_launches": main_launches[k],
-                        "phase_4j_launches": sharded_launches[k],
+                        "phase_4j_launches": own[1],
                         "ms": timing[k][0], "plain_ms": timing[k][1],
                         "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
                         "share_of_bound": bounds[k][0] / timing[k][0],
@@ -2316,6 +2425,7 @@ BENCH_KERNELS = {
     "K3": ("fwt1d_db4_L8", "fwt1d_db4_L8_256x16K_pallas", "fwt3d_db4_L4_256", "pallas_smoke"),
     "K4": ("fwt2d_db4_L6_2048", "fwt2d_db4_L6_2048_bf16dial"),
     "K6": ("ssq_cwt_64scales_8x64K",),
+    "K6.fused": ("ssq_cwt_64scales_8x64K",),
     "K7": ("pallas_smoke",),
     "K8": ("wpt_db4_L6",),
 }
@@ -2439,7 +2549,8 @@ def census_phase(card: str):
                       "launches": launches, "s": time.perf_counter() - t0, "card": card}),
           flush=True)
     require(not mismatches, f"census: {len(mismatches)} mismatches, first {mismatches[:3]}")
-    require(all(launches[k] > 0 for k in launches),
+    # every census case on the card pins gamma, so the peak kernel does not run here
+    require(all(launches[k] > 0 for k in launches if k != "K6.peak"),
             f"census: a kernel was not launched: {launches}")
 
 

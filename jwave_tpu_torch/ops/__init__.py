@@ -26,7 +26,9 @@ def reset_launch_counts():
 
 
 def launch_counts() -> dict:
-    """Launches of K1-K9 since the last :func:`reset_launch_counts`."""
+    """Launches of K1-K9 since the last :func:`reset_launch_counts`; of K6's,
+    those of its fused form (``K6.fused``); and of the peak kernel that the
+    fused form's default threshold runs first (``K6.peak``)."""
     return {"K1": cuda_modwt.launch_counts["modwt_cascade"],
             "K2": cuda_modwt.launch_counts["imodwt_cascade"],
             "K3": cuda_pyramid.launch_counts["pyramid_rows"],
@@ -35,4 +37,6 @@ def launch_counts() -> dict:
             "K6": cuda_reassign.launch_counts["reassign"],
             "K7": cuda_pyramid.launch_counts["ipyramid_rows"],
             "K8": cuda_wpt.launch_counts["wpt_rows"],
-            "K9": cuda_wpt.launch_counts["iwpt_rows"]}
+            "K9": cuda_wpt.launch_counts["iwpt_rows"],
+            "K6.fused": cuda_reassign.fused_launches,
+            "K6.peak": cuda_reassign.peak_launches}

@@ -11,7 +11,10 @@ JAX package's ``transforms/ssq.py`` in PyTorch:
   elementwise on the (scales, time) grid.
 - The reassignment into log-spaced frequency bins is the K6 kernel
   (``ops/cuda_reassign.py``) on a card; see :func:`_squeeze_plane` for the
-  routes.
+  routes. On a CUDA complex64 block with no gradient recorded K6 takes its
+  fused form (:func:`_fused`): the phase transform and the bin index run
+  inside the kernel, which reads W and dW where the inverse FFT left them,
+  after a peak kernel for the default threshold.
 - The working set is bounded: rows of the leading axes run in chunks whose
   peak (:func:`_row_bytes`) fits :data:`CHUNK_SHARE` of the device's memory,
   each writing its slice of one output. The bank, grids and weights stay on
@@ -45,9 +48,10 @@ from ..utils.numerics import next_power_of_two
 from ..utils.profiling import count, count_upload, span, spanned
 from .cwt import PaddingType, _device_constants, _omega_axis, _resolve_wavelet_by_name, \
     _scaled_bank, _signal, _time_axis, _wavelet_key, pad_signal
-from .fft import fft as _fft_any, ifft as _ifft_any
+from .fft import fft as _fft_any
 
 REASSIGN_ROUTES = ("auto", "dense", "scatter", "pallas")
+count("ssq.fused_chunks", 0)  # listed from import on: a chunk that did not fuse reads 0
 
 #: the share of the device's total memory that one chunk of ``ssq_cwt``'s
 #: rows may take at its peak (:func:`_row_bytes`). The output, (..., K, N)
@@ -189,6 +193,38 @@ def _reassign_inputs(W, dW, wgt, freqs_np: np.ndarray, gamma_abs, out_of_range: 
     return contrib, k_idx
 
 
+def _default_gamma(W):
+    """The default |W| threshold 10 sqrt(eps) max|W| of each leading row,
+    (..., 1, 1), in W's real dtype."""
+    mag2 = W.real ** 2 + W.imag ** 2
+    eps = torch.finfo(W.real.dtype).eps
+    return 10.0 * math.sqrt(eps) * torch.sqrt(torch.amax(mag2, dim=(-2, -1), keepdim=True))
+
+
+def _bin_grid(freqs_np: np.ndarray, edges, device) -> cuda_reassign.BinGrid:
+    """The grid as K6's fused form indexes it: the affine map of a
+    log-uniform grid, else the edges (``edges`` where the caller holds them
+    on ``device``, else uploaded here)."""
+    affine = _log_uniform(freqs_np)
+    if affine is None and edges is None:
+        edges = torch.as_tensor(_bin_edges(freqs_np), dtype=torch.float32, device=device)
+    return cuda_reassign.BinGrid(freqs_np.shape[0], float(freqs_np[0]), affine,
+                                 None if affine is not None else edges)
+
+
+def _fused(route: str, device: torch.device, cdtype: torch.dtype, grad: bool) -> bool:
+    """Whether a block takes K6's fused form (the phase transform and bin
+    index inside the kernel, ``cuda_reassign.squeeze``): the kernel's route
+    (:func:`_route`'s "pallas") on a CUDA complex64 block whose gradient is
+    not recorded (``grad``). Every other block runs :func:`_reassign_inputs`,
+    then the route."""
+    return route == "pallas" and device.type == "cuda" and cdtype == torch.complex64 and not grad
+
+
+def _grad(W) -> bool:
+    return torch.is_grad_enabled() and W.requires_grad
+
+
 def _route(reassign: str, device: torch.device, cdtype: torch.dtype) -> str:
     """The reassignment route of ``reassign`` for coefficients of complex
     dtype ``cdtype`` on ``device``: "auto" is K6 ("pallas") on a CUDA
@@ -222,9 +258,14 @@ def _squeeze_plane(W, dW, wgt, freqs_np: np.ndarray, gamma_abs, out_of_range: st
     kernel's route by its JAX name: K6 on CUDA, its plain version on the
     CPU; the block is cast to complex64 first, as in the JAX package),
     "scatter" (one ``scatter_add_``) or "dense" (a masked sum per bin row;
-    no (K, S, N) mask is built).
+    no (K, S, N) mask is built). "auto" and "pallas" take K6's fused form
+    where :func:`_fused` allows it.
     """
     route = _route(reassign, W.device, W.dtype)
+    if _fused(route, W.device, W.dtype, _grad(W)):
+        count("ssq.fused_chunks")
+        return cuda_reassign.squeeze(W, dW, wgt, gamma_abs, _bin_grid(freqs_np, None, W.device),
+                                     out_of_range)
     contrib, k_idx = _reassign_inputs(W, dW, wgt, freqs_np, gamma_abs, out_of_range)
     return _reassign(contrib, k_idx, freqs_np.shape[0], route)
 
@@ -246,24 +287,28 @@ def _default_bins(scales_np: np.ndarray, fc: float, frequencies) -> np.ndarray:
 
 def _stacked_bank(wav: ContinuousWavelet, scales_np: np.ndarray, padded: int, fs: float,
                   cdtype: torch.dtype, device) -> torch.Tensor:
-    """(2S, P) ``[conj(psi_hat_a), i w conj(psi_hat_a)]``, built in float64 and
-    cast to the spectrum's complex dtype ``cdtype``."""
+    """(2S, P) ``[conj(psi_hat_a), i w conj(psi_hat_a)] / P``, built in float64
+    and cast to the spectrum's complex dtype ``cdtype``. The inverse FFT's
+    1/P is folded in here, so that the inverse runs unscaled and no pass
+    scales its (2S, P) output; P is a power of two, so the result is the
+    scaled inverse's to the bit."""
     bank, omega = _scaled_bank(wav, scales_np, _omega_axis(padded, fs), device)
     w_hat = torch.conj(bank)  # (S, P)
-    return torch.cat([w_hat, w_hat * (1j * omega)[None, :]], dim=0).to(cdtype)
+    return (torch.cat([w_hat, w_hat * (1j * omega)[None, :]], dim=0) / padded).to(cdtype)
 
 
 def _cwt_and_derivative(signal: torch.Tensor, scales_np: np.ndarray, wav: ContinuousWavelet,
                         fs: float, padding: PaddingType, stacked: torch.Tensor | None = None):
     """W and dW/db (each (..., S, N)) from one product with the stacked bank
-    (:func:`_stacked_bank`, built here unless given) and one inverse FFT."""
+    (:func:`_stacked_bank`, built here unless given, 1/P in it) and one
+    unscaled inverse FFT."""
     n = signal.shape[-1]
     n_scales = scales_np.shape[0]
     padded_len = next_power_of_two(n)
     sig_fft = _fft_any(pad_signal(signal, padded_len, padding))  # (..., P)
     if stacked is None:
         stacked = _stacked_bank(wav, scales_np, padded_len, fs, sig_fft.dtype, signal.device)
-    out = _ifft_any(sig_fft[..., None, :] * stacked)[..., :n]  # (..., 2S, N)
+    out = torch.fft.ifft(sig_fft[..., None, :] * stacked, norm="forward")[..., :n]  # (..., 2S, N)
     return out[..., :n_scales, :], out[..., n_scales:, :]
 
 
@@ -386,18 +431,21 @@ def ssq_cwt(
     # waits for the stream, and mid-call it would idle the card
     consts = _ssq_constants(wav, scales_np, freqs_np, padded, fs, cdtype, dev)
     n_bins = freqs_np.shape[0]
+    grid = _bin_grid(freqs_np, consts.edges, dev)
 
     def squeeze(x, out=None):
         with span("ssq.chunk", rows=math.prod(x.shape[:-1]), n=n, scales=scales_np.shape[0]):
             count("ssq.chunks")
             with span("ssq.cwt"):
                 W, dW = _cwt_and_derivative(x, scales_np, wav, fs, padding, consts.stacked)
+            if _fused(route, W.device, W.dtype, _grad(W)):
+                count("ssq.fused_chunks")
+                with span("ssq.phase"):
+                    thr = cuda_reassign.row_threshold(W, gamma)
+                return cuda_reassign.squeeze(W, dW, consts.wgt, thr, grid, out_of_range, out)
             with span("ssq.phase"):
                 if gamma is None:
-                    mag2 = W.real ** 2 + W.imag ** 2
-                    eps = torch.finfo(W.real.dtype).eps
-                    gamma_abs = 10.0 * math.sqrt(eps) * torch.sqrt(
-                        torch.amax(mag2, dim=(-2, -1), keepdim=True))
+                    gamma_abs = _default_gamma(W)
                 else:
                     gamma_abs = torch.as_tensor(gamma, dtype=W.real.dtype, device=W.device)
                 contrib, k_idx = _reassign_inputs(W, dW, consts.wgt, freqs_np, gamma_abs,

@@ -161,7 +161,9 @@ def _launch_counts() -> dict:
 
 
 def counts() -> dict:
-    """The counters with the launch counts of K1-K9 as ``launch.K1`` ...:
+    """The counters with the launch counts of K1-K9 as ``launch.K1`` ... (and
+    of K6's fused form and the peak kernel as ``launch.K6.fused`` and
+    ``launch.K6.peak``):
     ``upload.calls``/``upload.bytes`` (host-to-device copies the port makes
     from host memory), ``library.<name>.load_s`` (a kernel library's first
     load in the process: hash, ``nvcc`` if it ran, dlopen),

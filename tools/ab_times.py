@@ -10,7 +10,8 @@ card: the kernels and their consumers.
 tar -x -C build/parent``). Its ``jwave_tpu_torch`` is imported under another
 name beside this tree's, so the two share one process, one CUDA context and
 one card, and whatever slows the host slows both. Each variant's K1, K3, K4,
-K6, K7, K8 and K9 are first held against the plain version (1e-5 of max|ref|).
+K6, K7, K8 and K9 are first held against the plain version (1e-5 of max|ref|),
+and K6's fused form against the eager phase transform and the unfused K6.
 
 The calls are the consumers of K1 (K1 alone at 64 x 65536 db4 L5 and at
 ``denoise``'s 8 x 65536 db4 L4, the entry step ``imodwt(modwt(x))`` and its
@@ -19,7 +20,10 @@ gradient, whose backward runs K1 as K2's adjoint, ``modwt_mra`` at 64 x
 2048^2 db4 L6, the gradient of ``ifwt2d`` there, whose backward runs K4 as
 K5's adjoint), K3 and ``fwt`` at 64 x 65536 db4 L8, K6 at 8 x 64 x 65536 on
 64 bins (uniform random indices in [0, 64], 64 dropped) and ``ssq_cwt`` at
-8 x 65536 with 64 scales, K7 (alone at 64 x 65536 db4 L1, L2, L4 and L8 and
+8 x 65536 with 64 scales, K6's fused form with the peak kernel (the default
+threshold) and the peak kernel alone on the W and dW of ``ssq_cwt`` at 8 x
+64 x 65536 and 2 x 64 x 2^20 (a tree without them runs the same functions
+by its route: the eager phase transform then K6, and ``torch.amax``), K7 (alone at 64 x 65536 db4 L1, L2, L4 and L8 and
 Haar L8, and on 65536 rows of 256 at full depth, ``ifwt`` db4 L8 64 x 65536, the gradient of ``fwt``
 there, whose backward runs K7 as K3's adjoint, ``ifwt3d`` db4 256^3 through
 the FWT facade's reverse, and ``ifwt2d_sharded`` db4 L6 2048^2 in a one-rank
@@ -75,6 +79,7 @@ import argparse
 import importlib
 import importlib.util
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -103,7 +108,7 @@ def _load(name: str, package_dir: Path):
 def _modules(name: str):
     sub = {k: importlib.import_module(f"{name}.{k}") for k in
            ("ops.cuda_build", "ops.cuda_modwt", "ops.cuda_pyramid", "ops.cuda_reassign",
-            "ops.composite", "transforms.modwt")}
+            "ops.composite", "transforms.modwt", "transforms.ssq")}
     try:
         sub["ops.cuda_wpt"] = importlib.import_module(f"{name}.ops.cuda_wpt")
     except ModuleNotFoundError:  # a tree from before K8/K9
@@ -182,6 +187,13 @@ def main() -> int:
     contrib = torch.complex(dev_t((8, 64, 65536)), dev_t((8, 64, 65536)))
     k_idx = torch.as_tensor(rng.integers(0, 65, (8, 64, 65536)), dtype=torch.int32, device=dev)
     ssq_scales = new_jt.generate_log_scales(1e-5, 1e-2, 64)
+    ssq_new = new["transforms.ssq"]
+    ssq_bins = ssq_new._default_bins(ssq_scales, 1.0, None)
+    ssq_wgt = torch.as_tensor(ssq_scales ** -0.5 * ssq_new._log_measure(ssq_scales),
+                              dtype=torch.float32, device=dev)
+    ssq_blocks = {f"{r}x64x{n}": ssq_new._cwt_and_derivative(
+        dev_t((r, n)), ssq_scales, new_jt.MorletWavelet(1.0, 1.0), 1e6,
+        new_jt.PaddingType.SYMMETRIC) for r, n in ((8, 65536), (2, 2**20))}
 
     sharded = any(c in lab for c in args.calls
                   for lab in ("ifwt2d_sharded db4 L6 2048^2", "wpt2d_sharded db4 L6 2048^2",
@@ -214,6 +226,24 @@ def main() -> int:
             img_w = par_m.wpt2d_sharded(img, "db4", mesh, 6, 6)
             extra["iwpt2d_sharded db4 L6 2048^2"] = (
                 lambda: par_m.iwpt2d_sharded(img_w, "db4", mesh, 6, 6))
+        ssq_m = m["transforms.ssq"]
+        for label, (w_b, dw_b) in ssq_blocks.items():
+            if hasattr(cr, "squeeze"):
+                grid = ssq_m._bin_grid(ssq_bins, None, dev)
+                extra[f"K6 fused + peak {label}"] = (
+                    lambda w_b=w_b, dw_b=dw_b, grid=grid: cr.squeeze(w_b, dw_b, ssq_wgt, None,
+                                                                     grid, "clip"))
+                extra[f"peak {label}"] = lambda w_b=w_b: cr.row_peaks(w_b)
+            else:  # the same functions by this tree's route
+                def eager(w_b=w_b, dw_b=dw_b):
+                    g = 10.0 * math.sqrt(torch.finfo(torch.float32).eps) * torch.sqrt(
+                        (w_b.real ** 2 + w_b.imag ** 2).amax(dim=(-2, -1), keepdim=True))
+                    return cr.reassign(*ssq_m._reassign_inputs(w_b, dw_b, ssq_wgt, ssq_bins, g,
+                                                               "clip"), 64)
+
+                extra[f"K6 fused + peak {label}"] = eager
+                extra[f"peak {label}"] = lambda w_b=w_b: torch.amax(
+                    w_b.real ** 2 + w_b.imag ** 2, dim=(-2, -1))
         cw, comp = m["ops.cuda_wpt"], m["ops.composite"]
         wpt_f = jt.TransformBuilder.create("Wavelet Packet Transform", "db4")
         for label, y, lv in (("64x65536 db4 L6", x, 6), ("4096x1024 db4 L6", x1024, 6),
@@ -287,6 +317,12 @@ def main() -> int:
             "K8 64x65536 db4 L6": new["ops.cuda_wpt"].wpt_analysis_torch(x.double(), lo, hi, 6),
             "K9 64x65536 db4 L6": new["ops.cuda_wpt"].wpt_synthesis_torch(x.double(), fb.rec_lo,
                                                                          fb.rec_hi, 6)}
+    for label, (w_b, dw_b) in ssq_blocks.items():  # the eager phase transform, K6 in float64
+        c_b, k_b = ssq_new._reassign_inputs(w_b, dw_b, ssq_wgt, ssq_bins,
+                                            ssq_new._default_gamma(w_b), "clip")
+        refs[f"K6 fused + peak {label}"] = torch.view_as_real(
+            cr.reassign_torch(c_b.to(torch.complex128), k_b, 64))
+        del c_b, k_b
     for v, table in variants.items():
         for key, ref in refs.items():
             if key not in table:
