@@ -202,8 +202,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from jwave_tpu_torch.bench import F32_BOUND
+
 ROOT = Path(__file__).resolve().parent
-F32_BOUND = 1e-5   # max|err| / max|ref| for float32 storage (f32 accumulation)
+#: the H100 SXM's HBM3 rate in bytes/s (data sheet), the byte floors' divisor
+HBM_BYTES_S = 3.35e12
 BF16_BOUND = 1e-2  # bf16 storage rounds each stored value to 2^-9 relative
 REPS = 25
 
@@ -522,12 +525,13 @@ def main() -> int:
         errs = []
         for inter in (False, True):
             lay = "interleaved" if inter else "subband"
-            before = dict(cuda_wpt.launch_counts)
+            before = jt.ops.launch_counts()
             y_w = cuda_wpt.wpt_rows(x_w, fb.dec_lo, fb.dec_hi, levels, interleaved=inter)
             z_w = cuda_wpt.iwpt_rows(x_w, fb.rec_lo, fb.rec_hi, levels, fb.recon_gain, inter)
             torch.cuda.synchronize()
-            require(cuda_wpt.launch_counts == {k: v + 1 for k, v in before.items()},
-                    f"K8/K9 {label} {lay}: not one launch each: {cuda_wpt.launch_counts}")
+            after = jt.ops.launch_counts()
+            require((after["K8"], after["K9"]) == (before["K8"] + 1, before["K9"] + 1),
+                    f"K8/K9 {label} {lay}: not one launch each: {after}")
             errs.append((
                 compare(f"K8 {label} {lay}", y_w, cuda_wpt.wpt_analysis_torch(
                     x_w.double(), fb.dec_lo, fb.dec_hi, levels, 1.0, inter), F32_BOUND),
@@ -1304,7 +1308,7 @@ def main() -> int:
     aed_b = aed_t.get_basic_transform()                      # 1D along the rows
     ya = path("AED over FWT db4 64x100000 (forward)",
               lambda: aed_b.forward(xa_np), ("K3",))            # numpy rows -> "cuda"
-    k3_aed = cuda_pyramid.launch_counts["pyramid_rows"]
+    k3_aed = jt.ops.launch_counts()["K3"]
     print(json.dumps({"check": "AED: one K3 launch per power-of-two chunk", "chunks": chunks,
                       "k3_launches": k3_aed}), flush=True)
     require(k3_aed == chunks, f"AED launched K3 {k3_aed} times for {chunks} chunks")
@@ -1368,7 +1372,7 @@ def main() -> int:
     ref_ip = jt.fwt(xp.double(), "db4")
     y_ip = path("InPlaceFastWaveletTransform.forward_in_place 64x65536",
                 lambda: ip.forward_in_place(buf), ("K3",))
-    k3_ip = cuda_pyramid.launch_counts["pyramid_rows"]
+    k3_ip = jt.ops.launch_counts()["K3"]
     require(k3_ip == 1 and y_ip.data_ptr() == ptr,
             f"in-place FWT: K3 {k3_ip} launches, storage reused {y_ip.data_ptr() == ptr}")
     compare("forward_in_place against fwt in float64", y_ip, ref_ip, F32_BOUND)
@@ -1377,7 +1381,7 @@ def main() -> int:
     eff = jt.EfficientMODWTTransform("db4")
     st_m = path("EfficientMODWTTransform.forward_streaming db4 L5, 2^20 samples, chunks of 65536",
                 lambda: eff.forward_streaming(stream_np, 5, 65536), ("K1",))
-    k1_st = cuda_modwt.launch_counts["modwt_cascade"]
+    k1_st = jt.ops.launch_counts()["K1"]
     require(k1_st == 16, f"forward_streaming launched K1 {k1_st} times for 16 chunks")
     compare("forward_streaming = forward_modwt of the whole signal", st_m,
             eff.forward_modwt(stream_np, 5), F32_BOUND)
@@ -1999,7 +2003,8 @@ def main() -> int:
     print(json.dumps({"time": "K7 on 65536 rows of 256, db4 L8 (ifwt3d's rows)",
                       "ms": median_ms(lambda: cuda_pyramid.ipyramid_rows(x256, rlo, rhi, 1.0, 8),
                                       device=True),
-                      "bound_ms": 2 * 4 * x256.numel() / 3.35e12 * 1e3, "card": card}), flush=True)
+                      "bound_ms": 2 * 4 * x256.numel() / HBM_BYTES_S * 1e3, "card": card}),
+          flush=True)
     del x256
     for rows_p, n_p, lv_p in ((64, 65536, done8), (65536, 256, 8)):
         plan_p = cuda_pyramid.k7_plan(n_p, lv_p, 8)
@@ -2054,7 +2059,7 @@ def main() -> int:
             p1, k1 = median_ms(plain, device=True), median_ms(kernel, device=True)
             k2, p2 = median_ms(kernel, device=True), median_ms(plain, device=True)
             ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-            bound_ms = nbytes / 3.35e12 * 1e3
+            bound_ms = nbytes / HBM_BYTES_S * 1e3
             row.update({f"{label}_ms": ms, f"{label}_plain_ms": plain_ms,
                         f"{label}_bound_ms": bound_ms, f"{label}_share": bound_ms / ms})
             if rows_f == 8:
@@ -2256,7 +2261,7 @@ def main() -> int:
     xa_t = torch.as_tensor(xa_np, device=dev)        # timed on the card: no upload inside
     stream_t = torch.as_tensor(stream_np, device=dev)
     wpt_bytes = 2 * xp.numel() * 4
-    wpt_bound = wpt_bytes / 3.35e12 * 1e3  # H100 SXM HBM3 rate (data sheet)
+    wpt_bound = wpt_bytes / HBM_BYTES_S * 1e3
     for direction, fused_fn, level_fn in (
             ("wpt", lambda: jt.wpt(xp, "db4", 6), lambda: jt.wpt(xp, "db4", 6, fused=False)),
             ("iwpt", lambda: jt.iwpt(yw_f, "db4", 6),
@@ -2319,7 +2324,7 @@ def main() -> int:
                           "busy_ms": busy, "kernels": len(ev), "cufft_ms": fft_ms,
                           "cufft_share_of_busy": fft_ms / busy,
                           "peak_memory_mb": peak[label] / 2**20, "fft_bytes": fft_bytes[label],
-                          "fft_bytes_ms": fft_bytes[label] / 3.35e12 * 1e3,
+                          "fft_bytes_ms": fft_bytes[label] / HBM_BYTES_S * 1e3,
                           unit: count / ms / 1e3, "card": card}), flush=True)
     for key, (ms, plain_ms, lib_ms, wall_ms) in timing.items():
         label, count, unit = shapes[key]
@@ -2352,7 +2357,7 @@ def main() -> int:
     # K4/K5 one pass: 2048^2 in and out, the same FMAs per row; K6: the
     # complex64 contributions and int32 bins in, the complex64 plane out, 2
     # adds each; K8/K9 db4 L6: 64x65536 in and out, M FMAs a sample and level.
-    hbm, f32_rate = 3.35e12, 67e12
+    hbm, f32_rate = HBM_BYTES_S, 67e12
     b, n_s, lv, m8 = 64, 65536, 5, 8
     work = {"K1": (4 * b * n_s * (lv + 2), 2 * 2 * m8 * b * n_s * lv),
             "K2": (4 * b * n_s * (lv + 2), 2 * 2 * m8 * b * n_s * lv),

@@ -1,7 +1,10 @@
 """Torch primitives (butterfly, circular convolutions) and the hand-written
 CUDA kernels K1-K9 with their plain versions. Importing this package builds
-no kernel."""
-from . import cuda_modwt, cuda_pyramid, cuda_reassign, cuda_wpt
+no kernel. Every launch goes through ``cuda_build.launch``, which counts it
+in ``utils.profiling`` as ``launch.<K-name>``; :func:`launch_counts` reads
+those counters back under the K-names."""
+from ..utils.profiling import count, counts
+from . import cuda_build, cuda_modwt, cuda_pyramid, cuda_reassign, cuda_wpt
 from .butterfly import butterfly_forward, butterfly_reverse, ensure_float
 from .circular import (
     circular_conv,
@@ -20,23 +23,16 @@ __all__ = [
 
 
 def reset_launch_counts():
-    """Set every kernel's launch count to 0."""
-    for mod in (cuda_modwt, cuda_pyramid, cuda_reassign, cuda_wpt):
-        mod.reset_launch_counts()
+    """Set the launch counts of :func:`launch_counts` to 0; every other
+    counter of ``utils.profiling`` keeps its value."""
+    for k, v in launch_counts().items():
+        count(f"launch.{k}", -v)
 
 
 def launch_counts() -> dict:
     """Launches of K1-K9 since the last :func:`reset_launch_counts`; of K6's,
     those of its fused form (``K6.fused``); and of the peak kernel that the
-    fused form's default threshold runs first (``K6.peak``)."""
-    return {"K1": cuda_modwt.launch_counts["modwt_cascade"],
-            "K2": cuda_modwt.launch_counts["imodwt_cascade"],
-            "K3": cuda_pyramid.launch_counts["pyramid_rows"],
-            "K4": cuda_pyramid.launch_counts["pyramid_rows_transposed"],
-            "K5": cuda_pyramid.launch_counts["ipyramid_rows_transposed"],
-            "K6": cuda_reassign.launch_counts["reassign"],
-            "K7": cuda_pyramid.launch_counts["ipyramid_rows"],
-            "K8": cuda_wpt.launch_counts["wpt_rows"],
-            "K9": cuda_wpt.launch_counts["iwpt_rows"],
-            "K6.fused": cuda_reassign.fused_launches,
-            "K6.peak": cuda_reassign.peak_launches}
+    fused form's default threshold runs first (``K6.peak``): the counters
+    ``launch.<K-name>`` of ``utils.profiling.counts()``."""
+    now = counts()
+    return {k: now[f"launch.{k}"] for k in cuda_build.KERNELS}

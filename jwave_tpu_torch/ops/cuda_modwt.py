@@ -48,14 +48,12 @@ import torch
 from ..exceptions import JWaveFailure
 from ..utils.profiling import count, span
 from . import cuda_build
+from .cuda_build import MAX_TAPS
 
-#: launches of each kernel since the last :func:`reset_launch_counts`
-launch_counts = {"modwt_cascade": 0, "imodwt_cascade": 0}
 # the launches that take whole rows, listed (at 0) from the start
 count("K1.whole_row_launches", 0)
 count("K2.whole_row_launches", 0)
 
-MAX_TAPS = 64
 #: outputs of one row per block
 TILE = 2048
 #: shared bytes a staged K1 or K2 block may use: a third of an SM's 228 KB
@@ -73,11 +71,6 @@ ROW_SAMPLES = 1024
 _HEAD_BYTES = 2 * MAX_TAPS * 4 + 16 * 8
 
 _STORAGE = (torch.float32, torch.bfloat16)
-
-
-def reset_launch_counts():
-    for k in launch_counts:
-        launch_counts[k] = 0
 
 
 # ----------------------------------------------------------------------------
@@ -242,22 +235,19 @@ def _check_cuda(t: torch.Tensor, ndim: int, what: str):
 
 
 def _check_filters(g0, h0, level: int, what: str):
-    if len(g0) != len(h0) or not 1 <= len(g0) <= MAX_TAPS:
-        raise JWaveFailure(f"{what} - filters must have equal length in [1, {MAX_TAPS}]")
+    cuda_build.check_filters(g0, h0, what)
     if not 1 <= level <= 13:
         raise JWaveFailure(f"{what} - level must be in [1, 13], got {level}")
 
 
-def _entry(lib, name, dtype):
-    fn = getattr(lib, f"{name}_{'f32' if dtype == torch.float32 else 'bf16'}")
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        if name == "jw_modwt_fwd":
-            fn.argtypes = [p, i, p, p, p, i, i, i, i, i, i, i, i, i, p]
-        else:
-            fn.argtypes = [p, p, i, ctypes.c_longlong, p, p, p, i, i, i, i, i, i, i, i, i, p]
-        fn.restype = ctypes.c_int
-    return fn
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_K1_ARGS = [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+_K2_ARGS = [_P, _P, _I, ctypes.c_longlong, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+#: ``csrc/modwt.cu``'s entries (library, symbol, signature) by storage dtype
+_K1 = {torch.float32: ("modwt", "jw_modwt_fwd_f32", _K1_ARGS),
+       torch.bfloat16: ("modwt", "jw_modwt_fwd_bf16", _K1_ARGS)}
+_K2 = {torch.float32: ("modwt", "jw_imodwt_f32", _K2_ARGS),
+       torch.bfloat16: ("modwt", "jw_imodwt_bf16", _K2_ARGS)}
 
 
 def _k1(x: torch.Tensor, g0, h0, level: int) -> torch.Tensor:
@@ -272,15 +262,12 @@ def _k1(x: torch.Tensor, g0, h0, level: int) -> torch.Tensor:
         return out
     rpb = min(rows_per_block(n, level, x.element_size()), b)
     with span("launch.K1", rows=b, n=n, levels=level, rows_per_block=rpb):
-        lib = cuda_build.library("modwt")
-        fn = _entry(lib, "jw_modwt_fwd", x.dtype)
         taps = cuda_build.device_taps(g0, h0, x.device)
-        stream = cuda_build.stream_handle(x.device)
         if rpb:
-            err = fn(x.data_ptr(), 0, out.data_ptr(), None, taps.data_ptr(), b, n, m, level, 1,
-                     level, TILE, 1, rpb, stream)
-            cuda_build.check(lib, err, "modwt_cascade")
-            launch_counts["modwt_cascade"] += 1
+            cuda_build.launch(_K1[x.dtype], (x.data_ptr(), 0, out.data_ptr(), None,
+                                             taps.data_ptr(), b, n, m, level, 1, level, TILE, 1,
+                                             rpb),
+                              x.device, "modwt_cascade", "K1")
             count("K1.whole_row_launches")
             return out
         groups = level_groups(n, m, level)
@@ -289,11 +276,11 @@ def _k1(x: torch.Tensor, g0, h0, level: int) -> torch.Tensor:
         src, src_f32 = x, 0
         for gi, (j0, j1, staged) in enumerate(groups):
             vnext = scratch[gi % 2] if j1 < level else None
-            err = fn(src.data_ptr(), src_f32, out.data_ptr(),
-                     vnext.data_ptr() if vnext is not None else None, taps.data_ptr(),
-                     b, n, m, level, j0, j1, TILE, int(staged), 0, stream)
-            cuda_build.check(lib, err, "modwt_cascade")
-            launch_counts["modwt_cascade"] += 1
+            cuda_build.launch(_K1[x.dtype], (src.data_ptr(), src_f32, out.data_ptr(),
+                                             vnext.data_ptr() if vnext is not None else None,
+                                             taps.data_ptr(), b, n, m, level, j0, j1, TILE,
+                                             int(staged), 0),
+                              x.device, "modwt_cascade", "K1")
             src, src_f32 = vnext, 1
     return out
 
@@ -311,18 +298,15 @@ def _k2(coeffs: torch.Tensor, g0, h0) -> torch.Tensor:
         return out
     rpb = min(rows_per_block(n, level, coeffs.element_size()), b)
     with span("launch.K2", rows=b, n=n, levels=level, rows_per_block=rpb):
-        lib = cuda_build.library("modwt")
-        fn = _entry(lib, "jw_imodwt", coeffs.dtype)
         taps = cuda_build.device_taps(g0, h0, coeffs.device)
-        stream = cuda_build.stream_handle(coeffs.device)
         # V_J is row `level` of the coefficients; later groups read f32 scratch
         vsrc_ptr, vsrc_f32, vstride = (coeffs.data_ptr() + level * n * coeffs.element_size(), 0,
                                        jp1 * n)
         if rpb:
-            err = fn(coeffs.data_ptr(), vsrc_ptr, vsrc_f32, vstride, out.data_ptr(), None,
-                     taps.data_ptr(), b, n, m, level, 1, level, TILE, 1, rpb, stream)
-            cuda_build.check(lib, err, "imodwt_cascade")
-            launch_counts["imodwt_cascade"] += 1
+            cuda_build.launch(_K2[coeffs.dtype], (coeffs.data_ptr(), vsrc_ptr, vsrc_f32, vstride,
+                                                  out.data_ptr(), None, taps.data_ptr(), b, n, m,
+                                                  level, 1, level, TILE, 1, rpb),
+                              coeffs.device, "imodwt_cascade", "K2")
             count("K2.whole_row_launches")
             return out
         groups = inverse_level_groups(n, m, level)[::-1]
@@ -330,11 +314,12 @@ def _k2(coeffs: torch.Tensor, g0, h0) -> torch.Tensor:
                    for _ in range(min(len(groups) - 1, 2))]
         for gi, (j0, j1, staged) in enumerate(groups):
             vnext = scratch[gi % 2] if j0 > 1 else None
-            err = fn(coeffs.data_ptr(), vsrc_ptr, vsrc_f32, vstride, out.data_ptr(),
-                     vnext.data_ptr() if vnext is not None else None, taps.data_ptr(),
-                     b, n, m, level, j0, j1, TILE, int(staged), 0, stream)
-            cuda_build.check(lib, err, "imodwt_cascade")
-            launch_counts["imodwt_cascade"] += 1
+            cuda_build.launch(_K2[coeffs.dtype], (coeffs.data_ptr(), vsrc_ptr, vsrc_f32, vstride,
+                                                  out.data_ptr(),
+                                                  vnext.data_ptr() if vnext is not None else None,
+                                                  taps.data_ptr(), b, n, m, level, j0, j1, TILE,
+                                                  int(staged), 0),
+                              coeffs.device, "imodwt_cascade", "K2")
             if vnext is not None:
                 vsrc_ptr, vsrc_f32, vstride = vnext.data_ptr(), 1, n
     return out

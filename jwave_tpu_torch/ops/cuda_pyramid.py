@@ -51,12 +51,8 @@ import torch
 from ..exceptions import JWaveFailure
 from ..utils.profiling import span
 from . import cuda_build
+from .cuda_build import MAX_TAPS
 
-#: launches of each kernel since the last :func:`reset_launch_counts`
-launch_counts = {"pyramid_rows": 0, "pyramid_rows_transposed": 0,
-                 "ipyramid_rows_transposed": 0, "ipyramid_rows": 0}
-
-MAX_TAPS = 64
 #: K3's plan (``csrc/pyramid.cu``): level-0 samples a tile block owns (two
 #: 93 KB blocks an SM at db4, 512 blocks at 64 x 65536) and its threads;
 #: heads up to ``K3_TAIL_HEAD`` run whole in one block a row (the tail),
@@ -88,11 +84,6 @@ K7_MAX_LEVELS = 31
 K7_META = 36
 K7_HEAD = 2 * MAX_TAPS + 8 + 7 * K7_META
 SMEM_LIMIT = 227 * 1024
-
-
-def reset_launch_counts():
-    for k in launch_counts:
-        launch_counts[k] = 0
 
 
 def levels_done(n: int, tw: int, level: int) -> int:
@@ -338,16 +329,17 @@ def _check(x: torch.Tensor, dec_lo, dec_hi, levels: int, what: str):
         raise JWaveFailure(f"{what} - row length {n} is not a power of two")
     if not 0 <= levels <= n.bit_length() - 1:
         raise JWaveFailure(f"{what} - {levels} levels do not fit rows of {n}")
-    if len(dec_lo) != len(dec_hi) or not 1 <= len(dec_lo) <= MAX_TAPS:
-        raise JWaveFailure(f"{what} - filters must have equal length in [1, {MAX_TAPS}]")
+    cuda_build.check_filters(dec_lo, dec_hi, what)
 
 
-def _fn(lib, name, argtypes):
-    fn = getattr(lib, name)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: ``csrc/pyramid.cu``'s entries (library, symbol, signature)
+_K3_TILE = ("pyramid", "jw_pyramid_tile",
+            [_P, _LL, _P, _LL, _P, _LL, _P, _I, _I, _I, _I, _I, _P, _I, _I, _P])
+_K3_TAIL = ("pyramid", "jw_pyramid_tail", [_P, _LL, _P, _LL, _P, _I, _I, _I, _I, _I, _P])
+_K4 = ("pyramid", "jw_pyramid_rows_t", [_P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P])
+_K5 = ("pyramid", "jw_ipyramid_rows_t", _K4[2])
+_K7 = ("pyramid", "jw_ipyramid_tile", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P])
 
 
 class K3Plan(NamedTuple):
@@ -419,13 +411,6 @@ def _k3_counters(device, stream: int, rows: int) -> torch.Tensor:
     return buf
 
 
-def _gained_taps(f1, f2, gain: float, device) -> torch.Tensor:
-    """The filters [f1 | f2] times ``gain`` (in float64, then float32) on
-    ``device``: K3 and K7 take their gain in the taps."""
-    return cuda_build.device_taps(np.asarray(f1, np.float64) * gain,
-                                  np.asarray(f2, np.float64) * gain, device)
-
-
 def _k3(x: torch.Tensor, dec_lo, dec_hi, levels: int, plan: K3Plan | None = None,
         gain: float = 1.0) -> torch.Tensor:
     """K3 on the card. Heads longer than ``K3_TAIL_HEAD`` lose their leading
@@ -442,12 +427,7 @@ def _k3(x: torch.Tensor, dec_lo, dec_hi, levels: int, plan: K3Plan | None = None
     if r == 0:
         return out
     with span("launch.K3", rows=r, n=n, levels=levels):
-        lib = cuda_build.library("pyramid")
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        tile_fn = _fn(lib, "jw_pyramid_tile", [p, ll, p, ll, p, ll, p, i, i, i, i, i, p, i, i, p])
-        tail_fn = _fn(lib, "jw_pyramid_tail", [p, ll, p, ll, p, i, i, i, i, i, p])
-        taps = _gained_taps(dec_lo, dec_hi, gain, x.device)
-        stream = cuda_build.stream_handle(x.device)
+        taps = cuda_build.device_taps(dec_lo, dec_hi, x.device, gain)
         m = len(dec_lo)
         src, head, left = x, n, levels
         while left > 0 and (plan is not None or head > K3_TAIL_HEAD):
@@ -460,23 +440,22 @@ def _k3(x: torch.Tensor, dec_lo, dec_hi, levels: int, plan: K3Plan | None = None
             done = pl.levels + pl.tail_levels
             dst = out if pl.levels == left else torch.empty(
                 (r, head >> pl.levels), dtype=torch.float32, device=x.device)
-            counters = (_k3_counters(x.device, stream.value or 0, r).data_ptr()
-                        if pl.tail_levels else None)
-            err = tile_fn(src.data_ptr(), src.shape[1], out.data_ptr(), n, dst.data_ptr(),
-                          dst.shape[1], taps.data_ptr(), r, head, pl.tile, pl.levels,
-                          pl.tail_levels, counters, m, K3_TILE_THREADS, stream)
-            cuda_build.check(lib, err, "pyramid_rows")
-            launch_counts["pyramid_rows"] += 1
+            counters = (_k3_counters(x.device, cuda_build.stream_handle(x.device).value or 0,
+                                     r).data_ptr() if pl.tail_levels else None)
+            cuda_build.launch(_K3_TILE, (src.data_ptr(), src.shape[1], out.data_ptr(), n,
+                                         dst.data_ptr(), dst.shape[1], taps.data_ptr(), r, head,
+                                         pl.tile, pl.levels, pl.tail_levels, counters, m,
+                                         K3_TILE_THREADS),
+                              x.device, "pyramid_rows", "K3")
             src, head, left = dst, head >> pl.levels, left - done
         if left > 0 or levels == 0:
             if left > 0 and head > K3_TAIL_MAX_HEAD:
                 raise JWaveFailure(f"pyramid_rows - a head of {head} with {m} taps exceeds one "
                                    "block's shared memory")
             threads = min(K3_TAIL_THREADS, max(32, head // 2))
-            err = tail_fn(src.data_ptr(), src.shape[1], out.data_ptr(), n, taps.data_ptr(), r,
-                          head, left, m, threads, stream)
-            cuda_build.check(lib, err, "pyramid_rows")
-            launch_counts["pyramid_rows"] += 1
+            cuda_build.launch(_K3_TAIL, (src.data_ptr(), src.shape[1], out.data_ptr(), n,
+                                         taps.data_ptr(), r, head, left, m, threads),
+                              x.device, "pyramid_rows", "K3")
     return out
 
 
@@ -561,37 +540,27 @@ def k7_plan(n: int, levels: int, m: int, tile: int | None = None,
                   threads)
 
 
-def _k7_fn(lib):
-    p, i = ctypes.c_void_p, ctypes.c_int
-    return _fn(lib, "jw_ipyramid_tile", [p, p, p, i, i, i, i, i, i, i, p, p])
-
-
 @functools.lru_cache(maxsize=None)
 def k7_blocks_per_sm(device_index: int, n: int, levels: int, m: int, plan: K7Plan) -> int:
     """The K7 blocks one SM of the card holds at ``plan``
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor), asked once a plan."""
-    lib = cuda_build.library("pyramid")
+    fn = cuda_build.entry(*_K7)
     got = ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        err = _k7_fn(lib)(None, None, None, 0, n, plan.tile, levels, m, plan.threads - 32, 0,
-                          ctypes.byref(got), None)
-    cuda_build.check(lib, err, "ipyramid_rows")
+        err = fn(None, None, None, 0, n, plan.tile, levels, m, plan.threads - 32, 0,
+                 ctypes.byref(got), None)
+    cuda_build.check(cuda_build.library("pyramid"), err, "ipyramid_rows")
     if got.value < 1:
         raise JWaveFailure(f"ipyramid_rows - a block of {plan.smem_bytes} shared bytes does not "
                            "fit an SM")
     return got.value
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
-
-
 def k7_grid(device, rows: int, n: int, levels: int, m: int, plan: K7Plan) -> int:
     """K7's persistent blocks: one wave, min(items, SMs x blocks an SM)."""
     index = device.index if device.index is not None else torch.cuda.current_device()
     return min(k7_items(rows, n, plan),
-               _sm_count(index) * k7_blocks_per_sm(index, n, levels, m, plan))
+               cuda_build.sm_count(index) * k7_blocks_per_sm(index, n, levels, m, plan))
 
 
 def _k7(y: torch.Tensor, rec_lo, rec_hi, recon_gain: float, levels: int,
@@ -617,14 +586,12 @@ def _k7(y: torch.Tensor, rec_lo, rec_hi, recon_gain: float, levels: int,
     if r == 0:
         return out
     with span("launch.K7", rows=r, n=n, levels=levels):
-        lib = cuda_build.library("pyramid")
         m = len(rec_lo)
-        taps = _gained_taps(rec_lo, rec_hi, recon_gain, y.device)
-        err = _k7_fn(lib)(y.data_ptr(), out.data_ptr(), taps.data_ptr(), r, n, plan.tile, levels,
-                          m, plan.threads - 32, k7_grid(y.device, r, n, levels, m, plan), None,
-                          cuda_build.stream_handle(y.device))
-        cuda_build.check(lib, err, "ipyramid_rows")
-        launch_counts["ipyramid_rows"] += 1
+        taps = cuda_build.device_taps(rec_lo, rec_hi, y.device, recon_gain)
+        cuda_build.launch(_K7, (y.data_ptr(), out.data_ptr(), taps.data_ptr(), r, n, plan.tile,
+                                levels, m, plan.threads - 32,
+                                k7_grid(y.device, r, n, levels, m, plan), None),
+                          y.device, "ipyramid_rows", "K7")
     return out
 
 
@@ -673,14 +640,10 @@ def _k4(x: torch.Tensor, dec_lo, dec_hi, levels: int, gain: float) -> torch.Tens
     if r == 0:
         return out
     with span("launch.K4", rows=r, n=n, levels=levels):
-        lib = cuda_build.library("pyramid")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn = _fn(lib, "jw_pyramid_rows_t", [p, p, p, i, i, i, i, i, ctypes.c_float, i, p])
         taps = cuda_build.device_taps(dec_lo, dec_hi, x.device)
-        err = fn(x.data_ptr(), out.data_ptr(), taps.data_ptr(), r, n, levels, len(dec_lo), rb,
-                 float(gain), K4_THREADS, cuda_build.stream_handle(x.device))
-        cuda_build.check(lib, err, "pyramid_rows_transposed")
-        launch_counts["pyramid_rows_transposed"] += 1
+        cuda_build.launch(_K4, (x.data_ptr(), out.data_ptr(), taps.data_ptr(), r, n, levels,
+                                len(dec_lo), rb, float(gain), K4_THREADS),
+                          x.device, "pyramid_rows_transposed", "K4")
     return out
 
 
@@ -733,14 +696,10 @@ def _k5(y: torch.Tensor, rec_lo, rec_hi, recon_gain: float, levels: int) -> torc
     if r == 0:
         return out
     with span("launch.K5", rows=r, n=n, levels=levels):
-        lib = cuda_build.library("pyramid")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn = _fn(lib, "jw_ipyramid_rows_t", [p, p, p, i, i, i, i, i, ctypes.c_float, i, p])
         taps = cuda_build.device_taps(rec_lo, rec_hi, y.device)
-        err = fn(y.data_ptr(), out.data_ptr(), taps.data_ptr(), r, n, levels, len(rec_lo), rb,
-                 float(recon_gain), K5_THREADS, cuda_build.stream_handle(y.device))
-        cuda_build.check(lib, err, "ipyramid_rows_transposed")
-        launch_counts["ipyramid_rows_transposed"] += 1
+        cuda_build.launch(_K5, (y.data_ptr(), out.data_ptr(), taps.data_ptr(), r, n, levels,
+                                len(rec_lo), rb, float(recon_gain), K5_THREADS),
+                          y.device, "ipyramid_rows_transposed", "K5")
     return out
 
 

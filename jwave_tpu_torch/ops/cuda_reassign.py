@@ -34,13 +34,6 @@ from ..exceptions import JWaveFailure
 from ..utils.profiling import span
 from . import cuda_build
 
-#: launches of the kernel (either form) since the last :func:`reset_launch_counts`
-launch_counts = {"reassign": 0}
-#: of those, launches of the fused form (:func:`squeeze`)
-fused_launches = 0
-#: launches of the peak kernel (``ssq_peak_kernel``) since then
-peak_launches = 0
-
 #: bins one block accumulates (``kChunk`` in the source)
 BIN_CHUNK = 64
 #: the block's plan (``csrc/reassign.cu``): time columns (= threads) a
@@ -53,12 +46,13 @@ FUSED_STAGES = 3
 #: columns a block of the peak kernel takes (``kPeakCols``)
 PEAK_COLS = 4096
 
-
-def reset_launch_counts():
-    global fused_launches, peak_launches
-    for k in launch_counts:
-        launch_counts[k] = 0
-    fused_launches = peak_launches = 0
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+#: ``csrc/reassign.cu``'s entries (library, symbol, signature): K6, its fused
+#: form and the peak kernel
+_K6 = ("reassign", "jw_reassign", [_P, _P, _P, _I, _I, _I, _I, _P])
+_FUSED = ("reassign", "jw_reassign_fused",
+          [_P, _P, _LL, _LL, _P, _P, _I, _F, _F, _F, _F, _F, _P, _I, _P, _I, _I, _I, _I, _P])
+_PEAK = ("reassign", "jw_ssq_peak", [_P, _LL, _LL, _I, _I, _I, _P, _P])
 
 
 class BinGrid(NamedTuple):
@@ -167,16 +161,8 @@ def _launch(contrib: torch.Tensor, k_idx: torch.Tensor, n_bins: int,
     if g * -(-n // K6_TILE) >= 2**31:
         raise JWaveFailure(f"reassign - {g} x {n} columns exceed one launch")
     with span("launch.K6", rows=g, n=n, bins=n_bins):
-        lib = cuda_build.library("reassign")
-        fn = lib.jw_reassign
-        if fn.argtypes is None:
-            p, i = ctypes.c_void_p, ctypes.c_int
-            fn.argtypes = [p, p, p, i, i, i, i, p]
-            fn.restype = ctypes.c_int
-        err = fn(c.data_ptr(), k.data_ptr(), out.data_ptr(), g, s, n, n_bins,
-                 cuda_build.stream_handle(c.device))
-        cuda_build.check(lib, err, "reassign")
-        launch_counts["reassign"] += 1
+        cuda_build.launch(_K6, (c.data_ptr(), k.data_ptr(), out.data_ptr(), g, s, n, n_bins),
+                          c.device, "reassign", "K6")
     return out
 
 
@@ -200,7 +186,6 @@ def row_peaks(W: torch.Tensor) -> torch.Tensor:
     + W.imag**2, dim=(-2, -1))`` (a NaN wins, as there). ``W`` is a (..., S,
     N) complex64 CUDA tensor, read in place where its time axis has unit
     stride."""
-    global peak_launches
     _check_block(W, "row_peaks")
     w3 = _rows(W.resolve_conj())
     if w3.stride(-1) != 1:
@@ -212,16 +197,9 @@ def row_peaks(W: torch.Tensor) -> torch.Tensor:
         return peak
     if g * s * -(-n // PEAK_COLS) >= 2**31:
         raise JWaveFailure(f"row_peaks - {g} x {s} x {n} coefficients exceed one launch")
-    lib = cuda_build.library("reassign")
-    fn = lib.jw_ssq_peak
-    if fn.argtypes is None:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, ll, ll, i, i, i, p, p]
-        fn.restype = ctypes.c_int
-    err = fn(w3.data_ptr(), w3.stride(0), w3.stride(1), g, s, n, peak.data_ptr(),
-             cuda_build.stream_handle(W.device))
-    cuda_build.check(lib, err, "row_peaks")
-    peak_launches += 1
+    cuda_build.launch(_PEAK, (w3.data_ptr(), w3.stride(0), w3.stride(1), g, s, n,
+                              peak.data_ptr()),
+                      W.device, "row_peaks", "K6.peak")
     return peak
 
 
@@ -264,7 +242,6 @@ def squeeze(W: torch.Tensor, dW: torch.Tensor, wgt, gamma, grid: BinGrid, out_of
     :class:`BinGrid`; ``out`` as in :func:`reassign`. Computes in float32
     with each rounding of torch's eager kernels, so the bins are theirs.
     Records no gradient."""
-    global fused_launches
     if out_of_range not in ("clip", "drop"):
         raise JWaveFailure(f"ssq_cwt - out_of_range must be 'clip' or 'drop', got {out_of_range!r}")
     _check_block(W, "squeeze")
@@ -307,20 +284,12 @@ def squeeze(W: torch.Tensor, dW: torch.Tensor, wgt, gamma, grid: BinGrid, out_of
     inv_2pi = float(np.float32(1) / np.float32(2.0 * math.pi))
     peak_scale = 10.0 * math.sqrt(torch.finfo(torch.float32).eps)
     with span("launch.K6", rows=g, n=n, bins=n_bins, fused=1):
-        lib = cuda_build.library("reassign")
-        fn = lib.jw_reassign_fused
-        if fn.argtypes is None:
-            p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-            fn.argtypes = [p, p, ll, ll, p, p, i, f, f, f, f, f, p, i, p, i, i, i, i, p]
-            fn.restype = ctypes.c_int
-        err = fn(w3.data_ptr(), dw3.data_ptr(), w3.stride(0), w3.stride(1), w_s.data_ptr(),
-                 thr.values.data_ptr(), int(thr.from_peak), peak_scale, grid.f_lo, log_f0,
-                 inv_dlf, inv_2pi, None if edges is None else edges.data_ptr(),
-                 int(out_of_range == "drop"), out.data_ptr(), g, s, n, n_bins,
-                 cuda_build.stream_handle(W.device))
-        cuda_build.check(lib, err, "squeeze")
-        launch_counts["reassign"] += 1
-        fused_launches += 1
+        cuda_build.launch(_FUSED, (w3.data_ptr(), dw3.data_ptr(), w3.stride(0), w3.stride(1),
+                                   w_s.data_ptr(), thr.values.data_ptr(), int(thr.from_peak),
+                                   peak_scale, grid.f_lo, log_f0, inv_dlf, inv_2pi,
+                                   None if edges is None else edges.data_ptr(),
+                                   int(out_of_range == "drop"), out.data_ptr(), g, s, n, n_bins),
+                          W.device, "squeeze", "K6", "K6.fused")
     return out
 
 

@@ -62,16 +62,12 @@ from ..exceptions import JWaveFailure
 from ..utils.profiling import span
 from . import cuda_build
 
-#: launches of each kernel since the last :func:`reset_launch_counts`
-launch_counts = {"wpt_rows": 0, "iwpt_rows": 0}
-
-#: ``csrc/wpt.cu``: the most taps and levels, a block's threads (the compute
+#: ``csrc/wpt.cu``: the most levels, a block's threads (the compute
 #: threads, at most 256, and the producer warp), output samples a work item
 #: (rows longer than it; else tile // h whole rows an item), the ints of each
 #: cone table, the floats past a tiled K8 buffer that a group's reads reach,
 #: and the shared floats before the stage sets (each set's two mbarriers and
 #: three cone tables)
-MAX_TAPS = 64
 MAX_LEVELS = 12
 WPT_THREADS = 128 + 32
 WPT_TILE = 4096
@@ -85,11 +81,6 @@ SMEM_LIMIT = 227 * 1024
 SM_SMEM = 228 * 1024
 BLOCK_RESERVED = 1024
 WPT_BLOCKS_PER_SM = 4
-
-
-def reset_launch_counts():
-    for k in launch_counts:
-        launch_counts[k] = 0
 
 
 def _round4(v: int) -> int:
@@ -406,20 +397,15 @@ def _check(x: torch.Tensor, lo, hi, levels: int, what: str):
         raise JWaveFailure(f"{what} - row length {h} is not a power of two")
     if not 1 <= levels <= min(MAX_LEVELS, h.bit_length() - 1):
         raise JWaveFailure(f"{what} - {levels} levels do not fit rows of {h}")
-    if len(lo) != len(hi) or not 1 <= len(lo) <= MAX_TAPS:
-        raise JWaveFailure(f"{what} - filters must have equal length in [1, {MAX_TAPS}]")
+    cuda_build.check_filters(lo, hi, what)
 
 
-def _fn(lib, symbol: str):
-    fn = getattr(lib, symbol)
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p, p]
-        fn.restype = ctypes.c_int
-    return fn
-
-
-_SYMBOLS = {False: ("jw_wpt_analysis", "wpt_rows"), True: ("jw_wpt_synthesis", "iwpt_rows")}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P]
+#: inverse -> (``csrc/wpt.cu``'s entry: library, symbol, signature), the
+#: wrapper's name and the kernel's K-name
+_SYMBOLS = {False: (("wpt", "jw_wpt_analysis", _ARGTYPES), "wpt_rows", "K8"),
+            True: (("wpt", "jw_wpt_synthesis", _ARGTYPES), "iwpt_rows", "K9")}
 
 
 @functools.lru_cache(maxsize=None)
@@ -427,21 +413,16 @@ def wpt_blocks_per_sm(device_index: int, h: int, levels: int, m: int, inverse: b
                       plan: WptPlan) -> int:
     """The K8 (K9) blocks one SM of the card holds at ``plan``
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor), asked once a plan."""
-    symbol, key = _SYMBOLS[inverse]
-    lib = cuda_build.library("wpt")
+    kernel, key, _ = _SYMBOLS[inverse]
+    fn = cuda_build.entry(*kernel)
     got = ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        err = _fn(lib, symbol)(None, None, None, 1, h, plan.tile, levels, m, 0, plan.threads - 32,
-                               0, ctypes.byref(got), None)
-    cuda_build.check(lib, err, key)
+        err = fn(None, None, None, 1, h, plan.tile, levels, m, 0, plan.threads - 32, 0,
+                 ctypes.byref(got), None)
+    cuda_build.check(cuda_build.library("wpt"), err, key)
     if got.value < 1:
         raise JWaveFailure(f"{key} - a block of {plan.smem_bytes} shared bytes does not fit an SM")
     return got.value
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def wpt_grid(device, rows: int, h: int, levels: int, m: int, inverse: bool,
@@ -449,7 +430,7 @@ def wpt_grid(device, rows: int, h: int, levels: int, m: int, inverse: bool,
     """K8's (K9's) persistent blocks: one wave, min(items, SMs x blocks an SM)."""
     index = device.index if device.index is not None else torch.cuda.current_device()
     return min(wpt_items(rows, h, plan),
-               _sm_count(index) * wpt_blocks_per_sm(index, h, levels, m, inverse, plan))
+               cuda_build.sm_count(index) * wpt_blocks_per_sm(index, h, levels, m, inverse, plan))
 
 
 def _launch(x: torch.Tensor, lo, hi, levels: int, gain: float, interleaved: bool,
@@ -457,7 +438,7 @@ def _launch(x: torch.Tensor, lo, hi, levels: int, gain: float, interleaved: bool
     """One launch of K8 (K9 with ``inverse``) on the card: one wave of
     persistent blocks over the work items (``plan`` overrides
     :func:`wpt_plan`, ``grid`` :func:`wpt_grid`)."""
-    symbol, key = _SYMBOLS[inverse]
+    kernel, key, name = _SYMBOLS[inverse]
     _check(x, lo, hi, levels, key)
     r, h = x.shape
     m = len(lo)
@@ -470,17 +451,15 @@ def _launch(x: torch.Tensor, lo, hi, levels: int, gain: float, interleaved: bool
     out = torch.empty_like(x)
     if r == 0:
         return out
-    with span("launch.K9" if inverse else "launch.K8", rows=r, n=h, levels=levels):
-        lib = cuda_build.library("wpt")
+    with span(f"launch.{name}", rows=r, n=h, levels=levels):
         # the taps go by value, as a kernel parameter: host floats [lo | hi]
         taps = (np.concatenate([np.asarray(lo, np.float64), np.asarray(hi, np.float64)])
                 * gain).astype(np.float32)
         grid = grid or wpt_grid(x.device, r, h, levels, m, inverse, plan)
-        err = _fn(lib, symbol)(x.data_ptr(), out.data_ptr(), taps.ctypes.data_as(ctypes.c_void_p),
-                               r, h, plan.tile, levels, m, int(interleaved), plan.threads - 32,
-                               grid, None, cuda_build.stream_handle(x.device))
-        cuda_build.check(lib, err, key)
-        launch_counts[key] += 1
+        cuda_build.launch(kernel, (x.data_ptr(), out.data_ptr(),
+                                   taps.ctypes.data_as(ctypes.c_void_p), r, h, plan.tile, levels, m,
+                                   int(interleaved), plan.threads - 32, grid, None),
+                          x.device, key, name)
     return out
 
 

@@ -15,8 +15,8 @@ profiler's Chrome trace (its ``ts`` in us is ``(t_ns -
 baseTimeNanoseconds) / 1000``); :func:`trace` writes the spans of its run
 into its Chrome trace as ``jw.<name>`` annotations beside the kernels they
 launched. Otherwise a span is one shared null context: no clock read, no
-record. :func:`count` adds to named counters, always on; :func:`counts`
-gives them with the kernels' launch counts.
+record. :func:`count` adds to named counters, always on, the kernels'
+launch counts among them; :func:`counts` gives them.
 """
 from __future__ import annotations
 
@@ -107,7 +107,7 @@ class _Span:
             self.parent, self.request, self.before = top.name, top.request, None
         else:
             self.parent, self.request = None, next(_REQUESTS)
-            self.before = dict(_COUNTS), _launch_counts()
+            self.before = dict(_COUNTS)
         stack.append(self)
         self.start = time.time_ns()
         return self
@@ -117,12 +117,9 @@ class _Span:
         _OPEN.stack.pop()
         changed = None
         if self.before is not None:
-            registry, launches = self.before
-            changed = {k: v - registry.get(k, 0) for k, v in _COUNTS.items()
-                       if v != registry.get(k, 0)}
-            changed.update((f"launch.{k}", v - launches[k])
-                           for k, v in _launch_counts().items() if v != launches[k])
-            changed = changed or None
+            before = self.before
+            changed = {k: v - before.get(k, 0) for k, v in _COUNTS.items()
+                       if v != before.get(k, 0)} or None
         if len(_SPANS) < SPAN_CAP * _FIELDS:
             _SPANS.extend((self.name, self.parent, self.request, self.start, end, self.args,
                            changed))
@@ -149,21 +146,10 @@ def count(name: str, n=1):
     _COUNTS[name] = _COUNTS.get(name, 0) + n
 
 
-@functools.cache
-def _ops():
-    from .. import ops  # imported at first use: ops imports this module
-
-    return ops
-
-
-def _launch_counts() -> dict:
-    return _ops().launch_counts()
-
-
 def counts() -> dict:
-    """The counters with the launch counts of K1-K9 as ``launch.K1`` ... (and
-    of K6's fused form and the peak kernel as ``launch.K6.fused`` and
-    ``launch.K6.peak``):
+    """The counters: ``launch.K1`` ... ``launch.K9``, ``launch.K6.fused``
+    and ``launch.K6.peak`` (the launches of K1-K9, of K6's fused form and of
+    the peak kernel, counted by ``ops.cuda_build.launch``),
     ``upload.calls``/``upload.bytes`` (host-to-device copies the port makes
     from host memory), ``library.<name>.load_s`` (a kernel library's first
     load in the process: hash, ``nvcc`` if it ran, dlopen),
@@ -171,16 +157,13 @@ def counts() -> dict:
     and K2 that keep whole rows in a block), ``ssq.chunks`` (the chunks of
     rows ``ssq_cwt`` ran), ``ssq.constant_builds``/``cwt.constant_builds``
     (device constants built on a cache miss) and ``spans.dropped``."""
-    out = dict(_COUNTS)
-    out.update((f"launch.{k}", v) for k, v in _launch_counts().items())
-    return out
+    return dict(_COUNTS)
 
 
 def reset_counts():
-    """Set every counter and launch count to 0."""
+    """Set every counter to 0, the launch counts among them."""
     for k in _COUNTS:
         _COUNTS[k] = 0
-    _ops().reset_launch_counts()
 
 
 def count_upload(t: torch.Tensor) -> torch.Tensor:

@@ -101,7 +101,7 @@ def test_k1_k2_match_plain(cuda, shape, wavelet, level, dtype):
     x = torch.as_tensor(np.random.default_rng(0).standard_normal(shape), dtype=dtype,
                         device=cuda)
     bound = F32_BOUND if dtype == torch.float32 else BF16_BOUND
-    before = dict(cuda_modwt.launch_counts)
+    before = jt.ops.launch_counts()
     whole_before = profiling.counts()
     c = cuda_modwt.modwt_cascade(x, g0, h0, level)
     back = cuda_modwt.imodwt_cascade(c, g0, h0)
@@ -110,8 +110,8 @@ def test_k1_k2_match_plain(cuda, shape, wavelet, level, dtype):
     assert _rel_err(c, cuda_modwt.modwt_cascade_torch(x.double(), g0, h0, level)) <= bound
     assert _rel_err(back, cuda_modwt.imodwt_cascade_torch(c.double(), g0, h0)) <= bound
     k1, k2, whole = _k1_k2_launches(shape, len(g0), level, dtype)
-    assert cuda_modwt.launch_counts["modwt_cascade"] == before["modwt_cascade"] + k1
-    assert cuda_modwt.launch_counts["imodwt_cascade"] == before["imodwt_cascade"] + k2
+    assert jt.ops.launch_counts()["K1"] == before["K1"] + k1
+    assert jt.ops.launch_counts()["K2"] == before["K2"] + k2
     for k in ("K1", "K2"):
         key = f"{k}.whole_row_launches"
         assert profiling.counts()[key] == whole_before[key] + whole
@@ -138,7 +138,7 @@ def test_k1_matches_plain(cuda, shape, wavelet, level, dtype):
     g0, h0 = _modwt_base_filters(wavelet)
     x = torch.as_tensor(np.random.default_rng(10).standard_normal(shape), dtype=dtype,
                         device=cuda)
-    before = cuda_modwt.launch_counts["modwt_cascade"]
+    before = jt.ops.launch_counts()["K1"]
     torch.full((shape[0], level + 1, shape[1]), float("nan"), dtype=dtype, device=cuda)
     c = cuda_modwt.modwt_cascade(x, g0, h0, level)
     torch.cuda.synchronize()
@@ -146,7 +146,7 @@ def test_k1_matches_plain(cuda, shape, wavelet, level, dtype):
     bound = F32_BOUND if dtype == torch.float32 else BF16_BOUND
     assert _rel_err(c, cuda_modwt.modwt_cascade_torch(x.double(), g0, h0, level)) <= bound
     k1, _, _ = _k1_k2_launches(shape, len(g0), level, dtype)
-    assert cuda_modwt.launch_counts["modwt_cascade"] == before + k1
+    assert jt.ops.launch_counts()["K1"] == before + k1
 
 
 @pytest.mark.cuda
@@ -235,11 +235,11 @@ def test_k3_counters_are_zero_again_after_a_launch(cuda):
     fb = jt.get_filter("db4")
     x = torch.as_tensor(np.random.default_rng(14).standard_normal((64, 65536)),
                         dtype=torch.float32, device=cuda)
-    before = cuda_pyramid.launch_counts["pyramid_rows"]
+    before = jt.ops.launch_counts()["K3"]
     a = cuda_pyramid.pyramid_rows(x, fb.dec_lo, fb.dec_hi, 16)
     b = cuda_pyramid.pyramid_rows(x, fb.dec_lo, fb.dec_hi, 16)
     torch.cuda.synchronize()
-    assert cuda_pyramid.launch_counts["pyramid_rows"] == before + 2  # one launch a call
+    assert jt.ops.launch_counts()["K3"] == before + 2  # one launch a call
     assert torch.equal(a, b)
     assert _rel_err(b, cuda_pyramid.pyramid_rows_torch(x.double(), fb.dec_lo, fb.dec_hi,
                                                        16)) <= F32_BOUND
@@ -278,14 +278,14 @@ def test_k7_matches_plain(cuda, shape, wavelet, level):
     y = torch.as_tensor(np.random.default_rng(16).standard_normal(shape), dtype=torch.float32,
                         device=cuda)
     done = cuda_pyramid.levels_done(shape[1], fb.transform_wavelength, level)
-    before = cuda_pyramid.launch_counts["ipyramid_rows"]
+    before = jt.ops.launch_counts()["K7"]
     torch.full(shape, float("nan"), device=cuda)  # an element left unstored shows
     x = cuda_pyramid.ipyramid_rows(y, fb.rec_lo, fb.rec_hi, fb.recon_gain, done)
     torch.cuda.synchronize()
     ref = cuda_pyramid.ipyramid_rows_torch(y.double(), fb.rec_lo, fb.rec_hi, fb.recon_gain, done)
     assert bool(torch.isfinite(x).all())
     assert _rel_err(x, ref) <= F32_BOUND
-    assert cuda_pyramid.launch_counts["ipyramid_rows"] == before + 1  # one launch a call
+    assert jt.ops.launch_counts()["K7"] == before + 1  # one launch a call
 
 
 @pytest.mark.cuda
@@ -298,12 +298,12 @@ def test_k7_short_rows_every_level(cuda, n, wavelet):
     y = torch.as_tensor(np.random.default_rng(17).standard_normal((5, n)), dtype=torch.float32,
                         device=cuda)
     for levels in range(n.bit_length()):
-        before = cuda_pyramid.launch_counts["ipyramid_rows"]
+        before = jt.ops.launch_counts()["K7"]
         x = cuda_pyramid.ipyramid_rows(y, fb.rec_lo, fb.rec_hi, 1.0, levels)
         torch.cuda.synchronize()
         ref = cuda_pyramid.ipyramid_rows_torch(y.double(), fb.rec_lo, fb.rec_hi, 1.0, levels)
         assert _rel_err(x, ref) <= F32_BOUND, levels
-        assert cuda_pyramid.launch_counts["ipyramid_rows"] == before + (levels > 0)
+        assert jt.ops.launch_counts()["K7"] == before + (levels > 0)
 
 
 @pytest.mark.cuda
@@ -346,13 +346,13 @@ def test_k7_multi_row_blocks(cuda, shape, wavelet, level):
     done = cuda_pyramid.levels_done(shape[1], fb.transform_wavelength, level)
     plan = cuda_pyramid.k7_plan(shape[1], done, len(fb.rec_lo))
     assert shape[1] <= plan.tile and plan.rows == plan.tile // shape[1]
-    before = cuda_pyramid.launch_counts["ipyramid_rows"]
+    before = jt.ops.launch_counts()["K7"]
     x = cuda_pyramid.ipyramid_rows(y, fb.rec_lo, fb.rec_hi, fb.recon_gain, done)
     torch.cuda.synchronize()
     ref = cuda_pyramid.ipyramid_rows_torch(y.double(), fb.rec_lo, fb.rec_hi, fb.recon_gain, done)
     assert bool(torch.isfinite(x).all())
     assert _rel_err(x, ref) <= F32_BOUND
-    assert cuda_pyramid.launch_counts["ipyramid_rows"] == before + 1
+    assert jt.ops.launch_counts()["K7"] == before + 1
 
 
 @pytest.mark.cuda
@@ -416,11 +416,11 @@ def test_inverse_fwt_paths_route_through_k7(cuda):
         "ifwt2d 4x32768": (lambda: jt.ifwt2d(jt.fwt2d(wide, "db4"), "db4"), wide, 2),
     }
     for label, (fn, want, k7) in calls.items():
-        cuda_pyramid.reset_launch_counts()
+        jt.ops.reset_launch_counts()
         got = fn()
         torch.cuda.synchronize()
-        assert cuda_pyramid.launch_counts["ipyramid_rows"] == k7, label
-        assert cuda_pyramid.launch_counts["ipyramid_rows_transposed"] == 0, label
+        assert jt.ops.launch_counts()["K7"] == k7, label
+        assert jt.ops.launch_counts()["K5"] == 0, label
         assert _rel_err(got, want) <= F32_BOUND, label
 
 
@@ -441,20 +441,19 @@ def test_k4_matches_plain(cuda, shape, wavelet, level, gain, offset):
     x = torch.empty(shape[0] * shape[1] + offset, dtype=torch.float32,
                     device=cuda)[offset:].view(shape)
     x.copy_(torch.as_tensor(np.random.default_rng(2).standard_normal(shape)))
-    before = cuda_pyramid.launch_counts["pyramid_rows_transposed"]
+    before = jt.ops.launch_counts()["K4"]
     y = cuda_pyramid.pyramid_rows_transposed(x, fb.dec_lo, fb.dec_hi, level, gain)
     torch.cuda.synchronize()
     ref = cuda_pyramid.pyramid_rows_transposed_torch(x.double(), fb.dec_lo, fb.dec_hi, level,
                                                      gain)
     assert tuple(y.shape) == (shape[1], shape[0])
     assert _rel_err(y, ref) <= F32_BOUND
-    assert cuda_pyramid.launch_counts["pyramid_rows_transposed"] == before + 1
+    assert jt.ops.launch_counts()["K4"] == before + 1
 
 
 @pytest.mark.cuda
 def test_main_path_routes_through_the_kernels(cuda):
-    cuda_modwt.reset_launch_counts()
-    cuda_pyramid.reset_launch_counts()
+    jt.ops.reset_launch_counts()
     x = torch.as_tensor(np.random.default_rng(3).standard_normal((8, 4096)),
                         dtype=torch.float32, device=cuda)
     back = jt.imodwt(jt.modwt(x, "Daubechies 4", 5), "Daubechies 4")
@@ -464,9 +463,9 @@ def test_main_path_routes_through_the_kernels(cuda):
     torch.cuda.synchronize()
     assert float((back - x).abs().max()) < 1e-4
     assert rows.is_cuda and img.is_cuda
-    assert cuda_modwt.launch_counts == {"modwt_cascade": 1, "imodwt_cascade": 1}
-    assert cuda_pyramid.launch_counts == {"pyramid_rows": 1, "pyramid_rows_transposed": 2,
-                                          "ipyramid_rows_transposed": 0, "ipyramid_rows": 0}
+    launches = jt.ops.launch_counts()
+    assert {k: launches[k] for k in ("K1", "K2", "K3", "K4", "K5", "K7")} == {
+        "K1": 1, "K2": 1, "K3": 1, "K4": 2, "K5": 0, "K7": 0}
 
 
 def _grad_of(fn, x, w):
@@ -478,7 +477,7 @@ def _grad_of(fn, x, w):
 def _routes(op, wavelet, shape, levels):
     """(the public entry, the same operator on the wrappers, which run the
     kernels' plain versions on CPU tensors) and the module and key of the
-    kernel the backward launches."""
+    K-name of the kernel the backward launches."""
     fb = jt.get_filter(wavelet)
     g0, h0 = _modwt_base_filters(wavelet)
 
@@ -488,20 +487,20 @@ def _routes(op, wavelet, shape, levels):
     if op == "modwt":
         return (lambda a: jt.modwt(a, wavelet, levels),
                 lambda a: cuda_modwt.modwt_cascade(a, g0, h0, levels),
-                (cuda_modwt, "imodwt_cascade"))
+                "K2")
     if op == "imodwt":
         return (lambda a: jt.imodwt(a, wavelet), lambda a: cuda_modwt.imodwt_cascade(a, g0, h0),
-                (cuda_modwt, "modwt_cascade"))
+                "K1")
     if op == "fwt":
         return (lambda a: jt.fwt(a, wavelet, levels),
                 lambda a: cuda_pyramid.pyramid_rows(a, fb.dec_lo, fb.dec_hi,
                                                     done(shape[1], levels)),
-                (cuda_pyramid, "ipyramid_rows"))
+                "K7")
     if op == "ifwt":
         return (lambda a: jt.ifwt(a, wavelet, levels),
                 lambda a: cuda_pyramid.ipyramid_rows(a, fb.rec_lo, fb.rec_hi, fb.recon_gain,
                                                      done(shape[1], levels)),
-                (cuda_pyramid, "pyramid_rows"))
+                "K3")
     lr, lc = levels
     if op == "fwt2d":
         def plain(a):
@@ -509,14 +508,14 @@ def _routes(op, wavelet, shape, levels):
             return cuda_pyramid.pyramid_rows_transposed(y, fb.dec_lo, fb.dec_hi,
                                                         done(shape[0], lr))
         return (lambda a: jt.fwt2d(a, wavelet, lr, lc), plain,
-                (cuda_pyramid, "ipyramid_rows_transposed"))
+                "K5")
     args = (fb.rec_lo, fb.rec_hi, fb.recon_gain)
 
     def plain(a):
         y = cuda_pyramid.ipyramid_rows_transposed(a, *args, done(shape[1], lc))
         return cuda_pyramid.ipyramid_rows_transposed(y, *args, done(shape[0], lr))
     return (lambda a: jt.ifwt2d(a, wavelet, lr, lc), plain,
-            (cuda_pyramid, "pyramid_rows_transposed"))
+            "K4")
 
 
 @pytest.mark.cuda
@@ -543,12 +542,12 @@ def test_kernel_gradients_match_plain(cuda, op, wavelet, shape, levels):
         w = torch.tensor(rng.standard_normal(tuple(plain(x).shape)))
     xc, wc = x.to(cuda, torch.float32).requires_grad_(), w.to(cuda, torch.float32)
     loss = (entry(xc) * wc).sum()
-    before = launched[0].launch_counts[launched[1]]
+    before = jt.ops.launch_counts()[launched]
     (g,) = torch.autograd.grad(loss, xc)
     torch.cuda.synchronize()
     assert g.is_cuda and g.dtype == torch.float32 and tuple(g.shape) == shape
     assert _rel_err(g.cpu(), _grad_of(plain, x, w)) <= F32_BOUND
-    assert launched[0].launch_counts[launched[1]] >= before + 1  # in the backward alone
+    assert jt.ops.launch_counts()[launched] >= before + 1  # in the backward alone
 
 
 @pytest.mark.cuda
@@ -586,14 +585,14 @@ def test_k5_matches_plain(cuda, shape, wavelet, level):
     y = torch.as_tensor(np.random.default_rng(5).standard_normal(shape), dtype=torch.float32,
                         device=cuda)
     done = cuda_pyramid.levels_done(shape[1], fb.transform_wavelength, level)
-    before = cuda_pyramid.launch_counts["ipyramid_rows_transposed"]
+    before = jt.ops.launch_counts()["K5"]
     got = cuda_pyramid.ipyramid_rows_transposed(y, fb.rec_lo, fb.rec_hi, fb.recon_gain, done)
     torch.cuda.synchronize()
     ref = cuda_pyramid.ipyramid_rows_transposed_torch(y.double(), fb.rec_lo, fb.rec_hi,
                                                       fb.recon_gain, done)
     assert tuple(got.shape) == (shape[1], shape[0])
     assert _rel_err(got, ref) <= F32_BOUND
-    assert cuda_pyramid.launch_counts["ipyramid_rows_transposed"] == before + 1
+    assert jt.ops.launch_counts()["K5"] == before + 1
     if shape[0] & (shape[0] - 1):
         return  # fwt2d and ifwt2d take power-of-two extents only
     x = torch.as_tensor(np.random.default_rng(6).standard_normal(shape), dtype=torch.float32,
@@ -603,7 +602,7 @@ def test_k5_matches_plain(cuda, shape, wavelet, level):
     torch.cuda.synchronize()
     ref2 = jt.ifwt2d(jt.fwt2d(x.double(), wavelet, lr, level), wavelet, lr, level)
     assert _rel_err(back, ref2) <= F32_BOUND
-    assert cuda_pyramid.launch_counts["ipyramid_rows_transposed"] == before + 3
+    assert jt.ops.launch_counts()["K5"] == before + 3
 
 
 @pytest.mark.cuda
@@ -615,13 +614,13 @@ def test_k6_matches_plain(cuda, g, s, n, k, lo, hi):
     c = torch.as_tensor(rng.standard_normal((g, s, n)) + 1j * rng.standard_normal((g, s, n)),
                         dtype=torch.complex64, device=cuda)
     kk = torch.as_tensor(rng.integers(lo, hi + 1, (g, s, n)), dtype=torch.int32, device=cuda)
-    before = cuda_reassign.launch_counts["reassign"]
+    before = jt.ops.launch_counts()["K6"]
     got = cuda_reassign.reassign(c, kk, k)
     torch.cuda.synchronize()
     assert got.dtype == torch.complex64 and tuple(got.shape) == (g, k, n)
     ref = cuda_reassign.reassign_torch(c.to(torch.complex128), kk, k)
     assert _rel_err(torch.view_as_real(got), torch.view_as_real(ref)) <= F32_BOUND
-    assert cuda_reassign.launch_counts["reassign"] == before + 1
+    assert jt.ops.launch_counts()["K6"] == before + 1
 
 
 @pytest.mark.cuda
@@ -672,8 +671,7 @@ def test_k6_gradient_is_the_gather(cuda):
 
 @pytest.mark.cuda
 def test_ssq_and_ifwt2d_route_through_k5_k6(cuda):
-    cuda_reassign.reset_launch_counts()
-    cuda_pyramid.reset_launch_counts()
+    jt.ops.reset_launch_counts()
     fs = 1000.0
     t = np.arange(2048) / fs
     x = torch.as_tensor(np.cos(2 * np.pi * 50.0 * t), dtype=torch.float32, device=cuda)
@@ -687,8 +685,8 @@ def test_ssq_and_ifwt2d_route_through_k5_k6(cuda):
     ridge = float(res.ridge()[512:1536].median())
     assert abs(ridge - 50.0) / 50.0 < 0.05
     assert img.is_cuda
-    assert cuda_reassign.launch_counts == {"reassign": 1}
-    assert cuda_pyramid.launch_counts["ipyramid_rows_transposed"] == 2
+    assert jt.ops.launch_counts()["K6"] == 1
+    assert jt.ops.launch_counts()["K5"] == 2
 
 
 @pytest.mark.cuda
@@ -711,19 +709,17 @@ def test_wpt_on_the_card_matches_float64(cuda, mode):
                         device=cuda)
     kw = {"fused": {}, "level by level": {"fused": False},
           "interleaved": {"layout": "interleaved"}}[mode]
-    cuda_pyramid.reset_launch_counts()
-    cuda_modwt.reset_launch_counts()
-    cuda_wpt.reset_launch_counts()
+    jt.ops.reset_launch_counts()
     y = jt.wpt(x, "db4", 6, **kw)
     back = jt.iwpt(y, "db4", 6, **kw)
     torch.cuda.synchronize()
     assert y.is_cuda and y.dtype == torch.float32
     assert _rel_err(y, jt.wpt(x.double(), "db4", 6, **kw)) <= F32_BOUND
     assert _rel_err(back, x) <= F32_BOUND
-    assert not any(cuda_pyramid.launch_counts.values())
-    assert not any(cuda_modwt.launch_counts.values())
+    launches = jt.ops.launch_counts()
+    assert not any(launches[k] for k in ("K1", "K2", "K3", "K4", "K5", "K7"))
     fused = int(mode != "level by level")  # one K8 and one K9 launch a fused chunk
-    assert cuda_wpt.launch_counts == {"wpt_rows": fused, "iwpt_rows": fused}
+    assert (launches["K8"], launches["K9"]) == (fused, fused)
 
 
 #: (shape, bank, levels): the main shape; every chunk of wpt at full depth
@@ -752,7 +748,7 @@ def test_wpt_kernels_match_plain(cuda, shape, wavelet, levels, interleaved):
     fb = jt.get_filter(wavelet)
     x = torch.as_tensor(np.random.default_rng(23).standard_normal(shape), dtype=torch.float32,
                         device=cuda)
-    before = dict(cuda_wpt.launch_counts)
+    before = jt.ops.launch_counts()
     torch.full(shape, float("nan"), device=cuda)  # an element left unstored shows
     y = cuda_wpt.wpt_rows(x, fb.dec_lo, fb.dec_hi, levels, interleaved=interleaved)
     z = cuda_wpt.iwpt_rows(x, fb.rec_lo, fb.rec_hi, levels, fb.recon_gain, interleaved)
@@ -763,8 +759,8 @@ def test_wpt_kernels_match_plain(cuda, shape, wavelet, levels, interleaved):
     assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(z).all())
     assert _rel_err(y, ref_y) <= F32_BOUND
     assert _rel_err(z, ref_z) <= F32_BOUND
-    assert cuda_wpt.launch_counts == {"wpt_rows": before["wpt_rows"] + 1,
-                                      "iwpt_rows": before["iwpt_rows"] + 1}
+    launches = jt.ops.launch_counts()
+    assert (launches["K8"], launches["K9"]) == (before["K8"] + 1, before["K9"] + 1)
 
 
 @pytest.mark.cuda
@@ -864,10 +860,11 @@ def test_wpt_paths_route_through_k8_k9(cuda):
         "facade 3D reverse": (lambda a: t.reverse(a), vol, (0, 3)),
     }
     for label, (fn, a, (k8, k9)) in calls.items():
-        cuda_wpt.reset_launch_counts()
+        jt.ops.reset_launch_counts()
         got = fn(a)
         torch.cuda.synchronize()
-        assert cuda_wpt.launch_counts == {"wpt_rows": k8, "iwpt_rows": k9}, label
+        launches = jt.ops.launch_counts()
+        assert (launches["K8"], launches["K9"]) == (k8, k9), label
         assert _rel_err(got, fn(a.double())) <= F32_BOUND, label
 
 
@@ -887,11 +884,11 @@ def test_wpt_gradients_launch_the_adjoint_kernel(cuda, op, wavelet, shape, level
     w = torch.tensor(rng.standard_normal(shape))
     xc, wc = x.to(cuda, torch.float32).requires_grad_(), w.to(cuda, torch.float32)
     loss = (fn(xc) * wc).sum()
-    cuda_wpt.reset_launch_counts()
+    jt.ops.reset_launch_counts()
     (g,) = torch.autograd.grad(loss, xc)
     torch.cuda.synchronize()
-    back = "iwpt_rows" if op == "wpt" else "wpt_rows"
-    assert cuda_wpt.launch_counts[back] >= 1 and g.dtype == torch.float32
+    back = "K9" if op == "wpt" else "K8"
+    assert jt.ops.launch_counts()[back] >= 1 and g.dtype == torch.float32
     assert _rel_err(g.cpu(), _grad_of(fn, x, w)) <= F32_BOUND
 
 
@@ -920,10 +917,10 @@ def test_in_place_fwt_reuses_storage_on_the_card(cuda):
     ref = jt.fwt(x.double(), "db4")
     buf = x.clone()
     ptr = buf.data_ptr()
-    cuda_pyramid.reset_launch_counts()
+    jt.ops.reset_launch_counts()
     y = jt.InPlaceFastWaveletTransform("db4").forward_in_place(buf)
     torch.cuda.synchronize()
-    assert y.data_ptr() == ptr and cuda_pyramid.launch_counts["pyramid_rows"] == 1
+    assert y.data_ptr() == ptr and jt.ops.launch_counts()["K3"] == 1
     assert _rel_err(y, ref) <= F32_BOUND
 
 
@@ -1294,10 +1291,7 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("which", ["K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9"])
 def test_cpu_tensors_take_the_plain_version(which, rng):
-    cuda_modwt.reset_launch_counts()
-    cuda_pyramid.reset_launch_counts()
-    cuda_reassign.reset_launch_counts()
-    cuda_wpt.reset_launch_counts()
+    jt.ops.reset_launch_counts()
     g0, h0 = _modwt_base_filters("db4")
     fb = jt.get_filter("db4")
     x = torch.tensor(rng.standard_normal((4, 256)), dtype=torch.float32)
@@ -1330,7 +1324,4 @@ def test_cpu_tensors_take_the_plain_version(which, rng):
         k = torch.tensor(rng.integers(-1, 6, (4, 256)), dtype=torch.int32)
         got, want = cuda_reassign.reassign(c, k, 5), cuda_reassign.reassign_torch(c, k, 5)
     assert torch.equal(got, want)
-    assert not any(cuda_modwt.launch_counts.values())
-    assert not any(cuda_pyramid.launch_counts.values())
-    assert not any(cuda_reassign.launch_counts.values())
-    assert not any(cuda_wpt.launch_counts.values())
+    assert not any(jt.ops.launch_counts().values())

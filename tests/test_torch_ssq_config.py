@@ -290,10 +290,10 @@ def test_row_threshold_of_a_given_gamma(gamma, rows):
 @pytest.mark.parametrize("reassign", ["auto", "pallas", "scatter"])
 def test_no_chunk_fuses_on_the_cpu(reassign):
     before = profiling.counts()["ssq.fused_chunks"]
-    cuda_reassign.reset_launch_counts()
+    jt.ops.reset_launch_counts()
     jt.ssq_cwt(_chirps(2, 1024, 9), _scales(16), _morlet(), 1.0, reassign=reassign)
     assert profiling.counts()["ssq.fused_chunks"] == before
-    assert cuda_reassign.peak_launches == 0 and cuda_reassign.launch_counts["reassign"] == 0
+    assert jt.ops.launch_counts()["K6.peak"] == 0 and jt.ops.launch_counts()["K6"] == 0
 
 
 def test_the_fused_chunks_metric_reads_the_counter(monkeypatch):
@@ -341,10 +341,10 @@ def test_card_chunks_agree_with_the_one_shot_call(card, monkeypatch, rows, n):
     one = jt.ssq_cwt(x, sc, _morlet(), 1.0)
     row = tssq._row_bytes(64, n, n, 64, 4)
     monkeypatch.setattr(tssq, "_memory_budget", lambda device: 3 * row)
-    cuda_reassign.reset_launch_counts()
+    jt.ops.reset_launch_counts()
     many = jt.ssq_cwt(x, sc, _morlet(), 1.0)
     torch.cuda.synchronize()
-    assert cuda_reassign.launch_counts["reassign"] == 3  # chunks of 3, 3 and 2 rows
+    assert jt.ops.launch_counts()["K6"] == 3  # chunks of 3, 3 and 2 rows
     for got in (one, many):
         err = SSQErr()
         for r in range(rows):
@@ -391,14 +391,14 @@ def test_card_warm_call_builds_uploads_and_syncs_nothing(card):
     assert res.Tx.is_cuda and res.frequencies.is_cuda and res.scales.is_cuda
     # the fused form, with the peak kernel for the default threshold
     assert after["ssq.fused_chunks"] == before["ssq.fused_chunks"] + 1
-    peaks = cuda_reassign.peak_launches
+    peaks = jt.ops.launch_counts()["K6.peak"]
     torch.cuda.set_sync_debug_mode("error")
     try:
         jt.ssq_cwt(x, sc, _morlet(), 1.0, gamma=0.05)  # a given threshold: no peak kernel
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert profiling.counts()["upload.calls"] == before["upload.calls"]
-    assert cuda_reassign.peak_launches == peaks
+    assert jt.ops.launch_counts()["K6.peak"] == peaks
 
 
 def _plain_on_the_card(W, dW, wgt, gamma, freqs, out_of_range):
@@ -454,11 +454,11 @@ def test_card_fused_k6_agrees_with_the_plain_path(card, label):
     W, dW = tssq._cwt_and_derivative(x, sc, _morlet(), 1.0, jt.PaddingType.SYMMETRIC)
     freqs = _uneven_grid(sc, 64) if bins == "uneven" else tssq._default_bins(sc, FC, bins)
     wgt = torch.as_tensor(sc ** -0.5 * tssq._log_measure(sc), dtype=torch.float32, device=card)
-    before = cuda_reassign.launch_counts["reassign"]
+    before = jt.ops.launch_counts()["K6"]
     got = cuda_reassign.squeeze(W, dW, wgt, gamma, tssq._bin_grid(freqs, None, card),
                                 out_of_range)
     torch.cuda.synchronize()
-    assert cuda_reassign.launch_counts["reassign"] == before + 1
+    assert jt.ops.launch_counts()["K6"] == before + 1
     want, contrib, k = _plain_on_the_card(W, dW, wgt, gamma, freqs, out_of_range)
     assert got.shape == want.shape and bool(torch.isfinite(torch.view_as_real(got)).all())
     flip, conserve = _fused_against_plain(got, want, contrib, k, len(freqs))
@@ -510,11 +510,11 @@ def test_card_row_peaks_equal_torch_amax_to_the_bit(card, shape, where):
         W[2, 3, 5] = complex(0.0, float("inf"))
     elif where == "zeros":
         W.zero_()
-    before = cuda_reassign.peak_launches
+    before = jt.ops.launch_counts()["K6.peak"]
     got = cuda_reassign.row_peaks(W)
     want = torch.amax(W.real ** 2 + W.imag ** 2, dim=(-2, -1))
     torch.cuda.synchronize()
-    assert cuda_reassign.peak_launches == before + 1
+    assert jt.ops.launch_counts()["K6.peak"] == before + 1
     assert torch.equal(torch.isnan(got), torch.isnan(want))
     fin = ~torch.isnan(want)
     assert torch.equal(got[fin].view(torch.int32), want[fin].view(torch.int32))
@@ -525,10 +525,10 @@ def test_card_a_gradient_takes_the_unfused_path(card):
     x = _chirps(2, 4096, 23, card).requires_grad_()
     sc = _scales(16)
     fused = profiling.counts()["ssq.fused_chunks"]
-    before = cuda_reassign.launch_counts["reassign"]
+    before = jt.ops.launch_counts()["K6"]
     res = jt.ssq_cwt(x, sc, _morlet(), 1.0)
     (res.Tx.abs() ** 2).sum().backward()
     torch.cuda.synchronize()
     assert profiling.counts()["ssq.fused_chunks"] == fused
-    assert cuda_reassign.launch_counts["reassign"] == before + 1
+    assert jt.ops.launch_counts()["K6"] == before + 1
     assert x.grad is not None and bool(torch.isfinite(x.grad).all())

@@ -9,9 +9,12 @@ Tests marked ``cuda`` need a card and skip without one. Run them there with
 
     python -m pytest tests/test_torch_tracing.py -m cuda --noconftest -o addopts=''
 """
+import ast
+import ctypes
 import importlib
 import json
 import types
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -20,6 +23,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
 import jwave_tpu_torch as jt  # noqa: E402
+from jwave_tpu_torch.ops import cuda_build  # noqa: E402
 from jwave_tpu_torch.utils import host, profiling  # noqa: E402
 
 #: Kineto rounds a trace's base time down to a multiple of this many seconds
@@ -154,6 +158,68 @@ def test_counts_hold_every_kernels_launches_beside_the_counters():
     assert profiling.counts()["test.things"] == 5
     profiling.reset_counts()
     assert profiling.counts()["test.things"] == 0
+
+
+def test_launch_counts_are_the_launch_counters_of_profiling():
+    """``ops.launch_counts()`` is the ``launch.*`` slice of
+    ``profiling.counts()``, all eleven listed at 0 after either reset;
+    ``ops.reset_launch_counts()`` zeroes those alone; and ``utils/profiling``
+    imports nothing of ``ops``."""
+    names = [f"launch.{k}" for k in jt.ops.launch_counts()]
+    assert len(names) == 11 and {"launch.K6.fused", "launch.K6.peak"} <= set(names)
+    profiling.reset_counts()
+    assert all(profiling.counts()[k] == 0 for k in names)
+    for k in ("launch.K3", "launch.K6.peak", "upload.calls", "K1.whole_row_launches"):
+        profiling.count(k, 2)
+    got = profiling.counts()
+    assert jt.ops.launch_counts() == {k[len("launch."):]: v for k, v in got.items()
+                                      if k.startswith("launch.")}
+    assert jt.ops.launch_counts()["K3"] == jt.ops.launch_counts()["K6.peak"] == 2
+    jt.ops.reset_launch_counts()
+    after = profiling.counts()
+    assert all(after[k] == 0 for k in names)
+    assert {k: v for k, v in after.items() if k not in names} == {
+        k: v for k, v in got.items() if k not in names}
+    assert after["upload.calls"] == after["K1.whole_row_launches"] == 2
+    for node in ast.walk(ast.parse(Path(profiling.__file__).read_text())):
+        if isinstance(node, ast.ImportFrom):
+            assert "ops" not in (node.module or "").split(".")
+            assert all(alias.name != "ops" for alias in node.names)
+        elif isinstance(node, ast.Import):
+            assert all("ops" not in alias.name.split(".") for alias in node.names)
+
+
+def test_a_launch_counts_once_its_check_passes(monkeypatch):
+    """``cuda_build.launch``: the entry gets its signature once and the
+    stream last; a CUDA error raises with the wrapper's name and counts
+    nothing; a launch that returns 0 counts one for each K-name it names."""
+    class Entry:
+        argtypes = None
+
+        def __init__(self, err):
+            self.err, self.calls = err, []
+
+        def __call__(self, *args):
+            self.calls.append(args)
+            return self.err
+
+    lib = types.SimpleNamespace(jw_error_string=lambda err: b"an illegal memory access",
+                                jw_bad=Entry(700), jw_good=Entry(0))
+    monkeypatch.setattr(cuda_build, "library", lambda name: lib)
+    monkeypatch.setattr(cuda_build, "stream_handle", lambda device: "stream")
+    signature = [object(), object()]
+    jt.ops.reset_launch_counts()
+    with pytest.raises(jt.JWaveError, match="^squeeze: CUDA error 700: an illegal memory"):
+        cuda_build.launch(("reassign", "jw_bad", signature), (1, 2), "cpu", "squeeze", "K6",
+                          "K6.fused")
+    assert not any(jt.ops.launch_counts().values())
+    for _ in range(2):
+        cuda_build.launch(("reassign", "jw_good", signature), (1, 2), "cpu", "squeeze", "K6",
+                          "K6.fused")
+    assert lib.jw_good.calls == [(1, 2, "stream")] * 2
+    assert lib.jw_good.argtypes is signature and lib.jw_good.restype is ctypes.c_int
+    assert jt.ops.launch_counts() == {**dict.fromkeys(cuda_build.KERNELS, 0), "K6": 2,
+                                      "K6.fused": 2}
 
 
 def test_copies_to_the_cpu_are_no_uploads():

@@ -91,7 +91,6 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-F32_BOUND = 1e-5
 
 
 def _load(name: str, package_dir: Path):
@@ -141,6 +140,8 @@ def main() -> int:
           flush=True)
 
     sys.path.insert(0, str(ROOT))
+    from jwave_tpu_torch.bench import F32_BOUND
+
     _load("jwave_tpu_torch_parent", args.parent.resolve() / "jwave_tpu_torch")
     new_jt, new = _modules("jwave_tpu_torch")
     par_jt, par = _modules("jwave_tpu_torch_parent")
