@@ -515,6 +515,28 @@ def main() -> int:
     ipyramid_case(f"{rows_k7}x65536 db4 L8 ({cuda_pyramid.k7_items(rows_k7, 65536, plan_t)} "
                   f"items on a grid of {grid_t})", (rows_k7, 65536), "db4", 8)
 
+    # the rotated forms of K3 and K7 ((R, N) in, (N, R) out): the volume's
+    # rows, a row count no item divides, db2 (no unrolled taps), level 0
+    errors["K3.rotated"] = errors["K7.rotated"] = 0.0
+    for shape_rt, wavelet_rt, level_rt in (((65536, 256), "db4", 6), ((1000, 256), "db4", 8),
+                                           ((4096, 64), "db2", 6), ((77, 2048), "sym8", 0)):
+        fb_rt = jt.get_filter(wavelet_rt)
+        x_rt = signal(shape_rt)
+        done_rt = cuda_pyramid.levels_done(shape_rt[1], fb_rt.transform_wavelength, level_rt)
+        label_rt = f"{shape_rt[0]}x{shape_rt[1]} {wavelet_rt} L{done_rt}, rotated"
+        got_rt = cuda_pyramid.pyramid_rows_rotated(x_rt, fb_rt.dec_lo, fb_rt.dec_hi, done_rt)
+        torch.cuda.synchronize()
+        errors["K3.rotated"] = max(errors["K3.rotated"], compare(
+            f"K3 {label_rt}", got_rt, cuda_pyramid.pyramid_rows_transposed_torch(
+                x_rt.double(), fb_rt.dec_lo, fb_rt.dec_hi, done_rt), F32_BOUND))
+        args_rt = (fb_rt.rec_lo, fb_rt.rec_hi, fb_rt.recon_gain, done_rt)
+        got_rt = cuda_pyramid.ipyramid_rows_rotated(x_rt, *args_rt)
+        torch.cuda.synchronize()
+        errors["K7.rotated"] = max(errors["K7.rotated"], compare(
+            f"K7 {label_rt}", got_rt,
+            cuda_pyramid.ipyramid_rows_transposed_torch(x_rt.double(), *args_rt), F32_BOUND))
+        del x_rt, got_rt
+
     def wpt_case(label, shape, wavelet, levels, offset=0):
         """K8 and K9 (the bank's synthesis pair and recon_gain) in both
         layouts against their plain versions in float64 on the same input,
@@ -775,6 +797,46 @@ def main() -> int:
     require(tuple(rows_c.shape) == (64, 65536) and tuple(img_c.shape) == (2048, 2048),
             "FWT output shapes")
 
+    # ---- 4a'. the volume's main path: the FWT facade's 3D forward, then its
+    # reverse, on a 256^3 f32 volume at (6, 6, 6), the launch counts set to 0
+    # just before each: three rotated K3 passes, then three rotated K7 passes,
+    # each result against the separable ndim path over fwt and ifwt
+    from jwave_tpu_torch.transforms import ndim as jt_ndim
+    from jwave_tpu_torch.transforms.fwt import fwt3d, ifwt3d
+    from jwave_tpu_torch.utils import profiling
+
+    vol_np = np.random.default_rng(11).standard_normal((256, 256, 256)).astype(np.float32)
+    vol = torch.as_tensor(vol_np, device=dev)
+    vol_launches, vol_out = {}, {}
+    for name_v, fn_v in (("forward", lambda: fwt_t.forward(vol, 6, 6, 6)),
+                         ("reverse", lambda: fwt_t.reverse(vol_out["forward"], 6, 6, 6))):
+        reset_counts()
+        passes_v = profiling.counts()[cuda_pyramid.ROTATED_PASSES]
+        vol_out[name_v] = fn_v()
+        torch.cuda.synchronize()
+        counts_v = read_counts()
+        counts_v["ndim.rotated_passes"] = (profiling.counts()[cuda_pyramid.ROTATED_PASSES]
+                                           - passes_v)
+        vol_launches[name_v] = counts_v
+        print(json.dumps({"main_path": f"FWT facade {name_v}_3d 256^3 db4 (6, 6, 6)",
+                          "launches": counts_v}), flush=True)
+    k_v = {"forward": "K3", "reverse": "K7"}
+    for name_v, counts_v in vol_launches.items():
+        require(counts_v[k_v[name_v]] == 3 and counts_v["ndim.rotated_passes"] == 3
+                and not any(v for k, v in counts_v.items()
+                            if k not in (k_v[name_v], "ndim.rotated_passes")),
+                f"the facade's {name_v}_3d did not run three rotated {k_v[name_v]} passes and "
+                f"nothing else: {counts_v}")
+    compare("FWT facade forward_3d 256^3 db4 (6, 6, 6) against the separable ndim path",
+            vol_out["forward"],
+            jt_ndim.forward_3d(lambda v, lvl: jt.fwt(v, "db4", lvl), vol, 6, 6, 6), F32_BOUND)
+    compare("FWT facade reverse_3d 256^3 db4 (6, 6, 6) against the separable ndim path",
+            vol_out["reverse"], jt_ndim.reverse_3d(lambda v, lvl: jt.ifwt(v, "db4", lvl),
+                                                   vol_out["forward"], 6, 6, 6), F32_BOUND)
+    compare("FWT facade reverse_3d(forward_3d(v)) = v, 256^3 db4 (6, 6, 6)", vol_out["reverse"],
+            vol, F32_BOUND)
+    del vol, vol_np, vol_out
+
     # small inputs against the float64 numpy oracle
     small = np.random.default_rng(3).standard_normal((2, 300))
     c_small = jt.modwt(torch.as_tensor(small, dtype=torch.float32, device=dev), "db4", 4)
@@ -960,6 +1022,24 @@ def main() -> int:
         x64, ("K8",)))
     grad_case("wpt db4 full depth 64x65536 (K9 once a fused chunk; plain: the conv form)",
               lambda a: jt.wpt(a, "db4"), lambda a: jt.wpt(a, "db4"), x64, ("K9",))
+    def rotated_plain(a, rows_fn, levels):
+        """Three rotated passes of the plain K4/K5 functions, (P, Q, R) back
+        to (P, Q, R), as fwt3d's and ifwt3d's route runs them."""
+        for lv in levels:
+            p_, q_, r_ = a.shape
+            a = rows_fn(a.reshape(p_ * q_, r_), lv).reshape(r_, p_, q_)
+        return a
+
+    vol_g = np.random.default_rng(12).standard_normal((32, 64, 128)).astype(np.float32)
+    backward["K3.rotated"] = ("K7 ipyramid_rows in place on the transposed gradient", grad_case(
+        "fwt3d (32, 64, 128) db4 levels (3, 4, 5)", lambda a: fwt3d(a, "db4", 3, 4, 5),
+        lambda a: rotated_plain(a, lambda r, lv: cuda_pyramid.pyramid_rows_transposed_torch(
+            r, fb4.dec_lo, fb4.dec_hi, lv), (5, 4, 3)), vol_g, ("K7",)))
+    backward["K7.rotated"] = ("K3 pyramid_rows in place on the transposed gradient", grad_case(
+        "ifwt3d (32, 64, 128) db4 levels (3, 4, 5)", lambda a: ifwt3d(a, "db4", 3, 4, 5),
+        lambda a: rotated_plain(a, lambda r, lv: cuda_pyramid.ipyramid_rows_transposed_torch(
+            r, fb4.rec_lo, fb4.rec_hi, fb4.recon_gain, lv), (5, 4, 3)), vol_g, ("K3",)))
+    del vol_g
     fbh = jt.get_filter("Haar orthogonal")
     grad_case("ifwt2d Haar orthogonal 256x256 (gain 0.5)",
               lambda a: jt.ifwt2d(a, "Haar orthogonal"), lambda a: k5x2_plain(a, fbh, 8),
@@ -1947,7 +2027,11 @@ def main() -> int:
               "iwpt": ("iwpt db4 L6 64x65536 through jt.iwpt (K9)", 64 * 65536,
                        "Msamples_per_s"),
               "ssq_cwt": ("ssq_cwt 8x65536 f32, 64 scales (K6's fused form; plain = scatter route)",
-                          8 * 64 * 65536, "Mcoeff_per_s")}
+                          8 * 64 * 65536, "Mcoeff_per_s"),
+              "K3.rotated": ("pyramid_rows_rotated db4 L6 65536x256 (plain = K4's)",
+                             65536 * 256, "Msamples_per_s"),
+              "K7.rotated": ("ipyramid_rows_rotated db4 L6 65536x256 (plain = K5's)",
+                             65536 * 256, "Msamples_per_s")}
     fft = jt.ConvolutionMethod.FFT
     fft_ms = median_ms(lambda: jt.imodwt(jt.modwt(x, "Daubechies 4", 5, method=fft),
                                          "Daubechies 4", method=fft))
@@ -2005,6 +2089,26 @@ def main() -> int:
                                       device=True),
                       "bound_ms": 2 * 4 * x256.numel() / HBM_BYTES_S * 1e3, "card": card}),
           flush=True)
+    # the volume's axis passes (65536 rows of 256, db4 L6): the rotated K3
+    # and K7 beside their plain versions (K4's and K5's, in f32 on the card)
+    # and K3 and K7 in place with the transposing copy that followed them
+    # before the rotated forms, in turns, device ms and their bound
+    bound_256, bounds_rot = 2 * 4 * x256.numel() / HBM_BYTES_S * 1e3, {}
+    for kernel_r, rotated_r, plain_r, in_place_r in (
+            ("K3.rotated", lambda: cuda_pyramid.pyramid_rows_rotated(x256, lo, hi, 6),
+             lambda: cuda_pyramid.pyramid_rows_transposed_torch(x256, lo, hi, 6),
+             lambda: cuda_pyramid.pyramid_rows(x256, lo, hi, 6).t().contiguous()),
+            ("K7.rotated", lambda: cuda_pyramid.ipyramid_rows_rotated(x256, rlo, rhi, 1.0, 6),
+             lambda: cuda_pyramid.ipyramid_rows_transposed_torch(x256, rlo, rhi, 1.0, 6),
+             lambda: cuda_pyramid.ipyramid_rows(x256, rlo, rhi, 1.0, 6).t().contiguous())):
+        timing[kernel_r] = pair(rotated_r, plain_r)
+        c1, c2 = median_ms(in_place_r, device=True), median_ms(in_place_r, device=True)
+        bounds_rot[kernel_r] = (bound_256, "bytes")
+        print(json.dumps({"time": f"{kernel_r} on 65536 rows of 256, db4 L6: rotated, plain, "
+                                  "and in place then a transposing copy",
+                          "rotated_ms": timing[kernel_r][0], "plain_ms": timing[kernel_r][1],
+                          "in_place_and_copy_ms": (c1 + c2) / 2, "bound_ms": bound_256,
+                          "share": bound_256 / timing[kernel_r][0], "card": card}), flush=True)
     del x256
     for rows_p, n_p, lv_p in ((64, 65536, done8), (65536, 256, 8)):
         plan_p = cuda_pyramid.k7_plan(n_p, lv_p, 8)
@@ -2097,6 +2201,7 @@ def main() -> int:
     # butterflies, device time (the spin) and wall
     from jwave_tpu_torch import api as jt_api
     from jwave_tpu_torch.parallel import sharded as par_sharded
+    from jwave_tpu_torch.transforms import ndim as jt_ndim
 
     def ifwt_butterflies(y, wavelet, level=None):
         fb_b = jt.get_filter(wavelet)
@@ -2106,14 +2211,18 @@ def main() -> int:
                                 cuda_pyramid.levels_done(n_b, fb_b.transform_wavelength, lv),
                                 fb_b.recon_gain)
 
+    def ifwt3d_butterflies(y, wavelet, lp=None, lq=None, lr=None):
+        return jt_ndim.reverse_3d(lambda v, lvl: ifwt_butterflies(v, wavelet, lvl), y, lp, lq, lr)
+
     def before(fn):
         def run():
-            saved = jt_api.ifwt, par_sharded._PASSES["ifwt"]
+            saved = jt_api.ifwt, jt_api.ifwt3d, par_sharded._PASSES["ifwt"]
             jt_api.ifwt = par_sharded._PASSES["ifwt"] = ifwt_butterflies
+            jt_api.ifwt3d = ifwt3d_butterflies
             try:
                 return fn()
             finally:
-                jt_api.ifwt, par_sharded._PASSES["ifwt"] = saved
+                jt_api.ifwt, jt_api.ifwt3d, par_sharded._PASSES["ifwt"] = saved
         return run
 
     vol_c = fwt3_out[torch.float32].full_tensor()
@@ -2374,6 +2483,7 @@ def main() -> int:
         t_bytes, t_ops = nbytes / hbm * 1e3, flops / f32_rate * 1e3
         bounds[k] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
     bounds.update(fused_bounds)  # K6's fused form and the peak kernel, at 8x64x65536
+    bounds.update(bounds_rot)  # the rotated K3 and K7, at 65536x256 db4 L6
     # they record no gradient: ssq_cwt takes the unfused K6 where one is recorded
     for k in ("K6.fused", "K6.peak"):
         backward[k] = ("none: records no gradient (the unfused K6 takes a recorded one)", None)
@@ -2396,7 +2506,16 @@ def main() -> int:
         # no pallas_call: the counterparts of the MXU tile form of the fused WPT
         ("K8 wpt_rows", "wpt.cu", "jwave_tpu/ops/mxu_wpt.py:87"),
         ("K9 iwpt_rows", "wpt.cu", "jwave_tpu/ops/mxu_wpt.py:125"),
+        # no kernel: the volume's axis passes, an XLA transpose between them
+        ("K3.rotated pyramid_rows_rotated", "pyramid.cu", "jwave_tpu/transforms/ndim.py:38"),
+        ("K7.rotated ipyramid_rows_rotated", "pyramid.cu", "jwave_tpu/transforms/ndim.py:54"),
     ]
+    # the rotated forms count as K3's and K7's launches; their own are phase
+    # 4a''s, the volume's main path, and are not told apart in phase 4j
+    for k, (side, base) in {"K3.rotated": ("forward", "K3"),
+                            "K7.rotated": ("reverse", "K7")}.items():
+        launches[k] = main_launches[k] = vol_launches[side][base]
+        sharded_launches[k] = None
     kernels = []
     for (name, src, replaces) in table:
         k = name.split()[0]

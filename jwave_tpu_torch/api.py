@@ -31,8 +31,8 @@ from .transforms.fft import (
     ifft,
     ifft_interleaved,
 )
-from .transforms.fwt import decompose_row, fwt, fwt2d, fwt_decompose, fwt_recompose, ifwt, \
-    ifwt2d
+from .transforms.fwt import decompose_row, fwt, fwt2d, fwt3d, fwt_decompose, fwt_recompose, \
+    ifwt, ifwt2d, ifwt3d
 from .transforms.lifting import LiftingScheme, get_scheme, lifting_fwt, lifting_ifwt
 from .transforms.modwt import (
     DEFAULT_FFT_THRESHOLD,
@@ -149,6 +149,14 @@ class FastWaveletTransform(WaveletTransform):
 
     def reverse_2d(self, mat, level_rows=None, level_cols=None):
         return ifwt2d(self._in(mat), self.wavelet, level_rows, level_cols)
+
+    def forward_3d(self, spc, level_p=None, level_q=None, level_r=None):
+        """3D forward via transforms.fwt.fwt3d (three rotated K3 passes on
+        CUDA)."""
+        return fwt3d(self._in(spc), self.wavelet, level_p, level_q, level_r)
+
+    def reverse_3d(self, spc, level_p=None, level_q=None, level_r=None):
+        return ifwt3d(self._in(spc), self.wavelet, level_p, level_q, level_r)
 
     def decompose(self, x):
         """(..., p+1, N) all-level decomposition (WaveletTransform.java:136-146)."""

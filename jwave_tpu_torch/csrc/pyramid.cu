@@ -192,6 +192,35 @@
 // slowest stage); the producer waiting for item k's copies to land before
 // issuing item k + 1's; tighter register caps for more blocks an SM. The
 // tile and the compute threads come from `tools/ab_times.py --k7-plans`.
+//
+// The rotated forms of K3 and K7 (no TPU kernel: the volume's axis passes,
+// transforms/fwt.py::fwt3d and ifwt3d, which ran each pass in place and
+// brought the next axis last by a transposing copy, 61% of the volume's
+// device time). Each takes (rows, n) and stores (n, rows): on a (P Q, R)
+// view that turns (P, Q, R) into (R, P, Q), so three passes bring a volume
+// back to its layout with no copy. Bound on this card: bytes, one read and
+// one write of the rows, as for K3 and K7 in place.
+//  - Whole rows of n <= 2048, rb an item (a power of two: 4096 / n, at
+//    least 8, so that each column piece is at least a 32-byte sector; at
+//    2048 a block's two stage sets and its buffer take 165 KB, the most
+//    that one SM holds at 8 rows), one wave of persistent blocks, a
+//    producer warp staging item k + 1 into the second of two stage sets
+//    while the compute threads run item k, as K7 does. The rows are staged
+//    one bulk copy a row at a stride of n + 4 floats, so that the rows q ..
+//    q + 7 read at one column by one phase of 16-byte loads fall on all
+//    banks.
+//  - A compute thread takes row u mod rb of unit u: the threads of a warp
+//    hold neighbouring rows at one output position, so each store to a
+//    column of (n, rows) is a contiguous run of rb floats (64 bytes at rb =
+//    16), stored straight from registers.
+//  - K3 (pyramid_tail_kernel<MT>): every level in shared memory, odd
+//    levels reading the staged rows and writing the approximations to a
+//    buffer of rb half rows, even levels the other way round; db4's window
+//    read as two float4s and a float2 mod the head; every level's details
+//    go straight to their columns, the last level's approximations too.
+//  - K7 (ipyramid_tile_kernel<MH, true>): the levels as in place, each
+//    buffer row padded by 4 floats; level 1 stores its pairs to their
+//    columns (k7_level_rotated) instead of to the rows.
 #include <cuda_runtime.h>
 
 #include "async_copy.cuh"
@@ -491,6 +520,244 @@ pyramid_tail_kernel(const float* __restrict__ src, long long src_stride, float* 
   tail_levels(P, Q, orow, h, levels, m, lo, hi);
 }
 
+// ---- The rotated forms of K3 and K7: whole rows of at most a few thousand
+// samples, rb of them an item, taken by persistent blocks; (rows, n) in,
+// (n, rows) out. Mirrored by ops/cuda_pyramid.py (k3_rotated_plan,
+// k3_rotated_smem_bytes, k7_plan(..., rotated=True)). ----
+constexpr int kRotMaxBlock = 256 + 32;  // at most 256 compute threads, and the producer warp
+// shared floats before K3's rotated stage sets: the taps, each set's two
+// mbarriers (it is full, it is empty)
+constexpr int kRotHead = 2 * kMaxTaps + 2 * 2 * 2;
+
+// The consumers' barrier: named barrier 1 over the nthr compute threads
+// (the producer warp is not in it).
+__device__ __forceinline__ void k7_sync(int nthr) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(nthr) : "memory");
+}
+
+// Float offsets of a rotated K3 block's shared memory: two stage sets of rb
+// rows at a stride of ns = n + 4 floats (16 bytes of pad: the rows q .. q +
+// 7 that one phase of a warp's 16-byte loads reads at one column fall on
+// all 32 banks), then the odd levels' approximations, rb rows of n/2 at a
+// stride of na = n/2 + 4; the even levels write theirs over the head of the
+// item's staged rows, read by then.
+struct K3RotLayout {
+  int ns, set, na, a, floats;
+};
+
+__host__ __device__ inline K3RotLayout k3_rotated_layout(int n, int rb) {
+  K3RotLayout L;
+  L.ns = n + 4;
+  L.set = round4(rb * L.ns);
+  L.na = n / 2 + 4;
+  L.a = kRotHead + 2 * L.set;
+  L.floats = L.a + round4(rb * L.na);
+  return L;
+}
+
+// Samples [0, n) of each of the nr rows from `src` (rows of n floats) into
+// dst at a stride of ns floats, as k7_stage stages a segment: pass 0, by
+// every lane, plain-loads what is not 16-byte aligned on both sides and
+// returns the bytes left; pass 1, by one lane, starts one bulk copy a row.
+__device__ uint32_t k7_stage(int pass, float* dst, const float* row, long long t0, int cnt,
+                             int n, uint64_t* bar, int lane);
+
+__device__ uint32_t stage_rows_padded(int pass, float* dst, int ns, const float* src, int nr,
+                                      int n, uint64_t* bar, int lane) {
+  uint32_t bytes = 0;
+  for (int q = 0; q < nr; ++q)
+    bytes += k7_stage(pass, dst + q * ns, src + (long long)q * n, 0, n, n, bar, lane);
+  return bytes;
+}
+
+// The producer warp of a rotated form: item k (rows [k rb, k rb + rb) of
+// src, fewer in the last) into stage set k & 1 (sets `set` floats apart)
+// once the consumers have released item k - 2 there; the plain-loaded parts
+// by every lane, one arrival a lane on the set's full barrier (lane 0's with
+// the bulk bytes), then the bulk copies.
+__device__ void produce_rows(const float* src, int rows, int n, int rb, int ns, float* sets,
+                             int set, uint64_t* full, uint64_t* empty, int lane) {
+  const long long items = ((long long)rows + rb - 1) / rb;
+  int k = 0;
+  for (long long item = blockIdx.x; item < items; item += gridDim.x, ++k) {
+    const int s = k & 1;
+    if (k >= 2) jw::mbar_wait(empty + s, ((k - 2) >> 1) & 1);
+    const float* first = src + item * rb * (long long)n;
+    const int nr = (int)min((long long)rb, rows - item * rb);
+    uint32_t bytes = 0;
+    for (int pass = 0; pass < 2; ++pass) {
+      bytes += stage_rows_padded(pass, sets + s * set, ns, first, nr, n, full + s, lane);
+      if (pass == 0) {
+        if (lane == 0) {
+          jw::mbar_expect(full + s, bytes);
+        } else {
+          asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(jw::smem_addr(full + s))
+                       : "memory");
+          break;
+        }
+      }
+    }
+  }
+}
+
+// The nr staged rows of S (stride ns) as they are to their columns of out:
+// column k of the item at out + k * rows + r0. Unit u takes row u mod rb,
+// so that neighbouring threads store neighbouring floats of a column.
+__device__ void store_rotated(const float* S, int ns, int n, int nr, int lg_rb, float* out,
+                              long long rows, long long r0, int tid, int nthr) {
+  const int rmask = (1 << lg_rb) - 1;
+  for (int u = tid; u < n << lg_rb; u += nthr) {
+    const int q = u & rmask, k = u >> lg_rb;
+    if (q < nr) out[(long long)k * rows + r0 + q] = S[q * ns + k];
+  }
+}
+
+// One analysis level of the rotated K3 over the nr rows of an item: the
+// head of h samples of row q at in + q * is, read circularly; a and d of
+// pair i, d to column h/2 + i of out (out + col * rows + r0 + q), a to
+// a_out + q * as, or, on the last level, to column i. A thread takes unit
+// u, row q = u mod rb, so the threads of a warp hold neighbouring rows: one
+// store instruction writes contiguous runs of a column (rb floats, two
+// columns a warp at rb = 16), and their 16-byte loads at one column of the
+// padded rows are conflict-free. MT > 0 is the filter length known at
+// compile time: a unit makes the pairs 2p and 2p + 1 from the window
+// in[4p .. 4p + MT + 2) mod h, read as float4s and a float2 (each 4- or
+// 2-aligned, so none straddles the wrap); else a unit is one pair read a
+// float2 at a time.
+template <int MT>
+__device__ __forceinline__ void k3_rotated_level(const float* in, int is, int h, float* a_out,
+                                                 int as, bool last, float* out, long long rows,
+                                                 long long r0, int nr, int lg_rb, int m,
+                                                 const float* lo, const float* hi, int tid,
+                                                 int nthr) {
+  const int half = h >> 1;
+  const int rmask = (1 << lg_rb) - 1;
+  float* ocol = out + r0;
+  if (MT > 0 && h >= 4 && (is & 3) == 0 && (reinterpret_cast<uintptr_t>(in) & 15) == 0) {
+    constexpr int T = MT > 0 ? MT : 4;
+    float l[T], g[T];
+#pragma unroll
+    for (int k = 0; k < T; ++k) {
+      l[k] = lo[k];
+      g[k] = hi[k];
+    }
+    for (int u = tid; u < (h >> 2) << lg_rb; u += nthr) {
+      const int q = u & rmask, p = u >> lg_rb;
+      if (q >= nr) continue;
+      const float* row = in + q * is;
+      float x[T + 2];
+#pragma unroll
+      for (int j = 0; j < T / 4; ++j) {
+        const float4 v = *reinterpret_cast<const float4*>(row + ((4 * p + 4 * j) & (h - 1)));
+        x[4 * j] = v.x, x[4 * j + 1] = v.y, x[4 * j + 2] = v.z, x[4 * j + 3] = v.w;
+      }
+      const float2 w = *reinterpret_cast<const float2*>(row + ((4 * p + T) & (h - 1)));
+      x[T] = w.x, x[T + 1] = w.y;
+      float a0 = 0.f, a1 = 0.f, d0 = 0.f, d1 = 0.f;
+#pragma unroll
+      for (int k = 0; k < T; ++k) {
+        a0 = fmaf(l[k], x[k], a0);
+        d0 = fmaf(g[k], x[k], d0);
+        a1 = fmaf(l[k], x[k + 2], a1);
+        d1 = fmaf(g[k], x[k + 2], d1);
+      }
+      const int i = 2 * p;
+      float* o = ocol + q;
+      o[(long long)(half + i) * rows] = d0;
+      o[(long long)(half + i + 1) * rows] = d1;
+      if (last) {
+        o[(long long)i * rows] = a0;
+        o[(long long)(i + 1) * rows] = a1;
+      } else {
+        *reinterpret_cast<float2*>(a_out + q * as + i) = make_float2(a0, a1);
+      }
+    }
+    return;
+  }
+  for (int u = tid; u < half << lg_rb; u += nthr) {
+    const int q = u & rmask, i = u >> lg_rb;
+    if (q >= nr) continue;
+    const float* row = in + q * is;
+    float sa = 0.f, sd = 0.f;
+    for (int k = 0; k < m; k += 2) {
+      const float2 v = *reinterpret_cast<const float2*>(row + ((2 * i + k) & (h - 1)));
+      sa = fmaf(lo[k + 1], v.y, fmaf(lo[k], v.x, sa));
+      sd = fmaf(hi[k + 1], v.y, fmaf(hi[k], v.x, sd));
+    }
+    float* o = ocol + q;
+    o[(long long)(half + i) * rows] = sd;
+    if (last) o[(long long)i * rows] = sa;
+    else a_out[q * as + i] = sa;
+  }
+}
+
+// K3's rotated form: a grid of persistent blocks over items of rb whole
+// rows of n samples (the last item shorter where rb does not divide rows);
+// block b takes items b, b + gridDim.x, ... The last warp (the producer)
+// stages item k into set k & 1 (produce_rows); the blockDim.x - 32 threads
+// before it run the item's levels in shared memory, odd levels reading the
+// staged rows and writing the approximations to the a buffer, even levels
+// the other way round, every level storing its details straight to their
+// columns of out, the last its approximations too: out is (n, rows). See
+// the header.
+template <int MT>
+__device__ void rows_rotated(float* smem, const float* src, float* out, const float* taps,
+                             int rows, int n, int levels, int m, int rb) {
+  float* lo = smem;
+  float* hi = smem + kMaxTaps;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + 2 * kMaxTaps);
+  uint64_t* empty = full + 2;
+  const K3RotLayout L = k3_rotated_layout(n, rb);
+  float* sets = smem + kRotHead;
+  const int lg_rb = __ffs(rb) - 1;
+  const int tid = threadIdx.x, nthr = blockDim.x - 32;
+  if (tid == 0) {
+    for (int s = 0; s < 2; ++s) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 32;\n" ::"r"(jw::smem_addr(full + s))
+                   : "memory");
+      jw::mbar_init(empty + s);
+    }
+  }
+  load_taps(taps, m, lo, hi);  // its __syncthreads publishes the barriers
+  if (tid >= nthr) {
+    produce_rows(src, rows, n, rb, L.ns, sets, L.set, full, empty, tid - nthr);
+    return;
+  }
+  const long long items = ((long long)rows + rb - 1) / rb;
+  int k = 0;
+  for (long long item = blockIdx.x; item < items; item += gridDim.x, ++k) {
+    const int s = k & 1;
+    jw::mbar_wait(full + s, (k >> 1) & 1);
+    const long long r0 = item * rb;
+    const int nr = (int)min((long long)rb, rows - r0);
+    float* S = sets + s * L.set;
+    float* A = smem + L.a;
+    if (levels == 0) store_rotated(S, L.ns, n, nr, lg_rb, out, rows, r0, tid, nthr);
+    for (int l = 1, h = n; l <= levels; ++l, h >>= 1) {
+      const bool odd = l & 1;
+      k3_rotated_level<MT>(odd ? S : A, odd ? L.ns : L.na, h, odd ? A : S, odd ? L.na : L.ns,
+                           l == levels, out, rows, r0, nr, lg_rb, m, lo, hi, tid, nthr);
+      k7_sync(nthr);
+    }
+    if (levels == 0) k7_sync(nthr);
+    // every consumer is past the item: the set and the a buffer are free
+    if (tid == 0)
+      asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(jw::smem_addr(empty + s))
+                   : "memory");
+  }
+}
+
+// K3's rotated form (rows_rotated: persistent blocks over items of rb whole
+// rows, out as (n, rows)), an overload of the in-place tail's name so that a
+// trace lists both as K3's (benchmark/roofline.py).
+template <int MT>
+__global__ void __launch_bounds__(kRotMaxBlock, 3)
+pyramid_tail_kernel(const float* __restrict__ src, float* __restrict__ out,
+                    const float* __restrict__ taps, int rows, int n, int levels, int m, int rb) {
+  extern __shared__ __align__(16) float smem[];
+  rows_rotated<MT>(smem, src, out, taps, rows, n, levels, m, rb);
+}
+
 // The nr staged rows of S (stride ns) to columns r0 .. r0+nr-1 of out (n
 // rows of `rows` floats). Output column k takes the nr rows as nr contiguous
 // floats; a thread takes four of them (a quarter-row `part`), and the
@@ -724,10 +991,11 @@ __host__ __device__ inline int k7_wide_levels(int n, int tile, int levels, int m
 // item's inputs: where rows are longer than the tile, a stage for each
 // level's details D_l over the cone of level l + 1 (bound B_{l+1}, offsets
 // in the head's table), then one for A_L over the cone of level L + 1; where
-// a row is at most the tile, one stage of tile / n whole rows. Two sets,
-// then the buffers of the even and of the odd levels' outputs (2..L; their
-// largest bound each, or tile >> (l - 1) for whole rows); level 1 stores to
-// the output.
+// a row is at most the tile, one stage of tile / n whole rows, or, rotated,
+// the rows at a stride of n + 4 floats. Two sets, then the buffers of the
+// even and of the odd levels' outputs (2..L; their largest bound each, or
+// tile >> (l - 1) for whole rows, 4 floats more a row rotated); level 1
+// stores to the output.
 struct K7Layout {
   int set;    // floats of a stage set
   int even;   // the even levels' buffer
@@ -735,20 +1003,23 @@ struct K7Layout {
   int floats;
 };
 
-__host__ __device__ inline K7Layout k7_layout(int n, int tile, int levels, int m) {
+__host__ __device__ inline K7Layout k7_layout(int n, int tile, int levels, int m, bool rot) {
   const int mh = (m + 1) / 2;
   const bool whole = n <= tile;
+  const int pad = rot ? 4 * (tile / n) : 0;
   K7Layout L;
   int b = tile, even = 0, odd = 0, stages = 0;
   for (int l = 1; l <= levels; ++l) {
     if (l >= 2) {
-      if (l & 1) odd = max(odd, b);
-      else even = max(even, b);
+      if (l & 1) odd = max(odd, b + pad);
+      else even = max(even, b + pad);
     }
     b = whole ? b / 2 : k7_bound_next(b, n >> l, mh);
     stages += k3_stage_floats(b);
   }
-  L.set = whole ? k3_stage_floats(tile) : stages + k3_stage_floats(b);
+  L.set = rot     ? round4(tile / n * (n + 4)) + 4
+          : whole ? k3_stage_floats(tile)
+                  : stages + k3_stage_floats(b);
   L.even = kK7Head + 2 * L.set;
   L.odd = L.even + round4(even);
   L.floats = L.odd + round4(odd);
@@ -869,6 +1140,72 @@ __device__ __forceinline__ void k7_level(const K7Level& v, int mh, const float* 
   }
 }
 
+// Level 1 of K7's rotated form, v over the whole rows of an item: pair p
+// of row q to columns 2p and 2p + 1 of out (out + col * rows + r0 + q). A
+// thread takes unit u, row q = u mod rb, so the threads of a warp hold
+// neighbouring rows: a store instruction writes contiguous runs of a column
+// (rb floats, two columns a warp at rb = 16), and the 16-byte loads at one
+// column of the padded rows are conflict-free. Groups of four pairs as
+// k7_level makes them, or a pair a unit.
+template <int MH>
+__device__ __forceinline__ void k7_level_rotated(const K7Level& v, int mh, const float* lo,
+                                                 const float* hi, const K7Taps<MH>& tp, int tid,
+                                                 int nthr, float* out, long long rows,
+                                                 long long r0, int lg_rb) {
+  const int rmask = (1 << lg_rb) - 1;
+  float* ocol = out + r0;
+  if (k7_grouped<MH>(v)) {
+    constexpr int W = MH > 1 ? 4 : 0;  // window samples before the group
+    constexpr int R = MH > 0 ? MH : 1;
+    for (int u = tid; u < (v.npairs >> 2) << lg_rb; u += nthr) {
+      const int q = u & rmask, p = 4 * (u >> lg_rb);
+      if (q >= v.rows) continue;
+      const float* ar = v.a + q * v.as;
+      const float* dr = v.d + q * v.ds;
+      float av[W + 4], dv[W + 4];
+      if constexpr (W > 0) {
+        const float4 wa = *reinterpret_cast<const float4*>(ar + ((p - 4) & v.mask));
+        const float4 wd = *reinterpret_cast<const float4*>(dr + ((p - 4) & v.mask));
+        av[0] = wa.x, av[1] = wa.y, av[2] = wa.z, av[3] = wa.w;
+        dv[0] = wd.x, dv[1] = wd.y, dv[2] = wd.z, dv[3] = wd.w;
+      }
+      const float4 ca = *reinterpret_cast<const float4*>(ar + (p & v.mask));
+      const float4 cd = *reinterpret_cast<const float4*>(dr + (p & v.mask));
+      av[W] = ca.x, av[W + 1] = ca.y, av[W + 2] = ca.z, av[W + 3] = ca.w;
+      dv[W] = cd.x, dv[W + 1] = cd.y, dv[W + 2] = cd.z, dv[W + 3] = cd.w;
+      float* o = ocol + q + (long long)(2 * p) * rows;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float x0 = 0.f, x1 = 0.f;
+#pragma unroll
+        for (int t = 0; t < R; ++t) {
+          x0 = fmaf(tp.he[t], dv[W + j - t], fmaf(tp.le[t], av[W + j - t], x0));
+          x1 = fmaf(tp.hod[t], dv[W + j - t], fmaf(tp.lod[t], av[W + j - t], x1));
+        }
+        o[(long long)(2 * j) * rows] = x0;
+        o[(long long)(2 * j + 1) * rows] = x1;
+      }
+    }
+    return;
+  }
+  for (int u = tid; u < v.npairs << lg_rb; u += nthr) {
+    const int q = u & rmask, p = u >> lg_rb;
+    if (q >= v.rows) continue;
+    const float* ar = v.a + q * v.as;
+    const float* dr = v.d + q * v.ds;
+    float x0 = 0.f, x1 = 0.f;
+    for (int t = 0; t < mh; ++t) {
+      const int i = (p - t) & v.mask;
+      const float av = ar[i], dv = dr[i];
+      x0 = fmaf(hi[2 * t], dv, fmaf(lo[2 * t], av, x0));
+      x1 = fmaf(hi[2 * t + 1], dv, fmaf(lo[2 * t + 1], av, x1));
+    }
+    float* o = ocol + q + (long long)(2 * p) * rows;
+    o[0] = x0;
+    o[rows] = x1;
+  }
+}
+
 // The producer warp's staging of samples [t0, t0 + cnt) mod n of `row` into
 // dst[0, cnt), as jw::stage_segment cuts it: pass 0, by every lane, loads
 // what is not 16-byte aligned on both sides and returns the bytes left to
@@ -903,12 +1240,6 @@ __device__ uint32_t k7_stage(int pass, float* dst, const float* row, long long t
   return bulk_bytes;
 }
 
-// The consumers' barrier: named barrier 1 over the nthr compute threads
-// (the producer warp is not in it).
-__device__ __forceinline__ void k7_sync(int nthr) {
-  asm volatile("bar.sync 1, %0;\n" ::"r"(nthr) : "memory");
-}
-
 // K7: a grid of persistent blocks over the work items of rows of n samples;
 // block b takes items b, b + gridDim.x, ... (no atomics: a fixed order).
 // Rows longer than `tile`: an item is (row, tile of `tile` output samples),
@@ -919,8 +1250,11 @@ __device__ __forceinline__ void k7_sync(int nthr) {
 // (fewer in the last), every cone its whole head. The last warp (the
 // producer) stages item k into set k & 1 once the consumers have released
 // item k - 2 there; the blockDim.x - 32 threads before it (the consumers)
-// compute. See the header.
-template <int MH>
+// compute. kRot, for whole rows alone: the item's rows staged at a stride of
+// n + 4 floats (produce_rows) and level 1 stored to the columns of out, (n,
+// rows) (k7_level_rotated; with no level the staged rows, store_rotated).
+// See the header.
+template <int MH, bool kRot>
 __global__ void __launch_bounds__(kK7MaxBlock, 2)
 ipyramid_tile_kernel(const float* __restrict__ src, float* __restrict__ out,
                      const float* __restrict__ taps, int rows, int n, int tile, int levels,
@@ -936,7 +1270,7 @@ ipyramid_tile_kernel(const float* __restrict__ src, float* __restrict__ out,
   // per set: cs[l], cn[l], cf[l] R_l's start, count and whether it is its
   // whole head (l = 1 .. levels + 1)
   int* tabs = coff + kK7Meta;
-  const K7Layout L = k7_layout(n, tile, levels, m);
+  const K7Layout L = k7_layout(n, tile, levels, m, kRot);
   const int lw = k7_wide_levels(n, tile, levels, m);
   const int mh = (m + 1) / 2;
   const bool whole = n <= tile;
@@ -970,6 +1304,11 @@ ipyramid_tile_kernel(const float* __restrict__ src, float* __restrict__ out,
   }
   load_taps(taps, m, lo, hi);  // its __syncthreads publishes the barriers and the offsets
 
+  const int ns = n + 4;  // a row's stride in a rotated stage set
+  if (kRot && tid >= nthr) {
+    produce_rows(src, rows, n, rb, ns, set_of(0), L.set, full, empty, tid - nthr);
+    return;
+  }
   if (tid >= nthr) {
     // the producer warp: item k's cone tables (lane 0) and copies into set
     // k & 1 once the consumers have released item k - 2 there: the
@@ -1046,8 +1385,11 @@ ipyramid_tile_kernel(const float* __restrict__ src, float* __restrict__ out,
     const int* cf = tab(s, 2);
     float* dst = out + r0 * n + (whole ? 0 : cs[1]);
     const float* row = src + r0 * n;
-    float* staged = whole ? jw::stage_for(reinterpret_cast<unsigned char*>(set_of(s)), row)
-                          : nullptr;  // whole rows' stage
+    float* staged = kRot    ? set_of(s)
+                    : whole ? jw::stage_for(reinterpret_cast<unsigned char*>(set_of(s)), row)
+                            : nullptr;  // whole rows' stage
+    const int rs = kRot ? ns : n;       // its rows' stride
+    const int pad = kRot ? 4 : 0;       // and the buffers' pad a row
     auto operands = [&](int l) {
       K7Level v;
       const int half = n >> l;
@@ -1055,10 +1397,10 @@ ipyramid_tile_kernel(const float* __restrict__ src, float* __restrict__ out,
       v.x = l == 1 ? dst : smem + (l & 1 ? L.odd : L.even);
       if (whole) {
         v.a = l == levels ? staged : smem + ((l + 1) & 1 ? L.odd : L.even);
-        v.as = l == levels ? n : half;
+        v.as = l == levels ? rs : half + pad;
         v.d = staged + half;
-        v.ds = n;
-        v.xs = l == 1 ? n : 2 * half;
+        v.ds = rs;
+        v.xs = l == 1 ? n : 2 * half + pad;
         v.rows = nr;
         v.lg = __ffs(half) - 1;
         v.npairs = half;
@@ -1076,17 +1418,29 @@ ipyramid_tile_kernel(const float* __restrict__ src, float* __restrict__ out,
       }
       return v;
     };
+    // level l by threads t, t + nt, ...; level 1 of the rotated form to
+    // the columns of out
+    auto level = [&](int l, int t, int nt) {
+      if (kRot && l == 1)
+        k7_level_rotated<MH>(operands(1), mh, lo, hi, tp, t, nt, out, rows, r0, __ffs(rb) - 1);
+      else
+        k7_level<MH>(operands(l), mh, lo, hi, tp, t, nt);
+    };
+    if (kRot && levels == 0) {
+      store_rotated(staged, ns, n, nr, __ffs(rb) - 1, out, rows, r0, tid, nthr);
+      k7_sync(nthr);
+    }
     if (lw < levels) {
       if (tid < 32) {
         for (int l = levels; l > lw; --l) {
-          k7_level<MH>(operands(l), mh, lo, hi, tp, tid, 32);
+          level(l, tid, 32);
           __syncwarp();
         }
       }
       k7_sync(nthr);
     }
     for (int l = lw; l >= 1; --l) {
-      k7_level<MH>(operands(l), mh, lo, hi, tp, tid, nthr);
+      level(l, tid, nthr);
       k7_sync(nthr);
     }
     // every consumer is past the item: the set, its tables and the buffers
@@ -1097,11 +1451,11 @@ ipyramid_tile_kernel(const float* __restrict__ src, float* __restrict__ out,
   }
 }
 
-template <int MH>
+template <int MH, bool kRot>
 int launch_k7(const float* src, float* out, const float* taps, int rows, int n, int tile,
               int levels, int m, int threads, int grid, int* blocks_per_sm, cudaStream_t stream) {
-  const int smem = k7_layout(n, tile, levels, m).floats * (int)sizeof(float);
-  auto kern = ipyramid_tile_kernel<MH>;
+  const int smem = k7_layout(n, tile, levels, m, kRot).floats * (int)sizeof(float);
+  auto kern = ipyramid_tile_kernel<MH, kRot>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   if (blocks_per_sm != nullptr)
@@ -1122,6 +1476,21 @@ int launch_k3_tile(const float* src, long long src_stride, float* out, long long
   if (err != cudaSuccess) return (int)err;
   kern<<<(unsigned)rows * (h / tile), threads, smem, stream>>>(
       src, src_stride, out, out_stride, a_out, a_stride, taps, h, tile, lt, tail_lv, counters, m);
+  return (int)cudaGetLastError();
+}
+
+template <int MT>
+int launch_k3_rotated(const float* src, float* out, const float* taps, int rows, int n,
+                      int levels, int m, int rb, int threads, int grid, int* blocks_per_sm,
+                      cudaStream_t stream) {
+  const int smem = k3_rotated_layout(n, rb).floats * (int)sizeof(float);
+  auto kern = pyramid_tail_kernel<MT>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (blocks_per_sm != nullptr)
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kern, threads + 32,
+                                                              smem);
+  kern<<<grid, threads + 32, smem, stream>>>(src, out, taps, rows, n, levels, m, rb);
   return (int)cudaGetLastError();
 }
 
@@ -1155,30 +1524,55 @@ int jw_pyramid_tail(const void* src, long long src_stride, void* out, long long 
                     void* stream) {
   cudaGetLastError();
   const int smem = levels ? (kRowsHead + h + h / 2) * (int)sizeof(float) : 0;
-  cudaError_t err = cudaFuncSetAttribute(pyramid_tail_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  // the in-place overload of the name (the rotated form is a template)
+  void (*kern)(const float*, long long, float*, long long, const float*, int, int, int) =
+      pyramid_tail_kernel;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  pyramid_tail_kernel<<<rows, threads, smem, (cudaStream_t)stream>>>(
+  kern<<<rows, threads, smem, (cudaStream_t)stream>>>(
       (const float*)src, src_stride, (float*)out, out_stride, (const float*)taps, h, levels, m);
   return (int)cudaGetLastError();
+}
+
+// K3's rotated form: `levels` levels (0: a transposing copy) of each row of
+// (rows, n), n a power of two, into out as (n, rows), by `grid` persistent
+// blocks of `threads` compute threads (a multiple of 32, at most 256) and a
+// producer warp over items of rb rows (a power of two); db4's 8 taps unroll
+// at compile time. With `blocks_per_sm` non-null it launches nothing and
+// writes the blocks an SM holds.
+int jw_pyramid_rows_rotated(const void* src, void* out, const void* taps, int rows, int n,
+                            int levels, int m, int rb, int threads, int grid, int* blocks_per_sm,
+                            void* stream) {
+  cudaGetLastError();
+  if (n < 2 || (n & (n - 1)) || levels < 0 || (n >> levels) < 1 || rb < 1 || (rb & (rb - 1)) ||
+      m < 1 || m > kMaxTaps || threads % 32 || threads < 32 || threads + 32 > kRotMaxBlock ||
+      (blocks_per_sm == nullptr && grid < 1))
+    return (int)cudaErrorInvalidValue;
+  auto fn = m == 8 ? launch_k3_rotated<8> : launch_k3_rotated<0>;
+  return fn((const float*)src, (float*)out, (const float*)taps, rows, n, levels, m, rb, threads,
+            grid, blocks_per_sm, (cudaStream_t)stream);
 }
 
 // K7: `levels` synthesis levels (1 .. kK7MaxLevels) of each row of (rows, n),
 // into out, by `grid` persistent blocks of `threads` compute threads (a
 // multiple of 32, at most 256) and a producer warp over the work items (tiles of `tile` samples, a power of two dividing n, or tile / n
 // whole rows where n <= tile); the gain is folded into the taps; db4's 8
-// taps and Haar's 2 unroll at compile time. With `blocks_per_sm` non-null
+// taps and Haar's 2 unroll at compile time. `rotated` (whole rows alone;
+// levels from 0) stores out as (n, rows). With `blocks_per_sm` non-null
 // it launches nothing and writes the blocks an SM holds.
 int jw_ipyramid_tile(const void* src, void* out, const void* taps, int rows, int n, int tile,
-                     int levels, int m, int threads, int grid, int* blocks_per_sm,
+                     int levels, int m, int threads, int grid, int rotated, int* blocks_per_sm,
                      void* stream) {
   cudaGetLastError();
-  if (levels < 1 || levels > kK7MaxLevels || (n >> levels) < 1 || tile < 2 ||
-      (tile < n ? n % tile : tile % n) || m < 1 || m > kMaxTaps || threads % 32 ||
-      threads < 32 || threads + 32 > kK7MaxBlock ||
+  if (levels < (rotated ? 0 : 1) || levels > kK7MaxLevels || (n >> levels) < 1 || tile < 2 ||
+      (tile < n ? n % tile : tile % n) || (rotated && tile < n) || m < 1 || m > kMaxTaps ||
+      threads % 32 || threads < 32 || threads + 32 > kK7MaxBlock ||
       (blocks_per_sm == nullptr && grid < 1))
     return (int)cudaErrorInvalidValue;
-  auto fn = m == 8 ? launch_k7<4> : m == 2 ? launch_k7<1> : launch_k7<0>;
+  auto fn = rotated ? (m == 8 ? launch_k7<4, true> : m == 2 ? launch_k7<1, true>
+                                                            : launch_k7<0, true>)
+                    : (m == 8 ? launch_k7<4, false> : m == 2 ? launch_k7<1, false>
+                                                             : launch_k7<0, false>);
   return fn((const float*)src, (float*)out, (const float*)taps, rows, n, tile, levels, m,
             threads, grid, blocks_per_sm, (cudaStream_t)stream);
 }

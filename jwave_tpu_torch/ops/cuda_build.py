@@ -123,10 +123,25 @@ def launch(kernel: tuple, args: tuple, device, what: str, *names: str):
         count(f"launch.{name}")
 
 
-def stream_handle(device) -> ctypes.c_void_p:
+def apply(function, kernel, x, *args):
+    """``kernel(x, *args)`` for a kernel wrapper: through ``function``, the
+    autograd Function whose forward makes that call, only where a gradient
+    of ``x`` is wanted, since ``.apply`` costs host time on every launch."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return function.apply(x, *args)
+    return kernel(x, *args)
+
+
+def stream_handle(device) -> ctypes.c_void_p:
+    """The current stream of ``device`` (a CUDA device) as a C pointer: torch's
+    raw stream query, a fifth of the host time of ``torch.cuda.current_stream``
+    (PERF.md, section 6)."""
+    import torch
+
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(index))
 
 
 @functools.cache
@@ -150,9 +165,10 @@ def device_taps(f1, f2, device, gain: float = 1.0):
     import numpy as np
     import torch
 
-    taps = np.concatenate([np.asarray(f1, np.float64), np.asarray(f2, np.float64)]) * gain
-    key = (taps.tobytes(), len(f1), str(device))
+    f1, f2 = np.asarray(f1, np.float64), np.asarray(f2, np.float64)
+    key = (f1.tobytes(), f2.tobytes(), float(gain), str(device))
     t = _TAPS.get(key)
     if t is None:
+        taps = np.concatenate([f1, f2]) * gain
         t = _TAPS[key] = count_upload(torch.as_tensor(taps, dtype=torch.float32, device=device))
     return t

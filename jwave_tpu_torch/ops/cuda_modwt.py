@@ -349,9 +349,9 @@ class _ImodwtCascade(torch.autograd.Function):
 
 def modwt_cascade(x: torch.Tensor, g0, h0, level: int) -> torch.Tensor:
     """K1: forward MODWT cascade (B, N) -> (B, level+1, N); its backward is K2."""
-    return _ModwtCascade.apply(x, g0, h0, level)
+    return cuda_build.apply(_ModwtCascade, _k1, x, g0, h0, level)
 
 
 def imodwt_cascade(coeffs: torch.Tensor, g0, h0) -> torch.Tensor:
     """K2: inverse MODWT cascade (B, J+1, N) -> (B, N); its backward is K1."""
-    return _ImodwtCascade.apply(coeffs, g0, h0)
+    return cuda_build.apply(_ImodwtCascade, _k2, coeffs, g0, h0)

@@ -7,7 +7,10 @@ Replaces ``jwave_tpu/ops/pallas_pyramid.py`` ``_pyramid_rows_kernel_flat``
 output (N, R)) and ``_ipyramid_rows_kernel`` (K5: the inverse pyramid of
 each row, stored transposed, output (N, R)); and, with no ``pallas_call``
 behind it, ``jwave_tpu/ops/mxu_pyramid.py`` ``fwt_inverse_fused`` (K7: the
-inverse pyramid of each row, in place, output (R, N)). Per row, for each of
+inverse pyramid of each row, in place, output (R, N)). K3 and K7 also have
+a rotated form (no TPU kernel): whole rows of at most ``ROT_MAX`` samples,
+output (N, R), the volume's axis passes (``transforms/fwt.py`` ``fwt3d``,
+``ifwt3d``), with K4's and K5's plain versions. Per row, for each of
 ``levels`` levels on the head h:
 
     a[i] = sum_j x[(2i+j) mod h] dec_lo[j],  d[i] = sum_j x[(2i+j) mod h] dec_hi[j]
@@ -33,7 +36,9 @@ launches a kernel and counts as its launch):
 * one K4 pass is T P (P the pyramid, T the transpose), so its adjoint
   P^T T is K5 with the same filters and gain on the transposed gradient,
   transposed back; one K5 pass likewise takes K4 with K5's filters as the
-  analysis pair and ``recon_gain`` as K4's per-level ``gain``.
+  analysis pair and ``recon_gain`` as K4's per-level ``gain``;
+* a rotated pass is T P too: its adjoint is K7 (K3 for K7's) in place on
+  the gradient transposed.
 
 The backward of a transposing pass returns a transposed view and reads its
 incoming gradient through one, so in ``fwt2d``/``ifwt2d`` (two passes) only
@@ -49,7 +54,7 @@ import numpy as np
 import torch
 
 from ..exceptions import JWaveFailure
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 from . import cuda_build
 from .cuda_build import MAX_TAPS
 
@@ -84,6 +89,19 @@ K7_MAX_LEVELS = 31
 K7_META = 36
 K7_HEAD = 2 * MAX_TAPS + 8 + 7 * K7_META
 SMEM_LIMIT = 227 * 1024
+#: the rotated forms' plan (``csrc/pyramid.cu`` k3_rotated_layout, k7_layout
+#: with rot): rows of at most ROT_MAX samples (at 2048 and 8 rows an item a
+#: K3 block's two stage sets and buffer take 165 KB, the most one SM holds),
+#: ROT_ITEM // n of them an item and at least ROT_MIN_ROWS (a 32-byte sector
+#: a column piece); K3's threads a block (compute, one producer warp)
+ROT_MAX = 2048
+ROT_ITEM = 4096
+ROT_MIN_ROWS = 8
+K3_ROT_THREADS = 128 + 32
+#: the counter of rotated launches (``profiling.counts()``), one an axis
+#: pass of ``fwt3d``/``ifwt3d``
+ROTATED_PASSES = "ndim.rotated_passes"
+count(ROTATED_PASSES, 0)  # listed (at 0) from the start
 
 
 def levels_done(n: int, tw: int, level: int) -> int:
@@ -339,7 +357,9 @@ _K3_TILE = ("pyramid", "jw_pyramid_tile",
 _K3_TAIL = ("pyramid", "jw_pyramid_tail", [_P, _LL, _P, _LL, _P, _I, _I, _I, _I, _I, _P])
 _K4 = ("pyramid", "jw_pyramid_rows_t", [_P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P])
 _K5 = ("pyramid", "jw_ipyramid_rows_t", _K4[2])
-_K7 = ("pyramid", "jw_ipyramid_tile", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P])
+_K7 = ("pyramid", "jw_ipyramid_tile", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P])
+_K3_ROT = ("pyramid", "jw_pyramid_rows_rotated",
+           [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P])
 
 
 class K3Plan(NamedTuple):
@@ -411,8 +431,8 @@ def _k3_counters(device, stream: int, rows: int) -> torch.Tensor:
     return buf
 
 
-def _k3(x: torch.Tensor, dec_lo, dec_hi, levels: int, plan: K3Plan | None = None,
-        gain: float = 1.0) -> torch.Tensor:
+def _k3(x: torch.Tensor, dec_lo, dec_hi, levels: int, gain: float = 1.0,
+        plan: K3Plan | None = None) -> torch.Tensor:
     """K3 on the card. Heads longer than ``K3_TAIL_HEAD`` lose their leading
     levels to tiled passes (:func:`k3_plan`; ``plan`` overrides the first
     one's), each passing the approximation on through a scratch row; a pass
@@ -463,7 +483,7 @@ class _PyramidRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dec_lo, dec_hi, levels, gain):
         ctx.args = (dec_lo, dec_hi, gain, levels)
-        return _k3(x, dec_lo, dec_hi, levels, gain=gain)
+        return _k3(x, dec_lo, dec_hi, levels, gain)
 
     @staticmethod
     def backward(ctx, g):
@@ -474,7 +494,7 @@ def pyramid_rows(x: torch.Tensor, dec_lo, dec_hi, levels: int,
                  gain: float = 1.0) -> torch.Tensor:
     """K3: the pyramid along each row of (R, N) f32, output (R, N); each
     level's a and d scaled by ``gain``."""
-    return _PyramidRows.apply(x, dec_lo, dec_hi, levels, gain)
+    return cuda_build.apply(_PyramidRows, _k3, x, dec_lo, dec_hi, levels, gain)
 
 
 class K7Plan(NamedTuple):
@@ -499,68 +519,91 @@ def _k7_bound_next(b: int, half: int, mh: int) -> int:
     return min(half, (b // 2 + mh + (13 if b < 8 else 10)) & ~7)
 
 
-def _k7_layout(n: int, tile: int, levels: int, m: int) -> tuple:
+def _k7_layout(n: int, tile: int, levels: int, m: int, rotated: bool = False) -> tuple:
     """(the bounds B_2 .. B_{L+1}, a stage set's floats, a K7 block's shared
     floats), as ``csrc/pyramid.cu`` k7_layout counts them: the head (taps,
     both sets' mbarriers, the stage offsets and both sets' cone tables); two
     stage sets, each a stage of round4(B_{l+1}) + 4 floats for each level's
     details and one for A_L (B_{L+1}), or, for rows of at most the tile, one
-    of round4(tile) + 4 for its whole rows; the buffers of the even and of
-    the odd levels' outputs, round4 of the largest of each (l = 2 .. L;
-    tile >> (l - 1) for whole rows); level 1 stores to the output."""
+    of round4(tile) + 4 for its whole rows (``rotated``: round4 of its rows
+    at a stride of n + 4, and 4); the buffers of the even and of the odd
+    levels' outputs, round4 of the largest of each (l = 2 .. L; tile >> (l -
+    1) for whole rows, 4 floats more a row rotated); level 1 stores to the
+    output."""
     mh = (m + 1) // 2
     whole = n <= tile
+    pad = 4 * (tile // n) if rotated else 0
     b, stages, even, odd, bounds = tile, 0, 0, 0, []
     for l in range(1, levels + 1):
         if l >= 2:
             if l & 1:
-                odd = max(odd, b)
+                odd = max(odd, b + pad)
             else:
-                even = max(even, b)
+                even = max(even, b + pad)
         b = b // 2 if whole else _k7_bound_next(b, n >> l, mh)
         bounds.append(n >> l if whole else b)
         stages += _round4(b) + 4
-    set_floats = _round4(tile) + 4 if whole else stages + _round4(b) + 4
+    if rotated:
+        set_floats = _round4(tile // n * (n + 4)) + 4
+    else:
+        set_floats = _round4(tile) + 4 if whole else stages + _round4(b) + 4
     return tuple(bounds), set_floats, K7_HEAD + 2 * set_floats + _round4(even) + _round4(odd)
 
 
 @functools.lru_cache(maxsize=None)
 def k7_plan(n: int, levels: int, m: int, tile: int | None = None,
-            threads: int = K7_THREADS) -> K7Plan:
+            threads: int = K7_THREADS, rotated: bool = False) -> K7Plan:
     """K7's plan for rows of ``n``: items of ``tile`` output samples
     (``K7_TILE``, ``K7_TILE_ONE_LEVEL`` for one level), or of tile // n
     whole rows where a row is at most the tile. A cone R_{l+1}
     holds at most half of R_l and ceil(m/2) + 10 samples (B_{l+1}, a
     multiple of 8; + 13 from a tile of 2 or 4), and at most its head, so a
     stage set sums to about the tile and ``levels`` halos of ceil(m/2) + 10
-    whatever the row length."""
+    whatever the row length. ``rotated``: K7's rotated form, whose items are
+    whole rows, at least ``ROT_MIN_ROWS`` of them (the tile at least that
+    many rows)."""
     tile = tile or (K7_TILE_ONE_LEVEL if levels == 1 else K7_TILE)
-    cone, set_floats, floats = _k7_layout(n, tile, levels, m)
+    if rotated:
+        tile = max(tile, ROT_MIN_ROWS * n)
+    cone, set_floats, floats = _k7_layout(n, tile, levels, m, rotated)
     return K7Plan(tile, tile // n if n <= tile else 1, cone, 4 * set_floats, 4 * floats, 2,
                   threads)
 
 
-@functools.lru_cache(maxsize=None)
-def k7_blocks_per_sm(device_index: int, n: int, levels: int, m: int, plan: K7Plan) -> int:
-    """The K7 blocks one SM of the card holds at ``plan``
-    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), asked once a plan."""
-    fn = cuda_build.entry(*_K7)
+def _blocks_per_sm(kernel: tuple, args: tuple, device_index: int, what: str,
+                   smem_bytes: int) -> int:
+    """The blocks of ``kernel`` (an entry whose C function, given a non-null
+    last pointer before the stream, writes the occupancy calculator's count
+    there and launches nothing) that one SM of the card holds."""
     got = ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        err = fn(None, None, None, 0, n, plan.tile, levels, m, plan.threads - 32, 0,
-                 ctypes.byref(got), None)
-    cuda_build.check(cuda_build.library("pyramid"), err, "ipyramid_rows")
+        err = cuda_build.entry(*kernel)(*args, ctypes.byref(got), None)
+    cuda_build.check(cuda_build.library(kernel[0]), err, what)
     if got.value < 1:
-        raise JWaveFailure(f"ipyramid_rows - a block of {plan.smem_bytes} shared bytes does not "
-                           "fit an SM")
+        raise JWaveFailure(f"{what} - a block of {smem_bytes} shared bytes does not fit an SM")
     return got.value
 
 
-def k7_grid(device, rows: int, n: int, levels: int, m: int, plan: K7Plan) -> int:
+@functools.lru_cache(maxsize=None)
+def k7_blocks_per_sm(device_index: int, n: int, levels: int, m: int, plan: K7Plan,
+                     rotated: bool = False) -> int:
+    """The K7 blocks one SM of the card holds at ``plan``
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), asked once a plan."""
+    return _blocks_per_sm(_K7, (None, None, None, 0, n, plan.tile, levels, m, plan.threads - 32,
+                                0, int(rotated)), device_index, "ipyramid_rows", plan.smem_bytes)
+
+
+def _device_index(device) -> int:
+    return device.index if device.index is not None else torch.cuda.current_device()
+
+
+@functools.lru_cache(maxsize=256)
+def k7_grid(device, rows: int, n: int, levels: int, m: int, plan: K7Plan,
+            rotated: bool = False) -> int:
     """K7's persistent blocks: one wave, min(items, SMs x blocks an SM)."""
-    index = device.index if device.index is not None else torch.cuda.current_device()
+    index = _device_index(device)
     return min(k7_items(rows, n, plan),
-               cuda_build.sm_count(index) * k7_blocks_per_sm(index, n, levels, m, plan))
+               cuda_build.sm_count(index) * k7_blocks_per_sm(index, n, levels, m, plan, rotated))
 
 
 def _k7(y: torch.Tensor, rec_lo, rec_hi, recon_gain: float, levels: int,
@@ -590,7 +633,7 @@ def _k7(y: torch.Tensor, rec_lo, rec_hi, recon_gain: float, levels: int,
         taps = cuda_build.device_taps(rec_lo, rec_hi, y.device, recon_gain)
         cuda_build.launch(_K7, (y.data_ptr(), out.data_ptr(), taps.data_ptr(), r, n, plan.tile,
                                 levels, m, plan.threads - 32,
-                                k7_grid(y.device, r, n, levels, m, plan), None),
+                                k7_grid(y.device, r, n, levels, m, plan), 0, None),
                           y.device, "ipyramid_rows", "K7")
     return out
 
@@ -610,7 +653,156 @@ def ipyramid_rows(y: torch.Tensor, rec_lo, rec_hi, recon_gain: float,
                   levels: int) -> torch.Tensor:
     """K7: the inverse pyramid along each row of (R, N) f32, output (R, N);
     each level's outputs scaled by ``recon_gain``."""
-    return _IPyramidRows.apply(y, rec_lo, rec_hi, recon_gain, levels)
+    return cuda_build.apply(_IPyramidRows, _k7, y, rec_lo, rec_hi, recon_gain, levels)
+
+
+def rotated_rows(n: int) -> bool:
+    """Whether the rotated forms of K3 and K7 take rows of ``n``: a power of
+    two from 2 to ``ROT_MAX``."""
+    return 2 <= n <= ROT_MAX and n & (n - 1) == 0
+
+
+class K3RotPlan(NamedTuple):
+    """The rotated K3's plan: ``rows`` whole rows an item, a block's shared
+    bytes and its ``threads``, the last warp the producer."""
+
+    rows: int
+    smem_bytes: int
+    threads: int
+
+
+def k3_rotated_smem_bytes(n: int, rb: int) -> int:
+    """Shared bytes of a rotated K3 block (``csrc/pyramid.cu``
+    k3_rotated_layout): the taps and both sets' two mbarriers, two stage sets
+    of rb rows at a stride of n + 4 floats, and rb rows of the odd levels'
+    approximations at a stride of n/2 + 4."""
+    return 4 * (2 * MAX_TAPS + 8 + 2 * _round4(rb * (n + 4)) + _round4(rb * (n // 2 + 4)))
+
+
+@functools.lru_cache(maxsize=None)
+def k3_rotated_plan(n: int, item: int = ROT_ITEM, threads: int = K3_ROT_THREADS) -> K3RotPlan:
+    """The rotated K3's plan for rows of ``n``: ``item // n`` rows an item,
+    at least ``ROT_MIN_ROWS``."""
+    rb = max(ROT_MIN_ROWS, item // n)
+    return K3RotPlan(rb, k3_rotated_smem_bytes(n, rb), threads)
+
+
+@functools.lru_cache(maxsize=None)
+def k3_rotated_blocks_per_sm(device_index: int, n: int, levels: int, m: int,
+                             plan: K3RotPlan) -> int:
+    """The rotated K3 blocks one SM of the card holds at ``plan``, asked once
+    a plan."""
+    return _blocks_per_sm(_K3_ROT, (None, None, None, 0, n, levels, m, plan.rows,
+                                    plan.threads - 32, 0), device_index, "pyramid_rows_rotated",
+                          plan.smem_bytes)
+
+
+@functools.lru_cache(maxsize=256)
+def k3_rotated_grid(device, rows: int, n: int, levels: int, m: int, plan: K3RotPlan) -> int:
+    """The rotated K3's persistent blocks: one wave, min(items, SMs x blocks
+    an SM)."""
+    index = _device_index(device)
+    return min(-(-rows // plan.rows),
+               cuda_build.sm_count(index) * k3_rotated_blocks_per_sm(index, n, levels, m, plan))
+
+
+def _check_rotated(x: torch.Tensor, filters, levels: int, what: str):
+    _check(x, *filters, levels, what)
+    if not rotated_rows(x.shape[1]):
+        raise JWaveFailure(f"{what} - rows of {x.shape[1]} are longer than the rotated form's "
+                           f"{ROT_MAX}")
+    if x.shape[0] >= 2**31:
+        raise JWaveFailure(f"{what} - {x.shape[0]} rows exceed one launch")
+
+
+def _k3_rotated(x: torch.Tensor, dec_lo, dec_hi, levels: int,
+                plan: K3RotPlan | None = None) -> torch.Tensor:
+    """The rotated K3 on the card: one launch of one wave of persistent
+    blocks over items of whole rows (:func:`k3_rotated_plan`; ``plan``
+    overrides it), each counted as ``launch.K3`` and as a rotated pass."""
+    if x.device.type == "cpu":
+        return pyramid_rows_transposed_torch(x, dec_lo, dec_hi, levels)
+    _check_rotated(x, (dec_lo, dec_hi), levels, "pyramid_rows_rotated")
+    r, n = x.shape
+    plan = plan or k3_rotated_plan(n)
+    out = x.new_empty((n, r))
+    if r == 0:
+        return out
+    with span("launch.K3", rows=r, n=n, levels=levels, rotated=1):
+        m = len(dec_lo)
+        taps = cuda_build.device_taps(dec_lo, dec_hi, x.device)
+        cuda_build.launch(_K3_ROT, (x.data_ptr(), out.data_ptr(), taps.data_ptr(), r, n, levels,
+                                    m, plan.rows, plan.threads - 32,
+                                    k3_rotated_grid(x.device, r, n, levels, m, plan), None),
+                          x.device, "pyramid_rows_rotated", "K3")
+        count(ROTATED_PASSES)
+    return out
+
+
+class _PyramidRowsRotated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dec_lo, dec_hi, levels):
+        ctx.args = (dec_lo, dec_hi, 1.0, levels)
+        return _k3_rotated(x, dec_lo, dec_hi, levels)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ipyramid_rows(g.transpose(0, 1).contiguous(), *ctx.args), None, None, None
+
+
+def pyramid_rows_rotated(x: torch.Tensor, dec_lo, dec_hi, levels: int) -> torch.Tensor:
+    """K3's rotated form: the pyramid along each row of (R, N) f32, N a power
+    of two up to ``ROT_MAX``, output (N, R), K4's function at gain 1
+    (:func:`pyramid_rows_transposed_torch`) in one launch over whole rows."""
+    return cuda_build.apply(_PyramidRowsRotated, _k3_rotated, x, dec_lo, dec_hi, levels)
+
+
+def _k7_rotated(y: torch.Tensor, rec_lo, rec_hi, recon_gain: float, levels: int,
+                plan: K7Plan | None = None) -> torch.Tensor:
+    """K7's rotated form on the card: one launch of K7 over items of whole
+    rows (``k7_plan(..., rotated=True)``; ``plan`` overrides it), level 1
+    stored to the columns of (N, R); counted as ``launch.K7`` and as a
+    rotated pass."""
+    if y.device.type == "cpu":
+        return ipyramid_rows_transposed_torch(y, rec_lo, rec_hi, recon_gain, levels)
+    _check_rotated(y, (rec_lo, rec_hi), levels, "ipyramid_rows_rotated")
+    r, n = y.shape
+    m = len(rec_lo)
+    plan = plan or k7_plan(n, levels, m, rotated=True)
+    if plan.smem_bytes > SMEM_LIMIT:
+        raise JWaveFailure(f"ipyramid_rows_rotated - a block of {plan.smem_bytes} shared bytes "
+                           f"exceeds the card's {SMEM_LIMIT}")
+    out = y.new_empty((n, r))
+    if r == 0:
+        return out
+    with span("launch.K7", rows=r, n=n, levels=levels, rotated=1):
+        taps = cuda_build.device_taps(rec_lo, rec_hi, y.device, recon_gain)
+        cuda_build.launch(_K7, (y.data_ptr(), out.data_ptr(), taps.data_ptr(), r, n, plan.tile,
+                                levels, m, plan.threads - 32,
+                                k7_grid(y.device, r, n, levels, m, plan, True), 1, None),
+                          y.device, "ipyramid_rows_rotated", "K7")
+        count(ROTATED_PASSES)
+    return out
+
+
+class _IPyramidRowsRotated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, rec_lo, rec_hi, recon_gain, levels):
+        ctx.args = (rec_lo, rec_hi, levels, recon_gain)
+        return _k7_rotated(y, rec_lo, rec_hi, recon_gain, levels)
+
+    @staticmethod
+    def backward(ctx, g):
+        return pyramid_rows(g.transpose(0, 1).contiguous(), *ctx.args), None, None, None, None
+
+
+def ipyramid_rows_rotated(y: torch.Tensor, rec_lo, rec_hi, recon_gain: float,
+                          levels: int) -> torch.Tensor:
+    """K7's rotated form: the inverse pyramid along each row of (R, N) f32, N
+    a power of two up to ``ROT_MAX``, output (N, R), K5's function
+    (:func:`ipyramid_rows_transposed_torch`) in one launch over whole rows."""
+    return cuda_build.apply(_IPyramidRowsRotated, _k7_rotated, y, rec_lo, rec_hi, recon_gain,
+                            levels)
 
 
 def k4_rows_per_block(n: int) -> int:
@@ -663,7 +855,7 @@ def pyramid_rows_transposed(x: torch.Tensor, dec_lo, dec_hi, levels: int,
                             gain: float = 1.0) -> torch.Tensor:
     """K4: the pyramid along each row of (R, N) f32, output (N, R); each
     level's a and d scaled by ``gain``."""
-    return _PyramidRowsT.apply(x, dec_lo, dec_hi, levels, gain)
+    return cuda_build.apply(_PyramidRowsT, _k4, x, dec_lo, dec_hi, levels, gain)
 
 
 def k5_rows_per_block(n: int) -> int:
@@ -718,4 +910,4 @@ class _IPyramidRowsT(torch.autograd.Function):
 def ipyramid_rows_transposed(y: torch.Tensor, rec_lo, rec_hi, recon_gain: float,
                              levels: int) -> torch.Tensor:
     """K5: the inverse pyramid along each row of (R, N) f32, output (N, R)."""
-    return _IPyramidRowsT.apply(y, rec_lo, rec_hi, recon_gain, levels)
+    return cuda_build.apply(_IPyramidRowsT, _k5, y, rec_lo, rec_hi, recon_gain, levels)

@@ -309,6 +309,12 @@ def squeeze_torch(W: torch.Tensor, dW: torch.Tensor, wgt, gamma, freqs: np.ndarr
     return reassign_torch(contrib, k_idx, freqs.shape[0])
 
 
+def _reassign(contrib: torch.Tensor, k_idx: torch.Tensor, n_bins: int) -> torch.Tensor:
+    if contrib.device.type == "cpu":
+        return reassign_torch(contrib, k_idx, n_bins)
+    return _launch(contrib, k_idx, n_bins)
+
+
 class _Reassign(torch.autograd.Function):
     """Forward: the kernel on CUDA, the scatter form on the CPU. Backward:
     the gather ``ct[k_idx]``, zero where the index was dropped."""
@@ -317,9 +323,7 @@ class _Reassign(torch.autograd.Function):
     def forward(ctx, contrib, k_idx, n_bins):
         ctx.save_for_backward(k_idx)
         ctx.n_bins = n_bins
-        if contrib.device.type == "cpu":
-            return reassign_torch(contrib, k_idx, n_bins)
-        return _launch(contrib, k_idx, n_bins)
+        return _reassign(contrib, k_idx, n_bins)
 
     @staticmethod
     def backward(ctx, ct):
@@ -345,7 +349,7 @@ def reassign(contrib: torch.Tensor, k_idx: torch.Tensor, n_bins: int,
             "reassign='dense' or 'scatter' for 64-bit inputs"
         )
     if out is None:
-        return _Reassign.apply(contrib, k_idx, n_bins)
+        return cuda_build.apply(_Reassign, _reassign, contrib, k_idx, n_bins)
     if contrib.device.type == "cpu" or (torch.is_grad_enabled() and contrib.requires_grad):
         return out.copy_(_Reassign.apply(contrib, k_idx, n_bins))
     return _launch(contrib, k_idx, n_bins, out)

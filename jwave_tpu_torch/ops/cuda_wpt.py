@@ -504,7 +504,7 @@ def wpt_rows(x: torch.Tensor, lo, hi, levels: int, gain: float = 1.0,
     """K8: ``levels`` fused WPT analysis levels of each row of (R, h) f32,
     output (R, h) subband-major or ``interleaved``; each level's outputs
     scaled by ``gain``."""
-    return _WptRows.apply(x, lo, hi, levels, gain, interleaved)
+    return cuda_build.apply(_WptRows, _k8, x, lo, hi, levels, gain, interleaved)
 
 
 def iwpt_rows(y: torch.Tensor, lo, hi, levels: int, gain: float = 1.0,
@@ -512,4 +512,4 @@ def iwpt_rows(y: torch.Tensor, lo, hi, levels: int, gain: float = 1.0,
     """K9: the adjoint of :func:`wpt_rows` on (R, h) f32 in its layout, the
     synthesis levels from the coarsest; each level's outputs scaled by
     ``gain``."""
-    return _IWptRows.apply(y, lo, hi, levels, gain, interleaved)
+    return cuda_build.apply(_IWptRows, _k9, y, lo, hi, levels, gain, interleaved)

@@ -8,9 +8,11 @@ in-place layout ``[A_L | D_L | D_{L-1} | ... | D_1]``.
 Routing: a CUDA float32 tensor goes to the fused pyramid kernels, K3 for
 ``fwt`` (``ops.cuda_pyramid.pyramid_rows``), K7 for ``ifwt``
 (``ipyramid_rows``; each the other's backward), K4 twice for a 2D
-``fwt2d`` (``pyramid_rows_transposed``) and K5 twice for a 2D ``ifwt2d``
-(``ipyramid_rows_transposed``). Everything else (the CPU, float64, bf16,
-f16) runs the level loop over the torch butterfly.
+``fwt2d`` (``pyramid_rows_transposed``), K5 twice for a 2D ``ifwt2d``
+(``ipyramid_rows_transposed``), and the rotated forms of K3 and K7 three
+times each for a 3D ``fwt3d`` and ``ifwt3d`` (``pyramid_rows_rotated``,
+``ipyramid_rows_rotated``). Everything else (the CPU, float64, bf16, f16)
+runs the level loop over the torch butterfly.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ from ..ops.butterfly import butterfly_forward, ensure_float, synthesis_levels
 from ..utils.host import as_tensor
 from ..utils.numerics import exponent_of_two, is_power_of_two
 from ..utils.profiling import spanned
-from .ndim import forward_2d, reverse_2d
+from .ndim import forward_2d, forward_3d, reverse_2d, reverse_3d
 
 
 def fwt_max_level(n: int) -> int:
@@ -220,3 +222,81 @@ def ifwt2d(coeffs, wavelet, level_rows: int | None = None, level_cols: int | Non
             x = _inv_axis_pass(y.contiguous(), fb, level_cols)
             return _inv_axis_pass(x, fb, level_rows)
     return reverse_2d(lambda v, lvl: ifwt(v, fb, lvl), y, level_rows, level_cols)
+
+
+def _rotated_levels(x: torch.Tensor, fb, levels) -> tuple | None:
+    """The levels done on each axis of a volume by the rotated route, given
+    ``levels`` as (level_r, level_q, level_p), in that order; None where the
+    volume keeps the separable path: another rank, dtype or device, more
+    than 2^31 voxels, an extent that the rotated forms do not take
+    (``cuda_pyramid.rotated_rows``) or a level out of its range (the
+    separable path raises for it)."""
+    if not (x.dim() == 3 and _on_kernel(x) and x.numel() < 2**31):
+        return None
+    done = []
+    for n, level in zip(reversed(x.shape), levels):
+        if not cuda_pyramid.rotated_rows(n):
+            return None
+        steps = exponent_of_two(n)
+        level = steps if level is None else level
+        if not 0 <= level <= steps:
+            return None
+        done.append(cuda_pyramid.levels_done(n, fb.transform_wavelength, level))
+    return tuple(done)
+
+
+def _rotated_passes(x: torch.Tensor, done, rotated_pass) -> torch.Tensor:
+    """Three rotated passes over (P, Q, R): each takes the volume (a, b, c)
+    as (a b, c) rows and stores (c, a b), so R, Q and P take their turn
+    last, ``done`` levels each, and the third pass leaves (P, Q, R)."""
+    y = x.contiguous()
+    for lv in done:
+        a, b, c = y.shape
+        y = rotated_pass(y.reshape(a * b, c), lv).view(c, a, b)
+    return y
+
+
+@spanned("fwt3d")
+def _fwt3d_rotated(x: torch.Tensor, fb, done) -> torch.Tensor:
+    return _rotated_passes(
+        x, done, lambda rows, lv: cuda_pyramid.pyramid_rows_rotated(rows, fb.dec_lo, fb.dec_hi,
+                                                                    lv))
+
+
+@spanned("ifwt3d")
+def _ifwt3d_rotated(y: torch.Tensor, fb, done) -> torch.Tensor:
+    return _rotated_passes(
+        y, done, lambda rows, lv: cuda_pyramid.ipyramid_rows_rotated(rows, fb.rec_lo, fb.rec_hi,
+                                                                     fb.recon_gain, lv))
+
+
+def fwt3d(spc, wavelet, level_p: int | None = None, level_q: int | None = None,
+          level_r: int | None = None):
+    """3D FWT over the last three axes (BasicTransform.java:487-566), laid
+    out as ``ndim.forward_3d`` over :func:`fwt` lays it out: the last axis
+    at ``level_r``, then the columns at ``level_q``, then the pillars at
+    ``level_p``.
+
+    A rank-3 CUDA float32 volume whose extents the rotated forms take runs
+    as three rotated K3 passes (one ``fwt3d`` span), each transforming the
+    last axis and storing it first, so no transposing copy is left; any
+    other input takes the separable path."""
+    x = as_tensor(spc)
+    fb = get_filter(wavelet)
+    done = _rotated_levels(x, fb, (level_r, level_q, level_p))
+    if done is None:
+        return forward_3d(lambda v, lvl: fwt(v, fb, lvl), x, level_p, level_q, level_r)
+    return _fwt3d_rotated(x, fb, done)
+
+
+def ifwt3d(coeffs, wavelet, level_p: int | None = None, level_q: int | None = None,
+           level_r: int | None = None):
+    """Inverse of :func:`fwt3d`, as ``ndim.reverse_3d`` over :func:`ifwt`:
+    three rotated K7 passes (one ``ifwt3d`` span) where :func:`fwt3d` takes
+    three rotated K3 passes, else the separable path."""
+    y = as_tensor(coeffs)
+    fb = get_filter(wavelet)
+    done = _rotated_levels(y, fb, (level_r, level_q, level_p))
+    if done is None:
+        return reverse_3d(lambda v, lvl: ifwt(v, fb, lvl), y, level_p, level_q, level_r)
+    return _ifwt3d_rotated(y, fb, done)

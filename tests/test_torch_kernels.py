@@ -25,6 +25,7 @@ import jwave_tpu_torch as jt  # noqa: E402
 from jwave_tpu_torch.ops import cuda_build, cuda_modwt, cuda_pyramid, cuda_reassign, \
     cuda_wpt  # noqa: E402
 from jwave_tpu_torch.ops.butterfly import synthesis_levels  # noqa: E402
+from jwave_tpu_torch.transforms import ndim  # noqa: E402
 from jwave_tpu_torch.utils import profiling  # noqa: E402
 from jwave_tpu_torch.transforms.modwt import _modwt_base_filters  # noqa: E402
 
@@ -206,7 +207,7 @@ def test_k3_forced_plans(cuda, shape, wavelet, levels, tile, lt, tail):
                         device=cuda)
     plan = cuda_pyramid.K3Plan(tile, lt, ((1 << lt) - 1) * (m - 1), tail,
                                cuda_pyramid.k3_smem_bytes(tile, lt, m))
-    y = cuda_pyramid._k3(x, fb.dec_lo, fb.dec_hi, levels, plan)
+    y = cuda_pyramid._k3(x, fb.dec_lo, fb.dec_hi, levels, plan=plan)
     torch.cuda.synchronize()
     ref = cuda_pyramid.pyramid_rows_torch(x.double(), fb.dec_lo, fb.dec_hi, levels)
     assert _rel_err(y, ref) <= F32_BOUND
@@ -422,6 +423,130 @@ def test_inverse_fwt_paths_route_through_k7(cuda):
         assert jt.ops.launch_counts()["K7"] == k7, label
         assert jt.ops.launch_counts()["K5"] == 0, label
         assert _rel_err(got, want) <= F32_BOUND, label
+
+
+# the rotated forms of K3 and K7 (whole rows, (R, N) in, (N, R) out): the
+# volume's rows, rows of 64, a row count no item size divides, levels 0, 1
+# and the most, db2 and sym8 (no unrolled taps), rows of 2 and 2048
+ROTATED = [
+    ((65536, 256), "db4", 6), ((4096, 64), "db4", 6), ((1000, 256), "db4", 8),
+    ((1000, 256), "db4", 0), ((1000, 256), "db4", 1), ((4096, 64), "db2", 6),
+    ((333, 128), "sym8", 7), ((77, 2048), "db4", 11), ((513, 2), "Haar", 1),
+    ((37, 8), "db4", 3),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,wavelet,level", ROTATED, ids=lambda v: str(v))
+def test_k3_rotated_matches_plain(cuda, shape, wavelet, level):
+    fb = jt.get_filter(wavelet)
+    x = torch.as_tensor(np.random.default_rng(41).standard_normal(shape), dtype=torch.float32,
+                        device=cuda)
+    done = cuda_pyramid.levels_done(shape[1], fb.transform_wavelength, level)
+    before = profiling.counts()
+    torch.full(shape, float("nan"), device=cuda)  # an element left unstored shows
+    y = cuda_pyramid.pyramid_rows_rotated(x, fb.dec_lo, fb.dec_hi, done)
+    torch.cuda.synchronize()
+    ref = cuda_pyramid.pyramid_rows_transposed_torch(x.double(), fb.dec_lo, fb.dec_hi, done)
+    assert tuple(y.shape) == shape[::-1] and bool(torch.isfinite(y).all())
+    assert _rel_err(y, ref) <= F32_BOUND
+    after = profiling.counts()
+    assert after["launch.K3"] == before["launch.K3"] + 1  # one launch a call
+    assert after[cuda_pyramid.ROTATED_PASSES] == before[cuda_pyramid.ROTATED_PASSES] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,wavelet,level", ROTATED, ids=lambda v: str(v))
+def test_k7_rotated_matches_plain(cuda, shape, wavelet, level):
+    fb = jt.get_filter(wavelet)
+    y = torch.as_tensor(np.random.default_rng(42).standard_normal(shape), dtype=torch.float32,
+                        device=cuda)
+    done = cuda_pyramid.levels_done(shape[1], fb.transform_wavelength, level)
+    args = (fb.rec_lo, fb.rec_hi, fb.recon_gain, done)
+    before = profiling.counts()
+    torch.full(shape, float("nan"), device=cuda)  # an element left unstored shows
+    x = cuda_pyramid.ipyramid_rows_rotated(y, *args)
+    torch.cuda.synchronize()
+    ref = cuda_pyramid.ipyramid_rows_transposed_torch(y.double(), *args)
+    assert tuple(x.shape) == shape[::-1] and bool(torch.isfinite(x).all())
+    assert _rel_err(x, ref) <= F32_BOUND
+    after = profiling.counts()
+    assert after["launch.K7"] == before["launch.K7"] + 1
+    assert after[cuda_pyramid.ROTATED_PASSES] == before[cuda_pyramid.ROTATED_PASSES] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2])
+def test_rotated_source_off_16_byte_alignment(cuda, offset):
+    """A source 4 or 8 bytes off: the producer warp loads the rows plainly."""
+    fb = jt.get_filter("db4")
+    shape = (300, 256)
+    x = torch.empty(shape[0] * shape[1] + offset, dtype=torch.float32,
+                    device=cuda)[offset:].view(shape)
+    x.copy_(torch.as_tensor(np.random.default_rng(43).standard_normal(shape)))
+    y = cuda_pyramid.pyramid_rows_rotated(x, fb.dec_lo, fb.dec_hi, 6)
+    r = cuda_pyramid.ipyramid_rows_rotated(x, fb.rec_lo, fb.rec_hi, fb.recon_gain, 6)
+    torch.cuda.synchronize()
+    assert _rel_err(y, cuda_pyramid.pyramid_rows_transposed_torch(
+        x.double(), fb.dec_lo, fb.dec_hi, 6)) <= F32_BOUND
+    assert _rel_err(r, cuda_pyramid.ipyramid_rows_transposed_torch(
+        x.double(), fb.rec_lo, fb.rec_hi, fb.recon_gain, 6)) <= F32_BOUND
+
+
+def _separable(tr, v, levels, reverse=False):
+    """The facade's 3D path before the rotated route: ndim over fwt/ifwt."""
+    fb = tr.get_wavelet()
+    if reverse:
+        return ndim.reverse_3d(lambda u, lv: jt.ifwt(u, fb, lv), v, *levels)
+    return ndim.forward_3d(lambda u, lv: jt.fwt(u, fb, lv), v, *levels)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,levels", [((256, 256, 256), (6, 6, 6)),
+                                          ((32, 64, 128), (2, 5, 3)),
+                                          ((16, 2048, 8), (4, None, 1))])
+def test_fwt3d_ifwt3d_match_the_separable_path(cuda, shape, levels):
+    """The facade's 3D forward and reverse on the rotated route against the
+    separable path (K3/K7 in place and transposing copies), within 1e-6 of
+    max|ref|: three launches of K3 (K7) and three rotated passes each."""
+    tr = jt.Transform(jt.FastWaveletTransform("db4"))
+    x = torch.as_tensor(np.random.default_rng(44).standard_normal(shape), dtype=torch.float32,
+                        device=cuda)
+    jt.ops.reset_launch_counts()
+    passes = profiling.counts()[cuda_pyramid.ROTATED_PASSES]
+    y = tr.forward(x, *levels)
+    r = tr.reverse(y, *levels)
+    torch.cuda.synchronize()
+    launches = jt.ops.launch_counts()
+    assert launches["K3"] == launches["K7"] == 3 and sum(launches.values()) == 6
+    assert profiling.counts()[cuda_pyramid.ROTATED_PASSES] == passes + 6
+    assert _rel_err(y, _separable(tr, x, levels)) <= 1e-6
+    assert _rel_err(r, _separable(tr, y, levels, reverse=True)) <= 1e-6
+    assert _rel_err(r, x) <= F32_BOUND
+
+
+@pytest.mark.cuda
+def test_volume_gradients_match_the_separable_path(cuda):
+    """The gradient of a loss through the route's forward and reverse (the
+    rotated passes' adjoints, K7 and K3 on the transposed gradient) against
+    the separable path's."""
+    tr = jt.Transform(jt.FastWaveletTransform("db4"))
+    rng = np.random.default_rng(45)
+    x = torch.as_tensor(rng.standard_normal((32, 64, 128)), dtype=torch.float32, device=cuda)
+    w = torch.as_tensor(rng.standard_normal((32, 64, 128)), dtype=torch.float32, device=cuda)
+    levels = (2, 5, 3)
+    grads = []
+    for route in (True, False):
+        xg = x.clone().requires_grad_()
+        if route:
+            y = tr.forward(xg, *levels)
+            loss = ((tr.reverse(y * w, *levels) * w).sum() + (y * y).sum())
+        else:
+            y = _separable(tr, xg, levels)
+            loss = ((_separable(tr, y * w, levels, reverse=True) * w).sum() + (y * y).sum())
+        grads.append(torch.autograd.grad(loss, xg)[0])
+    torch.cuda.synchronize()
+    assert _rel_err(grads[0], grads[1]) <= F32_BOUND
 
 
 @pytest.mark.cuda
@@ -1325,3 +1450,55 @@ def test_cpu_tensors_take_the_plain_version(which, rng):
         got, want = cuda_reassign.reassign(c, k, 5), cuda_reassign.reassign_torch(c, k, 5)
     assert torch.equal(got, want)
     assert not any(jt.ops.launch_counts().values())
+
+
+def _wrappers():
+    """Each kernel wrapper: the call, its input's shape and dtype, and the
+    autograd Function it goes through for a gradient."""
+    g0, h0 = _modwt_base_filters("db4")
+    fb = jt.get_filter("db4")
+    lo, hi, rlo, rhi = fb.dec_lo, fb.dec_hi, fb.rec_lo, fb.rec_hi
+    k = torch.tensor(np.random.default_rng(5).integers(-1, 6, (4, 256)), dtype=torch.int32)
+    f32, c64 = torch.float32, torch.complex64
+    return {
+        "K1": (lambda x: cuda_modwt.modwt_cascade(x, g0, h0, 3), (4, 256), f32, "_ModwtCascade"),
+        "K2": (lambda c: cuda_modwt.imodwt_cascade(c, g0, h0), (4, 4, 256), f32,
+               "_ImodwtCascade"),
+        "K3": (lambda x: cuda_pyramid.pyramid_rows(x, lo, hi, 4), (4, 256), f32, "_PyramidRows"),
+        "K3.rotated": (lambda x: cuda_pyramid.pyramid_rows_rotated(x, lo, hi, 4), (4, 256), f32,
+                       "_PyramidRowsRotated"),
+        "K4": (lambda x: cuda_pyramid.pyramid_rows_transposed(x, lo, hi, 4), (4, 256), f32,
+               "_PyramidRowsT"),
+        "K5": (lambda y: cuda_pyramid.ipyramid_rows_transposed(y, rlo, rhi, 1.0, 4), (4, 256),
+               f32, "_IPyramidRowsT"),
+        "K6": (lambda c: cuda_reassign.reassign(c, k, 5), (4, 256), c64, "_Reassign"),
+        "K7": (lambda y: cuda_pyramid.ipyramid_rows(y, rlo, rhi, 1.0, 4), (4, 256), f32,
+               "_IPyramidRows"),
+        "K7.rotated": (lambda y: cuda_pyramid.ipyramid_rows_rotated(y, rlo, rhi, 1.0, 4),
+                       (4, 256), f32, "_IPyramidRowsRotated"),
+        "K8": (lambda x: cuda_wpt.wpt_rows(x, lo, hi, 4), (4, 256), f32, "_WptRows"),
+        "K9": (lambda y: cuda_wpt.iwpt_rows(y, rlo, rhi, 4, 1.0), (4, 256), f32, "_IWptRows"),
+    }
+
+
+@pytest.mark.parametrize("which", ["K1", "K2", "K3", "K3.rotated", "K4", "K5", "K6", "K7",
+                                   "K7.rotated", "K8", "K9"])
+def test_wrappers_take_their_autograd_function_only_for_a_gradient(which, rng, monkeypatch):
+    """``cuda_build.apply``: a wrapper runs its kernel directly unless a
+    gradient of its input is wanted, and then goes through its Function,
+    which the result records; both give the same values."""
+    fn, shape, dtype, function = _wrappers()[which]
+    cls = next(getattr(m, function) for m in (cuda_modwt, cuda_pyramid, cuda_reassign, cuda_wpt)
+               if hasattr(m, function))
+    applied, real = [], cls.apply
+    monkeypatch.setattr(cls, "apply", lambda *args: applied.append(1) or real(*args))
+    x = torch.tensor(rng.standard_normal(shape)).to(dtype)
+    plain = fn(x)
+    xg = x.clone().requires_grad_()
+    with torch.no_grad():
+        assert fn(xg).grad_fn is None
+    assert plain.grad_fn is None and not applied
+    y = fn(xg)
+    assert applied == [1]
+    assert type(y.grad_fn).__name__ == f"{function}Backward"
+    assert torch.equal(y.detach(), plain)

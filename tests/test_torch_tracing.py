@@ -298,6 +298,30 @@ def test_cwt_records_its_root_and_constants():
     assert [s.counts.get("cwt.constant_builds", 0) for s in spans if s.parent is None] == [1, 0]
 
 
+def test_the_rotated_passes_metric_reads_the_counter(monkeypatch):
+    """``benchmark/metrics/rotated_passes.volume.py``: the median over the
+    ``Transform.forward`` roots of their ``ndim.rotated_passes`` change (the
+    reverse roots not counted), and None for a program that lists no such
+    counter, as the parent of the rotated route does."""
+    from benchmark import harness, program_spans
+
+    reader = harness.load_reader("per_layer", "rotated_passes.volume")
+    roots = [program_spans.Span(name, None, q, 0.0, 1.0, {}, c) for q, (name, c) in enumerate((
+        ("Transform.forward", {"ndim.rotated_passes": 3, "launch.K3": 3}),
+        ("Transform.reverse", {"ndim.rotated_passes": 3, "launch.K7": 3}),
+        ("Transform.forward", {"ndim.rotated_passes": 3}),
+        ("Transform.forward", {"launch.K3": 3})))]
+    monkeypatch.setattr(program_spans, "records", lambda run: roots)
+    run = types.SimpleNamespace()
+    assert reader.read(run) == 3
+    assert profiling.counts()["ndim.rotated_passes"] >= 0  # listed from the start
+    monkeypatch.setattr(program_spans, "_profiling",
+                        lambda: types.SimpleNamespace(counts=lambda: {"launch.K3": 3}))
+    assert reader.read(run) is None
+    monkeypatch.setattr(program_spans, "_profiling", lambda: None)
+    assert reader.read(run) is None
+
+
 # on the card
 # --------------------------------------------------------------------------
 
@@ -331,10 +355,13 @@ def test_the_volume_path_launches_k3_and_k7_inside_their_spans(card):
     spans = profiling.spans()
     k3 = [s for s in spans if s.name == "launch.K3"]
     k7 = [s for s in spans if s.name == "launch.K7"]
-    assert [s.parent for s in k3] == ["fwt"] * 3 and [s.parent for s in k7] == ["ifwt"] * 3
-    assert all(s.args["rows"] == 64 * 64 and s.args["n"] == 64 for s in k3 + k7)
+    assert [s.parent for s in k3] == ["fwt3d"] * 3 and [s.parent for s in k7] == ["ifwt3d"] * 3
+    assert all(s.args["rows"] == 64 * 64 and s.args["n"] == 64 and s.args["rotated"] == 1
+               for s in k3 + k7)
+    assert not [s for s in spans if s.name in ("ndim.transpose", "ndim.pass")]
     fwd, rev = [s for s in spans if s.parent is None]
     assert fwd.counts["launch.K3"] == 3 and rev.counts["launch.K7"] == 3
+    assert fwd.counts["ndim.rotated_passes"] == rev.counts["ndim.rotated_passes"] == 3
     assert "upload.calls" not in fwd.counts  # the taps are on the card already
     assert "library.pyramid.load_s" in profiling.counts()
 

@@ -4,7 +4,7 @@ card: the kernels and their consumers.
     python3 tools/ab_times.py --parent build/parent [--rounds 6] [--reps 25]
                               [--variants parent new] [--calls TEXT ...]
                               [--out build/ab_times.jsonl] [--trace] [--k3-plans]
-                              [--k7-plans] [--wpt-plans]
+                              [--k7-plans] [--wpt-plans] [--rot-plans]
 
 ``--parent`` is another commit's tree, unpacked (``git archive <commit> |
 tar -x -C build/parent``). Its ``jwave_tpu_torch`` is imported under another
@@ -24,7 +24,8 @@ K5's adjoint), K3 and ``fwt`` at 64 x 65536 db4 L8, K6 at 8 x 64 x 65536 on
 threshold) and the peak kernel alone on the W and dW of ``ssq_cwt`` at 8 x
 64 x 65536 and 2 x 64 x 2^20 (a tree without them runs the same functions
 by its route: the eager phase transform then K6, and ``torch.amax``), K7 (alone at 64 x 65536 db4 L1, L2, L4 and L8 and
-Haar L8, and on 65536 rows of 256 at full depth, ``ifwt`` db4 L8 64 x 65536, the gradient of ``fwt``
+Haar L8, and on 65536 rows of 256 at full depth; K3 and K7 in place on
+65536 rows of 256 at db4 L6), ``ifwt`` db4 L8 64 x 65536, the gradient of ``fwt``
 there, whose backward runs K7 as K3's adjoint, ``ifwt3d`` db4 256^3 through
 the FWT facade's reverse, and ``ifwt2d_sharded`` db4 L6 2048^2 in a one-rank
 NCCL world), K8 and K9 (db4 L6 64 x 65536, and the chunks of ``wpt`` at
@@ -34,7 +35,11 @@ its route, the conv form of ``ops.composite``) and their consumers
 (``wpt`` and ``iwpt`` at L6 and full depth, the WPT facade's 2D forward
 and reverse at 2048^2 and its 3D forward and reverse at 256^3 L4,
 ``wpt2d_sharded`` and ``iwpt2d_sharded`` L6 2048^2 in the one-rank
-world), and K2 and one K5 pass, which no consumer here isolates. The
+world), the volume's axis passes on 65536 rows of 256 at db4 L6 (the
+rotated K3 and K7, or, in a tree without them, K3 and K7 in place and the
+transposing copy that followed them) and their consumers (the FWT facade's
+3D forward and reverse at 256^3 L6), and K2 and one K5 pass, which no
+consumer here isolates. The
 registers and spills of each K8/K9 build (``-Xptxas -v``) and their plans
 are printed first.
 ``--variants`` keeps one or both trees (one alone measures
@@ -71,7 +76,11 @@ timed (device, the median of 3) for tiles of 2048 to 8192 samples, 128 and
 256 compute threads and grids of 3, 4 and 5 blocks an SM (where the
 occupancy calculator allows them), with each plan's items a block: the
 sweep that ``WPT_TILE``, ``WPT_THREADS`` and ``WPT_BLOCKS_PER_SM`` were
-chosen from. Needs a CUDA card; exits 2 without one.
+chosen from. With ``--rot-plans``, this tree's rotated K3 and K7 on
+65536 rows of 256 at db4 L6 are timed (device, the median of 3) for items
+of 2048 to 8192 floats and 64, 128 and 256 compute threads, with the blocks
+an SM: the sweep that ``ROT_ITEM``, ``K3_ROT_THREADS`` and the rotated K7's
+plan were chosen from. Needs a CUDA card; exits 2 without one.
 """
 from __future__ import annotations
 
@@ -128,6 +137,7 @@ def main() -> int:
     ap.add_argument("--k3-plans", action="store_true")
     ap.add_argument("--k7-plans", action="store_true")
     ap.add_argument("--wpt-plans", action="store_true")
+    ap.add_argument("--rot-plans", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("ab_times: needs a CUDA card", file=sys.stderr)
@@ -266,6 +276,17 @@ def main() -> int:
             "WPT facade 3D forward db4 L4 256^3": lambda: wpt_f.forward(vol, 4, 4, 4),
             "iwpt3d db4 L4 256^3 (WPT facade 3D reverse)": lambda: wpt_f.reverse(vol, 4, 4, 4),
         })
+        if hasattr(cp, "pyramid_rows_rotated"):
+            extra["K3 rotated 65536x256 db4 L6"] = lambda: cp.pyramid_rows_rotated(x256, lo, hi, 6)
+            extra["K7 rotated 65536x256 db4 L6"] = lambda: cp.ipyramid_rows_rotated(
+                x256, fb.rec_lo, fb.rec_hi, 1.0, 6)
+        else:  # the same functions by this tree's route: in place, then a transposing copy
+            extra["K3 rotated 65536x256 db4 L6"] = (
+                lambda: cp.pyramid_rows(x256, lo, hi, 6).t().contiguous())
+            extra["K7 rotated 65536x256 db4 L6"] = lambda: cp.ipyramid_rows(
+                x256, fb.rec_lo, fb.rec_hi, 1.0, 6).t().contiguous()
+        extra["fwt3d db4 L6 256^3"] = lambda: facade.forward(vol, 6, 6, 6)
+        extra["ifwt3d db4 L6 256^3"] = lambda: facade.reverse(vol, 6, 6, 6)
         return {
             "K3 64x65536 db4 L8": lambda: cp.pyramid_rows(x, lo, hi, 8),
             "fwt db4 L8 64x65536": lambda: jt.fwt(x, "db4", 8),
@@ -296,6 +317,8 @@ def main() -> int:
             "fwt grad db4 L8 64x65536": lambda: grad((jt.fwt(xg, "db4", 8) * w).sum(), xg),
             "ifwt3d db4 256^3": lambda: facade.reverse(vol),
             "K7 65536x256 full depth": lambda: cp.ipyramid_rows(x256, fb.rec_lo, fb.rec_hi, 1.0, 8),
+            "K3 65536x256 db4 L6": lambda: cp.pyramid_rows(x256, lo, hi, 6),
+            "K7 65536x256 db4 L6": lambda: cp.ipyramid_rows(x256, fb.rec_lo, fb.rec_hi, 1.0, 6),
             **extra,
         }
 
@@ -315,6 +338,13 @@ def main() -> int:
             "K7 64x65536 db4 L8": cp.ipyramid_rows_torch(x.double(), fb.rec_lo, fb.rec_hi, 1.0, 8),
             "K7 65536x256 full depth": cp.ipyramid_rows_torch(x256.double(), fb.rec_lo,
                                                               fb.rec_hi, 1.0, 8),
+            "K3 65536x256 db4 L6": cp.pyramid_rows_torch(x256.double(), lo, hi, 6),
+            "K7 65536x256 db4 L6": cp.ipyramid_rows_torch(x256.double(), fb.rec_lo, fb.rec_hi,
+                                                          1.0, 6),
+            "K3 rotated 65536x256 db4 L6": cp.pyramid_rows_transposed_torch(x256.double(), lo,
+                                                                            hi, 6),
+            "K7 rotated 65536x256 db4 L6": cp.ipyramid_rows_transposed_torch(
+                x256.double(), fb.rec_lo, fb.rec_hi, 1.0, 6),
             "K8 64x65536 db4 L6": new["ops.cuda_wpt"].wpt_analysis_torch(x.double(), lo, hi, 6),
             "K9 64x65536 db4 L6": new["ops.cuda_wpt"].wpt_synthesis_torch(x.double(), fb.rec_lo,
                                                                          fb.rec_hi, 6)}
@@ -409,7 +439,7 @@ def main() -> int:
             plan = cp.k3_plan(65536, 8, len(lo), tile=tile)
             for threads in (128, 192, 256, 384, 512):
                 cp.K3_TILE_THREADS, kept = threads, cp.K3_TILE_THREADS
-                ms = measure(lambda: cp._k3(x, lo, hi, 8, plan))["device"]
+                ms = measure(lambda: cp._k3(x, lo, hi, 8, plan=plan))["device"]
                 cp.K3_TILE_THREADS = kept
                 print(json.dumps({"k3_plan": plan._asdict(), "threads": threads,
                                   "device_ms": ms, "card": card}), flush=True)
@@ -433,6 +463,30 @@ def main() -> int:
                                       "grid": cp.k7_grid(dev, y.shape[0], y.shape[1], lv,
                                                          len(fb.rec_lo), plan),
                                       "device_ms": ms, "card": card}), flush=True)
+
+    if args.rot_plans:
+        bound_ms = 2 * 4 * x256.numel() / 3.35e12 * 1e3
+        for item in (2048, 4096, 8192):
+            for consumers in (64, 128, 256):
+                plan = cp.k3_rotated_plan(256, item, consumers + 32)
+                ms = float(np.median([measure(lambda: cp._k3_rotated(x256, lo, hi, 6,
+                                                                     plan))["device"]
+                                      for _ in range(3)]))
+                print(json.dumps({"rot_plan": "K3 65536x256 db4 L6", **plan._asdict(),
+                                  "blocks_per_sm": cp.k3_rotated_blocks_per_sm(
+                                      torch.cuda.current_device(), 256, 6, 8, plan),
+                                  "device_ms": ms, "bound_ms": bound_ms, "card": card}),
+                      flush=True)
+                plan = cp.k7_plan(256, 6, 8, item, consumers + 32, rotated=True)
+                ms = float(np.median([measure(lambda: cp._k7_rotated(
+                    x256, fb.rec_lo, fb.rec_hi, 1.0, 6, plan))["device"] for _ in range(3)]))
+                print(json.dumps({"rot_plan": "K7 65536x256 db4 L6", "tile": plan.tile,
+                                  "rows": plan.rows, "threads": plan.threads,
+                                  "smem_bytes": plan.smem_bytes,
+                                  "blocks_per_sm": cp.k7_blocks_per_sm(
+                                      torch.cuda.current_device(), 256, 6, 8, plan, True),
+                                  "device_ms": ms, "bound_ms": bound_ms, "card": card}),
+                      flush=True)
 
     if args.wpt_plans:
         cw = new["ops.cuda_wpt"]
