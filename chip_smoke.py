@@ -32,7 +32,8 @@ it happened; any failed check ends the run with a non-zero exit:
    alignment, items of whole rows of 16, 256 and 2048 with a short last
    one, and the persistent grid at 1, grid - 1 and grid + 1 items and with
    some blocks taking one item more than others; K8 and K9 in both layouts
-   at 64 x 65536 db4 L6, at every chunk of wpt at full depth on 65536 (1024
+   at 64 x 65536 db4 L6, at 16384 x 2048 L6 (the packet cell's axis pass:
+   whole rows, 2 an item), at every chunk of wpt at full depth on 65536 (1024
    L6 and 16 L4 as whole rows: 105 taps mod 16), rows of 8 at L3, 62 taps
    at L3, Haar and Haar orthogonal's gain at L6, the generic taps, one
    level, odd batches around the rows an item, rows of 2^20, a source off
@@ -46,6 +47,14 @@ it happened; any failed check ends the run with a non-zero exit:
       facade forward/reverse on 64 x 65536 rows (K3, then K7 once) and a
       2048 x 2048 image (fwt2d as K4 x2, ifwt2d as K5 x2); small inputs
       against the numpy oracle in tests/oracle.py.
+   a'. the volume: the FWT facade's 3D forward, then reverse, on a 256^3
+      f32 volume at (6, 6, 6): three rotated K3 launches, then three
+      rotated K7, and nothing else, against the separable ndim path.
+   a''. the packet cell: the WPT facade's forward_2d, then reverse_2d, on
+      an (8, 2048, 2048) f32 stack at (6, 6): two K8 (K9) launches on
+      16384 rows of 2048 and two transposing copies (ndim.transposes) each
+      way, and nothing else; against the facade's float64 run, and the
+      round trip against the stack.
    b. continuous: ssq_cwt -> issq_cwt at 8 x 65536 f32, Morlet(1,1), 64 log
       scales 1e-5..1e-2 s, fs = 1e6 (K6), held against the same call with
       the plain scatter and by the column-sum identity; extract_ridge and
@@ -58,7 +67,10 @@ it happened; any failed check ends the run with a non-zero exit:
       orthogonal ifwt2d (256 x 256), against autograd through the plain
       versions in float64; the backward's launches are read on their own
       (modwt's must launch K2, fwt's K7, ifwt's K3, fwt2d's K5, ifwt2d's
-      K4; wpt's K9 and iwpt's K8, db4 L6 64 x 65536 and full depth);
+      K4; wpt's K9 and iwpt's K8, db4 L6 64 x 65536 and full depth; the
+      WPT facade's forward_2d's K9 and reverse_2d's K8 on a (2, 256, 512)
+      stack at (6, 6), against the separable ndim path over the plain
+      versions);
       hurst_exponent's gradient at 8 x 65536
       against the float64 route. The K6 gather against the plain scatter's.
    d. MODWT analysis: modwt_mra (64 x 65536, db4 L5), modwt_2d -> imodwt_2d
@@ -132,7 +144,8 @@ it happened; any failed check ends the run with a non-zero exit:
    the sum of its kernels' times in a profiled call, and wall); ifwt3d db4
    256^3 and ifwt2d_sharded 2048^2 before and after K7, in turns; K8 and
    K9 beside the conv form they replace (its conv1d on the extended input,
-   its conv_transpose1d and fold), their plans at 64 x 65536 db4 L6 and at
+   its conv_transpose1d and fold), K8 and K9 at 16384 x 2048 db4 L6 (the
+   packet cell's rows) beside their plain versions, their plans at 64 x 65536 db4 L6 and at
    wpt's whole-row chunks (4096 x 1024 L6, 262144 x 16 L4: the persistent
    grid, blocks an SM, shared bytes, registers and spills from -Xptxas -v,
    which must show none, and the time), and wpt, iwpt, the WPT facade 2D
@@ -180,7 +193,9 @@ it happened; any failed check ends the run with a non-zero exit:
 
 The second line from the end is a JSON object listing each kernel with its
 launches on its paths (4a-4b, 4h for K8/K9, and 4j), on its main path (4a;
-K8/K9: 4h's full-depth WPT; K6's fused form, K6.fused, and the peak
+K8/K9: 4h's full-depth WPT; K8.wpt2d/K9.wpt2d, K8 and K9 on the packet
+cell's rows, timed at 16384 x 2048 L6 beside their plain versions: 4a'';
+K6's fused form, K6.fused, and the peak
 kernel, K6.peak: 4b, the continuous path) and in 4j (K6's row counts the
 unfused form's launches alone), its error, its time beside
 its plain version's, the library call's, its byte floor and its bound
@@ -563,6 +578,10 @@ def main() -> int:
         return errs[0]
 
     errors["K8"], errors["K9"] = wpt_case("64x65536 db4 L6", (64, 65536), "db4", 6)
+    # the packet cell's axis pass: a stack of 8 frames of 2048^2, whole rows, 2 an item
+    errors["K8.wpt2d"], errors["K9.wpt2d"] = wpt_case(
+        "16384x2048 db4 L6 (whole rows, 2 an item: the WPT facade's 2D axis pass on 8 frames)",
+        (16384, 2048), "db4", 6)
     for label, shape, wavelet, levels, offset in (
             ("64x1024 db4 L6 (whole rows, 4 an item: wpt's second chunk at full depth)",
              (64, 1024), "db4", 6, 0),
@@ -837,6 +856,44 @@ def main() -> int:
             vol, F32_BOUND)
     del vol, vol_np, vol_out
 
+    # ---- 4a''. the packet cell's main path: the WPT facade's 2D forward,
+    # then its reverse, on an (8, 2048, 2048) f32 stack at (6, 6), the counts
+    # set to 0 just before each: one K8 (K9) an axis on 16384 rows of 2048
+    # and ndim's transposing copy after each, against the facade's float64
+    # run and the stack
+    wpt2d_t = jt.api.WaveletPacketTransform("Daubechies 4")
+    stack = torch.as_tensor(
+        np.random.default_rng(13).standard_normal((8, 2048, 2048)).astype(np.float32),
+        device=dev)
+    stack_launches, stack_out = {}, {}
+    for name_s, fn_s in (("forward", lambda: wpt2d_t.forward_2d(stack, 6, 6)),
+                         ("reverse", lambda: wpt2d_t.reverse_2d(stack_out["forward"], 6, 6))):
+        reset_counts()
+        copies_s = profiling.counts()["ndim.transposes"]
+        stack_out[name_s] = fn_s()
+        torch.cuda.synchronize()
+        counts_s = read_counts()
+        counts_s["ndim.transposes"] = profiling.counts()["ndim.transposes"] - copies_s
+        stack_launches[name_s] = counts_s
+        print(json.dumps({"main_path": f"WPT facade {name_s}_2d (8, 2048, 2048) db4 (6, 6)",
+                          "launches": counts_s}), flush=True)
+    k_s = {"forward": "K8", "reverse": "K9"}
+    for name_s, counts_s in stack_launches.items():
+        require(counts_s[k_s[name_s]] == 2 and counts_s["ndim.transposes"] == 2
+                and not any(v for k, v in counts_s.items()
+                            if k not in (k_s[name_s], "ndim.transposes")),
+                f"the facade's {name_s}_2d did not run two {k_s[name_s]} passes, two "
+                f"transposing copies and nothing else: {counts_s}")
+    stack64 = stack.double()
+    compare("WPT facade forward_2d (8, 2048, 2048) db4 (6, 6) f32 against float64",
+            stack_out["forward"], wpt2d_t.forward_2d(stack64, 6, 6), F32_BOUND)
+    compare("WPT facade reverse_2d (8, 2048, 2048) db4 (6, 6) f32 against float64",
+            stack_out["reverse"], wpt2d_t.reverse_2d(stack_out["forward"].double(), 6, 6),
+            F32_BOUND)
+    compare("WPT facade reverse_2d(forward_2d(s)) = s, (8, 2048, 2048) db4 (6, 6)",
+            stack_out["reverse"], stack, F32_BOUND)
+    del stack, stack64, stack_out
+
     # small inputs against the float64 numpy oracle
     small = np.random.default_rng(3).standard_normal((2, 300))
     c_small = jt.modwt(torch.as_tensor(small, dtype=torch.float32, device=dev), "db4", 4)
@@ -1040,6 +1097,28 @@ def main() -> int:
         lambda a: rotated_plain(a, lambda r, lv: cuda_pyramid.ipyramid_rows_transposed_torch(
             r, fb4.rec_lo, fb4.rec_hi, fb4.recon_gain, lv), (5, 4, 3)), vol_g, ("K3",)))
     del vol_g
+    # the WPT facade's 2D pair on a small stack, each axis pass against the
+    # separable ndim path over the plain K8/K9 functions
+    wpt2d_g = jt.api.WaveletPacketTransform("Daubechies 4")
+    stack_g = np.random.default_rng(14).standard_normal((2, 256, 512)).astype(np.float32)
+    backward["K8.wpt2d"] = ("K9 iwpt_rows with the analysis filters, gain 1, an axis",
+                            grad_case("WPT facade forward_2d (2, 256, 512) db4 (6, 6)",
+                                      lambda a: wpt2d_g.forward_2d(a, 6, 6),
+                                      lambda a: ndim.forward_2d(
+                                          lambda v, lv: cuda_wpt.wpt_analysis_torch(
+                                              v.reshape(-1, v.shape[-1]), fb4.dec_lo,
+                                              fb4.dec_hi, lv).reshape(v.shape), a, 6, 6),
+                                      stack_g, ("K9",)))
+    backward["K9.wpt2d"] = ("K8 wpt_rows with the synthesis filters, gain recon_gain, an axis",
+                            grad_case("WPT facade reverse_2d (2, 256, 512) db4 (6, 6)",
+                                      lambda a: wpt2d_g.reverse_2d(a, 6, 6),
+                                      lambda a: ndim.reverse_2d(
+                                          lambda v, lv: cuda_wpt.wpt_synthesis_torch(
+                                              v.reshape(-1, v.shape[-1]), fb4.rec_lo,
+                                              fb4.rec_hi, lv, fb4.recon_gain).reshape(v.shape),
+                                          a, 6, 6),
+                                      stack_g, ("K8",)))
+    del stack_g
     fbh = jt.get_filter("Haar orthogonal")
     grad_case("ifwt2d Haar orthogonal 256x256 (gain 0.5)",
               lambda a: jt.ifwt2d(a, "Haar orthogonal"), lambda a: k5x2_plain(a, fbh, 8),
@@ -1977,6 +2056,15 @@ def main() -> int:
         print(json.dumps({"time": f"{k} db4 L6 64x65536", "ms": timing[k][0],
                           "first_design_ms": FIRST_DESIGN_MS[f"{k} 64x65536"], "card": card}),
               flush=True)
+    # K8 and K9 on the packet cell's axis pass (16384 rows of 2048, db4 L6,
+    # whole rows, 2 an item) beside their plain versions, in turns
+    x2048 = torch.as_tensor(np.random.default_rng(15).standard_normal((16384, 2048)),
+                            dtype=torch.float32, device=dev)
+    timing["K8.wpt2d"] = pair(lambda: cuda_wpt.wpt_rows(x2048, lo, hi, 6),
+                              lambda: cuda_wpt.wpt_analysis_torch(x2048, lo, hi, 6))
+    timing["K9.wpt2d"] = pair(lambda: cuda_wpt.iwpt_rows(x2048, rlo, rhi, 6),
+                              lambda: cuda_wpt.wpt_synthesis_torch(x2048, rlo, rhi, 6))
+    del x2048
     # K8's and K9's plans at the main shape and at wpt's full-depth chunks
     # that are whole rows: a stage set's, the buffer's and a block's bytes,
     # the blocks an SM holds (the occupancy calculator), the persistent grid,
@@ -2031,7 +2119,11 @@ def main() -> int:
               "K3.rotated": ("pyramid_rows_rotated db4 L6 65536x256 (plain = K4's)",
                              65536 * 256, "Msamples_per_s"),
               "K7.rotated": ("ipyramid_rows_rotated db4 L6 65536x256 (plain = K5's)",
-                             65536 * 256, "Msamples_per_s")}
+                             65536 * 256, "Msamples_per_s"),
+              "K8.wpt2d": ("wpt_rows db4 L6 16384x2048 (the WPT facade's 2D axis pass)",
+                           16384 * 2048, "Msamples_per_s"),
+              "K9.wpt2d": ("iwpt_rows db4 L6 16384x2048 (the WPT facade's 2D axis pass)",
+                           16384 * 2048, "Msamples_per_s")}
     fft = jt.ConvolutionMethod.FFT
     fft_ms = median_ms(lambda: jt.imodwt(jt.modwt(x, "Daubechies 4", 5, method=fft),
                                          "Daubechies 4", method=fft))
@@ -2465,7 +2557,8 @@ def main() -> int:
     # per sample and level; K3 and K7: 64x65536 in and out, ~2N*M FMAs a row;
     # K4/K5 one pass: 2048^2 in and out, the same FMAs per row; K6: the
     # complex64 contributions and int32 bins in, the complex64 plane out, 2
-    # adds each; K8/K9 db4 L6: 64x65536 in and out, M FMAs a sample and level.
+    # adds each; K8/K9 db4 L6: 64x65536 in and out, M FMAs a sample and level
+    # (K8.wpt2d/K9.wpt2d: the same at 16384x2048, the packet cell's rows).
     hbm, f32_rate = HBM_BYTES_S, 67e12
     b, n_s, lv, m8 = 64, 65536, 5, 8
     work = {"K1": (4 * b * n_s * (lv + 2), 2 * 2 * m8 * b * n_s * lv),
@@ -2477,7 +2570,9 @@ def main() -> int:
                    2 * contrib.numel()),
             "K7": (2 * 4 * b * n_s, 2 * 2 * n_s * m8 * b),
             "K8": (2 * 4 * b * n_s, 2 * m8 * 6 * b * n_s),
-            "K9": (2 * 4 * b * n_s, 2 * m8 * 6 * b * n_s)}
+            "K9": (2 * 4 * b * n_s, 2 * m8 * 6 * b * n_s),
+            "K8.wpt2d": (2 * 4 * 16384 * 2048, 2 * m8 * 6 * 16384 * 2048),
+            "K9.wpt2d": (2 * 4 * 16384 * 2048, 2 * m8 * 6 * 16384 * 2048)}
     bounds = {}
     for k, (nbytes, flops) in work.items():
         t_bytes, t_ops = nbytes / hbm * 1e3, flops / f32_rate * 1e3
@@ -2509,12 +2604,20 @@ def main() -> int:
         # no kernel: the volume's axis passes, an XLA transpose between them
         ("K3.rotated pyramid_rows_rotated", "pyramid.cu", "jwave_tpu/transforms/ndim.py:38"),
         ("K7.rotated ipyramid_rows_rotated", "pyramid.cu", "jwave_tpu/transforms/ndim.py:54"),
+        # K8 and K9 on the packet cell's rows: the WPT facade's 2D axis passes
+        ("K8.wpt2d wpt_rows (16384x2048 db4 L6)", "wpt.cu", "jwave_tpu/ops/mxu_wpt.py:87"),
+        ("K9.wpt2d iwpt_rows (16384x2048 db4 L6)", "wpt.cu", "jwave_tpu/ops/mxu_wpt.py:125"),
     ]
     # the rotated forms count as K3's and K7's launches; their own are phase
     # 4a''s, the volume's main path, and are not told apart in phase 4j
     for k, (side, base) in {"K3.rotated": ("forward", "K3"),
                             "K7.rotated": ("reverse", "K7")}.items():
         launches[k] = main_launches[k] = vol_launches[side][base]
+        sharded_launches[k] = None
+    # K8's and K9's rows on the packet cell's path: phase 4a'' counts their launches
+    for k, (side, base) in {"K8.wpt2d": ("forward", "K8"),
+                            "K9.wpt2d": ("reverse", "K9")}.items():
+        launches[k] = main_launches[k] = stack_launches[side][base]
         sharded_launches[k] = None
     kernels = []
     for (name, src, replaces) in table:

@@ -177,6 +177,15 @@ class WaveletPacketTransform(WaveletTransform):
     def _reverse_core(self, y, level=None):
         return iwpt(y, self.wavelet, level)
 
+    @spanned("wpt2d")
+    def forward_2d(self, mat, level_rows=None, level_cols=None):
+        """Separable 2D forward over the last two axes (one ``wpt2d`` span)."""
+        return super().forward_2d(mat, level_rows, level_cols)
+
+    @spanned("iwpt2d")
+    def reverse_2d(self, mat, level_rows=None, level_cols=None):
+        return super().reverse_2d(mat, level_rows, level_cols)
+
 
 class LiftingWaveletTransform(BasicTransform):
     """Lifting-scheme FWT facade: runs the CDF banks the reference's builder

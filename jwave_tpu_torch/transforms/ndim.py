@@ -10,13 +10,22 @@ from __future__ import annotations
 
 import torch
 
-from ..utils.profiling import span
+from ..utils.profiling import count, span
+
+# listed from import on: a call that copied nothing reads 0
+count("ndim.transposes", 0)
+count("ndim.transpose_bytes", 0)
 
 
 def _contiguous(t: torch.Tensor) -> torch.Tensor:
-    """A transposing copy that brings the next axis last."""
+    """A transposing copy that brings the next axis last, counted as
+    ``ndim.transposes`` and ``ndim.transpose_bytes`` where it copies."""
     with span("ndim.transpose"):
-        return t.contiguous()
+        out = t.contiguous()
+        if out is not t:
+            count("ndim.transposes")
+            count("ndim.transpose_bytes", out.numel() * out.element_size())
+        return out
 
 
 def forward_2d(fn1d, mat, level_rows: int | None = None, level_cols: int | None = None):

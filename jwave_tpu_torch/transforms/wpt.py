@@ -9,7 +9,10 @@ filter bank (``ops.composite``), which reads the input once per chunk of
 levels instead of once per level. On a CUDA float32 tensor a fused chunk is
 one launch of K8 (K9 for the inverse), the cascade in shared memory
 (``ops.cuda_wpt``); elsewhere it is one cuDNN convolution under
-``config.dial``. Chunks of one level run the torch butterfly.
+``config.dial``. Chunks of one level run the torch butterfly. Each call is
+one ``wpt`` (``iwpt``) span with its ``n``, ``levels`` and ``chunks``; the
+counters ``wpt.fused_chunks`` and ``wpt.butterfly_levels`` count the chunks
+that fused and the levels the butterfly ran.
 
 Best basis (Coifman-Wickerhauser) sits on top: the full packet tree, an
 additive cost per node summed in float64 on the host, and the bottom-up
@@ -29,6 +32,7 @@ from ..ops.butterfly import butterfly_forward, butterfly_reverse
 from ..ops.composite import wpt_fused_forward, wpt_fused_inverse
 from ..utils.host import as_tensor, copy_to_device
 from ..utils.numerics import exponent_of_two, is_power_of_two
+from ..utils.profiling import count, span
 
 #: max levels fused into one composite conv (2^6 = 64 output channels)
 FUSE_MAX_LEVELS = 6
@@ -37,6 +41,11 @@ FUSE_MAX_TAPS = 512
 #: the interleaved layout's tile width: lane ``p*S + s`` of a 128-lane tile
 #: holds position ``p`` of subband ``s`` (the JAX package's MXU tile layout)
 LANES = 128
+
+# listed from import on: chunks of one level (the torch butterfly) read 0
+# where every chunk fused
+count("wpt.fused_chunks", 0)
+count("wpt.butterfly_levels", 0)
 
 
 def _chunk_schedule(n: int, level: int, fb) -> list[tuple[int, int]]:
@@ -114,20 +123,24 @@ def wpt(x, wavelet, level: int | None = None, fused: bool = True,
     if inter:
         _interleaved_ok(n, level, fb, fused, "wpt")
     lead = x.shape[:-1]
-    for h, c in _chunk_schedule(n, level, fb):
-        g = n // h
-        packets = x.reshape(lead + (g, h))
-        if fused and c > 1:
-            packets = wpt_fused_forward(packets, fb.dec_lo, fb.dec_hi, c, interleaved=inter)
-        else:
-            for l in range(c):
-                hh = h >> l
-                sub = packets.reshape(lead + (n // hh, hh))
-                packets = butterfly_forward(sub, fb.dec_lo, fb.dec_hi)
-        x = packets.reshape(lead + (n,))
-    if inter and level == 1:
-        return wpt_subband_to_interleaved(x, level)
-    return x
+    sched = _chunk_schedule(n, level, fb)
+    with span("wpt", n=n, levels=level, chunks=len(sched)):
+        for h, c in sched:
+            g = n // h
+            packets = x.reshape(lead + (g, h))
+            if fused and c > 1:
+                count("wpt.fused_chunks")
+                packets = wpt_fused_forward(packets, fb.dec_lo, fb.dec_hi, c, interleaved=inter)
+            else:
+                count("wpt.butterfly_levels", c)
+                for l in range(c):
+                    hh = h >> l
+                    sub = packets.reshape(lead + (n // hh, hh))
+                    packets = butterfly_forward(sub, fb.dec_lo, fb.dec_hi)
+            x = packets.reshape(lead + (n,))
+        if inter and level == 1:
+            return wpt_subband_to_interleaved(x, level)
+        return x
 
 
 def iwpt(y, wavelet, level: int | None = None, fused: bool = True,
@@ -147,19 +160,23 @@ def iwpt(y, wavelet, level: int | None = None, fused: bool = True,
         if level == 1:
             y = wpt_interleaved_to_subband(y, level)
     lead = y.shape[:-1]
-    for h, c in reversed(_chunk_schedule(n, level, fb)):
-        g = n // h
-        packets = y.reshape(lead + (g, h))
-        if fused and c > 1:
-            packets = wpt_fused_inverse(packets, fb.rec_lo, fb.rec_hi, c, fb.recon_gain,
-                                        interleaved=inter)
-        else:
-            for l in range(c - 1, -1, -1):
-                hh = h >> l
-                sub = packets.reshape(lead + (n // hh, hh))
-                packets = butterfly_reverse(sub, fb.rec_lo, fb.rec_hi, fb.recon_gain)
-        y = packets.reshape(lead + (n,))
-    return y
+    sched = _chunk_schedule(n, level, fb)
+    with span("iwpt", n=n, levels=level, chunks=len(sched)):
+        for h, c in reversed(sched):
+            g = n // h
+            packets = y.reshape(lead + (g, h))
+            if fused and c > 1:
+                count("wpt.fused_chunks")
+                packets = wpt_fused_inverse(packets, fb.rec_lo, fb.rec_hi, c, fb.recon_gain,
+                                            interleaved=inter)
+            else:
+                count("wpt.butterfly_levels", c)
+                for l in range(c - 1, -1, -1):
+                    hh = h >> l
+                    sub = packets.reshape(lead + (n // hh, hh))
+                    packets = butterfly_reverse(sub, fb.rec_lo, fb.rec_hi, fb.recon_gain)
+            y = packets.reshape(lead + (n,))
+        return y
 
 
 def wpt_interleaved_to_subband(y, level: int) -> torch.Tensor:

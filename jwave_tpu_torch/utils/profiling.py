@@ -156,7 +156,11 @@ def counts() -> dict:
     ``K1.whole_row_launches``/``K2.whole_row_launches`` (the launches of K1
     and K2 that keep whole rows in a block), ``ssq.chunks`` (the chunks of
     rows ``ssq_cwt`` ran), ``ssq.constant_builds``/``cwt.constant_builds``
-    (device constants built on a cache miss) and ``spans.dropped``."""
+    (device constants built on a cache miss), ``ndim.transposes``/
+    ``ndim.transpose_bytes`` (the separable path's transposing copies),
+    ``wpt.fused_chunks``/``wpt.butterfly_levels`` (the packet transform's
+    fused chunks and the levels the torch butterfly ran) and
+    ``spans.dropped``."""
     return dict(_COUNTS)
 
 

@@ -861,6 +861,7 @@ WPT_CASES = [
     ((9, 16384), "sym8", 4), ((1000, 16), "db2", 4), ((133, 4096), "db4", 1),
     ((9999, 2), "Haar", 1), ((257, 512), "db4", 6), ((3, 1 << 20), "db4", 6),
     ((3, 4096), "Battle 23", 4), ((5, 65536), "CDF 9/7", 6),  # odd banks
+    ((16384, 2048), "db4", 6),  # the 2D packet cell's rows: 8 frames of 2048^2
 ]
 
 
@@ -1015,6 +1016,56 @@ def test_wpt_gradients_launch_the_adjoint_kernel(cuda, op, wavelet, shape, level
     back = "K9" if op == "wpt" else "K8"
     assert jt.ops.launch_counts()[back] >= 1 and g.dtype == torch.float32
     assert _rel_err(g.cpu(), _grad_of(fn, x, w)) <= F32_BOUND
+
+
+@pytest.mark.cuda
+def test_wpt_facade_2d_on_a_stack_of_frames_keeps_to_the_cells_limit(cuda):
+    """The WPT facade's ``forward_2d``/``reverse_2d`` on the packet cell's
+    request, 8 frames of 2048^2 db4 at 6 levels an axis (one K8, then one
+    K9, on 16384 rows an axis), against the benchmark's float64 reference
+    frame by frame, within the cell's limit of 3e-5."""
+    from benchmark.compare import RelErr
+    from benchmark.reference import taps
+    from benchmark.reference import wpt as ref
+
+    gen = torch.Generator(device=cuda).manual_seed(2**31 + 26)
+    x = torch.randn((8, 2048, 2048), generator=gen, device=cuda)
+    w = jt.WaveletPacketTransform("Daubechies 4")
+    jt.ops.reset_launch_counts()
+    y = w.forward_2d(x, 6, 6)
+    r = w.reverse_2d(y, 6, 6)
+    torch.cuda.synchronize()
+    launches = jt.ops.launch_counts()
+    assert (launches["K8"], launches["K9"]) == (2, 2)
+    lo, hi = taps.fwt_bank("Daubechies 4")
+    coeffs, recon = RelErr(), RelErr()
+    for f in range(8):
+        ry = ref.wpt_nd(x[f], lo, hi, (6, 6))
+        coeffs.add(y[f], ry)
+        recon.add(r[f], ref.iwpt_nd(ry, lo, hi, (6, 6)))
+    assert coeffs.value <= 3e-5 and recon.value <= 3e-5, (coeffs.value, recon.value)
+
+
+@pytest.mark.cuda
+def test_wpt_facade_2d_counts_its_copies_and_chunks_on_a_warm_call(cuda):
+    """A warm ``forward_2d``/``reverse_2d`` on a stack: one ``wpt2d`` and one
+    ``iwpt2d`` root, each with two transposing copies of the stack, two fused
+    chunks (one K8 or K9 launch an axis) and no butterfly level."""
+    x = torch.randn((8, 256, 512), device=cuda)
+    w = jt.WaveletPacketTransform("Daubechies 4")
+    w.reverse_2d(w.forward_2d(x, 6, 6), 6, 6)  # warm: the library loaded
+    profiling.reset_spans()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        w.reverse_2d(w.forward_2d(x, 6, 6), 6, 6)
+    fwd, rev = [s for s in profiling.spans() if s.parent is None]
+    assert (fwd.name, rev.name) == ("wpt2d", "iwpt2d")
+    for root, k in ((fwd, "launch.K8"), (rev, "launch.K9")):
+        assert root.counts["ndim.transposes"] == 2
+        assert root.counts["ndim.transpose_bytes"] == 2 * x.numel() * 4
+        assert root.counts["wpt.fused_chunks"] == root.counts[k] == 2
+        assert "wpt.butterfly_levels" not in root.counts and "upload.calls" not in root.counts
+    assert [s.parent for s in profiling.spans() if s.name == "launch.K8"] == ["wpt"] * 2
+    assert [s.parent for s in profiling.spans() if s.name == "launch.K9"] == ["iwpt"] * 2
 
 
 @pytest.mark.cuda
