@@ -32,14 +32,17 @@ it happened; any failed check ends the run with a non-zero exit:
    alignment, items of whole rows of 16, 256 and 2048 with a short last
    one, and the persistent grid at 1, grid - 1 and grid + 1 items and with
    some blocks taking one item more than others; K8 and K9 in both layouts
-   at 64 x 65536 db4 L6, at 16384 x 2048 L6 (the packet cell's axis pass:
-   whole rows, 2 an item), at every chunk of wpt at full depth on 65536 (1024
+   at 64 x 65536 db4 L6, at 16384 x 2048 L6 (whole rows, 2 an item), at
+   every chunk of wpt at full depth on 65536 (1024
    L6 and 16 L4 as whole rows: 105 taps mod 16), rows of 8 at L3, 62 taps
    at L3, Haar and Haar orthogonal's gain at L6, the generic taps, one
    level, odd batches around the rows an item, rows of 2^20, a source off
    16-byte alignment, and their persistent grid: whole-row items at grid -
    1, grid and grid + 1 items of each kernel's grid, tiled items on grids
-   forced to items - 1, items and items + 1, forced grids of 1 and 2).
+   forced to items - 1, items and items + 1, forced grids of 1 and 2); the
+   rotated K8 and K9 on the packet cell's axis pass (16384 x 2048 L6 in
+   groups of 2048), 128 x 64 Haar L6 and sym8 L2, and packets of 4 in rows
+   of 256 (wpt's last chunk at full depth).
 4. main paths, each with the launch counts set to 0 just before it and read
    just after, all through the public entry points (numpy input goes to the
    card by default, tensors are made there):
@@ -51,10 +54,10 @@ it happened; any failed check ends the run with a non-zero exit:
       f32 volume at (6, 6, 6): three rotated K3 launches, then three
       rotated K7, and nothing else, against the separable ndim path.
    a''. the packet cell: the WPT facade's forward_2d, then reverse_2d, on
-      an (8, 2048, 2048) f32 stack at (6, 6): two K8 (K9) launches on
-      16384 rows of 2048 and two transposing copies (ndim.transposes) each
-      way, and nothing else; against the facade's float64 run, and the
-      round trip against the stack.
+      an (8, 2048, 2048) f32 stack at (6, 6): two rotated K8 (K9) launches
+      on 16384 rows of 2048 (ndim.rotated_passes 2) each way, no
+      transposing copy and nothing else; against the facade's float64 run
+      (the separable path), and the round trip against the stack.
    b. continuous: ssq_cwt -> issq_cwt at 8 x 65536 f32, Morlet(1,1), 64 log
       scales 1e-5..1e-2 s, fs = 1e6 (K6), held against the same call with
       the plain scatter and by the column-sum identity; extract_ridge and
@@ -144,8 +147,9 @@ it happened; any failed check ends the run with a non-zero exit:
    the sum of its kernels' times in a profiled call, and wall); ifwt3d db4
    256^3 and ifwt2d_sharded 2048^2 before and after K7, in turns; K8 and
    K9 beside the conv form they replace (its conv1d on the extended input,
-   its conv_transpose1d and fold), K8 and K9 at 16384 x 2048 db4 L6 (the
-   packet cell's rows) beside their plain versions, their plans at 64 x 65536 db4 L6 and at
+   its conv_transpose1d and fold), the rotated K8 and K9 at 16384 x 2048
+   db4 L6 (the packet cell's rows) beside their plain versions and beside
+   K8 (K9) in place then a transposing copy, their plans at 64 x 65536 db4 L6 and at
    wpt's whole-row chunks (4096 x 1024 L6, 262144 x 16 L4: the persistent
    grid, blocks an SM, shared bytes, registers and spills from -Xptxas -v,
    which must show none, and the time), and wpt, iwpt, the WPT facade 2D
@@ -193,8 +197,10 @@ it happened; any failed check ends the run with a non-zero exit:
 
 The second line from the end is a JSON object listing each kernel with its
 launches on its paths (4a-4b, 4h for K8/K9, and 4j), on its main path (4a;
-K8/K9: 4h's full-depth WPT; K8.wpt2d/K9.wpt2d, K8 and K9 on the packet
-cell's rows, timed at 16384 x 2048 L6 beside their plain versions: 4a'';
+K8/K9: 4h's full-depth WPT; K8.rotated/K9.rotated, the rotated forms of K8
+and K9 on the packet cell's rows, timed at 16384 x 2048 L6 in groups of 2048
+beside their plain versions and beside K8 (K9) in place followed by a
+transposing copy: 4a'';
 K6's fused form, K6.fused, and the peak
 kernel, K6.peak: 4b, the continuous path) and in 4j (K6's row counts the
 unfused form's launches alone), its error, its time beside
@@ -250,7 +256,11 @@ def require(ok, msg):
 def wpt_ptxas(log: str) -> dict:
     """Registers and spill bytes of each K8/K9 instance in ``nvcc -Xptxas -v``
     output: {"K8 db4": {...}, "K8 Haar": ..., "K8 generic": ..., "K9 ...": ...}."""
-    names = {"analysis_kernelILi8": "K8 db4", "analysis_kernelILi2": "K8 Haar",
+    names = {"analysis_kernelILi8ELb1": "K8.rotated db4", "analysis_kernelILi2ELb1":
+             "K8.rotated Haar", "analysis_kernelILi0ELb1": "K8.rotated generic",
+             "synthesis_kernelILi4ELb1": "K9.rotated db4", "synthesis_kernelILi1ELb1":
+             "K9.rotated Haar", "synthesis_kernelILi0ELb1": "K9.rotated generic",
+             "analysis_kernelILi8": "K8 db4", "analysis_kernelILi2": "K8 Haar",
              "analysis_kernelILi0": "K8 generic", "synthesis_kernelILi4": "K9 db4",
              "synthesis_kernelILi1": "K9 Haar", "synthesis_kernelILi0": "K9 generic"}
     out, cur = {}, None
@@ -578,10 +588,36 @@ def main() -> int:
         return errs[0]
 
     errors["K8"], errors["K9"] = wpt_case("64x65536 db4 L6", (64, 65536), "db4", 6)
-    # the packet cell's axis pass: a stack of 8 frames of 2048^2, whole rows, 2 an item
-    errors["K8.wpt2d"], errors["K9.wpt2d"] = wpt_case(
-        "16384x2048 db4 L6 (whole rows, 2 an item: the WPT facade's 2D axis pass on 8 frames)",
-        (16384, 2048), "db4", 6)
+    # K8 and K9 in place on the packet cell's rows (whole rows, 2 an item)
+    wpt_case("16384x2048 db4 L6 (whole rows, 2 an item: 8 frames of 2048^2)", (16384, 2048),
+             "db4", 6)
+    # the rotated forms of K8 and K9 ((F G, n) in, (F, n, G) out): the packet
+    # cell's axis pass (8 frames of 2048^2), a short row at a shallow and at
+    # full depth with Haar and sym8 (no unrolled taps), and packets shorter
+    # than the row (wpt's last chunk at full depth on rows of 256)
+    errors["K8.rotated"] = errors["K9.rotated"] = 0.0
+    for shape_wr, group_wr, h_wr, wavelet_wr, levels_wr in (
+            ((16384, 2048), 2048, 2048, "db4", 6), ((128, 64), 64, 64, "Haar", 6),
+            ((128, 64), 64, 64, "sym8", 2), ((512, 256), 256, 4, "db4", 2)):
+        fb_wr = jt.get_filter(wavelet_wr)
+        x_wr = signal(shape_wr)
+        label_wr = (f"{shape_wr[0]}x{shape_wr[1]} {wavelet_wr} L{levels_wr}, packets of {h_wr}, "
+                    f"groups of {group_wr}, rotated")
+        got_wr = cuda_wpt.wpt_rows_rotated(x_wr, fb_wr.dec_lo, fb_wr.dec_hi, levels_wr,
+                                           group_wr, h_wr)
+        torch.cuda.synchronize()
+        errors["K8.rotated"] = max(errors["K8.rotated"], compare(
+            f"K8 {label_wr}", got_wr, cuda_wpt.wpt_analysis_rotated_torch(
+                x_wr.double(), fb_wr.dec_lo, fb_wr.dec_hi, levels_wr, group_wr, h_wr),
+            F32_BOUND))
+        args_wr = (fb_wr.rec_lo, fb_wr.rec_hi, levels_wr, group_wr, h_wr, fb_wr.recon_gain)
+        got_wr = cuda_wpt.iwpt_rows_rotated(x_wr, *args_wr)
+        torch.cuda.synchronize()
+        errors["K9.rotated"] = max(errors["K9.rotated"], compare(
+            f"K9 {label_wr}", got_wr, cuda_wpt.wpt_synthesis_rotated_torch(x_wr.double(),
+                                                                           *args_wr),
+            F32_BOUND))
+        del x_wr, got_wr
     for label, shape, wavelet, levels, offset in (
             ("64x1024 db4 L6 (whole rows, 4 an item: wpt's second chunk at full depth)",
              (64, 1024), "db4", 6, 0),
@@ -858,9 +894,9 @@ def main() -> int:
 
     # ---- 4a''. the packet cell's main path: the WPT facade's 2D forward,
     # then its reverse, on an (8, 2048, 2048) f32 stack at (6, 6), the counts
-    # set to 0 just before each: one K8 (K9) an axis on 16384 rows of 2048
-    # and ndim's transposing copy after each, against the facade's float64
-    # run and the stack
+    # set to 0 just before each: one rotated K8 (K9) an axis on 16384 rows
+    # of 2048 and no transposing copy, against the facade's float64 run
+    # (the separable path) and the stack
     wpt2d_t = jt.api.WaveletPacketTransform("Daubechies 4")
     stack = torch.as_tensor(
         np.random.default_rng(13).standard_normal((8, 2048, 2048)).astype(np.float32),
@@ -869,21 +905,22 @@ def main() -> int:
     for name_s, fn_s in (("forward", lambda: wpt2d_t.forward_2d(stack, 6, 6)),
                          ("reverse", lambda: wpt2d_t.reverse_2d(stack_out["forward"], 6, 6))):
         reset_counts()
-        copies_s = profiling.counts()["ndim.transposes"]
+        before_s = profiling.counts()
         stack_out[name_s] = fn_s()
         torch.cuda.synchronize()
         counts_s = read_counts()
-        counts_s["ndim.transposes"] = profiling.counts()["ndim.transposes"] - copies_s
+        for key_s in ("ndim.transposes", "ndim.rotated_passes"):
+            counts_s[key_s] = profiling.counts()[key_s] - before_s[key_s]
         stack_launches[name_s] = counts_s
         print(json.dumps({"main_path": f"WPT facade {name_s}_2d (8, 2048, 2048) db4 (6, 6)",
                           "launches": counts_s}), flush=True)
     k_s = {"forward": "K8", "reverse": "K9"}
     for name_s, counts_s in stack_launches.items():
-        require(counts_s[k_s[name_s]] == 2 and counts_s["ndim.transposes"] == 2
+        require(counts_s[k_s[name_s]] == 2 and counts_s["ndim.rotated_passes"] == 2
                 and not any(v for k, v in counts_s.items()
-                            if k not in (k_s[name_s], "ndim.transposes")),
-                f"the facade's {name_s}_2d did not run two {k_s[name_s]} passes, two "
-                f"transposing copies and nothing else: {counts_s}")
+                            if k not in (k_s[name_s], "ndim.rotated_passes")),
+                f"the facade's {name_s}_2d did not run two rotated {k_s[name_s]} passes and "
+                f"nothing else (no transposing copy): {counts_s}")
     stack64 = stack.double()
     compare("WPT facade forward_2d (8, 2048, 2048) db4 (6, 6) f32 against float64",
             stack_out["forward"], wpt2d_t.forward_2d(stack64, 6, 6), F32_BOUND)
@@ -1101,7 +1138,7 @@ def main() -> int:
     # separable ndim path over the plain K8/K9 functions
     wpt2d_g = jt.api.WaveletPacketTransform("Daubechies 4")
     stack_g = np.random.default_rng(14).standard_normal((2, 256, 512)).astype(np.float32)
-    backward["K8.wpt2d"] = ("K9 iwpt_rows with the analysis filters, gain 1, an axis",
+    backward["K8.rotated"] = ("K9 iwpt_rows in place on the unrotated gradient, an axis",
                             grad_case("WPT facade forward_2d (2, 256, 512) db4 (6, 6)",
                                       lambda a: wpt2d_g.forward_2d(a, 6, 6),
                                       lambda a: ndim.forward_2d(
@@ -1109,7 +1146,7 @@ def main() -> int:
                                               v.reshape(-1, v.shape[-1]), fb4.dec_lo,
                                               fb4.dec_hi, lv).reshape(v.shape), a, 6, 6),
                                       stack_g, ("K9",)))
-    backward["K9.wpt2d"] = ("K8 wpt_rows with the synthesis filters, gain recon_gain, an axis",
+    backward["K9.rotated"] = ("K8 wpt_rows in place on the unrotated gradient, an axis",
                             grad_case("WPT facade reverse_2d (2, 256, 512) db4 (6, 6)",
                                       lambda a: wpt2d_g.reverse_2d(a, 6, 6),
                                       lambda a: ndim.reverse_2d(
@@ -2056,14 +2093,29 @@ def main() -> int:
         print(json.dumps({"time": f"{k} db4 L6 64x65536", "ms": timing[k][0],
                           "first_design_ms": FIRST_DESIGN_MS[f"{k} 64x65536"], "card": card}),
               flush=True)
-    # K8 and K9 on the packet cell's axis pass (16384 rows of 2048, db4 L6,
-    # whole rows, 2 an item) beside their plain versions, in turns
+    # the packet cell's axis pass (8 frames of 2048^2 as 16384 rows of 2048,
+    # db4 L6): the rotated K8 and K9 beside their plain versions, and K8 (K9)
+    # in place followed by the transposing copy that the separable path made
+    # before the rotated forms, in turns, device ms and their bound
     x2048 = torch.as_tensor(np.random.default_rng(15).standard_normal((16384, 2048)),
                             dtype=torch.float32, device=dev)
-    timing["K8.wpt2d"] = pair(lambda: cuda_wpt.wpt_rows(x2048, lo, hi, 6),
-                              lambda: cuda_wpt.wpt_analysis_torch(x2048, lo, hi, 6))
-    timing["K9.wpt2d"] = pair(lambda: cuda_wpt.iwpt_rows(x2048, rlo, rhi, 6),
-                              lambda: cuda_wpt.wpt_synthesis_torch(x2048, rlo, rhi, 6))
+    bound_2048 = 2 * 4 * x2048.numel() / HBM_BYTES_S * 1e3
+    for kernel_w, rotated_w, plain_w, in_place_w in (
+            ("K8.rotated", lambda: cuda_wpt.wpt_rows_rotated(x2048, lo, hi, 6, 2048),
+             lambda: cuda_wpt.wpt_analysis_rotated_torch(x2048, lo, hi, 6, 2048),
+             lambda: cuda_wpt.wpt_rows(x2048, lo, hi, 6).view(8, 2048, 2048).transpose(
+                 1, 2).contiguous()),
+            ("K9.rotated", lambda: cuda_wpt.iwpt_rows_rotated(x2048, rlo, rhi, 6, 2048),
+             lambda: cuda_wpt.wpt_synthesis_rotated_torch(x2048, rlo, rhi, 6, 2048),
+             lambda: cuda_wpt.iwpt_rows(x2048, rlo, rhi, 6).view(8, 2048, 2048).transpose(
+                 1, 2).contiguous())):
+        timing[kernel_w] = pair(rotated_w, plain_w)
+        c1, c2 = median_ms(in_place_w, device=True), median_ms(in_place_w, device=True)
+        print(json.dumps({"time": f"{kernel_w} on 16384 rows of 2048 in groups of 2048, db4 "
+                                  "L6: rotated, plain, and in place then a transposing copy",
+                          "ms": timing[kernel_w][0], "plain_ms": timing[kernel_w][1],
+                          "in_place_and_copy_ms": (c1 + c2) / 2, "bound_ms": bound_2048,
+                          "card": card}), flush=True)
     del x2048
     # K8's and K9's plans at the main shape and at wpt's full-depth chunks
     # that are whole rows: a stage set's, the buffer's and a block's bytes,
@@ -2120,10 +2172,12 @@ def main() -> int:
                              65536 * 256, "Msamples_per_s"),
               "K7.rotated": ("ipyramid_rows_rotated db4 L6 65536x256 (plain = K5's)",
                              65536 * 256, "Msamples_per_s"),
-              "K8.wpt2d": ("wpt_rows db4 L6 16384x2048 (the WPT facade's 2D axis pass)",
-                           16384 * 2048, "Msamples_per_s"),
-              "K9.wpt2d": ("iwpt_rows db4 L6 16384x2048 (the WPT facade's 2D axis pass)",
-                           16384 * 2048, "Msamples_per_s")}
+              "K8.rotated": ("wpt_rows_rotated db4 L6 16384x2048 in groups of 2048 (the WPT "
+                             "facade's 2D axis pass; plain = wpt_analysis_rotated_torch)",
+                             16384 * 2048, "Msamples_per_s"),
+              "K9.rotated": ("iwpt_rows_rotated db4 L6 16384x2048 in groups of 2048 (the WPT "
+                             "facade's 2D axis pass; plain = wpt_synthesis_rotated_torch)",
+                             16384 * 2048, "Msamples_per_s")}
     fft = jt.ConvolutionMethod.FFT
     fft_ms = median_ms(lambda: jt.imodwt(jt.modwt(x, "Daubechies 4", 5, method=fft),
                                          "Daubechies 4", method=fft))
@@ -2558,7 +2612,7 @@ def main() -> int:
     # K4/K5 one pass: 2048^2 in and out, the same FMAs per row; K6: the
     # complex64 contributions and int32 bins in, the complex64 plane out, 2
     # adds each; K8/K9 db4 L6: 64x65536 in and out, M FMAs a sample and level
-    # (K8.wpt2d/K9.wpt2d: the same at 16384x2048, the packet cell's rows).
+    # (K8.rotated/K9.rotated: the same at 16384x2048, the packet cell's rows).
     hbm, f32_rate = HBM_BYTES_S, 67e12
     b, n_s, lv, m8 = 64, 65536, 5, 8
     work = {"K1": (4 * b * n_s * (lv + 2), 2 * 2 * m8 * b * n_s * lv),
@@ -2571,8 +2625,8 @@ def main() -> int:
             "K7": (2 * 4 * b * n_s, 2 * 2 * n_s * m8 * b),
             "K8": (2 * 4 * b * n_s, 2 * m8 * 6 * b * n_s),
             "K9": (2 * 4 * b * n_s, 2 * m8 * 6 * b * n_s),
-            "K8.wpt2d": (2 * 4 * 16384 * 2048, 2 * m8 * 6 * 16384 * 2048),
-            "K9.wpt2d": (2 * 4 * 16384 * 2048, 2 * m8 * 6 * 16384 * 2048)}
+            "K8.rotated": (2 * 4 * 16384 * 2048, 2 * m8 * 6 * 16384 * 2048),
+            "K9.rotated": (2 * 4 * 16384 * 2048, 2 * m8 * 6 * 16384 * 2048)}
     bounds = {}
     for k, (nbytes, flops) in work.items():
         t_bytes, t_ops = nbytes / hbm * 1e3, flops / f32_rate * 1e3
@@ -2604,9 +2658,9 @@ def main() -> int:
         # no kernel: the volume's axis passes, an XLA transpose between them
         ("K3.rotated pyramid_rows_rotated", "pyramid.cu", "jwave_tpu/transforms/ndim.py:38"),
         ("K7.rotated ipyramid_rows_rotated", "pyramid.cu", "jwave_tpu/transforms/ndim.py:54"),
-        # K8 and K9 on the packet cell's rows: the WPT facade's 2D axis passes
-        ("K8.wpt2d wpt_rows (16384x2048 db4 L6)", "wpt.cu", "jwave_tpu/ops/mxu_wpt.py:87"),
-        ("K9.wpt2d iwpt_rows (16384x2048 db4 L6)", "wpt.cu", "jwave_tpu/ops/mxu_wpt.py:125"),
+        # no kernel: the packet cell's 2D axis passes, an XLA transpose between them
+        ("K8.rotated wpt_rows_rotated", "wpt.cu", "jwave_tpu/transforms/ndim.py:16"),
+        ("K9.rotated iwpt_rows_rotated", "wpt.cu", "jwave_tpu/transforms/ndim.py:30"),
     ]
     # the rotated forms count as K3's and K7's launches; their own are phase
     # 4a''s, the volume's main path, and are not told apart in phase 4j
@@ -2614,9 +2668,10 @@ def main() -> int:
                             "K7.rotated": ("reverse", "K7")}.items():
         launches[k] = main_launches[k] = vol_launches[side][base]
         sharded_launches[k] = None
-    # K8's and K9's rows on the packet cell's path: phase 4a'' counts their launches
-    for k, (side, base) in {"K8.wpt2d": ("forward", "K8"),
-                            "K9.wpt2d": ("reverse", "K9")}.items():
+    # the rotated K8 and K9 count as K8's and K9's launches; phase 4a'' (the
+    # packet cell's main path) counts theirs
+    for k, (side, base) in {"K8.rotated": ("forward", "K8"),
+                            "K9.rotated": ("reverse", "K9")}.items():
         launches[k] = main_launches[k] = stack_launches[side][base]
         sharded_launches[k] = None
     kernels = []

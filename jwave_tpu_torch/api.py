@@ -44,7 +44,7 @@ from .transforms.modwt import (
     modwt_1d,
     modwt_2d,
 )
-from .transforms.wpt import iwpt, wpt
+from .transforms.wpt import iwpt, iwpt2d, wpt, wpt2d
 from .utils.host import as_tensor
 from .utils.numerics import exponent_of_two
 from .utils.profiling import spanned
@@ -179,12 +179,13 @@ class WaveletPacketTransform(WaveletTransform):
 
     @spanned("wpt2d")
     def forward_2d(self, mat, level_rows=None, level_cols=None):
-        """Separable 2D forward over the last two axes (one ``wpt2d`` span)."""
-        return super().forward_2d(mat, level_rows, level_cols)
+        """2D forward over the last two axes via transforms.wpt.wpt2d (one
+        ``wpt2d`` span): two rotated K8 passes on CUDA, else separable."""
+        return wpt2d(self._in(mat), self.wavelet, level_rows, level_cols)
 
     @spanned("iwpt2d")
     def reverse_2d(self, mat, level_rows=None, level_cols=None):
-        return super().reverse_2d(mat, level_rows, level_cols)
+        return iwpt2d(self._in(mat), self.wavelet, level_rows, level_cols)
 
 
 class LiftingWaveletTransform(BasicTransform):

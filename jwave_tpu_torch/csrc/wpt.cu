@@ -102,8 +102,44 @@
 // __launch_bounds__ gave with no blocks-an-SM floor (16-24 bytes of spills;
 // K8 +3%, K9 +4%); two levels in registers a pass (not tried: a third more
 // FMAs where the FMAs already take most of the levels' instructions).
+// The rotated forms of K8 and K9 (no TPU kernel: the 2D packet transform's
+// axis passes, transforms/wpt.py::wpt2d and iwpt2d, which ran each pass in
+// place and brought the other axis last by a transposing copy, two thirds
+// of the packet cell's device time). Each takes (F group, n) full rows and
+// stores (F, n, group): each group of rows transposed, so that on a stack of
+// (H, W) frames the pass along W leaves (W, H) and the pass along H (H, W)
+// again, with no copy. The same kernels with a template flag Rot (the
+// in-place instantiations compile as before): whole rows of n <= 4096 (2^lg_g
+// rows of h, the chunk's packets, a full row), two levels or more, items of
+// rbf = 8 full rows (fewer where a block would not fit: 4 at 4096), so that
+// each column run is a 32-byte sector. The level before the last (K9: level
+// 2) writes each full row padded (rot_pad), and the last (k8_last_rotated;
+// K9's level 1, k9_first_rotated) reads it a row a thread, neighbouring
+// threads on neighbouring rows at one position, and stores from registers
+// straight to the columns, as csrc/pyramid.cu's rotated K3 and K7 do. At 8
+// rows of 2048 a block holds three 64 KB buffers (197,456 bytes): one block
+// an SM, 256 compute threads. On the H100 (700 W; 16384 rows of 2048 in
+// groups of 2048, db4 L6, device time after an L2 flush, the variants in one
+// process; rows and threads: tools/ab_times.py --wpt-rot-plans): the
+// rotated K8 0.2040 ms and K9 0.1796 (K8 then .contiguous(), the route
+// before: 0.4291 and 0.4200); K8 (K9) in place with the same 8-row items, one
+// block an SM, 0.1802 (0.1674), against 0.1512 (0.1428) at the in-place
+// plan's 2-row items and four blocks an SM: a single block's barrier stalls,
+// then ~0.02 ms of column stores. Left out, each an A/B in one process: 128
+// compute threads (K8 0.2223, K9 0.2070); 384 and 512 (a build that took
+// them: K8 0.2076, 0.2084; K9 0.1784, 0.1773); items of 4 rows, 16-byte runs (two blocks an SM:
+// 0.4033, 0.4000; one block of 512: 0.3118, 0.3423), of 2 rows (0.64, 0.62)
+// and of 1 row (0.88, 0.87), these with a store pass; the last level into
+// shared memory and a store pass after it, by the compute threads (K8
+// 0.2114, K9 0.1987) or by 1, 2 or 4 store warps while the compute threads
+// go on (0.2351, 0.2103, 0.2064; 0.2279, 0.2013, 0.2002); the in-place
+// plan's 2-row items with a block's 4 consecutive items gathered in a store
+// buffer before one 8-row store (two blocks an SM, 115,280 bytes: 0.2341,
+// 0.2269), 8 of them a 16-row store (64-byte runs, one block: 0.3296,
+// 0.3217), and 1-row items, 8 a store (0.3122, 0.3069).
 // Mirrored by ops/cuda_wpt.py (wpt_plan, wpt_layout, k8_count, k9_cones,
-// wpt_grid, wpt_analysis_tiled_torch, wpt_synthesis_tiled_torch).
+// wpt_grid, wpt_analysis_tiled_torch, wpt_synthesis_tiled_torch;
+// wpt_rotated_plan, rot_pad, wpt_rotated_tiled_torch).
 #include <cuda_runtime.h>
 
 #include "async_copy.cuh"
@@ -195,6 +231,27 @@ __host__ __device__ inline WptLayout k9_layout(int h, int tile, int levels, int 
   return L;
 }
 
+// The rotated forms take whole rows alone: an item is rbf = tile / n full
+// rows of n samples (2^lg_g rows of h, the packets of the chunk, each), and
+// the buffer that the level before the last (K9: level 2) writes holds full
+// row q at q (n + rot_pad(rbf)): the rbf rows that one phase of a warp's
+// 16-byte loads reads at one position, and the positions 4 apart beside
+// them, fall on distinct banks.
+__host__ __device__ inline int rot_pad(int rbf) { return rbf >= 8 ? 4 : 32 / rbf; }
+
+__host__ __device__ inline WptLayout rot_layout(WptLayout L, int rbf) {
+  const int p = rbf * rot_pad(rbf);
+  L.set += p, L.buf += p, L.floats += 3 * p;
+  return L;
+}
+
+// Full row R0 of the rotated forms' output (F, n, group), frame R0 / group:
+// position k of full row R0 + q (an item stays in one frame) at the result +
+// k group + q.
+__device__ __forceinline__ float* rot_column(float* out, int n, int group, long long R0) {
+  return out + (R0 / group) * n * (long long)group + R0 % group;
+}
+
 // The barriers: each set's "full" for the producer's 32 arrivals and its
 // bytes, its "empty" for the consumers' one; the caller's __syncthreads
 // publishes them.
@@ -218,6 +275,7 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(jw::smem_addr(bar))
                : "memory");
 }
+
 
 // q = idx / d and r = idx % d for 0 <= idx < 2^20, inv = 1.f / d: the float
 // quotient is off by at most one, which the remainder's sign corrects.
@@ -319,11 +377,14 @@ struct K8Level {
   const float* in;
   float* out;
   int nb, is, os, nout, mask;
+  int pad, pshift;  // Pad: pad floats more after each 2^pshift input packets' outputs
 };
 
 // MT > 0: m known at compile time (db4: 8, Haar: 2), the taps constant-bank
-// operands; Wrap: packets read circularly (whole rows), else v.mask is -1.
-template <int MT, bool Wrap>
+// operands; Wrap: packets read circularly (whole rows), else v.mask is -1;
+// Pad (the rotated form's last level, into shared memory): the outputs of
+// input packet b land v.pad * (b >> v.pshift) floats further, a row's pad.
+template <int MT, bool Wrap, bool Pad = false>
 __device__ __forceinline__ void k8_level(const K8Level& v, int m, const Taps& tp, int tid,
                                          int nthr) {
   const uintptr_t al = reinterpret_cast<uintptr_t>(v.in) | reinterpret_cast<uintptr_t>(v.out);
@@ -352,6 +413,7 @@ __device__ __forceinline__ void k8_level(const K8Level& v, int m, const Taps& tp
         a[p] = sa, d[p] = sd;
       }
       float* ob = v.out + 2 * w.b * v.os + 4 * w.u;
+      if constexpr (Pad) ob += v.pad * (w.b >> v.pshift);
       *reinterpret_cast<float4*>(ob) = make_float4(a[0], a[1], a[2], a[3]);
       *reinterpret_cast<float4*>(ob + v.os) = make_float4(d[0], d[1], d[2], d[3]);
     }
@@ -367,24 +429,96 @@ __device__ __forceinline__ void k8_level(const K8Level& v, int m, const Taps& tp
       sa = fmaf(tp.lo[j], x, sa);
       sd = fmaf(tp.hi[j], x, sd);
     }
-    v.out[2 * w.b * v.os + w.u] = sa;
-    v.out[(2 * w.b + 1) * v.os + w.u] = sd;
+    float* o = v.out;
+    if constexpr (Pad) o += v.pad * (w.b >> v.pshift);
+    o[2 * w.b * v.os + w.u] = sa;
+    o[(2 * w.b + 1) * v.os + w.u] = sd;
+  }
+}
+
+// The last level of K8's rotated form: v.in holds the item's full rows at a
+// stride of ns floats (rot_pad), each 2^v.pshift input packets of v.is
+// samples read circularly (v.mask); a and d of input packet bf of full row q
+// are positions 2 bf hc + i and hc further of that row, stored to column q
+// of ob (ob + pos group + q). A thread takes unit u, row q = u mod rbf, so
+// the threads of a warp hold neighbouring rows at one position: each store
+// writes contiguous runs of rbf floats of a few columns (32 bytes at rbf =
+// 8), and the 16-byte loads of the padded rows are conflict-free. Groups of
+// four output pairs as k8_level makes them, or a pair a unit.
+template <int MT>
+__device__ __forceinline__ void k8_last_rotated(const K8Level& v, int m, const Taps& tp, int tid,
+                                                int nthr, int ns, int lg_rbf, int nf, float* ob,
+                                                int group) {
+  const int rmask = (1 << lg_rbf) - 1, hc = v.nout, lg_hc = __ffs(hc) - 1;
+  if (MT > 0 && (reinterpret_cast<uintptr_t>(v.in) & 15) == 0 && ((v.is | ns) & 3) == 0 &&
+      v.mask >= 7) {
+    constexpr int R = MT > 0 ? MT : 1;
+    constexpr int NV = (R + 6 + 3) / 4;  // float4s a group of four pairs reads
+    const int lg_ng = lg_hc - 2;         // groups of four pairs an input packet
+    for (int idx = tid; idx < 1 << (v.pshift + lg_ng + lg_rbf); idx += nthr) {
+      const int q = idx & rmask, rest = idx >> lg_rbf;
+      const int bf = rest >> lg_ng, u = rest & ((1 << lg_ng) - 1);
+      if (q >= nf) continue;
+      const float* ib = v.in + q * ns + bf * v.is;
+      float x[4 * NV];
+#pragma unroll
+      for (int k = 0; k < NV; ++k) {
+        const float4 t = *reinterpret_cast<const float4*>(ib + ((8 * u + 4 * k) & v.mask));
+        x[4 * k] = t.x, x[4 * k + 1] = t.y, x[4 * k + 2] = t.z, x[4 * k + 3] = t.w;
+      }
+      float* o = ob + (long long)(2 * bf * hc + 4 * u) * group + q;
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        float sa = 0.f, sd = 0.f;
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          sa = fmaf(tp.lo[j], x[2 * p + j], sa);
+          sd = fmaf(tp.hi[j], x[2 * p + j], sd);
+        }
+        o[(long long)p * group] = sa;
+        o[(long long)(hc + p) * group] = sd;
+      }
+    }
+    return;
+  }
+  const int mm = MT > 0 ? MT : m;
+  for (int idx = tid; idx < 1 << (v.pshift + lg_hc + lg_rbf); idx += nthr) {
+    const int q = idx & rmask, rest = idx >> lg_rbf;
+    const int bf = rest >> lg_hc, u = rest & (hc - 1);
+    if (q >= nf) continue;
+    const float* ib = v.in + q * ns + bf * v.is;
+    float sa = 0.f, sd = 0.f;
+#pragma unroll
+    for (int j = 0; j < mm; ++j) {
+      const float x = ib[(2 * u + j) & v.mask];
+      sa = fmaf(tp.lo[j], x, sa);
+      sd = fmaf(tp.hi[j], x, sd);
+    }
+    float* o = ob + (long long)(2 * bf * hc + u) * group + q;
+    o[0] = sa;
+    o[(long long)hc * group] = sd;
   }
 }
 
 // K8: `levels` analysis levels of the packets of each row of (rows, h); a
 // grid of persistent blocks over the work items, block b taking items b, b +
 // gridDim.x, ...; the last warp stages, the blockDim.x - 32 threads before
-// it compute (see the header).
-template <int MT>
+// it compute (see the header). Rot, the rotated form: whole rows, 2^lg_g of
+// them a full row of n = h 2^lg_g, tile / n full rows an item, at least two
+// levels; the last level (k8_last_rotated) writes full row R of frame f = R
+// / group to out (F, n, group) as its column R mod group (group, lg_g and
+// interleaved are 0 in place).
+template <int MT, bool Rot>
 __global__ void __launch_bounds__(kMaxBlock, 1)
 wpt_analysis_kernel(const float* __restrict__ src, float* __restrict__ out,
                     const __grid_constant__ Taps tp, int rows, int h, int tile, int levels, int m,
-                    int interleaved) {
+                    int interleaved, int group, int lg_g) {
   extern __shared__ __align__(16) float smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + 2;
-  const WptLayout L = k8_layout(h, tile, levels, m);
+  const int rbf = Rot ? tile / (h << lg_g) : 1;  // full rows an item
+  const WptLayout L = Rot ? rot_layout(k8_layout(h, tile, levels, m), rbf)
+                          : k8_layout(h, tile, levels, m);
   float* buf = smem + kHead + 2 * L.set;
   const int S = 1 << levels, hc = h >> levels;
   const bool whole = h <= tile;
@@ -438,13 +572,27 @@ wpt_analysis_kernel(const float* __restrict__ src, float* __restrict__ out,
         v.os = round4(v.nout);
         v.mask = -1;
       }
-      // subband: the last level's packet j is subband j & (S-1) of row r0 +
-      // (j >> levels), at orow + i0 + j hc
-      if (l == levels && !interleaved) v.out = orow + i0, v.os = hc;
-      if (whole)
-        k8_level<MT, true>(v, m, tp, tid, nthr);
-      else
-        k8_level<MT, false>(v, m, tp, tid, nthr);
+      if constexpr (Rot) {
+        // level levels - 1 lands with each full row padded (input packet b
+        // in full row b >> (l - 1 + lg_g)), and the last level reads it a
+        // row a thread and stores to the columns
+        v.pad = rot_pad(rbf), v.pshift = l - 1 + lg_g;
+        if (l == levels)
+          k8_last_rotated<MT>(v, m, tp, tid, nthr, (h << lg_g) + v.pad, __ffs(rbf) - 1,
+                              nr >> lg_g, rot_column(out, h << lg_g, group, r0 >> lg_g), group);
+        else if (l == levels - 1)
+          k8_level<MT, true, true>(v, m, tp, tid, nthr);
+        else
+          k8_level<MT, true>(v, m, tp, tid, nthr);
+      } else {
+        // subband: the last level's packet j is subband j & (S-1) of row r0 +
+        // (j >> levels), at orow + i0 + j hc
+        if (l == levels && !interleaved) v.out = orow + i0, v.os = hc;
+        if (whole)
+          k8_level<MT, true>(v, m, tp, tid, nthr);
+        else
+          k8_level<MT, false>(v, m, tp, tid, nthr);
+      }
       if (l == levels) jw::fence_async_smem();  // the set's writes before its next bulk copies
       consumers_sync(nthr);
     }
@@ -473,12 +621,15 @@ struct K9Level {
   const float* in;
   float* out;
   int nb, is, os, npairs, off, mask, half;
+  int pad, pshift;  // Pad: pad floats more after each 2^pshift output packets
 };
 
 // MH > 0: ceil(m/2) known at compile time (db4: 4, Haar: 1), the taps
 // constant-bank operands; Wrap: some input packet is read circularly (a
-// whole packet or whole rows), else v.mask is -1.
-template <int MH, bool Wrap>
+// whole packet or whole rows), else v.mask is -1; Pad (the rotated form's
+// level 1, into shared memory): output packet b lands v.pad * (b >>
+// v.pshift) floats further, a row's pad.
+template <int MH, bool Wrap, bool Pad = false>
 __device__ __forceinline__ void k9_level(const K9Level& v, int mh, const Taps& tp, int tid,
                                          int nthr) {
   const uintptr_t al = reinterpret_cast<uintptr_t>(v.in) | reinterpret_cast<uintptr_t>(v.out);
@@ -516,7 +667,9 @@ __device__ __forceinline__ void k9_level(const K9Level& v, int mh, const Taps& t
         }
         o[2 * j] = x0, o[2 * j + 1] = x1;
       }
-      float4* xr = reinterpret_cast<float4*>(v.out + (long long)w.b * v.os + 8 * w.u);
+      float* ob = v.out + (long long)w.b * v.os + 8 * w.u;
+      if constexpr (Pad) ob += v.pad * (w.b >> v.pshift);
+      float4* xr = reinterpret_cast<float4*>(ob);
       xr[0] = make_float4(o[0], o[1], o[2], o[3]);
       xr[1] = make_float4(o[4], o[5], o[6], o[7]);
     }
@@ -535,26 +688,98 @@ __device__ __forceinline__ void k9_level(const K9Level& v, int mh, const Taps& t
       x1 = fmaf(tp.hi[2 * t + 1], d, fmaf(tp.lo[2 * t + 1], a, x1));
     }
     float* xo = v.out + (long long)w.b * v.os + 2 * w.u;
+    if constexpr (Pad) xo += v.pad * (w.b >> v.pshift);
     xo[0] = x0;
     xo[1] = x1;
   }
 }
 
+// Level 1 of K9's rotated form: v.in holds the item's full rows at a stride
+// of ns floats (rot_pad), each 2^v.pshift rows of h = 2 v.half, a row's a
+// and d halves side by side; pair c of row kr of full row q is positions kr
+// h + 2c and + 1 of that row, stored to column q of ob (ob + pos group + q).
+// A thread takes unit u, row q = u mod rbf, as k8_last_rotated does. Groups
+// of four pairs as k9_level makes them, or a pair a unit.
+template <int MH>
+__device__ __forceinline__ void k9_first_rotated(const K9Level& v, int mh, const Taps& tp,
+                                                 int tid, int nthr, int ns, int lg_rbf, int nf,
+                                                 float* ob, int group) {
+  const int rmask = (1 << lg_rbf) - 1, half = v.half, lg_half = __ffs(half) - 1;
+  if (MH > 0 && (reinterpret_cast<uintptr_t>(v.in) & 15) == 0 && (ns & 3) == 0 && half >= 4) {
+    constexpr int R = MH > 0 ? MH : 1;
+    constexpr int W = R > 1 ? 4 : 0;  // window samples before the group
+    const int lg_ng = lg_half - 2;    // groups of four pairs a row of h
+    for (int idx = tid; idx < 1 << (v.pshift + lg_ng + lg_rbf); idx += nthr) {
+      const int q = idx & rmask, rest = idx >> lg_rbf;
+      const int kr = rest >> lg_ng, u = rest & ((1 << lg_ng) - 1);
+      if (q >= nf) continue;
+      const float* ar = v.in + q * ns + 2 * kr * half;
+      const float* dr = ar + half;
+      float av[W + 4], dv[W + 4];
+      if constexpr (W > 0) {
+        const int i = (4 * u - 4) & v.mask;
+        const float4 wa = *reinterpret_cast<const float4*>(ar + i);
+        const float4 wd = *reinterpret_cast<const float4*>(dr + i);
+        av[0] = wa.x, av[1] = wa.y, av[2] = wa.z, av[3] = wa.w;
+        dv[0] = wd.x, dv[1] = wd.y, dv[2] = wd.z, dv[3] = wd.w;
+      }
+      const float4 ca = *reinterpret_cast<const float4*>(ar + 4 * u);
+      const float4 cd = *reinterpret_cast<const float4*>(dr + 4 * u);
+      av[W] = ca.x, av[W + 1] = ca.y, av[W + 2] = ca.z, av[W + 3] = ca.w;
+      dv[W] = cd.x, dv[W + 1] = cd.y, dv[W + 2] = cd.z, dv[W + 3] = cd.w;
+      float* o = ob + (long long)(2 * kr * half + 8 * u) * group + q;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float x0 = 0.f, x1 = 0.f;
+#pragma unroll
+        for (int t = 0; t < R; ++t) {
+          x0 = fmaf(tp.hi[2 * t], dv[W + j - t], fmaf(tp.lo[2 * t], av[W + j - t], x0));
+          x1 = fmaf(tp.hi[2 * t + 1], dv[W + j - t], fmaf(tp.lo[2 * t + 1], av[W + j - t], x1));
+        }
+        o[(long long)(2 * j) * group] = x0;
+        o[(long long)(2 * j + 1) * group] = x1;
+      }
+    }
+    return;
+  }
+  for (int idx = tid; idx < 1 << (v.pshift + lg_half + lg_rbf); idx += nthr) {
+    const int q = idx & rmask, rest = idx >> lg_rbf;
+    const int kr = rest >> lg_half, c = rest & (half - 1);
+    if (q >= nf) continue;
+    const float* ar = v.in + q * ns + 2 * kr * half;
+    const float* dr = ar + half;
+    float x0 = 0.f, x1 = 0.f;
+#pragma unroll
+    for (int t = 0; t < (MH > 0 ? MH : mh); ++t) {
+      const int i = (c - t) & v.mask;
+      const float a = ar[i], d = dr[i];
+      x0 = fmaf(tp.hi[2 * t], d, fmaf(tp.lo[2 * t], a, x0));
+      x1 = fmaf(tp.hi[2 * t + 1], d, fmaf(tp.lo[2 * t + 1], a, x1));
+    }
+    float* o = ob + (long long)(2 * kr * half + 2 * c) * group + q;
+    o[0] = x0;
+    o[group] = x1;
+  }
+}
+
 // K9: `levels` synthesis levels of the packets of each row of (rows, h),
 // coarsest first; persistent blocks and a producer warp as K8's (see the
-// header).
-template <int MH>
+// header). Rot, the rotated form, as K8's: level 1 (k9_first_rotated) writes
+// the full rows to their columns.
+template <int MH, bool Rot>
 __global__ void __launch_bounds__(kMaxBlock, 1)
 wpt_synthesis_kernel(const float* __restrict__ src, float* __restrict__ out,
                      const __grid_constant__ Taps tp, int rows, int h, int tile, int levels, int m,
-                     int interleaved) {
+                     int interleaved, int group, int lg_g) {
   extern __shared__ __align__(16) float smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + 2;
   // set s's cone tables: R_l's start, count and whether it is its whole
   // packet (l = 1 .. levels + 1), written by the producer with the item
   int* tabs = reinterpret_cast<int*>(empty + 2);  // set s's at tabs + 3 s kMeta
-  const WptLayout L = k9_layout(h, tile, levels, m);
+  const int rbf = Rot ? tile / (h << lg_g) : 1;  // full rows an item
+  const WptLayout L = Rot ? rot_layout(k9_layout(h, tile, levels, m), rbf)
+                          : k9_layout(h, tile, levels, m);
   float* buf = smem + kHead + 2 * L.set;
   const int S = 1 << levels, hc = h >> levels, mh = (m + 1) / 2;
   const bool whole = h <= tile;
@@ -643,10 +868,25 @@ wpt_synthesis_kernel(const float* __restrict__ src, float* __restrict__ out,
         v.off = (cs[l] >> 1) - cs[l + 1];
         v.mask = cf[l + 1] ? v.half - 1 : -1;
       }
-      if (v.mask != -1)
-        k9_level<MH, true>(v, mh, tp, tid, nthr);
-      else
-        k9_level<MH, false>(v, mh, tp, tid, nthr);
+      if constexpr (Rot) {
+        // level 2 lands with each full row padded (its output packet b in
+        // full row b >> (1 + lg_g)), and level 1 reads it a row a thread and
+        // stores to the columns
+        v.pad = rot_pad(rbf), v.pshift = l - 1 + lg_g;
+        if (l == 1)
+          k9_first_rotated<MH>(v, mh, tp, tid, nthr, (h << lg_g) + v.pad, __ffs(rbf) - 1,
+                               nr >> lg_g, rot_column(out, h << lg_g, group, r0 >> lg_g),
+                               group);
+        else if (l == 2)
+          k9_level<MH, true, true>(v, mh, tp, tid, nthr);
+        else
+          k9_level<MH, true>(v, mh, tp, tid, nthr);
+      } else {
+        if (v.mask != -1)
+          k9_level<MH, true>(v, mh, tp, tid, nthr);
+        else
+          k9_level<MH, false>(v, mh, tp, tid, nthr);
+      }
       if (l == 1) jw::fence_async_smem();  // the set's writes before its next bulk copies
       consumers_sync(nthr);
       float* t = cur;
@@ -661,7 +901,7 @@ wpt_synthesis_kernel(const float* __restrict__ src, float* __restrict__ out,
 template <typename K>
 int launch(K kern, int smem, int grid, int threads, int* blocks_per_sm, cudaStream_t stream,
            const float* src, float* out, const float* taps, int rows, int h, int tile, int levels,
-           int m, int interleaved) {
+           int m, int interleaved, int group = 0, int lg_g = 0) {
   Taps tp;
   for (int j = 0; j < kMaxTaps; ++j) {
     tp.lo[j] = taps != nullptr && j < m ? taps[j] : 0.f;
@@ -673,7 +913,7 @@ int launch(K kern, int smem, int grid, int threads, int* blocks_per_sm, cudaStre
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kern, threads + 32,
                                                               smem);
   kern<<<grid, threads + 32, smem, stream>>>(src, out, tp, rows, h, tile, levels, m,
-                                             interleaved);
+                                             interleaved, group, lg_g);
   return (int)cudaGetLastError();
 }
 
@@ -692,6 +932,17 @@ long long items_of(int rows, int h, int tile, int levels, int m, int threads) {
 
 bool refused(long long items, int grid, const int* blocks_per_sm) {
   return items < 1 || items >= (1LL << 31) || (blocks_per_sm == nullptr && grid < 1);
+}
+
+// The rotated forms' arguments besides those: rows of h, 2^lg_g a full row
+// of n (at least 4), tile = rbf n with rbf a power of two up to 32 that
+// divides group, and whole groups of full rows.
+bool rot_refused(int rows, int h, int tile, int group, int lg_g) {
+  if (lg_g < 0 || lg_g > 20 || h < 1 || group < 1 || (rows & ((1 << lg_g) - 1))) return true;
+  const long long n = (long long)h << lg_g;
+  if (n < 4 || n > tile || tile % n) return true;
+  const int rbf = (int)(tile / n);
+  return !pow2(rbf) || rbf > 32 || group % rbf || (rows >> lg_g) % group;
 }
 
 }  // namespace
@@ -716,8 +967,8 @@ int jw_wpt_analysis(const void* src, void* out, const void* taps, int rows, int 
   if (refused(items_of(rows, h, tile, levels, m, threads), grid, blocks_per_sm))
     return (int)cudaErrorInvalidValue;
   const int smem = k8_layout(h, tile, levels, m).floats * (int)sizeof(float);
-  auto kern = m == 8 ? wpt_analysis_kernel<8> : m == 2 ? wpt_analysis_kernel<2>
-                                                       : wpt_analysis_kernel<0>;
+  auto kern = m == 8 ? wpt_analysis_kernel<8, false> : m == 2 ? wpt_analysis_kernel<2, false>
+                                                              : wpt_analysis_kernel<0, false>;
   return launch(kern, smem, grid, threads, blocks_per_sm, (cudaStream_t)stream,
                 (const float*)src, (float*)out, (const float*)taps, rows, h, tile, levels, m,
                 interleaved);
@@ -731,11 +982,47 @@ int jw_wpt_synthesis(const void* src, void* out, const void* taps, int rows, int
   if (refused(items_of(rows, h, tile, levels, m, threads), grid, blocks_per_sm))
     return (int)cudaErrorInvalidValue;
   const int smem = k9_layout(h, tile, levels, m).floats * (int)sizeof(float);
-  auto kern = m == 8 ? wpt_synthesis_kernel<4> : m == 2 ? wpt_synthesis_kernel<1>
-                                                        : wpt_synthesis_kernel<0>;
+  auto kern = m == 8 ? wpt_synthesis_kernel<4, false> : m == 2 ? wpt_synthesis_kernel<1, false>
+                                                               : wpt_synthesis_kernel<0, false>;
   return launch(kern, smem, grid, threads, blocks_per_sm, (cudaStream_t)stream,
                 (const float*)src, (float*)out, (const float*)taps, rows, h, tile, levels, m,
                 interleaved);
+}
+
+// The rotated forms of K8 and K9: the same levels on rows of h, subband-major
+// (no interleaved layout), with (rows / 2^lg_g, n = h 2^lg_g) full rows
+// stored rotated within each group of `group`: (F group, n) as (F, n,
+// group); tile = rbf n, rbf full rows an item (rot_refused has the rule).
+int jw_wpt_analysis_rotated(const void* src, void* out, const void* taps, int rows, int h,
+                            int tile, int levels, int m, int threads, int grid, int group,
+                            int lg_g, int* blocks_per_sm, void* stream) {
+  cudaGetLastError();
+  if (rot_refused(rows, h, tile, group, lg_g) || levels < 2 ||
+      refused(items_of(rows, h, tile, levels, m, threads), grid, blocks_per_sm))
+    return (int)cudaErrorInvalidValue;
+  const int smem = rot_layout(k8_layout(h, tile, levels, m), tile / (h << lg_g)).floats *
+                   (int)sizeof(float);
+  auto kern = m == 8 ? wpt_analysis_kernel<8, true> : m == 2 ? wpt_analysis_kernel<2, true>
+                                                             : wpt_analysis_kernel<0, true>;
+  return launch(kern, smem, grid, threads, blocks_per_sm, (cudaStream_t)stream,
+                (const float*)src, (float*)out, (const float*)taps, rows, h, tile, levels, m, 0,
+                group, lg_g);
+}
+
+int jw_wpt_synthesis_rotated(const void* src, void* out, const void* taps, int rows, int h,
+                             int tile, int levels, int m, int threads, int grid, int group,
+                             int lg_g, int* blocks_per_sm, void* stream) {
+  cudaGetLastError();
+  if (rot_refused(rows, h, tile, group, lg_g) || levels < 2 ||
+      refused(items_of(rows, h, tile, levels, m, threads), grid, blocks_per_sm))
+    return (int)cudaErrorInvalidValue;
+  const int smem = rot_layout(k9_layout(h, tile, levels, m), tile / (h << lg_g)).floats *
+                   (int)sizeof(float);
+  auto kern = m == 8 ? wpt_synthesis_kernel<4, true> : m == 2 ? wpt_synthesis_kernel<1, true>
+                                                              : wpt_synthesis_kernel<0, true>;
+  return launch(kern, smem, grid, threads, blocks_per_sm, (cudaStream_t)stream,
+                (const float*)src, (float*)out, (const float*)taps, rows, h, tile, levels, m, 0,
+                group, lg_g);
 }
 
 }  // extern "C"

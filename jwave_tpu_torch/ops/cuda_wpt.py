@@ -48,6 +48,21 @@ Beside the plain cascade (:func:`wpt_analysis_torch`,
 it (windows, cones, whole-row items, taken in the kernels' persistent order)
 for the tests; the conv form (``ops/composite.py`` ``wpt_conv_forward``,
 ``wpt_conv_inverse``) is the one-library-call comparison.
+
+The rotated forms (:func:`wpt_rows_rotated`, :func:`iwpt_rows_rotated`; no
+TPU kernel) serve the 2D packet transform's axis passes
+(``transforms/wpt.py`` ``wpt2d``, ``iwpt2d``): the same levels on (F group,
+n) full rows of f32, each group of rows stored transposed, (F, n, group), so
+that two passes over a stack of frames leave it in its layout with no
+transposing copy. Whole rows of n up to ``ROT_MAX`` in packets of h (the
+chunk's), items of :func:`wpt_rotated_plan`'s 8 full rows, one block an SM;
+the last level stores from registers to the columns, 32-byte runs of a
+column a warp store (``csrc/wpt.cu`` has the design and its A/B). Each
+launch counts as ``launch.K8`` (``K9``) and as ``ndim.rotated_passes``; the
+backward is the other kernel in place on the gradient transposed back. Plain
+versions: :func:`wpt_analysis_rotated_torch`,
+:func:`wpt_synthesis_rotated_torch`; :func:`wpt_rotated_tiled_torch` takes
+the kernels' items and column stores for the tests.
 """
 from __future__ import annotations
 
@@ -59,8 +74,9 @@ import numpy as np
 import torch
 
 from ..exceptions import JWaveFailure
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 from . import cuda_build
+from .cuda_pyramid import ROTATED_PASSES
 
 #: ``csrc/wpt.cu``: the most levels, a block's threads (the compute
 #: threads, at most 256, and the producer warp), output samples a work item
@@ -81,6 +97,13 @@ SMEM_LIMIT = 227 * 1024
 SM_SMEM = 228 * 1024
 BLOCK_RESERVED = 1024
 WPT_BLOCKS_PER_SM = 4
+#: the rotated forms (``csrc/wpt.cu`` rot_layout, k8_last_rotated,
+#: k9_first_rotated): full rows an item (fewer where a block would not fit),
+#: a block's threads (the compute threads and the producer warp;
+#: tools/ab_times.py --wpt-rot-plans), and the longest full row they take
+ROT_ROWS = 8
+ROT_THREADS = 256 + 32
+ROT_MAX = WPT_TILE
 
 
 def _round4(v: int) -> int:
@@ -172,6 +195,32 @@ def wpt_synthesis_torch(y: torch.Tensor, lo, hi, levels: int, gain: float = 1.0,
     return cur.reshape(y.shape)
 
 
+def _rotate(y: torch.Tensor, group: int) -> torch.Tensor:
+    """(F group, n) rows as (F, n, group): each group of rows transposed."""
+    r, n = y.shape
+    return y.reshape(r // group, group, n).transpose(1, 2).contiguous()
+
+
+def wpt_analysis_rotated_torch(x: torch.Tensor, lo, hi, levels: int, group: int,
+                               h: int | None = None, gain: float = 1.0) -> torch.Tensor:
+    """(F group, n) -> (F, n, group): :func:`wpt_analysis_torch` on every
+    packet of ``h`` (default n) samples of each row, subband-major, then
+    each group of ``group`` rows transposed (the rotated K8's function)."""
+    r, n = x.shape
+    y = wpt_analysis_torch(x.reshape(-1, h or n), lo, hi, levels, gain)
+    return _rotate(y.reshape(r, n), group)
+
+
+def wpt_synthesis_rotated_torch(y: torch.Tensor, lo, hi, levels: int, group: int,
+                                h: int | None = None, gain: float = 1.0) -> torch.Tensor:
+    """(F group, n) -> (F, n, group): :func:`wpt_synthesis_torch` on every
+    packet of ``h`` (default n) samples of each row, then each group of
+    ``group`` rows transposed (the rotated K9's function)."""
+    r, n = y.shape
+    x = wpt_synthesis_torch(y.reshape(-1, h or n), lo, hi, levels, gain)
+    return _rotate(x.reshape(r, n), group)
+
+
 class WptPlan(NamedTuple):
     """A launch of K8 or K9: ``tile`` output samples an item of a row longer
     than it, else ``rows`` = tile // h whole rows an item (1 for longer
@@ -258,6 +307,48 @@ def wpt_plan(h: int, levels: int, m: int, inverse: bool = False, tile: int | Non
     st, bf = wpt_layout(h, tile, levels, m, inverse)
     return WptPlan(tile, tile // h if h <= tile else 1, 4 * st, 4 * bf,
                    4 * (HEAD + 2 * st + bf), 2, threads)
+
+
+def rot_pad(rbf: int) -> int:
+    """Floats after each full row in the buffer that the rotated forms'
+    level before the last writes (``csrc/wpt.cu`` rot_pad), so that a phase
+    of the last level's 16-byte loads of rbf rows at one position, and the
+    positions 4 apart beside them, hits distinct banks."""
+    return 4 if rbf >= 8 else 32 // rbf
+
+
+class RotPlan(NamedTuple):
+    """A launch of the rotated K8 or K9: items of ``tile`` floats, ``rows``
+    rows of h and ``full_rows`` full rows an item, a block's shared bytes
+    and its ``threads`` (the last warp the producer)."""
+
+    tile: int
+    rows: int
+    full_rows: int
+    smem_bytes: int
+    threads: int
+
+
+@functools.lru_cache(maxsize=None)
+def wpt_rotated_plan(n: int, h: int, levels: int, m: int, inverse: bool = False,
+                     rows: int = ROT_ROWS, threads: int = ROT_THREADS) -> RotPlan | None:
+    """The plan of the rotated K8 (K9 with ``inverse``) on full rows of ``n``
+    (a power of two from 4 to ``ROT_MAX``) in packets of ``h``: ``rows`` full
+    rows an item, halved until a block fits the card's shared memory, as
+    whole rows of h; the stage sets and the level buffer (``csrc/wpt.cu``
+    k8_layout, k9_layout) each hold the item and a pad a full row
+    (:func:`rot_pad`, rot_layout: the level before the last writes the
+    full rows padded). None where the rotated forms do not take rows of
+    n."""
+    if not (4 <= n <= ROT_MAX and n & (n - 1) == 0 and 1 <= h <= n and n % h == 0):
+        return None
+    while rows >= 1:
+        st, bf = wpt_layout(h, rows * n, levels, m, inverse)
+        floats = HEAD + 2 * st + bf + 3 * rows * rot_pad(rows)
+        if 4 * floats <= SMEM_LIMIT:
+            return RotPlan(rows * n, rows * n // h, rows, 4 * floats, threads)
+        rows //= 2
+    return None
 
 
 def wpt_items(rows: int, h: int, plan: WptPlan) -> int:
@@ -381,6 +472,41 @@ def wpt_synthesis_tiled_torch(y: torch.Tensor, lo, hi, levels: int, plan: WptPla
     return out
 
 
+def wpt_rotated_tiled_torch(x: torch.Tensor, lo, hi, levels: int, group: int, plan: RotPlan,
+                            inverse: bool = False, h: int | None = None, gain: float = 1.0,
+                            grid: int | None = None) -> torch.Tensor:
+    """The rotated K8 (K9 with ``inverse``) computed as the kernel partitions
+    and stores it (for the tests: the item and column arithmetic has no other
+    CPU check), the items taken in its persistent order by ``grid`` blocks
+    (default: one an item). An item of rbf = ``plan.full_rows`` full rows
+    R0 .. runs the levels on their packets of ``h``, and its last level
+    (``k8_last_rotated``, ``k9_first_rotated``) stores position k of its
+    full row R0 + q, R0 + q = f group + i, to (f n + k) group + i: unit u
+    takes row q = u mod rbf. An item that straddles two groups, or an output
+    written other than once, raises."""
+    r, n = x.shape
+    h = h or n
+    rbf = plan.full_rows
+    if plan.tile != rbf * n or plan.rows != plan.tile // h or r % group or group % rbf:
+        raise IndexError(f"the plan {plan} does not cut rows of {n} into groups of {group}")
+    level = wpt_synthesis_torch if inverse else wpt_analysis_torch
+    out = torch.zeros(r * n, dtype=x.dtype, device=x.device)
+    written = torch.zeros(r * n, dtype=torch.int32)
+    u = torch.arange(n * rbf)
+    q, k = u % rbf, u // rbf
+    for item in _persistent_order(r * (n // h), h, plan, grid):
+        r0 = item * rbf
+        f, i0 = divmod(r0, group)
+        if i0 + rbf > group:
+            raise IndexError(f"item {item} straddles two groups of {group}")
+        rows = level(x[r0:r0 + rbf].reshape(-1, h), lo, hi, levels, gain).reshape(rbf, n)
+        dst = (f * n + k) * group + i0 + q
+        out[dst] = rows[q, k]
+        written[dst] += 1
+    _covered_once(written)
+    return out.view(r // group, n, group)
+
+
 # ----------------------------------------------------------------------------
 # kernel wrappers
 # ----------------------------------------------------------------------------
@@ -408,17 +534,31 @@ _SYMBOLS = {False: (("wpt", "jw_wpt_analysis", _ARGTYPES), "wpt_rows", "K8"),
             True: (("wpt", "jw_wpt_synthesis", _ARGTYPES), "iwpt_rows", "K9")}
 
 
+_ROT_ARGTYPES = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P]
+#: inverse -> the rotated forms' entry, wrapper name and K-name
+_ROT_SYMBOLS = {
+    False: (("wpt", "jw_wpt_analysis_rotated", _ROT_ARGTYPES), "wpt_rows_rotated", "K8"),
+    True: (("wpt", "jw_wpt_synthesis_rotated", _ROT_ARGTYPES), "iwpt_rows_rotated", "K9")}
+
+
 @functools.lru_cache(maxsize=None)
 def wpt_blocks_per_sm(device_index: int, h: int, levels: int, m: int, inverse: bool,
-                      plan: WptPlan) -> int:
+                      plan: WptPlan | RotPlan, n: int = 0) -> int:
     """The K8 (K9) blocks one SM of the card holds at ``plan``
-    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), asked once a plan."""
-    kernel, key, _ = _SYMBOLS[inverse]
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), asked once a plan;
+    ``n`` > 0: the rotated form's on full rows of n, ``plan`` from
+    :func:`wpt_rotated_plan`."""
+    kernel, key, _ = (_ROT_SYMBOLS if n else _SYMBOLS)[inverse]
     fn = cuda_build.entry(*kernel)
     got = ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        err = fn(None, None, None, 1, h, plan.tile, levels, m, 0, plan.threads - 32, 0,
-                 ctypes.byref(got), None)
+        if n:  # one item: one group of its full rows
+            lg_g = (n // h).bit_length() - 1
+            err = fn(None, None, None, plan.full_rows << lg_g, h, plan.tile, levels, m,
+                     plan.threads - 32, 0, plan.full_rows, lg_g, ctypes.byref(got), None)
+        else:
+            err = fn(None, None, None, 1, h, plan.tile, levels, m, 0, plan.threads - 32, 0,
+                     ctypes.byref(got), None)
     cuda_build.check(cuda_build.library("wpt"), err, key)
     if got.value < 1:
         raise JWaveFailure(f"{key} - a block of {plan.smem_bytes} shared bytes does not fit an SM")
@@ -426,11 +566,13 @@ def wpt_blocks_per_sm(device_index: int, h: int, levels: int, m: int, inverse: b
 
 
 def wpt_grid(device, rows: int, h: int, levels: int, m: int, inverse: bool,
-             plan: WptPlan) -> int:
-    """K8's (K9's) persistent blocks: one wave, min(items, SMs x blocks an SM)."""
+             plan: WptPlan | RotPlan, n: int = 0) -> int:
+    """K8's (K9's) persistent blocks on ``rows`` of h (the rotated form's on
+    full rows of ``n`` > 0): one wave, min(items, SMs x blocks an SM)."""
     index = device.index if device.index is not None else torch.cuda.current_device()
     return min(wpt_items(rows, h, plan),
-               cuda_build.sm_count(index) * wpt_blocks_per_sm(index, h, levels, m, inverse, plan))
+               cuda_build.sm_count(index) * wpt_blocks_per_sm(index, h, levels, m, inverse, plan,
+                                                              n))
 
 
 def _launch(x: torch.Tensor, lo, hi, levels: int, gain: float, interleaved: bool,
@@ -513,3 +655,109 @@ def iwpt_rows(y: torch.Tensor, lo, hi, levels: int, gain: float = 1.0,
     synthesis levels from the coarsest; each level's outputs scaled by
     ``gain``."""
     return cuda_build.apply(_IWptRows, _k9, y, lo, hi, levels, gain, interleaved)
+
+
+def _launch_rotated(x: torch.Tensor, lo, hi, levels: int, gain: float, group: int,
+                    h: int | None, inverse: bool, plan: RotPlan | None = None) -> torch.Tensor:
+    """One launch of the rotated K8 (K9 with ``inverse``) on (F group, n)
+    full rows, output (F, n, group) (``plan`` overrides
+    :func:`wpt_rotated_plan`: tools/ab_times.py --wpt-rot-plans); counted as
+    ``launch.K8`` (``K9``) and as a rotated pass."""
+    kernel, key, name = _ROT_SYMBOLS[inverse]
+    if x.dim() != 2 or not x.is_contiguous():
+        raise JWaveFailure(f"{key} - expected contiguous (R, n) rows, got {tuple(x.shape)}")
+    r, n = x.shape
+    h = h or n
+    if h < 1 or n % h:
+        raise JWaveFailure(f"{key} - packets of {h} do not cut rows of {n}")
+    rows = x.view(-1, h)
+    _check(rows, lo, hi, levels, key)
+    if levels < 2:
+        raise JWaveFailure(f"{key} - the rotated form runs two levels or more, got {levels}")
+    m = len(lo)
+    plan = plan or wpt_rotated_plan(n, h, levels, m, inverse)
+    if plan is None or plan.smem_bytes > SMEM_LIMIT:
+        raise JWaveFailure(f"{key} - the rotated form does not take rows of {n}")
+    rbf = plan.full_rows
+    if group < 1 or r % group or group % rbf:
+        raise JWaveFailure(f"{key} - {r} rows do not make groups of {group}, each whole items "
+                           f"of {rbf} rows")
+    if rows.shape[0] >= 2**31:
+        raise JWaveFailure(f"{key} - {rows.shape[0]} rows of {h} exceed one launch")
+    out = x.new_empty((r // group, n, group))
+    if r == 0:
+        return out
+    with span(f"launch.{name}", rows=rows.shape[0], n=h, levels=levels, rotated=1, group=group):
+        taps = (np.concatenate([np.asarray(lo, np.float64), np.asarray(hi, np.float64)])
+                * gain).astype(np.float32)
+        grid = wpt_grid(x.device, rows.shape[0], h, levels, m, inverse, plan, n)
+        cuda_build.launch(kernel, (x.data_ptr(), out.data_ptr(),
+                                   taps.ctypes.data_as(ctypes.c_void_p), rows.shape[0], h,
+                                   plan.tile, levels, m, plan.threads - 32, grid, group,
+                                   (n // h).bit_length() - 1, None),
+                          x.device, key, name)
+        count(ROTATED_PASSES)
+    return out
+
+
+def _k8_rotated(x: torch.Tensor, lo, hi, levels: int, group: int, h: int | None = None,
+                gain: float = 1.0) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return wpt_analysis_rotated_torch(x, lo, hi, levels, group, h, gain)
+    return _launch_rotated(x, lo, hi, levels, gain, group, h, False)
+
+
+def _k9_rotated(y: torch.Tensor, lo, hi, levels: int, group: int, h: int | None = None,
+                gain: float = 1.0) -> torch.Tensor:
+    if y.device.type == "cpu":
+        return wpt_synthesis_rotated_torch(y, lo, hi, levels, group, h, gain)
+    return _launch_rotated(y, lo, hi, levels, gain, group, h, True)
+
+
+def _unrotate(g: torch.Tensor, h: int) -> torch.Tensor:
+    """A gradient (F, n, group) of a rotated output as contiguous rows of h
+    of the (F group, n) input's layout."""
+    return g.transpose(1, 2).reshape(-1, h)
+
+
+class _WptRowsRotated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, lo, hi, levels, group, h, gain):
+        ctx.args, ctx.h = (lo, hi, levels, gain), h or x.shape[1]
+        return _k8_rotated(x, lo, hi, levels, group, h, gain)
+
+    @staticmethod
+    def backward(ctx, g):
+        back = iwpt_rows(_unrotate(g, ctx.h), *ctx.args)
+        return back.view(-1, g.shape[1]), None, None, None, None, None, None
+
+
+class _IWptRowsRotated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, lo, hi, levels, group, h, gain):
+        ctx.args, ctx.h = (lo, hi, levels, gain), h or y.shape[1]
+        return _k9_rotated(y, lo, hi, levels, group, h, gain)
+
+    @staticmethod
+    def backward(ctx, g):
+        back = wpt_rows(_unrotate(g, ctx.h), *ctx.args)
+        return back.view(-1, g.shape[1]), None, None, None, None, None, None
+
+
+def wpt_rows_rotated(x: torch.Tensor, lo, hi, levels: int, group: int, h: int | None = None,
+                     gain: float = 1.0) -> torch.Tensor:
+    """K8's rotated form: ``levels`` fused analysis levels of each packet of
+    ``h`` samples (default the row) of (F group, n) f32 rows, n a power of
+    two up to ``ROT_MAX``, subband-major, each group of ``group`` rows stored
+    transposed: output (F, n, group) (:func:`wpt_analysis_rotated_torch`) in
+    one launch, with no transposing copy."""
+    return cuda_build.apply(_WptRowsRotated, _k8_rotated, x, lo, hi, levels, group, h, gain)
+
+
+def iwpt_rows_rotated(y: torch.Tensor, lo, hi, levels: int, group: int, h: int | None = None,
+                      gain: float = 1.0) -> torch.Tensor:
+    """K9's rotated form: the adjoint of :func:`wpt_rows` on each packet of
+    ``h`` samples of (F group, n) f32 rows, each group of ``group`` rows
+    stored transposed: output (F, n, group)
+    (:func:`wpt_synthesis_rotated_torch`) in one launch."""
+    return cuda_build.apply(_IWptRowsRotated, _k9_rotated, y, lo, hi, levels, group, h, gain)

@@ -14,6 +14,12 @@ one ``wpt`` (``iwpt``) span with its ``n``, ``levels`` and ``chunks``; the
 counters ``wpt.fused_chunks`` and ``wpt.butterfly_levels`` count the chunks
 that fused and the levels the butterfly ran.
 
+In 2D (:func:`wpt2d`, :func:`iwpt2d`, the facade's ``forward_2d`` and
+``reverse_2d``) a CUDA float32 stack of frames runs each axis pass with its
+last chunk by the rotated K8 (K9), which stores each frame's (rows, n) as
+(n, rows): two passes leave the frame as ``ndim.forward_2d`` leaves it, with
+no transposing copy. Anything else takes the separable ``ndim`` path.
+
 Best basis (Coifman-Wickerhauser) sits on top: the full packet tree, an
 additive cost per node summed in float64 on the host, and the bottom-up
 dynamic program over the tree (1D) or the quadtree (2D).
@@ -28,11 +34,13 @@ import torch
 from .. import config
 from ..exceptions import JWaveFailure
 from ..filters import get_filter
+from ..ops import cuda_wpt
 from ..ops.butterfly import butterfly_forward, butterfly_reverse
-from ..ops.composite import wpt_fused_forward, wpt_fused_inverse
+from ..ops.composite import _on_kernel, wpt_fused_forward, wpt_fused_inverse
 from ..utils.host import as_tensor, copy_to_device
 from ..utils.numerics import exponent_of_two, is_power_of_two
 from ..utils.profiling import count, span
+from . import ndim
 
 #: max levels fused into one composite conv (2^6 = 64 output channels)
 FUSE_MAX_LEVELS = 6
@@ -122,22 +130,10 @@ def wpt(x, wavelet, level: int | None = None, fused: bool = True,
     inter = layout == "interleaved"
     if inter:
         _interleaved_ok(n, level, fb, fused, "wpt")
-    lead = x.shape[:-1]
     sched = _chunk_schedule(n, level, fb)
     with span("wpt", n=n, levels=level, chunks=len(sched)):
         for h, c in sched:
-            g = n // h
-            packets = x.reshape(lead + (g, h))
-            if fused and c > 1:
-                count("wpt.fused_chunks")
-                packets = wpt_fused_forward(packets, fb.dec_lo, fb.dec_hi, c, interleaved=inter)
-            else:
-                count("wpt.butterfly_levels", c)
-                for l in range(c):
-                    hh = h >> l
-                    sub = packets.reshape(lead + (n // hh, hh))
-                    packets = butterfly_forward(sub, fb.dec_lo, fb.dec_hi)
-            x = packets.reshape(lead + (n,))
+            x = _forward_chunk(x, fb, h, c, fused, inter)
         if inter and level == 1:
             return wpt_subband_to_interleaved(x, level)
         return x
@@ -159,24 +155,131 @@ def iwpt(y, wavelet, level: int | None = None, fused: bool = True,
         _interleaved_ok(n, level, fb, fused, "iwpt")
         if level == 1:
             y = wpt_interleaved_to_subband(y, level)
-    lead = y.shape[:-1]
     sched = _chunk_schedule(n, level, fb)
     with span("iwpt", n=n, levels=level, chunks=len(sched)):
         for h, c in reversed(sched):
-            g = n // h
-            packets = y.reshape(lead + (g, h))
-            if fused and c > 1:
-                count("wpt.fused_chunks")
-                packets = wpt_fused_inverse(packets, fb.rec_lo, fb.rec_hi, c, fb.recon_gain,
-                                            interleaved=inter)
-            else:
-                count("wpt.butterfly_levels", c)
-                for l in range(c - 1, -1, -1):
-                    hh = h >> l
-                    sub = packets.reshape(lead + (n // hh, hh))
-                    packets = butterfly_reverse(sub, fb.rec_lo, fb.rec_hi, fb.recon_gain)
-            y = packets.reshape(lead + (n,))
+            y = _inverse_chunk(y, fb, h, c, fused, inter)
         return y
+
+
+def _forward_chunk(x: torch.Tensor, fb, h: int, c: int, fused: bool,
+                   inter: bool) -> torch.Tensor:
+    """One chunk of :func:`wpt` on (..., n): ``c`` levels of every packet of
+    ``h`` samples, fused (K8 or the conv form) or by the butterfly."""
+    lead, n = x.shape[:-1], x.shape[-1]
+    packets = x.reshape(lead + (n // h, h))
+    if fused and c > 1:
+        count("wpt.fused_chunks")
+        packets = wpt_fused_forward(packets, fb.dec_lo, fb.dec_hi, c, interleaved=inter)
+    else:
+        count("wpt.butterfly_levels", c)
+        for l in range(c):
+            hh = h >> l
+            sub = packets.reshape(lead + (n // hh, hh))
+            packets = butterfly_forward(sub, fb.dec_lo, fb.dec_hi)
+    return packets.reshape(lead + (n,))
+
+
+def _inverse_chunk(y: torch.Tensor, fb, h: int, c: int, fused: bool,
+                   inter: bool) -> torch.Tensor:
+    """One chunk of :func:`iwpt` on (..., n), the adjoint of
+    :func:`_forward_chunk` with the synthesis pair."""
+    lead, n = y.shape[:-1], y.shape[-1]
+    packets = y.reshape(lead + (n // h, h))
+    if fused and c > 1:
+        count("wpt.fused_chunks")
+        packets = wpt_fused_inverse(packets, fb.rec_lo, fb.rec_hi, c, fb.recon_gain,
+                                    interleaved=inter)
+    else:
+        count("wpt.butterfly_levels", c)
+        for l in range(c - 1, -1, -1):
+            hh = h >> l
+            sub = packets.reshape(lead + (n // hh, hh))
+            packets = butterfly_reverse(sub, fb.rec_lo, fb.rec_hi, fb.recon_gain)
+    return packets.reshape(lead + (n,))
+
+
+def _rotated_passes(x: torch.Tensor, fb, levels, inverse: bool) -> list | None:
+    """The rotated route's axis passes of a 2D transform of ``x``, given
+    ``levels`` as (level_cols, level_rows), the passes' order: for each pass
+    (n, group, level, schedule), the rows of n being (F group, n); None where
+    ``x`` keeps the separable ``ndim`` path: not a CUDA float32 tensor of
+    rank >= 2 under 2^31 elements, an extent not a power of two or a level
+    out of its range (the separable path raises for those), or a pass whose
+    last chunk executed (the finest forward, the first inverse) is not a
+    fused chunk that the rotated K8 (K9) takes in whole items of each
+    group."""
+    if not (x.dim() >= 2 and _on_kernel(x) and x.numel() < 2**31):
+        return None
+    height, width = x.shape[-2:]
+    passes = []
+    for n, group, level in ((width, height, levels[0]), (height, width, levels[1])):
+        if not is_power_of_two(n):
+            return None
+        steps = exponent_of_two(n)
+        level = steps if level is None else level
+        if not 0 <= level <= steps:
+            return None
+        sched = _chunk_schedule(n, level, fb)
+        if not sched:
+            return None
+        h, c = sched[0] if inverse else sched[-1]
+        plan = cuda_wpt.wpt_rotated_plan(n, h, c, fb.length, inverse) if c > 1 else None
+        if plan is None or group % plan.full_rows:
+            return None
+        passes.append((n, group, level, sched))
+    return passes
+
+
+def wpt2d(mat, wavelet, level_rows: int | None = None,
+          level_cols: int | None = None) -> torch.Tensor:
+    """2D WPT over the last two axes (leading axes are frames), laid out as
+    ``ndim.forward_2d`` over :func:`wpt` lays it out: each row (the last
+    axis) at ``level_cols``, then each column at ``level_rows``.
+
+    Where :func:`_rotated_passes` allows, two passes, each in its ``wpt``
+    span: the chunks before the last in place, the last one rotated K8
+    launch storing each frame's (H, W) rows as (W, H), then the same along
+    H, which leaves (H, W); no transposing copy. Else the separable path."""
+    fb = get_filter(wavelet)
+    x = as_tensor(mat)
+    passes = _rotated_passes(x, fb, (level_cols, level_rows), False)
+    if passes is None:
+        return ndim.forward_2d(lambda v, lvl: wpt(v, fb, lvl), x, level_rows, level_cols)
+    y = x.contiguous()
+    for n, group, level, sched in passes:
+        with span("wpt", n=n, levels=level, chunks=len(sched)):
+            rows = y.reshape(-1, n)
+            for h, c in sched[:-1]:
+                rows = _forward_chunk(rows, fb, h, c, True, False)
+            h, c = sched[-1]
+            count("wpt.fused_chunks")
+            y = cuda_wpt.wpt_rows_rotated(rows, fb.dec_lo, fb.dec_hi, c, group, h)
+    return y.reshape(x.shape)
+
+
+def iwpt2d(coeffs, wavelet, level_rows: int | None = None,
+           level_cols: int | None = None) -> torch.Tensor:
+    """Inverse of :func:`wpt2d`, as ``ndim.reverse_2d`` over :func:`iwpt`:
+    where :func:`wpt2d` takes the rotated route, two passes, each ending in
+    one rotated K9 launch (its first chunk, the last executed), else the
+    separable path."""
+    fb = get_filter(wavelet)
+    y = as_tensor(coeffs)
+    passes = _rotated_passes(y, fb, (level_cols, level_rows), True)
+    if passes is None:
+        return ndim.reverse_2d(lambda v, lvl: iwpt(v, fb, lvl), y, level_rows, level_cols)
+    x = y.contiguous()
+    for n, group, level, sched in passes:
+        with span("iwpt", n=n, levels=level, chunks=len(sched)):
+            rows = x.reshape(-1, n)
+            for h, c in reversed(sched[1:]):
+                rows = _inverse_chunk(rows, fb, h, c, True, False)
+            h, c = sched[0]
+            count("wpt.fused_chunks")
+            x = cuda_wpt.iwpt_rows_rotated(rows, fb.rec_lo, fb.rec_hi, c, group, h,
+                                           fb.recon_gain)
+    return x.reshape(y.shape)
 
 
 def wpt_interleaved_to_subband(y, level: int) -> torch.Tensor:

@@ -5,6 +5,7 @@ card: the kernels and their consumers.
                               [--variants parent new] [--calls TEXT ...]
                               [--out build/ab_times.jsonl] [--trace] [--k3-plans]
                               [--k7-plans] [--wpt-plans] [--rot-plans]
+                              [--wpt-rot-plans]
 
 ``--parent`` is another commit's tree, unpacked (``git archive <commit> |
 tar -x -C build/parent``). Its ``jwave_tpu_torch`` is imported under another
@@ -38,8 +39,13 @@ and reverse at 2048^2 and its 3D forward and reverse at 256^3 L4,
 world), the volume's axis passes on 65536 rows of 256 at db4 L6 (the
 rotated K3 and K7, or, in a tree without them, K3 and K7 in place and the
 transposing copy that followed them) and their consumers (the FWT facade's
-3D forward and reverse at 256^3 L6), and K2 and one K5 pass, which no
-consumer here isolates. The
+3D forward and reverse at 256^3 L6), the packet cell's axis passes on
+16384 rows of 2048 in groups of 2048 at db4 L6 (the rotated K8 and K9, or,
+in a tree without them, K8 and K9 in place and the transposing copy; K8 and
+K9 in place there too) and their consumers (the WPT facade's forward_2d and
+reverse_2d on an (8, 2048, 2048) stack at (6, 6)), the same pairs on stacks
+of 2 frames of 4096^2, 64 of 512^2 and 8 of 256^2, and K2 and one K5 pass,
+which no consumer here isolates. The
 registers and spills of each K8/K9 build (``-Xptxas -v``) and their plans
 are printed first.
 ``--variants`` keeps one or both trees (one alone measures
@@ -80,7 +86,12 @@ chosen from. With ``--rot-plans``, this tree's rotated K3 and K7 on
 65536 rows of 256 at db4 L6 are timed (device, the median of 3) for items
 of 2048 to 8192 floats and 64, 128 and 256 compute threads, with the blocks
 an SM: the sweep that ``ROT_ITEM``, ``K3_ROT_THREADS`` and the rotated K7's
-plan were chosen from. Needs a CUDA card; exits 2 without one.
+plan were chosen from. With ``--wpt-rot-plans``, this tree's rotated K8 and
+K9 on the packet cell's 16384 rows of 2048 (groups of 2048, db4 L6) are
+timed (device, the median of 3) for items of 2, 4 and 8 full rows and 128
+and 256 compute threads, with the blocks an SM: the sweep that ``ROT_ROWS``
+and ``ROT_THREADS`` were chosen from. Needs a CUDA card; exits
+2 without one.
 """
 from __future__ import annotations
 
@@ -138,6 +149,7 @@ def main() -> int:
     ap.add_argument("--k7-plans", action="store_true")
     ap.add_argument("--wpt-plans", action="store_true")
     ap.add_argument("--rot-plans", action="store_true")
+    ap.add_argument("--wpt-rot-plans", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("ab_times: needs a CUDA card", file=sys.stderr)
@@ -188,6 +200,11 @@ def main() -> int:
 
     x, x8, img = dev_t((64, 65536)), dev_t((8, 65536)), dev_t((2048, 2048))
     x256, vol = dev_t((65536, 256)), dev_t((256, 256, 256))
+    x2048 = dev_t((16384, 2048))  # the packet cell's rows: 8 frames of 2048^2
+    stack = x2048.view(8, 2048, 2048)
+    # stacks of frames for the rotated K8/K9 and the 2D packet route: (frames, side)
+    stacks = {(8, 2048): stack, **{fs: dev_t((fs[0], fs[1], fs[1]))
+                                   for fs in ((2, 4096), (64, 512), (8, 256))}}
     x1024, x16 = x.reshape(4096, 1024), x.reshape(262144, 16)
     xg, img_g = dev_t((64, 65536), True), dev_t((2048, 2048), True)
     w, w_img = dev_t((64, 65536)), dev_t((2048, 2048))
@@ -285,6 +302,29 @@ def main() -> int:
                 lambda: cp.pyramid_rows(x256, lo, hi, 6).t().contiguous())
             extra["K7 rotated 65536x256 db4 L6"] = lambda: cp.ipyramid_rows(
                 x256, fb.rec_lo, fb.rec_hi, 1.0, 6).t().contiguous()
+        if cw is not None:
+            extra["K8 16384x2048 db4 L6"] = lambda: cw.wpt_rows(x2048, lo, hi, 6)
+            extra["K9 16384x2048 db4 L6"] = lambda: cw.iwpt_rows(x2048, fb.rec_lo, fb.rec_hi, 6)
+        wpt_cell = jt.WaveletPacketTransform("Daubechies 4")
+        for (f, n), st in stacks.items():
+            rows = st.view(f * n, n)
+            label = f"{f * n}x{n} db4 L6 groups of {n}"
+            if cw is not None and hasattr(cw, "wpt_rows_rotated"):
+                extra[f"K8 rotated {label}"] = (
+                    lambda rows=rows, n=n: cw.wpt_rows_rotated(rows, lo, hi, 6, n))
+                extra[f"K9 rotated {label}"] = (
+                    lambda rows=rows, n=n: cw.iwpt_rows_rotated(rows, fb.rec_lo, fb.rec_hi, 6, n))
+            elif cw is not None:  # the same functions by this tree's route: in place, then a copy
+                extra[f"K8 rotated {label}"] = (
+                    lambda rows=rows, st=st: cw.wpt_rows(rows, lo, hi, 6).view(st.shape)
+                    .transpose(1, 2).contiguous())
+                extra[f"K9 rotated {label}"] = (
+                    lambda rows=rows, st=st: cw.iwpt_rows(rows, fb.rec_lo, fb.rec_hi, 6)
+                    .view(st.shape).transpose(1, 2).contiguous())
+            extra[f"WPT facade forward_2d db4 (6, 6) {f}x{n}^2"] = (
+                lambda st=st: wpt_cell.forward_2d(st, 6, 6))
+            extra[f"WPT facade reverse_2d db4 (6, 6) {f}x{n}^2"] = (
+                lambda st=st: wpt_cell.reverse_2d(st, 6, 6))
         extra["fwt3d db4 L6 256^3"] = lambda: facade.forward(vol, 6, 6, 6)
         extra["ifwt3d db4 L6 256^3"] = lambda: facade.reverse(vol, 6, 6, 6)
         return {
@@ -348,6 +388,15 @@ def main() -> int:
             "K8 64x65536 db4 L6": new["ops.cuda_wpt"].wpt_analysis_torch(x.double(), lo, hi, 6),
             "K9 64x65536 db4 L6": new["ops.cuda_wpt"].wpt_synthesis_torch(x.double(), fb.rec_lo,
                                                                          fb.rec_hi, 6)}
+    cw_new = new["ops.cuda_wpt"]
+    for (f, n), st in stacks.items():
+        label = f"{f * n}x{n} db4 L6 groups of {n}"
+        if any(c in f"{k} rotated {label}" for c in args.calls for k in ("K8", "K9")):
+            rows = st.reshape(f * n, n).double()
+            refs[f"K8 rotated {label}"] = cw_new.wpt_analysis_torch(
+                rows, lo, hi, 6).view(st.shape).transpose(1, 2)
+            refs[f"K9 rotated {label}"] = cw_new.wpt_synthesis_torch(
+                rows, fb.rec_lo, fb.rec_hi, 6).view(st.shape).transpose(1, 2)
     for label, (w_b, dw_b) in ssq_blocks.items():  # the eager phase transform, K6 in float64
         c_b, k_b = ssq_new._reassign_inputs(w_b, dw_b, ssq_wgt, ssq_bins,
                                             ssq_new._default_gamma(w_b), "clip")
@@ -487,6 +536,25 @@ def main() -> int:
                                       torch.cuda.current_device(), 256, 6, 8, plan, True),
                                   "device_ms": ms, "bound_ms": bound_ms, "card": card}),
                       flush=True)
+
+    if args.wpt_rot_plans:
+        cw = new["ops.cuda_wpt"]
+        bound_ms = 2 * 4 * x2048.numel() / 3.35e12 * 1e3
+        for rows in (2, 4, 8):
+            for consumers in (128, 256):
+                for key, pair in (("K8", (lo, hi)), ("K9", (fb.rec_lo, fb.rec_hi))):
+                    plan = cw.wpt_rotated_plan(2048, 2048, 6, 8, key == "K9", rows,
+                                               consumers + 32)
+                    ms = float(np.median([measure(lambda: cw._launch_rotated(
+                        x2048, *pair, 6, 1.0, 2048, None, key == "K9", plan))["device"]
+                                          for _ in range(3)]))
+                    print(json.dumps({"wpt_rot_plan": f"{key} 16384x2048 db4 L6",
+                                      **plan._asdict(),
+                                      "blocks_per_sm": cw.wpt_blocks_per_sm(
+                                          torch.cuda.current_device(), 2048, 6, 8, key == "K9",
+                                          plan, 2048),
+                                      "device_ms": ms, "bound_ms": bound_ms, "card": card}),
+                          flush=True)
 
     if args.wpt_plans:
         cw = new["ops.cuda_wpt"]
