@@ -42,7 +42,10 @@ it happened; any failed check ends the run with a non-zero exit:
    forced to items - 1, items and items + 1, forced grids of 1 and 2); the
    rotated K8 and K9 on the packet cell's axis pass (16384 x 2048 L6 in
    groups of 2048), 128 x 64 Haar L6 and sym8 L2, and packets of 4 in rows
-   of 256 (wpt's last chunk at full depth).
+   of 256 (wpt's last chunk at full depth); K4 and K5 in groups (each
+   frame's rows stored transposed within the frame) on the 2D FWT cell's
+   axis pass (16384 x 2048 db4 L6 in groups of 2048), odd frame counts,
+   groups smaller than a block's rows and rows of 4096.
 4. main paths, each with the launch counts set to 0 just before it and read
    just after, all through the public entry points (numpy input goes to the
    card by default, tensors are made there):
@@ -58,6 +61,12 @@ it happened; any failed check ends the run with a non-zero exit:
       on 16384 rows of 2048 (ndim.rotated_passes 2) each way, no
       transposing copy and nothing else; against the facade's float64 run
       (the separable path), and the round trip against the stack.
+   a'''. the 2D FWT cell: the FWT facade's forward_2d, then reverse_2d, on
+      an (8, 2048, 2048) f32 stack at (6, 6): two K4 (K5) launches in
+      groups of 2048 on 16384 rows of 2048 (ndim.rotated_passes 2) each
+      way, no K3, K7 or transposing copy and nothing else; against the
+      plain grouped forms in float64 and the facade's float64 run (the
+      separable path), and the round trip against the stack.
    b. continuous: ssq_cwt -> issq_cwt at 8 x 65536 f32, Morlet(1,1), 64 log
       scales 1e-5..1e-2 s, fs = 1e6 (K6), held against the same call with
       the plain scatter and by the column-sum identity; extract_ridge and
@@ -71,8 +80,9 @@ it happened; any failed check ends the run with a non-zero exit:
       versions in float64; the backward's launches are read on their own
       (modwt's must launch K2, fwt's K7, ifwt's K3, fwt2d's K5, ifwt2d's
       K4; wpt's K9 and iwpt's K8, db4 L6 64 x 65536 and full depth; the
-      WPT facade's forward_2d's K9 and reverse_2d's K8 on a (2, 256, 512)
-      stack at (6, 6), against the separable ndim path over the plain
+      WPT facade's forward_2d's K9 and reverse_2d's K8, and the FWT
+      facade's forward_2d's K5 and reverse_2d's K4 in groups, on a (2, 256,
+      512) stack at (6, 6), against the separable ndim path over the plain
       versions);
       hurst_exponent's gradient at 8 x 65536
       against the float64 route. The K6 gather against the plain scatter's.
@@ -149,7 +159,9 @@ it happened; any failed check ends the run with a non-zero exit:
    K9 beside the conv form they replace (its conv1d on the extended input,
    its conv_transpose1d and fold), the rotated K8 and K9 at 16384 x 2048
    db4 L6 (the packet cell's rows) beside their plain versions and beside
-   K8 (K9) in place then a transposing copy, their plans at 64 x 65536 db4 L6 and at
+   K8 (K9) in place then a transposing copy, K4 and K5 in groups of 2048
+   there (the 2D FWT cell's passes) beside their plain versions and beside
+   K3 (K7) in place then a transposing copy, the rotated K8 and K9 plans at 64 x 65536 db4 L6 and at
    wpt's whole-row chunks (4096 x 1024 L6, 262144 x 16 L4: the persistent
    grid, blocks an SM, shared bytes, registers and spills from -Xptxas -v,
    which must show none, and the time), and wpt, iwpt, the WPT facade 2D
@@ -200,7 +212,9 @@ launches on its paths (4a-4b, 4h for K8/K9, and 4j), on its main path (4a;
 K8/K9: 4h's full-depth WPT; K8.rotated/K9.rotated, the rotated forms of K8
 and K9 on the packet cell's rows, timed at 16384 x 2048 L6 in groups of 2048
 beside their plain versions and beside K8 (K9) in place followed by a
-transposing copy: 4a'';
+transposing copy: 4a''; K4.grouped/K5.grouped, K4 and K5 in groups of 2048
+on the 2D FWT cell's rows, timed there beside their plain versions and
+beside K3 (K7) in place followed by a transposing copy: 4a''';
 K6's fused form, K6.fused, and the peak
 kernel, K6.peak: 4b, the continuous path) and in 4j (K6's row counts the
 unfused form's launches alone), its error, its time beside
@@ -735,6 +749,34 @@ def main() -> int:
         torch.cuda.synchronize()
         compare(f"K5 pass {label}", got,
                 cuda_pyramid.ipyramid_rows_transposed_torch(y.double(), *args), F32_BOUND)
+    # K4 and K5 in groups: each group of rows (a frame) stored transposed
+    # within itself; the 2D FWT cell's pass first, then odd frame counts,
+    # groups smaller than a block's rows (blocks of fewer rows) and rows of
+    # 4096 (4 a block)
+    errors["K4.grouped"] = errors["K5.grouped"] = 0.0
+    for shape_g, group_g, wavelet_g, level_g in (
+            ((16384, 2048), 2048, "db4", 6),
+            ((3 * 64, 64), 64, "Haar", 6),
+            ((5 * 16, 1024), 16, "sym8", 5),
+            ((7 * 4, 32), 4, "db4", 3),
+            ((3 * 16, 4096), 16, "db4", 6)):
+        fb_g = jt.get_filter(wavelet_g)
+        x_g = signal(shape_g)
+        label_g = (f"{shape_g[0]}x{shape_g[1]} {wavelet_g} L{level_g} in groups of "
+                   f"{group_g}")
+        got = cuda_pyramid.pyramid_rows_transposed(x_g, fb_g.dec_lo, fb_g.dec_hi, level_g,
+                                                   group=group_g)
+        torch.cuda.synchronize()
+        errors["K4.grouped"] = max(errors["K4.grouped"], compare(
+            f"K4 pass {label_g}", got, cuda_pyramid.pyramid_rows_transposed_torch(
+                x_g.double(), fb_g.dec_lo, fb_g.dec_hi, level_g, group=group_g), F32_BOUND))
+        args_g = (fb_g.rec_lo, fb_g.rec_hi, fb_g.recon_gain, level_g)
+        got = cuda_pyramid.ipyramid_rows_transposed(x_g, *args_g, group=group_g)
+        torch.cuda.synchronize()
+        errors["K5.grouped"] = max(errors["K5.grouped"], compare(
+            f"K5 pass {label_g}", got, cuda_pyramid.ipyramid_rows_transposed_torch(
+                x_g.double(), *args_g, group=group_g), F32_BOUND))
+    del x_g, got
 
     # K6. f32 sums in another order than the plain version: a column's error
     # is at most S * 2^-24 * sum|c| (printed as "derived"); the check holds
@@ -930,6 +972,57 @@ def main() -> int:
     compare("WPT facade reverse_2d(forward_2d(s)) = s, (8, 2048, 2048) db4 (6, 6)",
             stack_out["reverse"], stack, F32_BOUND)
     del stack, stack64, stack_out
+
+    # ---- 4a'''. the 2D FWT cell's main path: the FWT facade's 2D forward,
+    # then its reverse, on an (8, 2048, 2048) f32 stack at (6, 6), the counts
+    # set to 0 just before each: two K4 (K5) launches in groups of 2048 on
+    # 16384 rows of 2048 and no K3, K7 or transposing copy, against the plain
+    # grouped forms in float64, the facade's float64 run (the separable
+    # path) and the stack
+    fwt2d_t = jt.api.FastWaveletTransform("Daubechies 4")
+    stack = torch.as_tensor(
+        np.random.default_rng(16).standard_normal((8, 2048, 2048)).astype(np.float32),
+        device=dev)
+    frames_launches, frames_out = {}, {}
+    for name_f, fn_f in (("forward", lambda: fwt2d_t.forward_2d(stack, 6, 6)),
+                         ("reverse", lambda: fwt2d_t.reverse_2d(frames_out["forward"], 6, 6))):
+        reset_counts()
+        before_f = profiling.counts()
+        frames_out[name_f] = fn_f()
+        torch.cuda.synchronize()
+        counts_f = read_counts()
+        for key_f in ("ndim.transposes", "ndim.rotated_passes"):
+            counts_f[key_f] = profiling.counts()[key_f] - before_f[key_f]
+        frames_launches[name_f] = counts_f
+        print(json.dumps({"main_path": f"FWT facade {name_f}_2d (8, 2048, 2048) db4 (6, 6)",
+                          "launches": counts_f}), flush=True)
+    k_f = {"forward": "K4", "reverse": "K5"}
+    for name_f, counts_f in frames_launches.items():
+        require(counts_f[k_f[name_f]] == 2 and counts_f["ndim.rotated_passes"] == 2
+                and not any(v for k, v in counts_f.items()
+                            if k not in (k_f[name_f], "ndim.rotated_passes")),
+                f"the FWT facade's {name_f}_2d did not run two grouped {k_f[name_f]} passes "
+                f"and nothing else (no K3, K7 or transposing copy): {counts_f}")
+    fb_f = jt.get_filter("Daubechies 4")
+    done_f = cuda_pyramid.levels_done(2048, fb_f.transform_wavelength, 6)
+    rows64 = stack.double().view(-1, 2048)
+    for _ in range(2):  # W, then H: each frame stored transposed within itself
+        rows64 = cuda_pyramid.pyramid_rows_transposed_torch(
+            rows64, fb_f.dec_lo, fb_f.dec_hi, done_f, group=2048)
+    compare("FWT facade forward_2d (8, 2048, 2048) db4 (6, 6) f32 against the plain grouped "
+            "K4 x2 in float64", frames_out["forward"], rows64.view(8, 2048, 2048), F32_BOUND)
+    compare("FWT facade forward_2d (8, 2048, 2048) db4 (6, 6) f32 against its float64 run "
+            "(the separable path)", frames_out["forward"],
+            fwt2d_t.forward_2d(stack.double(), 6, 6), F32_BOUND)
+    rows64 = frames_out["forward"].double().view(-1, 2048)
+    for _ in range(2):
+        rows64 = cuda_pyramid.ipyramid_rows_transposed_torch(
+            rows64, fb_f.rec_lo, fb_f.rec_hi, fb_f.recon_gain, done_f, group=2048)
+    compare("FWT facade reverse_2d (8, 2048, 2048) db4 (6, 6) f32 against the plain grouped "
+            "K5 x2 in float64", frames_out["reverse"], rows64.view(8, 2048, 2048), F32_BOUND)
+    compare("FWT facade reverse_2d(forward_2d(s)) = s, (8, 2048, 2048) db4 (6, 6)",
+            frames_out["reverse"], stack, F32_BOUND)
+    del stack, rows64, frames_out
 
     # small inputs against the float64 numpy oracle
     small = np.random.default_rng(3).standard_normal((2, 300))
@@ -1155,6 +1248,27 @@ def main() -> int:
                                               fb4.rec_hi, lv, fb4.recon_gain).reshape(v.shape),
                                           a, 6, 6),
                                       stack_g, ("K8",)))
+    # the FWT facade's 2D pair on the same stack: K4 and K5 in groups, each
+    # the other's backward, against the separable ndim path over the plain
+    # K3/K7 functions
+    fwt2d_g = jt.api.FastWaveletTransform("Daubechies 4")
+    backward["K4.grouped"] = ("K5 in groups on the gradient unrotated within each frame",
+                              grad_case("FWT facade forward_2d (2, 256, 512) db4 (6, 6)",
+                                        lambda a: fwt2d_g.forward_2d(a, 6, 6),
+                                        lambda a: ndim.forward_2d(
+                                            lambda v, lv: cuda_pyramid.pyramid_rows_torch(
+                                                v.reshape(-1, v.shape[-1]), fb4.dec_lo,
+                                                fb4.dec_hi, lv).reshape(v.shape), a, 6, 6),
+                                        stack_g, ("K5",)))
+    backward["K5.grouped"] = ("K4 in groups on the gradient unrotated within each frame",
+                              grad_case("FWT facade reverse_2d (2, 256, 512) db4 (6, 6)",
+                                        lambda a: fwt2d_g.reverse_2d(a, 6, 6),
+                                        lambda a: ndim.reverse_2d(
+                                            lambda v, lv: cuda_pyramid.ipyramid_rows_torch(
+                                                v.reshape(-1, v.shape[-1]), fb4.rec_lo,
+                                                fb4.rec_hi, fb4.recon_gain,
+                                                lv).reshape(v.shape), a, 6, 6),
+                                        stack_g, ("K4",)))
     del stack_g
     fbh = jt.get_filter("Haar orthogonal")
     grad_case("ifwt2d Haar orthogonal 256x256 (gain 0.5)",
@@ -2116,6 +2230,28 @@ def main() -> int:
                           "ms": timing[kernel_w][0], "plain_ms": timing[kernel_w][1],
                           "in_place_and_copy_ms": (c1 + c2) / 2, "bound_ms": bound_2048,
                           "card": card}), flush=True)
+    # the 2D FWT cell's axis pass (the same rows): K4 and K5 in groups of
+    # 2048 beside their plain versions, and K3 (K7) in place followed by the
+    # transposing copy that the separable path makes, in turns
+    for kernel_g, grouped_g, plain_g, in_place_g in (
+            ("K4.grouped",
+             lambda: cuda_pyramid.pyramid_rows_transposed(x2048, lo, hi, 6, group=2048),
+             lambda: cuda_pyramid.pyramid_rows_transposed_torch(x2048, lo, hi, 6, group=2048),
+             lambda: cuda_pyramid.pyramid_rows(x2048, lo, hi, 6).view(8, 2048, 2048).transpose(
+                 1, 2).contiguous()),
+            ("K5.grouped",
+             lambda: cuda_pyramid.ipyramid_rows_transposed(x2048, rlo, rhi, 1.0, 6, group=2048),
+             lambda: cuda_pyramid.ipyramid_rows_transposed_torch(x2048, rlo, rhi, 1.0, 6,
+                                                                 group=2048),
+             lambda: cuda_pyramid.ipyramid_rows(x2048, rlo, rhi, 1.0, 6).view(
+                 8, 2048, 2048).transpose(1, 2).contiguous())):
+        timing[kernel_g] = pair(grouped_g, plain_g)
+        c1, c2 = median_ms(in_place_g, device=True), median_ms(in_place_g, device=True)
+        print(json.dumps({"time": f"{kernel_g} on 16384 rows of 2048 in groups of 2048, db4 "
+                                  "L6: grouped, plain, and in place then a transposing copy",
+                          "ms": timing[kernel_g][0], "plain_ms": timing[kernel_g][1],
+                          "in_place_and_copy_ms": (c1 + c2) / 2, "bound_ms": bound_2048,
+                          "card": card}), flush=True)
     del x2048
     # K8's and K9's plans at the main shape and at wpt's full-depth chunks
     # that are whole rows: a stage set's, the buffer's and a block's bytes,
@@ -2177,7 +2313,13 @@ def main() -> int:
                              16384 * 2048, "Msamples_per_s"),
               "K9.rotated": ("iwpt_rows_rotated db4 L6 16384x2048 in groups of 2048 (the WPT "
                              "facade's 2D axis pass; plain = wpt_synthesis_rotated_torch)",
-                             16384 * 2048, "Msamples_per_s")}
+                             16384 * 2048, "Msamples_per_s"),
+              "K4.grouped": ("pyramid_rows_transposed db4 L6 16384x2048 in groups of 2048 (the "
+                             "FWT facade's 2D axis pass; plain = pyramid_rows_transposed_torch)",
+                             16384 * 2048, "Msamples_per_s"),
+              "K5.grouped": ("ipyramid_rows_transposed db4 L6 16384x2048 in groups of 2048 (the "
+                             "FWT facade's 2D axis pass; plain = "
+                             "ipyramid_rows_transposed_torch)", 16384 * 2048, "Msamples_per_s")}
     fft = jt.ConvolutionMethod.FFT
     fft_ms = median_ms(lambda: jt.imodwt(jt.modwt(x, "Daubechies 4", 5, method=fft),
                                          "Daubechies 4", method=fft))
@@ -2612,7 +2754,8 @@ def main() -> int:
     # K4/K5 one pass: 2048^2 in and out, the same FMAs per row; K6: the
     # complex64 contributions and int32 bins in, the complex64 plane out, 2
     # adds each; K8/K9 db4 L6: 64x65536 in and out, M FMAs a sample and level
-    # (K8.rotated/K9.rotated: the same at 16384x2048, the packet cell's rows).
+    # (K8.rotated/K9.rotated: the same at 16384x2048, the packet cell's rows;
+    # K4.grouped/K5.grouped: K4's and K5's at 16384x2048, the 2D FWT cell's).
     hbm, f32_rate = HBM_BYTES_S, 67e12
     b, n_s, lv, m8 = 64, 65536, 5, 8
     work = {"K1": (4 * b * n_s * (lv + 2), 2 * 2 * m8 * b * n_s * lv),
@@ -2626,7 +2769,9 @@ def main() -> int:
             "K8": (2 * 4 * b * n_s, 2 * m8 * 6 * b * n_s),
             "K9": (2 * 4 * b * n_s, 2 * m8 * 6 * b * n_s),
             "K8.rotated": (2 * 4 * 16384 * 2048, 2 * m8 * 6 * 16384 * 2048),
-            "K9.rotated": (2 * 4 * 16384 * 2048, 2 * m8 * 6 * 16384 * 2048)}
+            "K9.rotated": (2 * 4 * 16384 * 2048, 2 * m8 * 6 * 16384 * 2048),
+            "K4.grouped": (2 * 4 * 16384 * 2048, 2 * 2 * 2048 * m8 * 16384),
+            "K5.grouped": (2 * 4 * 16384 * 2048, 2 * 2 * 2048 * m8 * 16384)}
     bounds = {}
     for k, (nbytes, flops) in work.items():
         t_bytes, t_ops = nbytes / hbm * 1e3, flops / f32_rate * 1e3
@@ -2661,6 +2806,11 @@ def main() -> int:
         # no kernel: the packet cell's 2D axis passes, an XLA transpose between them
         ("K8.rotated wpt_rows_rotated", "wpt.cu", "jwave_tpu/transforms/ndim.py:16"),
         ("K9.rotated iwpt_rows_rotated", "wpt.cu", "jwave_tpu/transforms/ndim.py:30"),
+        # no kernel: a stack's 2D FWT axis passes, an XLA transpose between them
+        ("K4.grouped pyramid_rows_transposed(group=)", "pyramid.cu",
+         "jwave_tpu/transforms/ndim.py:16"),
+        ("K5.grouped ipyramid_rows_transposed(group=)", "pyramid.cu",
+         "jwave_tpu/transforms/ndim.py:30"),
     ]
     # the rotated forms count as K3's and K7's launches; their own are phase
     # 4a''s, the volume's main path, and are not told apart in phase 4j
@@ -2673,6 +2823,12 @@ def main() -> int:
     for k, (side, base) in {"K8.rotated": ("forward", "K8"),
                             "K9.rotated": ("reverse", "K9")}.items():
         launches[k] = main_launches[k] = stack_launches[side][base]
+        sharded_launches[k] = None
+    # K4 and K5 in groups count as K4's and K5's launches; phase 4a''' (the
+    # 2D FWT cell's main path) counts theirs
+    for k, (side, base) in {"K4.grouped": ("forward", "K4"),
+                            "K5.grouped": ("reverse", "K5")}.items():
+        launches[k] = main_launches[k] = frames_launches[side][base]
         sharded_launches[k] = None
     kernels = []
     for (name, src, replaces) in table:

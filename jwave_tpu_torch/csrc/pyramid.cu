@@ -81,6 +81,13 @@
 //    column, 32 columns a warp store, was slower on this card); the row pad
 //    keeps the two threads of a column on different banks. A ragged last
 //    block or a row count that is not a multiple of 4 stores scalars;
+//  - rows are stored transposed in groups of `group` (a frame of a stack
+//    of F frames, viewed as (F group, n) rows): group f goes to out as its
+//    own (n, group) block at f n group (block_columns), so two passes give
+//    a stack's 2D transform with no transposing copy. A block's rows lie in
+//    one group (rb divides it). One group (group == rows) is the plain (N,
+//    R) transpose, the kernels' <false> instantiation, which stores as
+//    before groups;
 //  - one block a row block.
 //
 // K4. The first version read level 1 tap by tap from device memory and ran
@@ -775,12 +782,33 @@ __device__ void store_columns(float* out, const float* S, int ns, int n, int nr,
   }
 }
 
+// Where a K4 or K5 block's rows r0 .. r0+nr-1 go, as (columns, stride,
+// first): column k of row r0 at columns + k * stride + first. Grouped: each
+// group of `group` rows of n is stored transposed, (n, group), group after
+// group, so row r0 = f group + i (a block's rows all in group f) lands at
+// f n group + i, its column k `group` floats further. Else the whole (n,
+// rows), the code the kernels had before groups, in an instantiation of its
+// own (an index computed per block cost the matrix's K4 5%).
+struct BlockColumns {
+  float* columns;
+  int stride;
+  int first;
+};
+
+template <bool Grouped>
+__device__ __forceinline__ BlockColumns block_columns(float* out, int rows, int n, int r0,
+                                                      int group) {
+  if (Grouped) return {out + (long long)(r0 / group) * n * group + r0 % group, group, 0};
+  return {out, rows, r0};
+}
+
 // K4: one block per `rb` rows of (rows, n); output (n, rows) transposed.
 // See the header for the design.
+template <bool Grouped>
 __global__ void __launch_bounds__(512)
 pyramid_rows_t_kernel(const float* __restrict__ src, float* __restrict__ out,
                       const float* __restrict__ taps, int rows, int n, int levels, int m,
-                      int rb, float gain) {
+                      int rb, float gain, int group) {
   extern __shared__ __align__(16) float smem[];
   float* lo = smem;
   float* hi = smem + kMaxTaps;
@@ -792,7 +820,8 @@ pyramid_rows_t_kernel(const float* __restrict__ src, float* __restrict__ out,
   const int r0 = blockIdx.x * rb;
   const int nr = min(rb, rows - r0);
   const int lg_parts = nr > 4 ? 1 : 0;  // 4-row parts of a column: 1 or 2
-  const bool vec4 = rb % 4 == 0 && rows % 4 == 0 && nr == rb &&
+  const BlockColumns C = block_columns<Grouped>(out, rows, n, r0, group);
+  const bool vec4 = rb % 4 == 0 && C.stride % 4 == 0 && nr == rb &&
                     (reinterpret_cast<uintptr_t>(out) & 15) == 0;
   if (threadIdx.x == 0) jw::mbar_init(bar);
   load_taps(taps, m, lo, hi);  // its __syncthreads also publishes the barrier
@@ -836,8 +865,8 @@ pyramid_rows_t_kernel(const float* __restrict__ src, float* __restrict__ out,
         d[q] *= gain;
       }
       if (l == 0) {
-        store4(out + (long long)(half + i) * rows + r0 + r4, d, nr - r4, vec4);
-        if (last) store4(out + (long long)i * rows + r0 + r4, a, nr - r4, vec4);
+        store4(C.columns + (long long)(half + i) * C.stride + C.first + r4, d, nr - r4, vec4);
+        if (last) store4(C.columns + (long long)i * C.stride + C.first + r4, a, nr - r4, vec4);
       }
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
@@ -853,15 +882,17 @@ pyramid_rows_t_kernel(const float* __restrict__ src, float* __restrict__ out,
   }
   // what is left: the head of S (n/2 columns) after two levels or more, the
   // staged rows with none; one level stored everything
-  if (levels != 1) store_columns(out, S, ns, levels ? n / 2 : n, nr, rows, r0, vec4);
+  if (levels != 1)
+    store_columns(C.columns, S, ns, levels ? n / 2 : n, nr, C.stride, C.first, vec4);
 }
 
 // K5: one block per `rb` rows of (rows, n); output (n, rows) transposed.
 // See the header for the design.
+template <bool Grouped>
 __global__ void __launch_bounds__(512)
 ipyramid_rows_t_kernel(const float* __restrict__ src, float* __restrict__ out,
                        const float* __restrict__ taps, int rows, int n, int levels, int m,
-                       int rb, float gain) {
+                       int rb, float gain, int group) {
   extern __shared__ __align__(16) float smem[];
   float* lo = smem;
   float* hi = smem + kMaxTaps;
@@ -872,7 +903,8 @@ ipyramid_rows_t_kernel(const float* __restrict__ src, float* __restrict__ out,
   const int half_n = n >> 1;
   const int r0 = blockIdx.x * rb;
   const int nr = min(rb, rows - r0);
-  const bool vec4 = rb % 4 == 0 && rows % 4 == 0 && nr == rb &&
+  const BlockColumns C = block_columns<Grouped>(out, rows, n, r0, group);
+  const bool vec4 = rb % 4 == 0 && C.stride % 4 == 0 && nr == rb &&
                     (reinterpret_cast<uintptr_t>(out) & 15) == 0;
   if (threadIdx.x == 0) jw::mbar_init(bar);
   load_taps(taps, m, lo, hi);  // its __syncthreads also publishes the barrier
@@ -920,7 +952,7 @@ ipyramid_rows_t_kernel(const float* __restrict__ src, float* __restrict__ out,
   // (with levels == 0, the staged rows as they are)
   const int lg_parts = nr > 4 ? 1 : 0;  // 4-row parts of a column: 1 or 2
   if (levels == 0) {
-    store_columns(out, S, ns, n, nr, rows, r0, vec4);
+    store_columns(C.columns, S, ns, n, nr, C.stride, C.first, vec4);
   } else {
     for (int idx = threadIdx.x; idx < half_n << lg_parts; idx += nthreads) {
       const int c = idx >> lg_parts, r4 = 4 * (idx & lg_parts);  // the pair (2c, 2c+1)
@@ -944,9 +976,9 @@ ipyramid_rows_t_kernel(const float* __restrict__ src, float* __restrict__ out,
         c0[q] *= gain;
         c1[q] *= gain;
       }
-      float* o = out + (long long)(2 * c) * rows + r0 + r4;
+      float* o = C.columns + (long long)(2 * c) * C.stride + C.first + r4;
       store4(o, c0, nr - r4, vec4);
-      store4(o + rows, c1, nr - r4, vec4);
+      store4(o + C.stride, c1, nr - r4, vec4);
     }
   }
 }
@@ -1577,32 +1609,43 @@ int jw_ipyramid_tile(const void* src, void* out, const void* taps, int rows, int
             threads, grid, blocks_per_sm, (cudaStream_t)stream);
 }
 
+// K4 and K5 store each group of `group` rows transposed (block_columns); a
+// block's rows lie in one group: rb divides the group, or one group holds
+// every row.
+static bool rows_in_groups(int rows, int rb, int group) {
+  return group >= 1 && rows % group == 0 && (group == rows || group % rb == 0);
+}
+
 int jw_pyramid_rows_t(const void* src, void* out, const void* taps, int rows, int n,
-                      int levels, int m, int rb, float gain, int threads, void* stream) {
+                      int levels, int m, int rb, float gain, int group, int threads,
+                      void* stream) {
   cudaGetLastError();
-  if (rb < 1 || rb > kMaxRows) return (int)cudaErrorInvalidValue;
+  if (rb < 1 || rb > kMaxRows || !rows_in_groups(rows, rb, group))
+    return (int)cudaErrorInvalidValue;
   const int smem = (int)((kRowsHead + (long long)rb * (n + 4 + n / 2 + 4)) * sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(pyramid_rows_t_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  auto kern = group == rows ? pyramid_rows_t_kernel<false> : pyramid_rows_t_kernel<true>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (rows + rb - 1) / rb;
-  pyramid_rows_t_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
-      (const float*)src, (float*)out, (const float*)taps, rows, n, levels, m, rb, gain);
+  kern<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+      (const float*)src, (float*)out, (const float*)taps, rows, n, levels, m, rb, gain, group);
   return (int)cudaGetLastError();
 }
 
 int jw_ipyramid_rows_t(const void* src, void* out, const void* taps, int rows, int n,
-                       int levels, int m, int rb, float gain, int threads, void* stream) {
+                       int levels, int m, int rb, float gain, int group, int threads,
+                       void* stream) {
   cudaGetLastError();
-  if (rb < 1 || rb > kMaxRows || (long long)rb * (n / 4) > (long long)kK5Pairs * threads)
+  if (rb < 1 || rb > kMaxRows || (long long)rb * (n / 4) > (long long)kK5Pairs * threads ||
+      !rows_in_groups(rows, rb, group))
     return (int)cudaErrorInvalidValue;
   const int smem = (int)((kRowsHead + (long long)rb * (n + 4)) * sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(ipyramid_rows_t_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  auto kern = group == rows ? ipyramid_rows_t_kernel<false> : ipyramid_rows_t_kernel<true>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (rows + rb - 1) / rb;
-  ipyramid_rows_t_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
-      (const float*)src, (float*)out, (const float*)taps, rows, n, levels, m, rb, gain);
+  kern<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+      (const float*)src, (float*)out, (const float*)taps, rows, n, levels, m, rb, gain, group);
   return (int)cudaGetLastError();
 }
 

@@ -10,8 +10,15 @@ behind it, ``jwave_tpu/ops/mxu_pyramid.py`` ``fwt_inverse_fused`` (K7: the
 inverse pyramid of each row, in place, output (R, N)). K3 and K7 also have
 a rotated form (no TPU kernel): whole rows of at most ``ROT_MAX`` samples,
 output (N, R), the volume's axis passes (``transforms/fwt.py`` ``fwt3d``,
-``ifwt3d``), with K4's and K5's plain versions. Per row, for each of
-``levels`` levels on the head h:
+``ifwt3d``), with K4's and K5's plain versions. K4 and K5 take a
+``group``: rows (F group, N), each group of rows (a frame of a stack)
+stored transposed on its own, output (F N, group); one group (the default)
+is the plain (N, R) transpose. Two grouped passes are the 2D transform of
+a stack of frames (``transforms/fwt.py`` ``fwt2d``, ``ifwt2d``). Every
+rotated K3 or K7 launch and every K4 or K5 launch adds one to the counter
+``ndim.rotated_passes``: each stores an axis pass rotated, so no
+transposing copy follows it. Per row, for each of ``levels`` levels on the
+head h:
 
     a[i] = sum_j x[(2i+j) mod h] dec_lo[j],  d[i] = sum_j x[(2i+j) mod h] dec_hi[j]
 
@@ -33,21 +40,23 @@ launches a kernel and counts as its launch):
   are each other's adjoint (a synthesis level is the transpose of the
   analysis level with the same filters), so K3's backward is K7 and K7's
   is K3, on rows of any length;
-* one K4 pass is T P (P the pyramid, T the transpose), so its adjoint
-  P^T T is K5 with the same filters and gain on the transposed gradient,
-  transposed back; one K5 pass likewise takes K4 with K5's filters as the
+* one K4 pass is T P (P the pyramid, T the transpose within each group),
+  so its adjoint P^T T^T is K5 with the same filters, gain and group on
+  the gradient transposed back within each group, the result transposed
+  back so too; one K5 pass likewise takes K4 with K5's filters as the
   analysis pair and ``recon_gain`` as K4's per-level ``gain``;
 * a rotated pass is T P too: its adjoint is K7 (K3 for K7's) in place on
   the gradient transposed.
 
-The backward of a transposing pass returns a transposed view and reads its
-incoming gradient through one, so in ``fwt2d``/``ifwt2d`` (two passes) only
-the first backward pass copies its gradient.
+The backward of a transposing pass of one group returns a transposed view
+and reads its incoming gradient through one, so in ``fwt2d``/``ifwt2d`` of
+a matrix (two passes) only the first backward pass copies its gradient.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -99,7 +108,8 @@ ROT_ITEM = 4096
 ROT_MIN_ROWS = 8
 K3_ROT_THREADS = 128 + 32
 #: the counter of rotated launches (``profiling.counts()``), one an axis
-#: pass of ``fwt3d``/``ifwt3d``
+#: pass of ``fwt3d``/``ifwt3d`` (the rotated K3, K7) and of ``fwt2d``/
+#: ``ifwt2d`` (K4, K5)
 ROTATED_PASSES = "ndim.rotated_passes"
 count(ROTATED_PASSES, 0)  # listed (at 0) from the start
 
@@ -178,10 +188,20 @@ def pyramid_rows_tiled_torch(x: torch.Tensor, dec_lo, dec_hi, levels: int,
     return out
 
 
+def rotate_groups(y: torch.Tensor, group: int | None = None) -> torch.Tensor:
+    """(F group, N) rows as (F N, group): each group of ``group`` rows
+    (default all of them) transposed, contiguous."""
+    r, n = y.shape
+    group = r if group is None else group
+    f = r // group if group else 1
+    return y.reshape(f, group, n).transpose(1, 2).reshape(f * n, group).contiguous()
+
+
 def pyramid_rows_transposed_torch(x: torch.Tensor, dec_lo, dec_hi, levels: int,
-                                  gain: float = 1.0) -> torch.Tensor:
-    """(R, N) -> (N, R): :func:`pyramid_rows_torch` of each row, transposed."""
-    return pyramid_rows_torch(x, dec_lo, dec_hi, levels, gain).transpose(0, 1).contiguous()
+                                  gain: float = 1.0, group: int | None = None) -> torch.Tensor:
+    """(F group, N) -> (F N, group): :func:`pyramid_rows_torch` of each row,
+    each group of rows transposed; one group (the default): (R, N) -> (N, R)."""
+    return rotate_groups(pyramid_rows_torch(x, dec_lo, dec_hi, levels, gain), group)
 
 
 def ipyramid_rows_torch(y: torch.Tensor, rec_lo, rec_hi, recon_gain: float,
@@ -212,9 +232,11 @@ def ipyramid_rows_torch(y: torch.Tensor, rec_lo, rec_hi, recon_gain: float,
 
 
 def ipyramid_rows_transposed_torch(y: torch.Tensor, rec_lo, rec_hi, recon_gain: float,
-                                   levels: int) -> torch.Tensor:
-    """(R, N) -> (N, R): :func:`ipyramid_rows_torch` of each row, transposed."""
-    return ipyramid_rows_torch(y, rec_lo, rec_hi, recon_gain, levels).transpose(0, 1).contiguous()
+                                   levels: int, group: int | None = None) -> torch.Tensor:
+    """(F group, N) -> (F N, group): :func:`ipyramid_rows_torch` of each
+    row, each group of rows transposed; one group (the default): (R, N) ->
+    (N, R)."""
+    return rotate_groups(ipyramid_rows_torch(y, rec_lo, rec_hi, recon_gain, levels), group)
 
 
 def k7_cones(n: int, levels: int, m: int, tile: int, t0: int) -> list:
@@ -355,7 +377,8 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _K3_TILE = ("pyramid", "jw_pyramid_tile",
             [_P, _LL, _P, _LL, _P, _LL, _P, _I, _I, _I, _I, _I, _P, _I, _I, _P])
 _K3_TAIL = ("pyramid", "jw_pyramid_tail", [_P, _LL, _P, _LL, _P, _I, _I, _I, _I, _I, _P])
-_K4 = ("pyramid", "jw_pyramid_rows_t", [_P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P])
+_K4 = ("pyramid", "jw_pyramid_rows_t",
+       [_P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P])
 _K5 = ("pyramid", "jw_ipyramid_rows_t", _K4[2])
 _K7 = ("pyramid", "jw_ipyramid_tile", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P])
 _K3_ROT = ("pyramid", "jw_pyramid_rows_rotated",
@@ -819,43 +842,78 @@ def k4_smem_bytes(n: int, rb: int) -> int:
     return 4 * (2 * MAX_TAPS + 4 + rb * (n + 4) + rb * (n // 2 + 4))
 
 
-def _k4(x: torch.Tensor, dec_lo, dec_hi, levels: int, gain: float) -> torch.Tensor:
-    if x.device.type == "cpu":
-        return pyramid_rows_transposed_torch(x, dec_lo, dec_hi, levels, gain)
-    _check(x, dec_lo, dec_hi, levels, "pyramid_rows_transposed")
+def _unrotate(g: torch.Tensor, group: int, n: int) -> torch.Tensor:
+    """(F n, group) as the (F group, n) rows it was stored from: each group
+    transposed back; a view where F is 1 (a transposed view of one group is
+    then contiguous), else a copy."""
+    f = g.shape[0] // n
+    return g.reshape(f, n, group).transpose(1, 2).reshape(f * group, n)
+
+
+#: K4's (K5's) entry, wrapper name, K-name, span and threads a block
+_K4_LAUNCH = (_K4, "pyramid_rows_transposed", "K4", "launch.K4", K4_THREADS)
+_K5_LAUNCH = (_K5, "ipyramid_rows_transposed", "K5", "launch.K5", K5_THREADS)
+
+
+def _launch_transposed(x: torch.Tensor, f1, f2, levels: int, gain: float,
+                       group: int | None, which: tuple) -> torch.Tensor:
+    """One launch of K4 (K5, ``gain`` its ``recon_gain``; ``which`` is
+    ``_K4_LAUNCH`` or ``_K5_LAUNCH``) on (F group, N) rows, output (F N,
+    group), counted as ``launch.K4`` (``K5``) and as a rotated pass. The
+    group (default all rows) divides the rows, and a block's rows lie in one
+    group: a group of fewer rows than :func:`k4_rows_per_block` gives takes
+    blocks of the largest power of two dividing it."""
+    kernel, what, name, span_name, threads = which
+    _check(x, f1, f2, levels, what)
     r, n = x.shape
     rb = k4_rows_per_block(n)
     if rb == 0:
-        raise JWaveFailure(f"pyramid_rows_transposed - rows of {n} exceed one block's "
-                           "shared memory")
-    out = torch.empty((n, r), dtype=x.dtype, device=x.device)
+        raise JWaveFailure(f"{what} - rows of {n} exceed one block's shared memory")
+    if group is None or group == r:
+        group, frames = r, 1
+    elif group < 1 or r % group:
+        raise JWaveFailure(f"{what} - {r} rows do not make groups of {group}")
+    else:
+        rb, frames = math.gcd(rb, group), r // group
+    out = torch.empty((frames * n, group), dtype=x.dtype, device=x.device)
     if r == 0:
         return out
-    with span("launch.K4", rows=r, n=n, levels=levels):
-        taps = cuda_build.device_taps(dec_lo, dec_hi, x.device)
-        cuda_build.launch(_K4, (x.data_ptr(), out.data_ptr(), taps.data_ptr(), r, n, levels,
-                                len(dec_lo), rb, float(gain), K4_THREADS),
-                          x.device, "pyramid_rows_transposed", "K4")
+    with span(span_name, rows=r, n=n, levels=levels, group=group):
+        taps = cuda_build.device_taps(f1, f2, x.device)
+        cuda_build.launch(kernel, (x.data_ptr(), out.data_ptr(), taps.data_ptr(), r, n, levels,
+                                   len(f1), rb, float(gain), group, threads),
+                          x.device, what, name)
+        count(ROTATED_PASSES)
     return out
+
+
+def _k4(x: torch.Tensor, dec_lo, dec_hi, levels: int, gain: float,
+        group: int | None = None) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return pyramid_rows_transposed_torch(x, dec_lo, dec_hi, levels, gain, group)
+    return _launch_transposed(x, dec_lo, dec_hi, levels, gain, group, _K4_LAUNCH)
 
 
 class _PyramidRowsT(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, dec_lo, dec_hi, levels, gain):
-        ctx.args = (dec_lo, dec_hi, gain, levels)
-        return _k4(x, dec_lo, dec_hi, levels, gain)
+    def forward(ctx, x, dec_lo, dec_hi, levels, gain, group):
+        ctx.args, ctx.shape = (dec_lo, dec_hi, gain, levels), (group or x.shape[0], x.shape[1])
+        return _k4(x, dec_lo, dec_hi, levels, gain, group)
 
     @staticmethod
     def backward(ctx, g):
-        gt = g.transpose(0, 1).contiguous()  # free when g is a transposed view
-        return ipyramid_rows_transposed(gt, *ctx.args).transpose(0, 1), None, None, None, None
+        group, n = ctx.shape
+        gt = _unrotate(g, group, n).contiguous()  # free when g is a transposed view
+        back = ipyramid_rows_transposed(gt, *ctx.args, group=group)
+        return _unrotate(back, group, n), None, None, None, None, None
 
 
 def pyramid_rows_transposed(x: torch.Tensor, dec_lo, dec_hi, levels: int,
-                            gain: float = 1.0) -> torch.Tensor:
-    """K4: the pyramid along each row of (R, N) f32, output (N, R); each
-    level's a and d scaled by ``gain``."""
-    return cuda_build.apply(_PyramidRowsT, _k4, x, dec_lo, dec_hi, levels, gain)
+                            gain: float = 1.0, group: int | None = None) -> torch.Tensor:
+    """K4: the pyramid along each row of (F group, N) f32, each group of
+    ``group`` rows (default all: output (N, R)) stored transposed, output
+    (F N, group); each level's a and d scaled by ``gain``."""
+    return cuda_build.apply(_PyramidRowsT, _k4, x, dec_lo, dec_hi, levels, gain, group)
 
 
 def k5_rows_per_block(n: int) -> int:
@@ -875,39 +933,31 @@ def k5_smem_bytes(n: int, rb: int) -> int:
     return 4 * (2 * MAX_TAPS + 4 + rb * (n + 4))
 
 
-def _k5(y: torch.Tensor, rec_lo, rec_hi, recon_gain: float, levels: int) -> torch.Tensor:
+def _k5(y: torch.Tensor, rec_lo, rec_hi, recon_gain: float, levels: int,
+        group: int | None = None) -> torch.Tensor:
     if y.device.type == "cpu":
-        return ipyramid_rows_transposed_torch(y, rec_lo, rec_hi, recon_gain, levels)
-    _check(y, rec_lo, rec_hi, levels, "ipyramid_rows_transposed")
-    r, n = y.shape
-    rb = k5_rows_per_block(n)
-    if rb == 0:
-        raise JWaveFailure(f"ipyramid_rows_transposed - rows of {n} exceed one block's "
-                           "shared memory")
-    out = torch.empty((n, r), dtype=y.dtype, device=y.device)
-    if r == 0:
-        return out
-    with span("launch.K5", rows=r, n=n, levels=levels):
-        taps = cuda_build.device_taps(rec_lo, rec_hi, y.device)
-        cuda_build.launch(_K5, (y.data_ptr(), out.data_ptr(), taps.data_ptr(), r, n, levels,
-                                len(rec_lo), rb, float(recon_gain), K5_THREADS),
-                          y.device, "ipyramid_rows_transposed", "K5")
-    return out
+        return ipyramid_rows_transposed_torch(y, rec_lo, rec_hi, recon_gain, levels, group)
+    return _launch_transposed(y, rec_lo, rec_hi, levels, recon_gain, group, _K5_LAUNCH)
 
 
 class _IPyramidRowsT(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, y, rec_lo, rec_hi, recon_gain, levels):
-        ctx.args = (rec_lo, rec_hi, levels, recon_gain)
-        return _k5(y, rec_lo, rec_hi, recon_gain, levels)
+    def forward(ctx, y, rec_lo, rec_hi, recon_gain, levels, group):
+        ctx.args, ctx.shape = (rec_lo, rec_hi, levels, recon_gain), (group or y.shape[0],
+                                                                     y.shape[1])
+        return _k5(y, rec_lo, rec_hi, recon_gain, levels, group)
 
     @staticmethod
     def backward(ctx, g):
-        gt = g.transpose(0, 1).contiguous()  # free when g is a transposed view
-        return pyramid_rows_transposed(gt, *ctx.args).transpose(0, 1), None, None, None, None
+        group, n = ctx.shape
+        gt = _unrotate(g, group, n).contiguous()  # free when g is a transposed view
+        back = pyramid_rows_transposed(gt, *ctx.args, group=group)
+        return _unrotate(back, group, n), None, None, None, None, None
 
 
 def ipyramid_rows_transposed(y: torch.Tensor, rec_lo, rec_hi, recon_gain: float,
-                             levels: int) -> torch.Tensor:
-    """K5: the inverse pyramid along each row of (R, N) f32, output (N, R)."""
-    return cuda_build.apply(_IPyramidRowsT, _k5, y, rec_lo, rec_hi, recon_gain, levels)
+                             levels: int, group: int | None = None) -> torch.Tensor:
+    """K5: the inverse pyramid along each row of (F group, N) f32, each
+    group of ``group`` rows (default all: output (N, R)) stored transposed,
+    output (F N, group)."""
+    return cuda_build.apply(_IPyramidRowsT, _k5, y, rec_lo, rec_hi, recon_gain, levels, group)

@@ -76,7 +76,7 @@ import torch
 from ..exceptions import JWaveFailure
 from ..utils.profiling import count, span
 from . import cuda_build
-from .cuda_pyramid import ROTATED_PASSES
+from .cuda_pyramid import ROTATED_PASSES, rotate_groups
 
 #: ``csrc/wpt.cu``: the most levels, a block's threads (the compute
 #: threads, at most 256, and the producer warp), output samples a work item
@@ -195,12 +195,6 @@ def wpt_synthesis_torch(y: torch.Tensor, lo, hi, levels: int, gain: float = 1.0,
     return cur.reshape(y.shape)
 
 
-def _rotate(y: torch.Tensor, group: int) -> torch.Tensor:
-    """(F group, n) rows as (F, n, group): each group of rows transposed."""
-    r, n = y.shape
-    return y.reshape(r // group, group, n).transpose(1, 2).contiguous()
-
-
 def wpt_analysis_rotated_torch(x: torch.Tensor, lo, hi, levels: int, group: int,
                                h: int | None = None, gain: float = 1.0) -> torch.Tensor:
     """(F group, n) -> (F, n, group): :func:`wpt_analysis_torch` on every
@@ -208,7 +202,7 @@ def wpt_analysis_rotated_torch(x: torch.Tensor, lo, hi, levels: int, group: int,
     each group of ``group`` rows transposed (the rotated K8's function)."""
     r, n = x.shape
     y = wpt_analysis_torch(x.reshape(-1, h or n), lo, hi, levels, gain)
-    return _rotate(y.reshape(r, n), group)
+    return rotate_groups(y.reshape(r, n), group).view(r // group, n, group)
 
 
 def wpt_synthesis_rotated_torch(y: torch.Tensor, lo, hi, levels: int, group: int,
@@ -218,7 +212,7 @@ def wpt_synthesis_rotated_torch(y: torch.Tensor, lo, hi, levels: int, group: int
     ``group`` rows transposed (the rotated K9's function)."""
     r, n = y.shape
     x = wpt_synthesis_torch(y.reshape(-1, h or n), lo, hi, levels, gain)
-    return _rotate(x.reshape(r, n), group)
+    return rotate_groups(x.reshape(r, n), group).view(r // group, n, group)
 
 
 class WptPlan(NamedTuple):

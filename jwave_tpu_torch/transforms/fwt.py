@@ -7,12 +7,14 @@ in-place layout ``[A_L | D_L | D_{L-1} | ... | D_1]``.
 
 Routing: a CUDA float32 tensor goes to the fused pyramid kernels, K3 for
 ``fwt`` (``ops.cuda_pyramid.pyramid_rows``), K7 for ``ifwt``
-(``ipyramid_rows``; each the other's backward), K4 twice for a 2D
-``fwt2d`` (``pyramid_rows_transposed``), K5 twice for a 2D ``ifwt2d``
-(``ipyramid_rows_transposed``), and the rotated forms of K3 and K7 three
-times each for a 3D ``fwt3d`` and ``ifwt3d`` (``pyramid_rows_rotated``,
-``ipyramid_rows_rotated``). Everything else (the CPU, float64, bf16, f16)
-runs the level loop over the torch butterfly.
+(``ipyramid_rows``; each the other's backward), K4 twice for ``fwt2d``
+(``pyramid_rows_transposed``) and K5 twice for ``ifwt2d``
+(``ipyramid_rows_transposed``) on a matrix or a stack of frames (leading
+axes), each pass storing every frame transposed within itself, and the
+rotated forms of K3 and K7 three times each for a 3D ``fwt3d`` and
+``ifwt3d`` (``pyramid_rows_rotated``, ``ipyramid_rows_rotated``).
+Everything else (the CPU, float64, bf16, f16) runs the level loop over the
+torch butterfly.
 """
 from __future__ import annotations
 
@@ -173,55 +175,86 @@ def _check_2d_levels(shape, level_rows, level_cols, who: str):
             raise JWaveFailure(f"{who} - {axis} level {lvl} out of range [0, {steps}]")
 
 
-def _axis_pass(x: torch.Tensor, fb, level) -> torch.Tensor:
-    """One transposing pyramid pass (K4) over the last axis of (R, N)."""
-    n = x.shape[-1]
-    done = cuda_pyramid.levels_done(n, fb.transform_wavelength,
-                                    n.bit_length() if level is None else level)
-    return cuda_pyramid.pyramid_rows_transposed(x, fb.dec_lo, fb.dec_hi, done)
+def _frame_levels(x: torch.Tensor, fb, levels, rows_per_block) -> tuple | None:
+    """The levels done by each of the two grouped passes of a 2D transform
+    of ``x``, given ``levels`` as (level_cols, level_rows), the passes'
+    order; None where ``x`` keeps the separable path: not a CUDA float32
+    tensor of rank >= 2 with 1 to 2^31 - 1 elements, an extent that is not
+    a power of two or that ``rows_per_block`` (K4's or K5's) refuses, or a
+    level out of its range (the separable path raises for those). Leading
+    axes are frames."""
+    if x.dim() < 2 or not _on_kernel(x) or not 0 < x.numel() < 2**31:
+        return None
+    height, width = x.shape[-2:]
+    level_cols, level_rows = levels
+    if height & (height - 1) or width & (width - 1) or not (
+            rows_per_block(width) and rows_per_block(height)):
+        return None
+    steps_w, steps_h = width.bit_length() - 1, height.bit_length() - 1
+    level_cols = steps_w if level_cols is None else level_cols
+    level_rows = steps_h if level_rows is None else level_rows
+    if not (0 <= level_cols <= steps_w and 0 <= level_rows <= steps_h):
+        return None
+    tw = fb.transform_wavelength
+    return (cuda_pyramid.levels_done(width, tw, level_cols),
+            cuda_pyramid.levels_done(height, tw, level_rows))
 
 
+def _frame_passes(x: torch.Tensor, done, axis_pass, *filters) -> torch.Tensor:
+    """Two grouped passes, ``axis_pass(rows, *filters, levels, group=...)``,
+    over a stack (..., H, W): the first takes the frames as (F H, W) rows
+    and stores each frame as (W, H), (F W, H) rows, the second transforms H
+    the same way and leaves (F H, W), the stack's layout."""
+    shape = x.shape
+    height, width = shape[-2:]
+    rows = x.contiguous()
+    if len(shape) > 2:
+        rows = rows.view(-1, width)
+    rows = axis_pass(rows, *filters, done[0], group=height)
+    rows = axis_pass(rows, *filters, done[1], group=width)
+    return rows if len(shape) == 2 else rows.view(shape)
+
+
+@spanned("fwt2d")
 def fwt2d(mat, wavelet, level_rows: int | None = None, level_cols: int | None = None):
     """2D FWT (standard decomposition: the full 1D pyramid along each axis —
-    BasicTransform.java:361-399) of a real matrix.
+    BasicTransform.java:361-399) of a real matrix, or of each frame of a
+    stack (leading axes), laid out as ``ndim.forward_2d`` over :func:`fwt`
+    lays it out.
 
-    A 2D CUDA float32 matrix whose extents fit a K4 block runs as two K4
-    passes, each transforming the last axis and writing it transposed; any
-    other input takes the separable path over :func:`fwt`."""
+    A CUDA float32 input whose extents fit a K4 block runs as two K4
+    passes, each transforming the last axis and storing every frame
+    transposed within itself (``group``: the frame's rows), so no
+    transposing copy is left; any other input takes the separable path
+    over :func:`fwt`."""
     x = ensure_float(as_tensor(mat))
     fb = get_filter(wavelet)
     if x.dim() == 2:
         _check_2d_levels(x.shape, level_rows, level_cols, "fwt2d")
-        if _on_kernel(x) and all(cuda_pyramid.k4_rows_per_block(e) for e in x.shape):
-            y = _axis_pass(x.contiguous(), fb, level_cols)
-            return _axis_pass(y, fb, level_rows)
-    return forward_2d(lambda v, lvl: fwt(v, fb, lvl), x, level_rows, level_cols)
+    done = _frame_levels(x, fb, (level_cols, level_rows), cuda_pyramid.k4_rows_per_block)
+    if done is None:
+        return forward_2d(lambda v, lvl: fwt(v, fb, lvl), x, level_rows, level_cols)
+    return _frame_passes(x, done, cuda_pyramid.pyramid_rows_transposed, fb.dec_lo, fb.dec_hi)
 
 
-def _inv_axis_pass(y: torch.Tensor, fb, level) -> torch.Tensor:
-    """One transposing inverse pyramid pass (K5) over the last axis of (R, N)."""
-    n = y.shape[-1]
-    done = cuda_pyramid.levels_done(n, fb.transform_wavelength,
-                                    n.bit_length() if level is None else level)
-    return cuda_pyramid.ipyramid_rows_transposed(y, fb.rec_lo, fb.rec_hi, fb.recon_gain, done)
-
-
+@spanned("ifwt2d")
 def ifwt2d(coeffs, wavelet, level_rows: int | None = None, level_cols: int | None = None):
     """Inverse of :func:`fwt2d`.
 
-    A 2D CUDA float32 matrix whose extents fit a K5 block runs as two K5
-    passes: the first inverts the last axis (``level_cols``) and writes it
-    transposed, the second inverts the other (``level_rows``); the two axes'
-    operators commute. Any other input takes the separable synthesis path
-    over :func:`ifwt`."""
+    A CUDA float32 input whose extents fit a K5 block runs as two K5
+    passes: the first inverts the last axis (``level_cols``) and stores
+    every frame transposed within itself, the second inverts the other
+    (``level_rows``); the two axes' operators commute. Any other input takes
+    the separable synthesis path over :func:`ifwt`."""
     y = ensure_float(as_tensor(coeffs))
     fb = get_filter(wavelet)
     if y.dim() == 2:
         _check_2d_levels(y.shape, level_rows, level_cols, "ifwt2d")
-        if _on_kernel(y) and all(cuda_pyramid.k5_rows_per_block(e) for e in y.shape):
-            x = _inv_axis_pass(y.contiguous(), fb, level_cols)
-            return _inv_axis_pass(x, fb, level_rows)
-    return reverse_2d(lambda v, lvl: ifwt(v, fb, lvl), y, level_rows, level_cols)
+    done = _frame_levels(y, fb, (level_cols, level_rows), cuda_pyramid.k5_rows_per_block)
+    if done is None:
+        return reverse_2d(lambda v, lvl: ifwt(v, fb, lvl), y, level_rows, level_cols)
+    return _frame_passes(y, done, cuda_pyramid.ipyramid_rows_transposed, fb.rec_lo, fb.rec_hi,
+                         fb.recon_gain)
 
 
 def _rotated_levels(x: torch.Tensor, fb, levels) -> tuple | None:

@@ -730,6 +730,124 @@ def test_k5_matches_plain(cuda, shape, wavelet, level):
     assert jt.ops.launch_counts()["K5"] == before + 3
 
 
+#: (frames, height, width, bank, levels) of a grouped K4/K5 pass over the
+#: frames' rows of width, in groups of height
+_GROUPED = [
+    (8, 2048, 2048, "db4", 6),       # the cell's pass: 2048 blocks of 8 rows
+    (3, 64, 128, "Haar", 5),         # an odd frame count
+    (5, 16, 256, "sym8", 4),         # groups of 16, two blocks a group
+    (7, 4, 32, "db4", 3),            # groups of 4 under the 8 rows a block: blocks of 4
+    (3, 2, 1024, "Haar", 6),         # groups of 2: scalar stores
+    (1, 512, 64, "db4", 6),          # one group: the matrix's plain transpose
+    (4, 256, 1024, "Battle 23", 5),  # non-square frames
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frames,height,width,wavelet,level", _GROUPED)
+def test_grouped_k4_k5_match_plain_and_each_frame_alone(cuda, frames, height, width, wavelet,
+                                                         level):
+    """K4 and K5 on (F H, W) rows in groups of H against their plain versions
+    (1e-5 of max|ref|), and, bit for bit, against the same kernel on each
+    frame alone (one group, the matrix's launch): the grouping moves the
+    stores and nothing else. One launch and one rotated pass each."""
+    fb = jt.get_filter(wavelet)
+    done = cuda_pyramid.levels_done(width, fb.transform_wavelength, level)
+    x = torch.as_tensor(np.random.default_rng(frames * width + level).standard_normal(
+        (frames * height, width)), dtype=torch.float32, device=cuda)
+    k4 = (cuda_pyramid.pyramid_rows_transposed, cuda_pyramid.pyramid_rows_transposed_torch,
+          (fb.dec_lo, fb.dec_hi, done, 1.0))
+    k5 = (cuda_pyramid.ipyramid_rows_transposed, cuda_pyramid.ipyramid_rows_transposed_torch,
+          (fb.rec_lo, fb.rec_hi, fb.recon_gain, done))
+    for name, (kernel, plain, args) in (("K4", k4), ("K5", k5)):
+        before = jt.ops.launch_counts()[name]
+        passes = profiling.counts()[cuda_pyramid.ROTATED_PASSES]
+        got = kernel(x, *args, group=height)
+        torch.cuda.synchronize()
+        assert jt.ops.launch_counts()[name] == before + 1
+        assert profiling.counts()[cuda_pyramid.ROTATED_PASSES] == passes + 1
+        assert tuple(got.shape) == (frames * width, height)
+        assert _rel_err(got, plain(x.double(), *args, group=height)) <= F32_BOUND
+        each = got.view(frames, width, height)
+        for f in range(frames):
+            alone = kernel(x[f * height:(f + 1) * height], *args)
+            assert torch.equal(each[f], alone), (name, f)
+        assert torch.equal(kernel(x, *args, group=x.shape[0]), kernel(x, *args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,levels", [((8, 2048, 2048), (6, 6)), ((3, 64, 128), (2, 5)),
+                                          ((2, 3, 16, 32), (None, None)),
+                                          ((5, 256, 64), (4, 6))])
+def test_fwt2d_stack_route_launches_and_matches_the_separable_path(cuda, shape, levels):
+    """The FWT facade's ``forward_2d``/``reverse_2d`` on a stack: two K4 and
+    two K5 launches, four rotated passes, no K3, K7 or transposing copy;
+    against the separable path (K3/K7 in place and the copies) within 1e-6
+    of max|ref|, and the round trip within 1e-5."""
+    tr = jt.FastWaveletTransform("Daubechies 4")
+    fb = tr.get_wavelet()
+    x = torch.as_tensor(np.random.default_rng(sum(shape)).standard_normal(shape),
+                        dtype=torch.float32, device=cuda)
+    jt.ops.reset_launch_counts()
+    before = profiling.counts()
+    y = tr.forward_2d(x, *levels)
+    r = tr.reverse_2d(y, *levels)
+    torch.cuda.synchronize()
+    after = profiling.counts()
+    launches = jt.ops.launch_counts()
+    assert (launches["K4"], launches["K5"]) == (2, 2) and sum(launches.values()) == 4
+    assert after[cuda_pyramid.ROTATED_PASSES] - before[cuda_pyramid.ROTATED_PASSES] == 4
+    assert after["ndim.transposes"] == before["ndim.transposes"]
+    assert y.shape == r.shape == x.shape and y.is_contiguous() and r.is_contiguous()
+    sep_y = ndim.forward_2d(lambda v, lv: jt.fwt(v, fb, lv), x, *levels)
+    sep_r = ndim.reverse_2d(lambda v, lv: jt.ifwt(v, fb, lv), y, *levels)
+    assert _rel_err(y, sep_y) <= 1e-6 and _rel_err(r, sep_r) <= 1e-6
+    assert _rel_err(r, x) <= F32_BOUND
+
+
+@pytest.mark.cuda
+def test_fwt2d_of_a_matrix_is_two_k4_passes_bit_for_bit(cuda):
+    """One matrix takes the grouped route with one group: the same two K4
+    (K5) launches as two passes of the wrapper with no group, bit for bit."""
+    fb = jt.get_filter("Daubechies 4")
+    x = torch.as_tensor(np.random.default_rng(31).standard_normal((2048, 2048)),
+                        dtype=torch.float32, device=cuda)
+    y = jt.fwt2d(x, fb, 6, 5)
+    want = cuda_pyramid.pyramid_rows_transposed(
+        cuda_pyramid.pyramid_rows_transposed(x, fb.dec_lo, fb.dec_hi, 5), fb.dec_lo, fb.dec_hi, 6)
+    assert torch.equal(y, want)
+    args = (fb.rec_lo, fb.rec_hi, fb.recon_gain)
+    want = cuda_pyramid.ipyramid_rows_transposed(
+        cuda_pyramid.ipyramid_rows_transposed(y, *args, 5), *args, 6)
+    assert torch.equal(jt.ifwt2d(y, fb, 6, 5), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inverse", [False, True], ids=["forward_2d", "reverse_2d"])
+def test_fwt2d_stack_gradients_match_the_torch_path(cuda, inverse):
+    """The gradient of a weighted sum through the grouped route (K4's
+    backward is K5 in groups on the gradient transposed back within each
+    frame, and the other way round) against the same through the separable
+    torch path in float64 on the CPU; bound 1e-5 of max|ref|."""
+    rng = np.random.default_rng(32 + inverse)
+    x = torch.tensor(rng.standard_normal((3, 64, 128)))
+    w = torch.tensor(rng.standard_normal((3, 64, 128)))
+    tr = jt.FastWaveletTransform("Daubechies 4")
+    fb = tr.get_wavelet()
+    xc = x.to(cuda, torch.float32).requires_grad_()
+    fn = tr.reverse_2d if inverse else tr.forward_2d
+    jt.ops.reset_launch_counts()
+    (g,) = torch.autograd.grad((fn(xc, 2, 5) * w.to(cuda, torch.float32)).sum(), xc)
+    torch.cuda.synchronize()
+    assert jt.ops.launch_counts()["K5" if inverse else "K4"] == 2
+    assert jt.ops.launch_counts()["K4" if inverse else "K5"] == 2  # the backward's
+    xd = x.clone().requires_grad_()
+    sep = (ndim.reverse_2d(lambda v, lv: jt.ifwt(v, fb, lv), xd, 2, 5) if inverse
+           else ndim.forward_2d(lambda v, lv: jt.fwt(v, fb, lv), xd, 2, 5))
+    (want,) = torch.autograd.grad((sep * w).sum(), xd)
+    assert _rel_err(g.cpu(), want) <= F32_BOUND
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("g,s,n,k,lo,hi", [
     (8, 64, 65536, 64, -3, 67), (2, 12, 300, 20, -3, 23), (3, 16, 1000, 200, -3, 203),

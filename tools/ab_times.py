@@ -39,7 +39,12 @@ and reverse at 2048^2 and its 3D forward and reverse at 256^3 L4,
 world), the volume's axis passes on 65536 rows of 256 at db4 L6 (the
 rotated K3 and K7, or, in a tree without them, K3 and K7 in place and the
 transposing copy that followed them) and their consumers (the FWT facade's
-3D forward and reverse at 256^3 L6), the packet cell's axis passes on
+3D forward and reverse at 256^3 L6), the 2D FWT cell's axis passes on
+16384 rows of 2048 in groups of 2048 at db4 L6 (K4 and K5 in groups, or,
+in a tree without groups, K3 and K7 in place and the transposing copy) and
+their consumers (the FWT facade's forward_2d and reverse_2d on an (8,
+2048, 2048) stack at (6, 6)), ``ifwt2d`` on one 2048^2 image, the packet
+cell's axis passes on
 16384 rows of 2048 in groups of 2048 at db4 L6 (the rotated K8 and K9, or,
 in a tree without them, K8 and K9 in place and the transposing copy; K8 and
 K9 in place there too) and their consumers (the WPT facade's forward_2d and
@@ -48,6 +53,7 @@ of 2 frames of 4096^2, 64 of 512^2 and 8 of 256^2, and K2 and one K5 pass,
 which no consumer here isolates. The
 registers and spills of each K8/K9 build (``-Xptxas -v``) and their plans
 are printed first.
+The calls of :data:`BITWISE` must give the same bits in both trees.
 ``--variants`` keeps one or both trees (one alone measures
 one tree in a process of its own: the inputs are made by the plain
 versions, so no other kernel runs there), and ``--calls`` keeps the calls
@@ -98,6 +104,7 @@ from __future__ import annotations
 import argparse
 import importlib
 import importlib.util
+import inspect
 import json
 import math
 import subprocess
@@ -111,6 +118,10 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
+#: calls whose outputs the two trees must give bit for bit (checked where
+#: both run them): the matrix's K4 and K5 and the 2D FWT of a matrix
+BITWISE = ("K4 one pass db4 L6 2048^2", "K5 one pass db4 L6 2048^2", "fwt2d db4 L6 2048^2",
+           "ifwt2d db4 L6 2048^2")
 
 
 def _load(name: str, package_dir: Path):
@@ -325,6 +336,27 @@ def main() -> int:
                 lambda st=st: wpt_cell.forward_2d(st, 6, 6))
             extra[f"WPT facade reverse_2d db4 (6, 6) {f}x{n}^2"] = (
                 lambda st=st: wpt_cell.reverse_2d(st, 6, 6))
+        # the 2D FWT cell's axis passes: K4 (K5) in groups of 2048, or, in a tree
+        # without groups, K3 (K7) in place and the transposing copy that followed
+        if "group" in inspect.signature(cp.pyramid_rows_transposed).parameters:
+            extra["K4 grouped 16384x2048 db4 L6 groups of 2048"] = (
+                lambda: cp.pyramid_rows_transposed(x2048, lo, hi, 6, group=2048))
+            extra["K5 grouped 16384x2048 db4 L6 groups of 2048"] = (
+                lambda: cp.ipyramid_rows_transposed(x2048, fb.rec_lo, fb.rec_hi, 1.0, 6,
+                                                    group=2048))
+        else:
+            extra["K4 grouped 16384x2048 db4 L6 groups of 2048"] = (
+                lambda: cp.pyramid_rows(x2048, lo, hi, 6).view(stack.shape).transpose(1, 2)
+                .contiguous())
+            extra["K5 grouped 16384x2048 db4 L6 groups of 2048"] = (
+                lambda: cp.ipyramid_rows(x2048, fb.rec_lo, fb.rec_hi, 1.0, 6).view(stack.shape)
+                .transpose(1, 2).contiguous())
+        fwt_cell = jt.FastWaveletTransform("Daubechies 4")
+        extra["FWT facade forward_2d db4 (6, 6) 8x2048^2"] = (
+            lambda: fwt_cell.forward_2d(stack, 6, 6))
+        extra["FWT facade reverse_2d db4 (6, 6) 8x2048^2"] = (
+            lambda: fwt_cell.reverse_2d(stack, 6, 6))
+        extra["ifwt2d db4 L6 2048^2"] = lambda: jt.ifwt2d(img, "db4", 6, 6)
         extra["fwt3d db4 L6 256^3"] = lambda: facade.forward(vol, 6, 6, 6)
         extra["ifwt3d db4 L6 256^3"] = lambda: facade.reverse(vol, 6, 6, 6)
         return {
@@ -383,6 +415,10 @@ def main() -> int:
                                                           1.0, 6),
             "K3 rotated 65536x256 db4 L6": cp.pyramid_rows_transposed_torch(x256.double(), lo,
                                                                             hi, 6),
+            "K4 grouped 16384x2048 db4 L6 groups of 2048": cp.pyramid_rows_torch(
+                x2048.double(), lo, hi, 6).view(stack.shape).transpose(1, 2),
+            "K5 grouped 16384x2048 db4 L6 groups of 2048": cp.ipyramid_rows_torch(
+                x2048.double(), fb.rec_lo, fb.rec_hi, 1.0, 6).view(stack.shape).transpose(1, 2),
             "K7 rotated 65536x256 db4 L6": cp.ipyramid_rows_transposed_torch(
                 x256.double(), fb.rec_lo, fb.rec_hi, 1.0, 6),
             "K8 64x65536 db4 L6": new["ops.cuda_wpt"].wpt_analysis_torch(x.double(), lo, hi, 6),
@@ -410,13 +446,23 @@ def main() -> int:
             got = table[key]()
             got = torch.view_as_real(got) if got.is_complex() else got
             torch.cuda.synchronize()
-            rel = float((got.double() - ref).abs().max() / ref.abs().max())
+            rel = float((got.double().reshape(ref.shape) - ref).abs().max() / ref.abs().max())
             print(json.dumps({"check": f"{v}: {key} against its plain version", "rel": rel,
                               "bound": F32_BOUND}), flush=True)
             if not rel <= F32_BOUND:
                 print(f"ab_times: {v} {key} disagrees with its plain version", file=sys.stderr)
                 return 1
     del refs
+    # the calls whose arithmetic neither tree changed, bit for bit the same
+    if len(variants) == 2:
+        for key in BITWISE:
+            if key in variants["parent"] and key in variants["new"]:
+                same = torch.equal(variants["parent"][key](), variants["new"][key]())
+                print(json.dumps({"check": f"{key}: the trees bit for bit", "equal": same}),
+                      flush=True)
+                if not same:
+                    print(f"ab_times: {key} differs between the trees", file=sys.stderr)
+                    return 1
 
     flush = torch.empty(128 * 2**20 // 4, dtype=torch.float32, device=dev)
 
